@@ -1,0 +1,520 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (horovod_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py              # every phase, one card
+    python3 chip_smoke.py --only kernels
+
+Phases, in order; any failure exits non-zero:
+
+1. device: requires CUDA and prints the card's name and power limit
+   (``nvidia-smi --query-gpu=name,power.limit``).
+2. build: compiles ``horovod_tpu_torch/ops/csrc/*.cu`` with nvcc for
+   sm_90a, one process per source, and prints the seconds.
+3. kernels: runs the flash forward (K1), dQ (K2) and dK/dV (K3) kernels at
+   the training shape (B=8, H=12, L=2048, D=64, bf16, causal) and at an odd
+   shape (B=1, H=4, G=2, L=160, non-causal) and holds each against its
+   plain version computed in float32 from the same inputs:
+   ||kernel - plain||_2 / ||plain||_2 <= 1e-2 for O, dQ, dK and dV, and
+   max |lse - plain lse| <= 1e-3. K2 and K3 run twice: on the plain
+   version's lse and delta, and chained on K1's own lse and O. Times
+   kernel, plain version and PyTorch's scaled_dot_product_attention
+   forward and backward (a yardstick the port never calls) with CUDA
+   events.
+4. train: ``hvd.init()`` (a one-rank NCCL group), the GPT-2-small flash LM
+   (vocab 32000, 12 layers, 12 x 64 heads, embed 768, MLP 3072, bf16 over
+   f32 params) from a seeded generator, Adam(1e-4) in
+   ``DistributedOptimizer`` and ``make_train_step`` with ``lm_loss``; 2
+   warm-up and 5 timed steps on one batch of 8 x 2048 tokens. Before the
+   steps, the same weights through plain (dense) attention: the first
+   loss at 8 x 2048, and every parameter's gradient at 2 x 2048 (worst
+   ||g_flash - g_plain||_2 / ||g_plain||_2 <= 5e-2). Checks finite and
+   falling losses and 12 launches of each kernel per step.
+
+Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores
+PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+# Limits against the f32 plain versions on the same bf16 inputs, set
+# between the readings of the sound kernels on an H100 and of kernels with a
+# planted fault (K1 skipping one 64-key tile, or K3 one q tile, for the rows
+# from 1024 on): O, dQ, dK, dV read 2.0e-3 to 2.5e-3 sound and 1.9e-2 to
+# 7.6e-2 planted; lse 1.9e-6 and 0.16; the worst parameter's gradient gap
+# 0.019 and 0.135 to 0.194.
+REL_TOL = 1e-2             # ||kernel - plain||_2 / ||plain||_2
+LSE_TOL = 1e-3             # max |lse - plain lse|, natural-log units
+GRAD_TOL = 5e-2            # worst parameter's gradient gap, flash vs dense
+
+SLICE = dict(B=8, H=12, G=12, L=2048, D=64, causal=True)
+ODD = dict(B=1, H=4, G=2, L=160, D=64, causal=False)
+# bench.py --model transformer: GPT-2-small widths and depth, 8 x 2048
+MODEL = dict(vocab_size=32000, num_layers=12, num_heads=12, embed_dim=768,
+             mlp_dim=3072)
+BATCH = (8, 2048)
+
+# wrapper name -> (source, TPU kernel it replaces, products per (q,k) pair)
+KERNELS = {
+    "flash_fwd": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "horovod_tpu/ops/flash_attention.py:170", 2),
+    "flash_bwd_dq": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                     "horovod_tpu/ops/flash_attention.py:841", 3),
+    "flash_bwd_dkv": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                      "horovod_tpu/ops/flash_attention.py:895", 4),
+}
+
+
+def log(*args):
+    print(*args, file=sys.stderr, flush=True)
+
+
+def fail(msg):
+    log("chip_smoke: FAIL: " + msg)
+    sys.exit(1)
+
+
+def time_ms(fn, n=20, reps=5, warmup=3):
+    """Milliseconds per call of ``fn()``: ``reps`` times, ``n`` calls back
+    to back between two CUDA events (so the host's dispatch overlaps the
+    device's work), after ``warmup`` calls; the median of the reps."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def phase_device():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this smoke test runs "
+             "only on a GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        fail("nvidia-smi failed: " + smi.stderr.strip())
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    log("torch %s, CUDA %s, %s x%d" % (
+        torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
+        torch.cuda.device_count()))
+    return card
+
+
+def phase_build():
+    from horovod_tpu_torch.ops import _build
+    seconds = _build.build()
+    print("build: %.1f s (%s)" % (seconds, ", ".join(
+        "%s.cu" % s for s in _build.SOURCES)), flush=True)
+    for src in _build.SOURCES:
+        log_file = _build.library_path(src).with_suffix(".log")
+        if not log_file.exists():
+            continue
+        kernel, spills = "?", ""
+        for line in log_file.read_text().splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]  # mangled: name, dtype, D
+            elif "spill stores" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                log("ptxas %s: %s; %s" % (kernel, line.split(":", 1)[1]
+                                           .strip(), spills))
+
+
+def _inputs(shape, seed):
+    """q, dout [B, H, L, D] and k, v [B, G, L, D] in bf16, laid out as the
+    model's [B, L, heads, D] activations (transposed views)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, H, G, L, D = (shape[k] for k in "BHGLD")
+
+    def rnd(heads):
+        return torch.randn(B, L, heads, D, generator=g, device="cuda",
+                           dtype=torch.float32).to(torch.bfloat16
+                                                   ).transpose(1, 2)
+    return rnd(H), rnd(G), rnd(G), rnd(H)
+
+
+def _err(kernel_out, plain_out):
+    """(max |kernel - plain|, ||kernel - plain||_2 / ||plain||_2)."""
+    d = kernel_out.float() - plain_out.float()
+    norm = plain_out.float().norm().item()
+    return d.abs().max().item(), d.norm().item() / max(norm, 1e-30)
+
+
+def _bound_ms(shape, products, n_bytes):
+    B, H, L, D = (shape[k] for k in "BHLD")
+    pairs = L * (L + 1) / 2 if shape["causal"] else L * L
+    flops = products * 2.0 * B * H * pairs * D
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_kernels(shape, seed, timed):
+    """Runs K1-K3 at ``shape`` against their plain versions; returns
+    {name: row} with errors and, when ``timed``, times. K2 and K3 run on
+    the plain version's lse and delta, and again chained on K1's own lse
+    and O (delta from K1's O), as the model's backward runs them."""
+    import torch
+    import horovod_tpu_torch.ops.flash_attention  # noqa: F401
+    fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
+    q, k, v, dout = _inputs(shape, seed)
+    causal = shape["causal"]
+    scale = shape["D"] ** -0.5
+    f32 = [t.float() for t in (q, k, v, dout)]
+    out_ref, lse = fa.flash_forward_ref(*f32[:3], scale, causal)
+    delta = fa._delta(out_ref, f32[3])
+    dq_ref = fa.flash_bwd_dq_ref(*f32, lse, delta, scale, causal)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*f32, lse, delta, scale, causal)
+
+    def row(pairs):
+        errs = [_err(a, b) for a, b in pairs]
+        return dict(max_abs_err=max(e[0] for e in errs),
+                    rel_l2_err=max(e[1] for e in errs))
+
+    out, lse_k = fa.flash_fwd(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    rows = {"flash_fwd": row([(out, out_ref)])}
+    rows["flash_fwd"]["lse_abs_err"] = (lse_k - lse).abs().max().item()
+    delta_k = fa._delta(out, dout)
+    for name, lse_in, delta_in in (("", lse, delta),
+                                   ("chained_", lse_k, delta_k)):
+        dq = fa.flash_bwd_dq(q, k, v, dout, lse_in, delta_in, scale, causal)
+        torch.cuda.synchronize()
+        dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse_in, delta_in, scale,
+                                  causal)
+        torch.cuda.synchronize()
+        for kname, r in (("flash_bwd_dq", row([(dq, dq_ref)])),
+                         ("flash_bwd_dkv", row([(dk, dk_ref),
+                                                (dv, dv_ref)]))):
+            got = rows.setdefault(kname, {})
+            for key, val in r.items():
+                got[name + key] = val
+        del dq, dk, dv
+    del dq_ref, dk_ref, dv_ref
+
+    if timed:
+        nb = 2  # bytes of a bf16 element
+        act = q.numel() * nb          # one [B, H, L, D] tensor
+        kv = k.numel() * nb
+        stat = lse.numel() * 4        # one f32 [B, H, L]
+        io = {"flash_fwd": 2 * act + 2 * kv + stat,
+              "flash_bwd_dq": 3 * act + 2 * kv + 2 * stat,
+              "flash_bwd_dkv": 2 * act + 4 * kv + 2 * stat}
+        runs = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, causal),
+                          lambda: fa.flash_forward_ref(*f32[:3], scale,
+                                                       causal)),
+            "flash_bwd_dq": (
+                lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale,
+                                        causal),
+                lambda: fa.flash_bwd_dq_ref(*f32, lse, delta, scale,
+                                            causal)),
+            "flash_bwd_dkv": (
+                lambda: fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale,
+                                         causal),
+                lambda: fa.flash_bwd_dkv_ref(*f32, lse, delta, scale,
+                                             causal)),
+        }
+        for name, (kern, plain) in runs.items():
+            rows[name]["ms"] = time_ms(kern)
+            rows[name]["plain_ms"] = time_ms(plain, n=5, reps=3, warmup=1)
+            bound, by = _bound_ms(shape, KERNELS[name][2], io[name])
+            rows[name]["bound_ms"] = bound
+            rows[name]["bound_by"] = by
+        rows["library"] = sdpa_times(q, k, v, dout, causal, scale)
+    return rows
+
+
+def sdpa_times(q, k, v, dout, causal, scale):
+    """PyTorch's fused attention on the same inputs: the forward (one
+    ``scaled_dot_product_attention`` call, K1's function) and the backward
+    (one ``autograd.grad`` call through it, dQ, dK and dV together: K2's
+    and K3's functions in one launch). A yardstick only, never called by
+    the port."""
+    import torch
+    import torch.nn.functional as F
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                           scale=scale)
+
+    o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
+                                       scale=scale)
+
+    def bwd():
+        torch.autograd.grad(o, (qq, kk, vv), dout, retain_graph=True)
+
+    return {"sdpa_fwd_ms": time_ms(fwd), "sdpa_bwd_ms": time_ms(bwd)}
+
+
+def phase_kernels():
+    import torch
+    slice_rows = check_kernels(SLICE, seed=1, timed=True)
+    torch.cuda.empty_cache()
+    odd_rows = check_kernels(ODD, seed=2, timed=False)
+    library = slice_rows.pop("library")
+    bad = []
+    for name in KERNELS:
+        for label, rows in (("slice", slice_rows), ("odd", odd_rows)):
+            r = rows[name]
+            log("%s %s: %s" % (name, label, ", ".join(
+                "%s %.3g" % (key, val) for key, val in sorted(r.items())
+                if key.endswith("_err"))))
+            for key, val in r.items():
+                limit = (LSE_TOL if key == "lse_abs_err" else
+                         REL_TOL if key.endswith("rel_l2_err") else None)
+                if limit is not None and not val <= limit:
+                    bad.append("%s at the %s shape: %s %.3g > %g"
+                               % (name, label, key, val, limit))
+        slice_rows[name]["odd_rel_l2_err"] = max(
+            val for key, val in odd_rows[name].items()
+            if key.endswith("rel_l2_err"))
+    if bad:
+        fail("kernels disagree with their plain versions: " + "; ".join(bad))
+    return slice_rows, library
+
+
+def phase_train(profile_dir=None):
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.ops import analytic_attention_flops
+    from horovod_tpu_torch.ops.flash_attention import (launch_counts,
+                                                       reset_launch_counts)
+    from horovod_tpu_torch.parallel import lm_loss, make_train_step
+
+    hvd.init()
+    dev = hvd.device()
+    cfg = TransformerConfig(attention="flash", dtype=torch.bfloat16,
+                            max_seq_len=8192, **MODEL)
+    B, L = BATCH
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (B, L), device=dev,
+                           generator=torch.Generator(device=dev
+                                                     ).manual_seed(1))
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+
+    # The same weights through the plain (dense) attention: the reference
+    # for the first step's loss, and for every parameter's gradient on two
+    # of the sequences (the dense backward of all 8 would hold about 60 GB
+    # of scores). The gradients go through the kernels as the model calls
+    # them: strided [B, L, H, D] views, K1's lse and O feeding K2 and K3.
+    import dataclasses
+    dense = Transformer(dataclasses.replace(cfg, attention="dense"),
+                        device=dev)
+    dense.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        loss_plain = lm_loss(dense, tokens).item()
+    grad_gaps = gradient_gaps(model, dense, tokens[:2], lm_loss)
+    del dense
+    torch.cuda.empty_cache()
+    worst = max(grad_gaps, key=grad_gaps.get)
+    log("gradient gap flash vs plain attention at 2 x %d: worst %s %.3g, "
+        "median %.3g" % (L, worst, grad_gaps[worst],
+                         statistics.median(grad_gaps.values())))
+    if not grad_gaps[worst] <= GRAD_TOL:
+        fail("gradients through the flash kernels disagree with plain "
+             "attention: %s %.3g > %g" % (worst, grad_gaps[worst], GRAD_TOL))
+
+    opt = hvd.DistributedOptimizer(torch.optim.Adam(model.parameters(),
+                                                    lr=1e-4),
+                                   model.named_parameters())
+    step = make_train_step(model, lm_loss, opt)
+    warmup, timed = 2, 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        loss = step(tokens).item()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log("step %d: loss %.5f, %.1f ms" % (i, loss, times[-1] * 1e3))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = warmup + timed
+
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        fail("non-finite loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        fail("loss did not fall: %s" % losses)
+    per_step = cfg.num_layers
+    for name, n in counts.items():
+        if n != per_step * steps:
+            fail("%s launched %d times in %d steps, expected %d per step"
+                 % (name, n, steps, per_step))
+    rel = abs(losses[0] - loss_plain) / abs(loss_plain)
+    log("first loss %.6f, plain attention %.6f, rel %.3g"
+        % (losses[0], loss_plain, rel))
+    if not rel <= 2e-2:
+        fail("first loss %.6f vs plain attention %.6f (rel %.3g)"
+             % (losses[0], loss_plain, rel))
+
+    step_s = statistics.median(times[warmup:])
+    E, F_, V = cfg.embed_dim, cfg.mlp_dim, cfg.vocab_size
+    D = E // cfg.num_heads
+    matmul_params = cfg.num_layers * (4 * E * E + 2 * E * F_) + E * V
+    flops = (6.0 * matmul_params * B * L + cfg.num_layers *
+             analytic_attention_flops(B, cfg.num_heads, L, D, causal=True,
+                                      training=True))
+    result = dict(step_ms=step_s * 1e3, seq_per_s=B / step_s,
+                  tokens_per_s=B * L / step_s, peak_mem_gb=peak / 1e9,
+                  tflops=flops / step_s / 1e12, loss_first=losses[0],
+                  loss_last=losses[-1], loss_plain=loss_plain,
+                  grad_gap_worst=grad_gaps[worst], launches=counts,
+                  steps=steps)
+    print("train: " + json.dumps(result), flush=True)
+    if profile_dir:
+        profile_steps(step, tokens, profile_dir)
+    hvd.shutdown()
+    return counts
+
+
+def gradient_gaps(model, dense, tokens, loss_fn):
+    """{parameter: ||g_model - g_dense||_2 / ||g_dense||_2} of one loss on
+    ``tokens``; the .grad fields are left alone."""
+    import torch
+    names = [n for n, _ in model.named_parameters()]
+    g_model = torch.autograd.grad(loss_fn(model, tokens),
+                                  list(model.parameters()))
+    g_dense = torch.autograd.grad(loss_fn(dense, tokens),
+                                  list(dense.parameters()))
+    return {n: ((a.float() - b.float()).norm() /
+                b.float().norm().clamp_min(1e-30)).item()
+            for n, a, b in zip(names, g_model, g_dense)}
+
+
+def _category(name):
+    low = name.lower()
+    if "flash" in low:
+        return "flash kernels"
+    if any(s in low for s in ("gemm", "xmma", "nvjet", "cutlass", "sm90_")):
+        return "matmuls"
+    if "multi_tensor_apply" in low:
+        return "optimizer"
+    if "nccl" in low:
+        return "collectives"
+    return "other kernels"
+
+
+def profile_steps(step, tokens, out_dir, n=3):
+    """Device time by kernel over ``n`` steps (torch.profiler), the device's
+    busy share of the window, and the top kernels; the full table goes to
+    ``out_dir``/chip_smoke_profile.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(tokens).item()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # Device-side rows only: kernels and copies. The CPU ops that launched
+    # them carry the same time again, and GPU annotations ("...#...") span
+    # other rows.
+    kernels = sorted(((dev_us(e) / 1e3 / n, e.count // n, e.key)
+                      for e in avgs if dev_us(e) > 0 and "#" not in e.key
+                      and str(e.device_type).endswith("CUDA")),
+                     reverse=True)
+    busy_ms = sum(k[0] for k in kernels)
+    cats = {}
+    for ms, _, name in kernels:
+        c = _category(name)
+        cats[c] = cats.get(c, 0.0) + ms
+    summary = dict(step_ms=window_ms / n, device_busy_ms=busy_ms,
+                   idle_share=1.0 - busy_ms * n / window_ms,
+                   by_category_ms=cats,
+                   top=[dict(ms=ms, calls=c, name=name[:90])
+                        for ms, c, name in kernels[:12]])
+    print("profile: " + json.dumps(summary), flush=True)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "chip_smoke_profile.txt").write_text(avgs.table(
+        sort_by="self_device_time_total", row_limit=60))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("kernels", "train"),
+                    help="run the device and build phases and this one")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="after the train phase, profile 3 more steps and "
+                    "write the kernel table to DIR/chip_smoke_profile.txt")
+    args = ap.parse_args()
+    phase_device()
+    if not (ROOT / "horovod_tpu_torch").is_dir():
+        fail("horovod_tpu_torch/ is not beside chip_smoke.py")
+    sys.path.insert(0, str(ROOT))
+    import torch
+    # The plain versions are the float32 reference: no TF32 anywhere.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_build()
+
+    rows, library, counts = {}, {}, {}
+    if args.only in (None, "kernels"):
+        rows, library = phase_kernels()
+    if args.only in (None, "train"):
+        counts = phase_train(profile_dir=args.profile)
+    kernels = []
+    for name, (source, replaces, _) in KERNELS.items():
+        row = rows.get(name, {})
+        abs_errs = [v for k, v in row.items() if k.endswith("max_abs_err")]
+        rel_errs = [v for k, v in row.items() if k.endswith("_l2_err")
+                    and not k.startswith("odd_")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts.get(name, 0),
+            "max_abs_err": max(abs_errs) if abs_errs else None,
+            "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),
+            "bound_ms": row.get("bound_ms"), "bound_by": row.get("bound_by"),
+            # K2 and K3 together do what the one fused backward call does
+            "library_ms": library.get("sdpa_fwd_ms" if name == "flash_fwd"
+                                      else "sdpa_bwd_ms"),
+            "rel_l2_err": max(rel_errs) if rel_errs else None,
+            "odd_rel_l2_err": row.get("odd_rel_l2_err"),
+            "lse_abs_err": row.get("lse_abs_err")})
+    print(json.dumps({"kernels": kernels, "library": library}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,9 @@
+"""Device ops of the port: hand-written Hopper kernels and their plain
+versions. The kernels build at first use (``_build.py``), never at
+import."""
+
+from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
+    analytic_attention_flops,
+    apply_rotary,
+    flash_attention,
+)

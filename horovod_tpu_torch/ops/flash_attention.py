@@ -1,0 +1,388 @@
+"""Flash attention: hand-written CUDA kernels for Hopper and their plain
+PyTorch versions.
+
+Counterpart of ``horovod_tpu/ops/flash_attention.py``. Three kernels,
+in ``csrc/``:
+
+- K1 ``flash_fwd`` (``flash_fwd.cu``): O and the per-row log-sum-exp;
+- K2 ``flash_bwd_dq`` (``flash_bwd.cu``): dQ;
+- K3 ``flash_bwd_dkv`` (``flash_bwd.cu``): dK and dV, the GQA group summed
+  inside the kernel.
+
+Each wrapper takes ``[B, H, L, D]`` tensors (k and v with G | H heads) and
+dispatches on where they lie: a CPU tensor goes to the plain version, a
+CUDA tensor launches the kernel or raises. Nothing falls back. The
+kernels mask the ragged end of L themselves, so every L is taken. The
+wrappers accept views whose last dim is contiguous (the public function
+hands them the model's ``[B, L, H, D]`` activations transposed, without a
+copy) and allocate every output. ``lse`` is a plain f32 ``[B, H, L]``.
+
+Precision: the kernels take bfloat16 or float32 tensors, but their
+products always run on bf16 inputs with f32 accumulation, as the TPU
+kernels do; a float32 tensor is rounded to bf16 as it is staged into
+shared memory (the softmax, lse, delta and the outputs stay f32). So on a
+GPU, float32 attention is bf16 attention with f32 outputs; only the plain
+versions on the CPU compute it exactly in f32.
+
+Each wrapper counts its launches in ``.launches``.
+"""
+
+import ctypes
+
+import torch
+
+from horovod_tpu_torch.ops import _build
+
+BLOCK_Q = 128  # q rows per step of the blockwise plain version
+
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_HEAD_DIMS = (32, 64, 128)
+_MAX_GRID_Y = 65535
+
+# C entry point -> (source, number of tensor pointers before the strides)
+_ENTRIES = {
+    "hvd_flash_fwd": ("flash_fwd", 5),
+    "hvd_flash_bwd_dq": ("flash_bwd", 7),
+    "hvd_flash_bwd_dkv": ("flash_bwd", 8),
+}
+_bound = {}
+
+
+def apply_rotary(x, positions, base=10000.0, neg=False):
+    """Rotary embedding over the last dim; ``positions`` broadcastable to
+    ``x.shape[:-1]``. Pairs are (d, d + D/2). ``neg=True`` applies the
+    transpose rotation R(-pos)."""
+    D = x.shape[-1]
+    half = D // 2
+    inv = base ** (-torch.arange(half, dtype=torch.float32,
+                                 device=x.device) * 2.0 / D)
+    ang = positions[..., None].to(torch.float32) * inv
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if neg:
+        sin = -sin
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def analytic_attention_flops(B, H, L, D, causal=True, training=False):
+    """FLOPs the flash kernels do per call: 2 products per (q, k) pair in
+    the forward, 7 in the backward (s and dP are recomputed by both
+    backward kernels). ``training=True`` is forward plus backward, 9.
+    Causal halves the pairs. H counts query heads."""
+    per_matmul = 2.0 * B * H * L * L * D
+    if causal:
+        per_matmul /= 2.0
+    return (9.0 if training else 2.0) * per_matmul
+
+
+# ---------------------------------------------------------------- plain
+
+
+def _expand_kv(x, group):
+    """[B, G, L, D] -> [B, G * group, L, D]: query head h reads kv head
+    h // group."""
+    return x.repeat_interleave(group, dim=1) if group > 1 else x
+
+
+def _scores(q, k, scale, causal):
+    """f32 scale * q.k^T, -inf above the diagonal when causal."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        L = s.shape[-1]
+        above = torch.ones(L, L, dtype=torch.bool,
+                           device=s.device).triu_(1)
+        s = s.masked_fill(above, float("-inf"))
+    return s
+
+
+def _probs_and_ds(q, k, v, dout, lse, delta, scale, causal):
+    group = q.shape[1] // k.shape[1]
+    kf, vf = _expand_kv(k, group).float(), _expand_kv(v, group).float()
+    p = torch.exp(_scores(q, kf, scale, causal) - lse[..., None])
+    dp = torch.matmul(dout.float(), vf.transpose(-1, -2))
+    return p, p * (dp - delta[..., None]) * scale, kf
+
+
+def flash_forward_ref(q, k, v, scale, causal):
+    """Plain version of K1 in f32: (out in q's dtype, lse f32 [B, H, L])."""
+    group = q.shape[1] // k.shape[1]
+    s = _scores(q, _expand_kv(k, group), scale, causal)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = torch.matmul(p, _expand_kv(v, group).float())
+    return out.to(q.dtype), lse
+
+
+def flash_bwd_dq_ref(q, k, v, dout, lse, delta, scale, causal):
+    """Plain version of K2 in f32: dQ = dS.K with P from lse."""
+    _, ds, kf = _probs_and_ds(q, k, v, dout, lse, delta, scale, causal)
+    return torch.matmul(ds, kf).to(q.dtype)
+
+
+def flash_bwd_dkv_ref(q, k, v, dout, lse, delta, scale, causal):
+    """Plain version of K3 in f32: dV = P^T.dO and dK = dS^T.Q, summed over
+    the query heads of each kv head."""
+    B, H, L, D = q.shape
+    G = k.shape[1]
+    p, ds, _ = _probs_and_ds(q, k, v, dout, lse, delta, scale, causal)
+    dv = torch.matmul(p.transpose(-1, -2), dout.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dk = dk.view(B, G, H // G, L, D).sum(2)
+    dv = dv.view(B, G, H // G, L, D).sum(2)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(out, dout):
+    """rowsum(dO * O) in f32, [B, H, L]: one elementwise pass outside the
+    kernels, as XLA computes it for the TPU kernels."""
+    return (dout.float() * out.float()).sum(-1).contiguous()
+
+
+def flash_backward_ref(q, k, v, out, lse, dout, scale, causal):
+    """Plain version of the whole backward: (dq, dk, dv)."""
+    delta = _delta(out, dout)
+    dk, dv = flash_bwd_dkv_ref(q, k, v, dout, lse, delta, scale, causal)
+    return (flash_bwd_dq_ref(q, k, v, dout, lse, delta, scale, causal),
+            dk, dv)
+
+
+def blockwise_reference(q, k, v, scale, causal, rotary_base=None):
+    """Attention over blocks of ``BLOCK_Q`` query rows in f32, the JAX
+    package's fallback. q [B, H, L, D], k/v [B, G, L, D]; returns q's
+    dtype. A sequence remainder gets its own smaller block."""
+    B, H, L, D = q.shape
+    group = H // k.shape[1]
+    if rotary_base is not None:
+        pos = torch.arange(L, device=q.device)
+        q = apply_rotary(q, pos, rotary_base)
+        k = apply_rotary(k, pos, rotary_base)
+    kf = _expand_kv(k, group).float()
+    vf = _expand_kv(v, group).float()
+    blocks = []
+    for start in range(0, L, BLOCK_Q):
+        qs = q[:, :, start:start + BLOCK_Q].float()
+        s = torch.matmul(qs, kf.transpose(-1, -2)) * scale
+        if causal:
+            rows = torch.arange(start, start + qs.shape[2],
+                                device=q.device)[:, None]
+            cols = torch.arange(L, device=q.device)[None]
+            s = s.masked_fill(rows < cols, float("-inf"))
+        blocks.append(torch.matmul(torch.softmax(s, dim=-1),
+                                   vf).to(q.dtype))
+    return torch.cat(blocks, dim=2)
+
+
+# --------------------------------------------------------------- kernels
+
+
+def _entry(name):
+    """(library, C function) of an entry point, built and bound once."""
+    if name not in _bound:
+        source, n_ptrs = _ENTRIES[name]
+        lib = _build.library(source)
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * (n_ptrs + 1) + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bound[name] = (lib, fn)
+    return _bound[name]
+
+
+def _layout_ok(t):
+    """Last dim contiguous, the other strides multiples of 8 elements and
+    the base 16-byte aligned: what the kernels' 16-byte loads need."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and
+            all(s % 8 == 0 for s, n in zip(t.stride()[:-1], t.shape[:-1])
+                if n > 1))
+
+
+def _kernel_layout(t):
+    """``t`` itself if the kernels can read it in place, else a copy."""
+    return t if _layout_ok(t) else t.clone(
+        memory_format=torch.contiguous_format)
+
+
+def _on_cpu(what, q):
+    """True for CPU tensors (the plain version runs); False for CUDA
+    tensors (the kernel runs); raises for any other device."""
+    if q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise ValueError("%s: tensors on %s; the kernels run on CUDA and the "
+                         "plain version on the CPU" % (what, q.device))
+    return False
+
+
+def _check(what, q, k, tensors, stats=()):
+    """Validates the kernel arguments; returns (B, H, G, L, D)."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("%s: q and k must be [B, heads, L, D]" % what)
+    B, H, L, D = q.shape
+    G = k.shape[1]
+    if k.shape != (B, G, L, D) or G == 0 or H % G:
+        raise ValueError("%s: k/v of shape %s do not fit q %s (kv heads "
+                         "must divide query heads)"
+                         % (what, tuple(k.shape), tuple(q.shape)))
+    if D not in _HEAD_DIMS:
+        raise ValueError("%s: head dim %d is not one of %s"
+                         % (what, D, _HEAD_DIMS))
+    if B * H == 0 or L == 0:
+        raise ValueError("%s: empty input %s" % (what, tuple(q.shape)))
+    if B * H > _MAX_GRID_Y:
+        raise ValueError("%s: B * H = %d exceeds the grid's %d"
+                         % (what, B * H, _MAX_GRID_Y))
+    if q.dtype not in _DTYPES:
+        raise TypeError("%s: dtype %s; the kernels take bfloat16 or float32"
+                        % (what, q.dtype))
+    for name, t in tensors.items():
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError("%s: %s is %s on %s, q is %s on %s" % (
+                what, name, t.dtype, t.device, q.dtype, q.device))
+        if not _layout_ok(t):
+            raise ValueError(
+                "%s: %s needs a contiguous last dim, other strides that are "
+                "multiples of 8 and a 16-byte aligned base; got strides %s"
+                % (what, name, tuple(t.stride())))
+    for name, t in stats:
+        if (t.device != q.device or t.dtype != torch.float32 or
+                t.shape != (B, H, L) or not t.is_contiguous()):
+            raise ValueError("%s: %s must be contiguous float32 [B, H, L] on "
+                             "%s" % (what, name, q.device))
+    return B, H, G, L, D
+
+
+def _strides(*tensors):
+    vals = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _launch(name, q, ptrs, strides, dims, scale, causal):
+    lib, fn = _entry(name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*ptrs, strides, *dims, _DTYPES[q.dtype], float(scale),
+                 int(bool(causal)), stream)
+    _build.check(lib, err, name)
+
+
+def _empty_like_heads(q, heads):
+    """Output [B, heads, L, D] laid out as [B, L, heads, D] in memory, the
+    layout of the model's activations."""
+    B, _, L, D = q.shape
+    return torch.empty(B, L, heads, D, dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
+def flash_fwd(q, k, v, scale, causal):
+    """K1: (out [B, H, L, D] in q's dtype, lse f32 [B, H, L])."""
+    if _on_cpu("flash_fwd", q):
+        return flash_forward_ref(q, k, v, scale, causal)
+    B, H, G, L, D = _check("flash_fwd", q, k, {"q": q, "k": k, "v": v})
+    out = _empty_like_heads(q, H)
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    _launch("hvd_flash_fwd", q,
+            [t.data_ptr() for t in (q, k, v, out, lse)],
+            _strides(q, k, v, out), (B, H, G, L, D), scale, causal)
+    flash_fwd.launches += 1
+    return out, lse
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal):
+    """K2: dq [B, H, L, D] in q's dtype."""
+    if _on_cpu("flash_bwd_dq", q):
+        return flash_bwd_dq_ref(q, k, v, dout, lse, delta, scale, causal)
+    B, H, G, L, D = _check("flash_bwd_dq", q, k,
+                           {"q": q, "k": k, "v": v, "dout": dout},
+                           (("lse", lse), ("delta", delta)))
+    dq = _empty_like_heads(q, H)
+    _launch("hvd_flash_bwd_dq", q,
+            [t.data_ptr() for t in (q, k, v, dout, lse, delta, dq)],
+            _strides(q, k, v, dout, dq), (B, H, G, L, D), scale, causal)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal):
+    """K3: (dk, dv) [B, G, L, D] in k's dtype, the GQA group summed in the
+    kernel."""
+    if _on_cpu("flash_bwd_dkv", q):
+        return flash_bwd_dkv_ref(q, k, v, dout, lse, delta, scale, causal)
+    B, H, G, L, D = _check("flash_bwd_dkv", q, k,
+                           {"q": q, "k": k, "v": v, "dout": dout},
+                           (("lse", lse), ("delta", delta)))
+    dk = _empty_like_heads(k, G)
+    dv = _empty_like_heads(k, G)
+    _launch("hvd_flash_bwd_dkv", q,
+            [t.data_ptr() for t in (q, k, v, dout, lse, delta, dk, dv)],
+            _strides(q, k, v, dout, dk, dv), (B, H, G, L, D), scale, causal)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_fwd.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+
+
+def launch_counts():
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def reset_launch_counts():
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def flash_backward(q, k, v, out, lse, dout, scale, causal):
+    """delta, then K2 and K3: (dq, dk, dv)."""
+    delta = _delta(out, dout)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal)
+    return dq, dk, dv
+
+
+class _FlashFn(torch.autograd.Function):
+    """Attention over [B, H, L, D] with the flash backward: saves
+    (q, k, v, out, lse) and recomputes P from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        out, lse = flash_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g.is_cuda:
+            g = _kernel_layout(g)
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g, ctx.scale,
+                                    ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal=True, scale=None, rotary_base=None):
+    """Flash attention over [B, L, H, D] inputs; returns [B, L, H, D] in
+    q's dtype. GQA/MQA: k/v may carry G heads with G | H, and query head h
+    attends through kv head h // (H // G). ``scale`` defaults to
+    D ** -0.5. On CUDA tensors the products take bf16 inputs even when q
+    is float32 (see the module docstring)."""
+    if rotary_base is not None:
+        raise NotImplementedError(
+            "fused rotary in the flash kernels is a later slice of the "
+            "port; rotate q and k with apply_rotary first")
+    B, L, H, D = q.shape
+    G = k.shape[2]
+    if H % G:
+        raise ValueError("num_heads=%d must be a multiple of num_kv_heads=%d"
+                         % (H, G))
+    if scale is None:
+        scale = D ** -0.5
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if q.is_cuda:
+        qt, kt, vt = (_kernel_layout(x) for x in (qt, kt, vt))
+    return _FlashFn.apply(qt, kt, vt, scale, causal).transpose(1, 2)

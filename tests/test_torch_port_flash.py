@@ -1,0 +1,226 @@
+"""The port's flash attention (horovod_tpu_torch.ops.flash_attention)
+against the JAX package's, on the CPU.
+
+The port's wrappers run their plain PyTorch versions on CPU tensors; the
+JAX side runs the Pallas kernels in interpret mode, as tests/test_ops.py
+does. Inputs come from numpy and go to both sides in float32, with JAX
+held to its highest matmul precision. The CUDA kernels themselves are
+held against the same plain versions on the GPU (chip_smoke.py and
+tests/test_torch_port_cuda.py).
+"""
+
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import horovod_tpu_torch.ops.flash_attention  # noqa: F401
+
+from horovod_tpu.ops import flash_attention as jax_flash_attention
+from horovod_tpu.ops.flash_attention import (_blockwise_reference,
+                                             _from_rows, _pallas_backward,
+                                             _pallas_forward_lse)
+from horovod_tpu.ops.flash_attention import \
+    apply_rotary as jax_apply_rotary
+
+fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
+
+# Forward: the same f32 arithmetic in another order (tests/test_ops.py).
+FWD_TOL = 2e-5
+# Gradients: a longer chain of f32 products (tests/test_ops.py:121-124).
+BWD_TOL = 2e-4
+
+CASES = [(causal, H, G, D) for causal in (True, False)
+         for H, G in ((2, 2), (4, 2)) for D in (32, 64)]
+
+
+def _ids(case):
+    causal, H, G, D = case
+    return "%s-H%dG%d-D%d" % ("causal" if causal else "full", H, G, D)
+
+
+def _inputs(B, H, G, L, D, seed):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, L, D).astype(np.float32)
+    k = rng.randn(B, G, L, D).astype(np.float32)
+    v = rng.randn(B, G, L, D).astype(np.float32)
+    g = rng.randn(B, H, L, D).astype(np.float32)
+    return q, k, v, g
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_forward_ref_matches_pallas_forward(case):
+    causal, H, G, D = case
+    B, L = 1, 256
+    q, k, v, _ = _inputs(B, H, G, L, D, seed=0)
+    scale = D ** -0.5
+    with jax.default_matmul_precision("highest"):
+        out_j, lse_j = _pallas_forward_lse(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), scale, causal,
+                                           interpret=True)
+    # JAX keeps lse as an 8-wide stripe in the grouped-rows layout.
+    lse_j = np.asarray(_from_rows(lse_j[..., :1], B, H // G))[..., 0]
+    out, lse = fa.flash_forward_ref(*_t(q, k, v), scale, causal)
+    assert out.shape == (B, H, L, D) and lse.shape == (B, H, L)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j),
+                               rtol=FWD_TOL, atol=FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_j, rtol=FWD_TOL,
+                               atol=FWD_TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_backward_ref_matches_pallas_backward(case):
+    causal, H, G, D = case
+    B, L = 1, 256
+    q, k, v, g = _inputs(B, H, G, L, D, seed=1)
+    scale = D ** -0.5
+    with jax.default_matmul_precision("highest"):
+        qj, kj, vj = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+        out_j, lse_j = _pallas_forward_lse(qj, kj, vj, scale, causal,
+                                           interpret=True)
+        grads_j = _pallas_backward(qj, kj, vj, out_j, lse_j, jnp.asarray(g),
+                                   scale, causal, interpret=True)
+    tq, tk, tv, tg = _t(q, k, v, g)
+    out, lse = fa.flash_forward_ref(tq, tk, tv, scale, causal)
+    grads = fa.flash_backward_ref(tq, tk, tv, out, lse, tg, scale, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, grads_j):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=BWD_TOL,
+                                   atol=BWD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("B,L,H,G,D,causal", [
+    (2, 128, 2, 2, 32, True),
+    (1, 128, 4, 2, 16, True),     # GQA
+    (1, 128, 2, 1, 16, False),    # MQA, full attention
+    (1, 160, 2, 2, 8, True),      # L = 128 + a 32-row tail
+])
+def test_flash_attention_and_grads_match_jax(B, L, H, G, D, causal):
+    """The public [B, L, H, D] function and its autograd (_FlashFn)
+    against JAX flash_attention and jax.grad."""
+    rng = np.random.RandomState(3)
+    q = rng.randn(B, L, H, D).astype(np.float32)
+    k = rng.randn(B, L, G, D).astype(np.float32)
+    v = rng.randn(B, L, G, D).astype(np.float32)
+    w = rng.randn(B, L, H, D).astype(np.float32)
+
+    def loss_j(q, k, v):
+        return jnp.sum(jax_flash_attention(q, k, v, causal=causal) * w)
+
+    with jax.default_matmul_precision("highest"):
+        out_j = jax_flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal)
+        grads_j = jax.grad(loss_j, argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = fa.flash_attention(tq, tk, tv, causal=causal)
+    assert out.shape == (B, L, H, D)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               rtol=FWD_TOL, atol=FWD_TOL)
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, t, gj in zip(("dq", "dk", "dv"), (tq, tk, tv), grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj),
+                                   rtol=BWD_TOL, atol=BWD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("rotary_base", [None, 10000.0])
+def test_blockwise_reference_matches_jax(rotary_base):
+    """L=160: a 128-row block and a 32-row tail; GQA 4 over 2."""
+    B, H, G, L, D = 1, 4, 2, 160, 16
+    q, k, v, _ = _inputs(B, H, G, L, D, seed=4)
+    with jax.default_matmul_precision("highest"):
+        ref = _blockwise_reference(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), D ** -0.5, True,
+                                   rotary_base)
+    out = fa.blockwise_reference(*_t(q, k, v), D ** -0.5, True, rotary_base)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=FWD_TOL,
+                               atol=FWD_TOL)
+
+
+@pytest.mark.parametrize("neg", [False, True])
+def test_apply_rotary_matches_jax(neg):
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 24, 3, 16).astype(np.float32)
+    pos = np.arange(24, dtype=np.int32)[None, :, None]
+    ref = jax_apply_rotary(jnp.asarray(x), jnp.asarray(pos), neg=neg)
+    out = fa.apply_rotary(torch.from_numpy(x), torch.from_numpy(pos),
+                          neg=neg)
+    # cos/sin of the same f32 angles from two libraries.
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_analytic_flops_match_jax():
+    from horovod_tpu.ops.flash_attention import analytic_attention_flops
+    for causal in (True, False):
+        for training in (True, False):
+            args = (8, 12, 2048, 64)
+            assert fa.analytic_attention_flops(
+                *args, causal=causal, training=training) == \
+                analytic_attention_flops(*args, causal=causal,
+                                         training=training)
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    fa.reset_launch_counts()
+    q, k, v, g = _t(*_inputs(1, 2, 2, 64, 16, seed=6))
+    out, lse = fa.flash_fwd(q, k, v, 0.25, True)
+    ref_out, ref_lse = fa.flash_forward_ref(q, k, v, 0.25, True)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    delta = fa._delta(out, g)
+    assert torch.equal(fa.flash_bwd_dq(q, k, v, g, lse, delta, 0.25, True),
+                       fa.flash_bwd_dq_ref(q, k, v, g, lse, delta, 0.25,
+                                           True))
+    dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, 0.25, True)
+    rk, rv = fa.flash_bwd_dkv_ref(q, k, v, g, lse, delta, 0.25, True)
+    assert torch.equal(dk, rk) and torch.equal(dv, rv)
+    assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                  "flash_bwd_dkv": 0}
+
+
+def test_other_devices_raise():
+    q = torch.empty(1, 2, 64, 16, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        fa.flash_fwd(q, q, q, 0.25, True)
+
+
+def test_fused_rotary_is_a_later_slice():
+    q = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        fa.flash_attention(q, q, q, rotary_base=10000.0)
+
+
+def test_kernel_argument_checks():
+    """The checks the CUDA wrappers run before a launch, on CPU tensors."""
+    def bhld(B, H, L, D, dtype=torch.bfloat16):
+        return torch.zeros(B, L, H, D, dtype=dtype).transpose(1, 2)
+
+    q, k = bhld(2, 4, 100, 64), bhld(2, 2, 100, 64)
+    assert fa._check("t", q, k, {"q": q, "k": k}) == (2, 4, 2, 100, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        fa._check("t", bhld(1, 2, 8, 48), bhld(1, 2, 8, 48), {})
+    with pytest.raises(ValueError, match="divide"):
+        fa._check("t", bhld(1, 3, 8, 64), bhld(1, 2, 8, 64), {})
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        f16 = bhld(1, 2, 8, 64, torch.float16)
+        fa._check("t", f16, f16, {})
+    with pytest.raises(ValueError, match="v is torch.float32"):
+        fa._check("t", q, k, {"v": bhld(2, 2, 100, 64, torch.float32)})
+    odd = torch.zeros(2, 4, 100, 66, dtype=torch.bfloat16)[..., :64]
+    assert not fa._layout_ok(odd)
+    with pytest.raises(ValueError, match="strides"):
+        fa._check("t", odd, k, {"q": odd})
+    assert fa._layout_ok(fa._kernel_layout(odd))
+    lse = torch.zeros(2, 4, 100)
+    fa._check("t", q, k, {}, (("lse", lse),))
+    with pytest.raises(ValueError, match="lse"):
+        fa._check("t", q, k, {}, (("lse", lse[:, :, :50]),))

@@ -1,0 +1,128 @@
+"""Rules of the PyTorch port as a package: it imports nothing of JAX or of
+horovod_tpu, imports cleanly on a machine with no nvcc, triton or GPU,
+and its entry points refuse to fall back to the CPU quietly."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.ops import _build
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+# The package's sources; ops/_build/ holds build outputs, not sources.
+PACKAGE_FILES = sorted(p for p in (ROOT / "horovod_tpu_torch").rglob("*.py")
+                       if "_build" not in p.parts)
+PORT_FILES = PACKAGE_FILES + [
+    ROOT / "chip_smoke.py",
+    ROOT / "tests" / "torch_port_dp_worker.py",
+    ROOT / "tests" / "test_torch_port_cuda.py",
+]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(module):
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_forbidden_names_are_matched_exactly():
+    assert _forbidden("horovod_tpu.ops") and _forbidden("jax.numpy")
+    assert _forbidden("horovod_tpu") and _forbidden("flax.linen")
+    assert not _forbidden("horovod_tpu_torch.ops")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_horovod_tpu_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, "%s imports %s" % (path.relative_to(ROOT), bad)
+
+
+def test_package_imports_without_nvcc_triton_or_gpu(tmp_path):
+    """Every module imports in a fresh process whose PATH holds no nvcc;
+    nothing is built and neither JAX nor triton is loaded."""
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
+            ".__init__", "")
+        for p in PACKAGE_FILES)
+    code = (
+        "import sys, importlib\n"
+        "for m in %r: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "from horovod_tpu_torch.ops import _build\n"
+        "assert not _build._libs\n" % mods)
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),
+               PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_missing_nvcc_is_a_named_error(monkeypatch, tmp_path):
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has the CUDA toolkit")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.nvcc()
+
+
+def test_library_name_follows_the_sources():
+    """An edited source gets a new library name, so a stale build is never
+    loaded."""
+    a, b = (_build.library_path(s) for s in _build.SOURCES)
+    assert a != b and a.parent == _build.BUILD_DIR
+    assert a.name.startswith("libflash_fwd.") and a.suffix == ".so"
+
+
+def test_entry_points_without_a_gpu_raise_the_named_error():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    from horovod_tpu_torch.parallel import lm_loss, make_train_step
+    with pytest.raises(hvd.CudaUnavailableError):
+        hvd.init()
+    assert not hvd.is_initialized()
+    model = torch.nn.Linear(2, 2)
+    with pytest.raises(hvd.CudaUnavailableError):
+        make_train_step(model, lm_loss, torch.optim.SGD(model.parameters(),
+                                                        lr=0.1))
+    with pytest.raises(hvd.CudaUnavailableError):
+        hvd.init(device="cuda")
+
+
+def test_queries_before_init_raise():
+    assert not hvd.is_initialized()
+    with pytest.raises(RuntimeError, match="hvd.init"):
+        hvd.rank()
+
+
+def test_one_rank_cpu_group():
+    hvd.init(device="cpu")
+    try:
+        assert (hvd.rank(), hvd.size(), hvd.local_rank(),
+                hvd.local_size()) == (0, 1, 0, 1)
+        assert hvd.device() == torch.device("cpu")
+        x = torch.arange(4.0)
+        assert torch.equal(hvd.allreduce(x), x)
+        assert torch.equal(hvd.allgather(x), x)
+        assert torch.equal(hvd.broadcast(x, 0), x)
+    finally:
+        hvd.shutdown()
+    assert not hvd.is_initialized()

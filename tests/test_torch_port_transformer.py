@@ -1,0 +1,130 @@
+"""The port's Transformer against the JAX package's, on the CPU.
+
+The flax parameters go into the port through
+``convert.transformer_state_dict_from_jax``; both models run in float32
+(JAX at its highest matmul precision), and the logits and the gradient of
+the LM loss for every parameter are compared.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from horovod_tpu import models as jax_models
+from horovod_tpu_torch import CudaUnavailableError
+from horovod_tpu_torch.convert import transformer_state_dict_from_jax
+from horovod_tpu_torch.models import Transformer, TransformerConfig
+from horovod_tpu_torch.parallel import lm_loss
+
+# Two f32 models through 2 layers: the same arithmetic in another order.
+LOGIT_TOL = 2e-5
+# Gradients of the mean loss, through the attention backward.
+GRAD_TOL = 1e-4
+
+SMALL = dict(vocab_size=128, num_layers=2, num_heads=4, embed_dim=64,
+             mlp_dim=256, max_seq_len=256)
+
+
+def _jax_side(attention, num_kv_heads, tokens):
+    cfg = jax_models.TransformerConfig(attention=attention,
+                                       num_kv_heads=num_kv_heads,
+                                       dtype=jnp.float32, **SMALL)
+    model = jax_models.Transformer(cfg)
+    x = jnp.asarray(tokens)
+    params = model.init(jax.random.PRNGKey(0), x[:1])["params"]
+
+    def loss_fn(params):
+        logits = model.apply({"params": params}, x)
+        tgt = jnp.roll(x, -1, axis=1)
+        logp = jax.nn.log_softmax(logits.astype(jnp.float32))
+        return -jnp.mean(jnp.take_along_axis(logp, tgt[..., None], axis=-1))
+
+    with jax.default_matmul_precision("highest"):
+        logits = model.apply({"params": params}, x)
+        loss, grads = jax.value_and_grad(loss_fn)(params)
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    return to_np(params), np.asarray(logits), float(loss), to_np(grads)
+
+
+def _port(attention, num_kv_heads, params_np):
+    cfg = TransformerConfig(attention=attention, num_kv_heads=num_kv_heads,
+                            dtype=torch.float32, **SMALL)
+    model = Transformer(cfg, device="cpu")
+    model.load_state_dict(transformer_state_dict_from_jax(params_np, cfg))
+    return model, cfg
+
+
+@pytest.mark.parametrize("attention", ["flash", "dense"])
+@pytest.mark.parametrize("num_kv_heads", [None, 2])
+def test_transformer_matches_jax(attention, num_kv_heads):
+    tokens = np.random.RandomState(0).randint(
+        0, SMALL["vocab_size"], (2, 64)).astype(np.int32)
+    params_np, logits_j, loss_j, grads_j = _jax_side(attention, num_kv_heads,
+                                                     tokens)
+    model, cfg = _port(attention, num_kv_heads, params_np)
+    x = torch.from_numpy(tokens).long()
+    logits = model(x)
+    assert logits.dtype == torch.float32
+    np.testing.assert_allclose(logits.detach().numpy(), logits_j,
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+    loss = lm_loss(model, x)
+    np.testing.assert_allclose(loss.item(), loss_j, rtol=1e-6)
+    loss.backward()
+    expected = transformer_state_dict_from_jax(grads_j, cfg)
+    names = dict(model.named_parameters())
+    assert set(names) == set(expected)
+    for name, p in names.items():
+        np.testing.assert_allclose(p.grad.numpy(), expected[name].numpy(),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=name)
+
+
+def test_flash_and_dense_agree_in_bf16():
+    """The bf16 compute path (explicit casts over f32 params): flash and
+    dense attention give the same loss within bf16 rounding."""
+    cfg = TransformerConfig(attention="flash", dtype=torch.bfloat16,
+                            **SMALL)
+    gen = torch.Generator().manual_seed(0)
+    flash = Transformer(cfg, device="cpu", generator=gen)
+    dense = Transformer(dataclasses.replace(cfg, attention="dense"),
+                        device="cpu")
+    dense.load_state_dict(flash.state_dict())
+    x = torch.randint(0, SMALL["vocab_size"], (2, 64),
+                      generator=torch.Generator().manual_seed(1))
+    assert flash(x, return_hidden=True).dtype == torch.bfloat16
+    a, b = lm_loss(flash, x).item(), lm_loss(dense, x).item()
+    assert abs(a - b) <= 1e-2 * abs(b)
+
+
+def test_seeded_init_is_reproducible():
+    cfg = TransformerConfig(attention="flash", dtype=torch.float32, **SMALL)
+    a = Transformer(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(3))
+    b = Transformer(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(3))
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(p, q), name
+    # flax's default scales: embedding N(0, 1/E), linear N(0, 1/fan_in).
+    assert abs(a.embed.weight.std().item() - 64 ** -0.5) < 0.02
+    assert abs(a.blocks[0].mlp_out.weight.std().item() - 256 ** -0.5) < 0.01
+
+
+@pytest.mark.parametrize("field,value", [
+    ("attention", "ring"), ("attention", "ulysses"), ("tp_axis", "tp"),
+    ("moe_experts", 4), ("rope_fused", True)])
+def test_later_slices_raise_not_implemented(field, value):
+    with pytest.raises(NotImplementedError, match="later slice"):
+        TransformerConfig(**{field: value})
+
+
+def test_default_device_is_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU; the model would build on it")
+    with pytest.raises(CudaUnavailableError):
+        Transformer(TransformerConfig(**SMALL))

@@ -1,0 +1,75 @@
+#!/usr/bin/env python3
+"""Mutation check of chip_smoke.py's kernel and gradient checks (one GPU).
+
+    python3 tests/torch_port_planted_faults.py
+
+For each planted fault below, copies ``chip_smoke.py`` and
+``horovod_tpu_torch/`` into ``horovod_tpu_torch/ops/_build/planted_<fault>/``
+(git-ignored), plants the fault in the copy's CUDA source, and runs
+``chip_smoke.py --only kernels`` and ``--only train`` there. Both runs must
+fail. Prints the readings each run logged (errors against the plain
+versions, the gradient gap) and exits 1 if a planted fault passed a check.
+"""
+
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+# fault -> (source, the line after which it goes, the line planted)
+FAULTS = {
+    # K1 skips key tile 1 for the q tiles from row 1024 on
+    "fwd_skip_tile": (
+        "flash_fwd.cu", "    const bf16* cV = sV + (j & 1) * kTile;\n",
+        "    if (m0 >= 1024 && j == 1) { __syncthreads(); continue; }\n"),
+    # K3 skips q tile 1 for the key tiles from row 1024 on
+    "dkv_skip_tile": (
+        "flash_bwd.cu",
+        "    const float* cDelta = sDelta + (j & 1) * kBlockN;\n",
+        "    if (n0 >= 1024 && j == 1) { __syncthreads(); continue; }\n"),
+}
+
+
+def planted_copy(fault):
+    source, anchor, line = FAULTS[fault]
+    dst = ROOT / "horovod_tpu_torch" / "ops" / "_build" / ("planted_" + fault)
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    shutil.copy(ROOT / "chip_smoke.py", dst)
+    shutil.copytree(ROOT / "horovod_tpu_torch", dst / "horovod_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    cu = dst / "horovod_tpu_torch" / "ops" / "csrc" / source
+    text = cu.read_text()
+    if text.count(anchor) != 1:
+        raise SystemExit("%s: the anchor line is not in %s once"
+                         % (fault, source))
+    cu.write_text(text.replace(anchor, anchor + line))
+    return dst
+
+
+def main():
+    missed = []
+    for fault in FAULTS:
+        dst = planted_copy(fault)
+        for phase in ("kernels", "train"):
+            run = subprocess.run(
+                [sys.executable, "chip_smoke.py", "--only", phase], cwd=dst,
+                capture_output=True, text=True, timeout=600)
+            for line in run.stderr.splitlines():
+                if "err" in line or "gap" in line or "FAIL" in line:
+                    print("%s %s: %s" % (fault, phase, line))
+            print("%s %s: exit %d" % (fault, phase, run.returncode),
+                  flush=True)
+            if run.returncode == 0:
+                missed.append("%s/%s" % (fault, phase))
+        shutil.rmtree(dst, ignore_errors=True)
+    if missed:
+        print("planted faults that passed: " + ", ".join(missed))
+        sys.exit(1)
+    print("every planted fault was caught")
+
+
+if __name__ == "__main__":
+    main()
