@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (horovod_tpu_torch) on one GPU.
 
     python3 chip_smoke.py              # every phase, one card
-    python3 chip_smoke.py --only kernels
+    python3 chip_smoke.py --only kernels   # or train, bn_kernels, resnet
 
 Phases, in order; any failure exits non-zero:
 
@@ -29,6 +29,25 @@ Phases, in order; any failure exits non-zero:
    loss at 8 x 2048, and every parameter's gradient at 2 x 2048 (worst
    ||g_flash - g_plain||_2 / ||g_plain||_2 <= 5e-2). Checks finite and
    falling losses and 12 launches of each kernel per step.
+5. bn_kernels: runs the BN statistics kernels K7 (sum x, sum x^2) and K8
+   (sum dy, sum dy * x_hat) at ResNet-50 shapes (the stem, M = 256 * 112 *
+   112, C = 64; a stage-3 layer, 50176 x 1024; the last stage, 12544 x
+   2048; and an odd 1000003 x 72 with f32 dy over bf16 x) on bf16 inputs,
+   and holds each output row to ||kernel - plain||_2 / ||plain||_2 <= 1e-4
+   against the f32 plain version. Times kernel, plain version and
+   PyTorch's own ``torch.batch_norm_stats`` and
+   ``torch.batch_norm_backward_reduce`` (yardsticks the port never calls).
+6. resnet: ``hvd.init()``, ResNet-50 with ``norm="pallas"`` (bf16 over f32
+   params) from a seeded generator, its block-final BN scales set nonzero
+   from the seed, SGD(0.01, momentum 0.9) in ``DistributedOptimizer`` and
+   ``make_train_step`` with ``classification_loss``; 2 warm-up and 5 timed
+   steps on one batch of 256 224 x 224 images with labels. Before the
+   steps, the same weights through the stock BN (``norm="batch"``): the
+   first loss at batch 256 (relative gap <= 2e-2), and every parameter's
+   gradient at batch 32 in float32 (worst ||g_pallas - g_stock||_2 /
+   ||g_stock||_2 <= 5e-2).
+   Checks finite and falling losses and 53 launches of K7 and of K8 per
+   step.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -45,6 +64,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores
+PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # Limits against the f32 plain versions on the same bf16 inputs, set
 # between the readings of the sound kernels on an H100 and of kernels with a
@@ -56,12 +76,30 @@ REL_TOL = 1e-2             # ||kernel - plain||_2 / ||plain||_2
 LSE_TOL = 1e-3             # max |lse - plain lse|, natural-log units
 GRAD_TOL = 5e-2            # worst parameter's gradient gap, flash vs dense
 
+# The BN kernels against their f32 plain versions: the same f32 values
+# summed in another order (each output row, norm-relative).
+BN_TOL = 1e-4
+# The ResNet: the first loss and the worst parameter's gradient gap
+# (norm-relative) between norm="pallas" and the stock BN on the same weights.
+RESNET_LOSS_TOL = 2e-2
+RESNET_GRAD_TOL = 5e-2
+
 SLICE = dict(B=8, H=12, G=12, L=2048, D=64, causal=True)
 ODD = dict(B=1, H=4, G=2, L=160, D=64, causal=False)
 # bench.py --model transformer: GPT-2-small widths and depth, 8 x 2048
 MODEL = dict(vocab_size=32000, num_layers=12, num_heads=12, embed_dim=768,
              mlp_dim=3072)
 BATCH = (8, 2048)
+# bench.py --model resnet50pbn --batch-size 256, 224 x 224 images
+RESNET_BATCH, IMAGE, RESNET_GRAD_BATCH = 256, 224, 32
+RESNET_BN_LAYERS = 53  # bn_init + 3 per block (16) + 4 projections
+# name -> (M, C, dy dtype): M = batch * H * W rows of C channels
+BN_SHAPES = {
+    "stem": (256 * 112 * 112, 64, "bfloat16"),
+    "stage3": (256 * 14 * 14, 1024, "bfloat16"),
+    "last": (256 * 7 * 7, 2048, "bfloat16"),
+    "odd": (1_000_003, 72, "float32"),
+}
 
 # wrapper name -> (source, TPU kernel it replaces, products per (q,k) pair)
 KERNELS = {
@@ -71,7 +109,15 @@ KERNELS = {
                      "horovod_tpu/ops/flash_attention.py:841", 3),
     "flash_bwd_dkv": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
                       "horovod_tpu/ops/flash_attention.py:895", 4),
+    # f32 operations per (row, channel): K7 s += x, ss += x * x; K8
+    # s += dy, s2 += dy * ((x - mean) * rstd)
+    "batch_norm_stats": ("horovod_tpu_torch/ops/csrc/batch_norm.cu",
+                         "horovod_tpu/ops/batch_norm.py:100", 3),
+    "batch_norm_grad_stats": ("horovod_tpu_torch/ops/csrc/batch_norm.cu",
+                              "horovod_tpu/ops/batch_norm.py:133", 5),
 }
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+BN = ("batch_norm_stats", "batch_norm_grad_stats")
 
 
 def log(*args):
@@ -280,7 +326,7 @@ def phase_kernels():
     odd_rows = check_kernels(ODD, seed=2, timed=False)
     library = slice_rows.pop("library")
     bad = []
-    for name in KERNELS:
+    for name in FLASH:
         for label, rows in (("slice", slice_rows), ("odd", odd_rows)):
             r = rows[name]
             log("%s %s: %s" % (name, label, ", ".join(
@@ -298,6 +344,92 @@ def phase_kernels():
     if bad:
         fail("kernels disagree with their plain versions: " + "; ".join(bad))
     return slice_rows, library
+
+
+def _bn_inputs(M, C, dy_dtype, seed):
+    """x (M, C) bf16 with an offset mean, dy in ``dy_dtype``, and x's
+    f32 mean and rstd, from a seeded CUDA generator."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(M, C, generator=g, device="cuda") * 2.0 + 0.5).to(
+        torch.bfloat16)
+    dy = torch.randn(M, C, generator=g, device="cuda").to(
+        getattr(torch, dy_dtype))
+    xf = x.float()
+    mean = xf.mean(0)
+    rstd = torch.rsqrt(xf.var(0, unbiased=False) + 1e-5)
+    del xf
+    return x, dy, mean, rstd
+
+
+def _bn_bound_ms(name, M, C, n_bytes):
+    t_ops = KERNELS[name][2] * M * C / PEAK_F32_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_bn_kernels():
+    """K7 and K8 against their plain versions at BN_SHAPES; times at the
+    stem, the widest activation of the main path. Returns {name: row}."""
+    import torch
+    from horovod_tpu_torch.ops import batch_norm as bn
+    rows = {name: {} for name in BN}
+    bad = []
+    for seed, (label, (M, C, dy_dtype)) in enumerate(BN_SHAPES.items()):
+        x, dy, mean, rstd = _bn_inputs(M, C, dy_dtype, seed)
+        outs = {"batch_norm_stats": (bn.batch_norm_stats(x),
+                                     bn.batch_norm_stats_ref(x)),
+                "batch_norm_grad_stats": (
+                    bn.batch_norm_grad_stats(dy, x, mean, rstd),
+                    bn.batch_norm_grad_stats_ref(dy, x, mean, rstd))}
+        torch.cuda.synchronize()
+        for name, (got, ref) in outs.items():
+            errs = [_err(a, b) for a, b in zip(got, ref)]
+            r = rows[name]
+            r[label + "_max_abs_err"] = max(e[0] for e in errs)
+            r[label + "_rel_l2_err"] = max(e[1] for e in errs)
+            log("%s %s (%d x %d): max_abs_err %.3g, rel_l2_err %.3g"
+                % (name, label, M, C, r[label + "_max_abs_err"],
+                   r[label + "_rel_l2_err"]))
+            if not r[label + "_rel_l2_err"] <= BN_TOL:
+                bad.append("%s at the %s shape: rel_l2_err %.3g > %g"
+                           % (name, label, r[label + "_rel_l2_err"], BN_TOL))
+        del outs
+        if label == "stem":
+            # the same memory as [N, C, H, W] channels_last tensors
+            x4, dy4 = (t.view(-1, 112, 112, C).permute(0, 3, 1, 2)
+                       for t in (x, dy))
+            runs = {
+                "batch_norm_stats": (
+                    lambda: bn.batch_norm_stats(x),
+                    lambda: bn.batch_norm_stats_ref(x),
+                    lambda: torch.batch_norm_stats(x4, 1e-5),
+                    x.numel() * x.element_size() + 2 * C * 4),
+                "batch_norm_grad_stats": (
+                    lambda: bn.batch_norm_grad_stats(dy, x, mean, rstd),
+                    lambda: bn.batch_norm_grad_stats_ref(dy, x, mean, rstd),
+                    lambda: torch.batch_norm_backward_reduce(
+                        dy4, x4, mean, rstd, None, True, False, False),
+                    (x.numel() * x.element_size() + dy.numel()
+                     * dy.element_size() + 2 * C * 4 + 2 * C * 4)),
+            }
+            for name, (kern, plain, library, n_bytes) in runs.items():
+                r = rows[name]
+                r["ms"] = time_ms(kern)
+                r["plain_ms"] = time_ms(plain, n=5, reps=3, warmup=1)
+                r["library_ms"] = time_ms(library)
+                r["bound_ms"], r["bound_by"] = _bn_bound_ms(name, M, C,
+                                                            n_bytes)
+                log("%s stem: %.4f ms (bound %.4f, plain %.3f, library %.4f)"
+                    % (name, r["ms"], r["bound_ms"], r["plain_ms"],
+                       r["library_ms"]))
+        del x, dy
+        torch.cuda.empty_cache()
+    if bad:
+        fail("BN kernels disagree with their plain versions: "
+             + "; ".join(bad))
+    print("bn_kernels: " + json.dumps(rows), flush=True)
+    return rows
 
 
 def phase_train(profile_dir=None):
@@ -393,14 +525,126 @@ def phase_train(profile_dir=None):
                   steps=steps)
     print("train: " + json.dumps(result), flush=True)
     if profile_dir:
-        profile_steps(step, tokens, profile_dir)
+        profile_steps(step, tokens, profile_dir, "lm")
     hvd.shutdown()
     return counts
 
 
+def phase_resnet(profile_dir=None):
+    """The ResNet-50 train step with norm="pallas" (K7 and K8) at batch
+    256; returns the kernels' launch counts of its 7 steps."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import ResNet50, ResNet50PBN
+    from horovod_tpu_torch.ops import batch_norm as bn
+    from horovod_tpu_torch.ops.flash_attention import (launch_counts,
+                                                       reset_launch_counts)
+    from horovod_tpu_torch.parallel import (classification_loss,
+                                            make_train_step)
+
+    hvd.init()
+    dev = hvd.device()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = ResNet50PBN(num_classes=1000, dtype=torch.bfloat16, device=dev,
+                        generator=gen)
+    # flax starts each block-final BN scale at 0, which zeroes every
+    # gradient upstream of it inside the block; nonzero scales let the
+    # gradient check below see every layer's K8.
+    with torch.no_grad():
+        for block in model.blocks:
+            block.norms[-1].weight.uniform_(0.1, 0.5, generator=gen)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    batch = {"x": torch.randn(RESNET_BATCH, 3, IMAGE, IMAGE, generator=gen,
+                              device=dev),
+             "y": torch.randint(0, 1000, (RESNET_BATCH,), generator=gen,
+                                device=dev)}
+
+    # The same weights through the stock BN: the first loss at batch 256,
+    # and every parameter's gradient at batch 32. The gradients are
+    # compared in float32: at init, in bf16, two sound BN paths already
+    # stand 0.4-0.5 apart (median leaf, CPU at batch 8), which would hide a
+    # wrong kernel; in float32 they stand 0.007 apart. The bf16 gap is
+    # logged beside it.
+    stock = ResNet50(num_classes=1000, dtype=torch.bfloat16, device=dev)
+    stock.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        loss_plain = classification_loss(stock, batch).item()
+    small = {k: v[:RESNET_GRAD_BATCH] for k, v in batch.items()}
+    gaps_bf16 = gradient_gaps(model, stock, small, classification_loss)
+    del stock
+    f32 = []
+    for cls in (ResNet50PBN, ResNet50):
+        f32.append(cls(num_classes=1000, dtype=torch.float32, device=dev))
+        f32[-1].load_state_dict(model.state_dict())
+    grad_gaps = gradient_gaps(*f32, small, classification_loss)
+    del f32
+    torch.cuda.empty_cache()
+    for label, gaps in (("bf16, not checked", gaps_bf16),
+                        ("float32", grad_gaps)):
+        leaf = max(gaps, key=gaps.get)
+        log("resnet gradient gap pallas vs stock BN at batch %d (%s): worst "
+            "%s %.3g, median %.3g" % (RESNET_GRAD_BATCH, label, leaf,
+                                      gaps[leaf],
+                                      statistics.median(gaps.values())))
+    worst = max(grad_gaps, key=grad_gaps.get)
+    if not grad_gaps[worst] <= RESNET_GRAD_TOL:
+        fail("ResNet gradients through K7/K8 disagree with the stock BN: "
+             "%s %.3g > %g" % (worst, grad_gaps[worst], RESNET_GRAD_TOL))
+
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        model.named_parameters())
+    step = make_train_step(model, classification_loss, opt)
+    warmup, timed = 2, 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    bn.reset_launch_counts()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        loss = step(batch).item()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log("resnet step %d: loss %.5f, %.1f ms" % (i, loss, times[-1] * 1e3))
+    counts = dict(launch_counts(), **bn.launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    steps = warmup + timed
+
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        fail("non-finite ResNet loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        fail("ResNet loss did not fall: %s" % losses)
+    for name, n in counts.items():
+        per_step = RESNET_BN_LAYERS if name in BN else 0
+        if n != per_step * steps:
+            fail("%s launched %d times in %d ResNet steps, expected %d per "
+                 "step" % (name, n, steps, per_step))
+    rel = abs(losses[0] - loss_plain) / abs(loss_plain)
+    log("resnet first loss %.6f, stock BN %.6f, rel %.3g"
+        % (losses[0], loss_plain, rel))
+    if not rel <= RESNET_LOSS_TOL:
+        fail("ResNet first loss %.6f vs stock BN %.6f (rel %.3g)"
+             % (losses[0], loss_plain, rel))
+
+    step_s = statistics.median(times[warmup:])
+    result = dict(step_ms=step_s * 1e3, images_per_s=RESNET_BATCH / step_s,
+                  peak_mem_gb=peak / 1e9, loss_first=losses[0],
+                  loss_last=losses[-1], loss_plain=loss_plain,
+                  grad_gap_worst=grad_gaps[worst],
+                  grad_gap_worst_bf16=max(gaps_bf16.values()),
+                  launches=counts, steps=steps)
+    print("resnet: " + json.dumps(result), flush=True)
+    if profile_dir:
+        profile_steps(step, batch, profile_dir, "resnet")
+    hvd.shutdown()
+    return {name: counts[name] for name in BN}
+
+
 def gradient_gaps(model, dense, tokens, loss_fn):
     """{parameter: ||g_model - g_dense||_2 / ||g_dense||_2} of one loss on
-    ``tokens``; the .grad fields are left alone."""
+    ``tokens`` (any batch ``loss_fn`` takes); the .grad fields are left
+    alone."""
     import torch
     names = [n for n, _ in model.named_parameters()]
     g_model = torch.autograd.grad(loss_fn(model, tokens),
@@ -412,12 +656,17 @@ def gradient_gaps(model, dense, tokens, loss_fn):
             for n, a, b in zip(names, g_model, g_dense)}
 
 
-def _category(name):
+def _category(name, model):
     low = name.lower()
     if "flash" in low:
         return "flash kernels"
-    if any(s in low for s in ("gemm", "xmma", "nvjet", "cutlass", "sm90_")):
-        return "matmuls"
+    if "hvdbn" in low:
+        return "batch-norm kernels"
+    # cuDNN's and CUTLASS's kernels: convolutions in the ResNet, the
+    # matmuls in the LM
+    if any(s in low for s in ("gemm", "xmma", "nvjet", "cutlass", "sm90_",
+                              "conv", "dgrad", "wgrad", "fprop")):
+        return "convolutions" if model == "resnet" else "matmuls"
     if "multi_tensor_apply" in low:
         return "optimizer"
     if "nccl" in low:
@@ -425,10 +674,10 @@ def _category(name):
     return "other kernels"
 
 
-def profile_steps(step, tokens, out_dir, n=3):
+def profile_steps(step, tokens, out_dir, model, n=3):
     """Device time by kernel over ``n`` steps (torch.profiler), the device's
     busy share of the window, and the top kernels; the full table goes to
-    ``out_dir``/chip_smoke_profile.txt."""
+    ``out_dir``/chip_smoke_<model>_profile.txt."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -446,36 +695,40 @@ def profile_steps(step, tokens, out_dir, n=3):
                        getattr(e, "self_cuda_time_total", 0))
 
     # Device-side rows only: kernels and copies. The CPU ops that launched
-    # them carry the same time again, and GPU annotations ("...#...") span
-    # other rows.
+    # them carry the same time again, and user annotations span other rows.
+    # (Kernel names may hold "#", as "{lambda(int)#1}" in PyTorch's
+    # elementwise kernels: an earlier filter on "#" dropped those.)
     kernels = sorted(((dev_us(e) / 1e3 / n, e.count // n, e.key)
-                      for e in avgs if dev_us(e) > 0 and "#" not in e.key
-                      and str(e.device_type).endswith("CUDA")),
+                      for e in avgs if dev_us(e) > 0
+                      and str(e.device_type).endswith("CUDA")
+                      and not getattr(e, "is_user_annotation", False)),
                      reverse=True)
     busy_ms = sum(k[0] for k in kernels)
     cats = {}
     for ms, _, name in kernels:
-        c = _category(name)
+        c = _category(name, model)
         cats[c] = cats.get(c, 0.0) + ms
     summary = dict(step_ms=window_ms / n, device_busy_ms=busy_ms,
                    idle_share=1.0 - busy_ms * n / window_ms,
                    by_category_ms=cats,
                    top=[dict(ms=ms, calls=c, name=name[:90])
                         for ms, c, name in kernels[:12]])
-    print("profile: " + json.dumps(summary), flush=True)
+    print("profile %s: %s" % (model, json.dumps(summary)), flush=True)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "chip_smoke_profile.txt").write_text(avgs.table(
+    (out / ("chip_smoke_%s_profile.txt" % model)).write_text(avgs.table(
         sort_by="self_device_time_total", row_limit=60))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernels", "train"),
+    ap.add_argument("--only", choices=("kernels", "train", "bn_kernels",
+                                       "resnet"),
                     help="run the device and build phases and this one")
     ap.add_argument("--profile", metavar="DIR",
-                    help="after the train phase, profile 3 more steps and "
-                    "write the kernel table to DIR/chip_smoke_profile.txt")
+                    help="after the train and resnet phases, profile 3 more "
+                    "steps each and write the kernel tables to "
+                    "DIR/chip_smoke_{lm,resnet}_profile.txt")
     args = ap.parse_args()
     phase_device()
     if not (ROOT / "horovod_tpu_torch").is_dir():
@@ -487,26 +740,37 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
 
+    def run(phase):
+        return args.only in (None, phase)
+
     rows, library, counts = {}, {}, {}
-    if args.only in (None, "kernels"):
+    if run("kernels"):
         rows, library = phase_kernels()
-    if args.only in (None, "train"):
-        counts = phase_train(profile_dir=args.profile)
+    if run("train"):
+        counts.update(phase_train(profile_dir=args.profile))
+    if run("bn_kernels"):
+        rows.update(phase_bn_kernels())
+    if run("resnet"):
+        counts.update(phase_resnet(profile_dir=args.profile))
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         row = rows.get(name, {})
         abs_errs = [v for k, v in row.items() if k.endswith("max_abs_err")]
         rel_errs = [v for k, v in row.items() if k.endswith("_l2_err")
                     and not k.startswith("odd_")]
+        if name in FLASH:
+            # K2 and K3 together do what the one fused backward call does
+            lib_ms = library.get("sdpa_fwd_ms" if name == "flash_fwd"
+                                 else "sdpa_bwd_ms")
+        else:
+            lib_ms = row.get("library_ms")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts.get(name, 0),
             "max_abs_err": max(abs_errs) if abs_errs else None,
             "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),
             "bound_ms": row.get("bound_ms"), "bound_by": row.get("bound_by"),
-            # K2 and K3 together do what the one fused backward call does
-            "library_ms": library.get("sdpa_fwd_ms" if name == "flash_fwd"
-                                      else "sdpa_bwd_ms"),
+            "library_ms": lib_ms,
             "rel_l2_err": max(rel_errs) if rel_errs else None,
             "odd_rel_l2_err": row.get("odd_rel_l2_err"),
             "lse_abs_err": row.get("lse_abs_err")})

@@ -1,0 +1,209 @@
+"""ResNet v1.5, the flagship model of the data-parallel benchmark.
+
+Counterpart of ``horovod_tpu/models/resnet.py``: the stem (7x7 stride-2
+conv, BN, ReLU, 3x3 stride-2 max-pool), stages of basic (ResNet-18/34) or
+bottleneck (ResNet-50/101/152) blocks with the stride on the 3x3 conv and
+a 1x1 projection where the shape changes, global mean pool and a dense
+head. The block-final BN starts with a zero scale, as in flax.
+
+Layout and precision: images come in as [N, 3, H, W] and every activation
+is ``torch.channels_last`` (physically NHWC, as the JAX model's). The
+parameters are float32; each convolution and the head cast their input
+and weight to ``dtype`` explicitly (no autocast), and the logits come out
+float32. The convolutions are cuDNN's ``F.conv2d``, as the JAX package
+leaves them to XLA.
+
+``norm``: ``"pallas"`` is ``FusedBatchNorm`` (kernels K7 and K8),
+``"batch"`` the stock BN (``F.batch_norm``), the counterpart of flax's
+``nn.BatchNorm``. Both keep flax's running statistics. ``bn_group`` is sync
+BN over a process group (the counterpart of ``bn_axis_name``).
+
+Padding follows flax's ``"SAME"``: a stride-2 3x3 convolution of an even
+input pads 0 before and 1 after, where ``nn.Conv2d(padding=1)`` would pad
+1 and 1 and shift every output.
+"""
+
+import functools
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from horovod_tpu_torch.common.basics import resolve_device
+from horovod_tpu_torch.ops.batch_norm import FusedBatchNorm, StockBatchNorm
+
+_LATER = ("group", "none", "lean")
+
+
+def _same_padding(size, k, stride):
+    """flax "SAME": (before, after) padding of one spatial dim."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv(use_bias=False)``: an f32 [out, in, kh, kw] weight,
+    the product in ``dtype``, padding ``"SAME"`` unless given as
+    ((top, bottom), (left, right))."""
+
+    def __init__(self, cin, cout, kernel, stride=1, padding="SAME",
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel,
+                                               device=device))
+        self.stride = stride
+        self.padding = padding
+        self.dtype = dtype
+
+    def forward(self, x):
+        k = self.weight.shape[-1]
+        if self.padding == "SAME":
+            (t, b), (lf, r) = (_same_padding(n, k, self.stride)
+                               for n in x.shape[2:])
+        else:
+            (t, b), (lf, r) = self.padding
+        if t == b and lf == r:
+            pad = (t, lf)
+        else:
+            x = F.pad(x, (lf, r, t, b))
+            pad = 0
+        w = self.weight.to(self.dtype, memory_format=torch.channels_last)
+        return F.conv2d(x.to(self.dtype), w, stride=self.stride, padding=pad)
+
+
+class ResNetBlock(nn.Module):
+    """Basic two-conv residual block (ResNet-18/34)."""
+    expansion = 1
+
+    @staticmethod
+    def layers(cin, filters, stride):
+        """(in, out, kernel, stride) of each conv, in order."""
+        return [(cin, filters, 3, stride), (filters, filters, 3, 1)]
+
+    def __init__(self, cin, filters, norm, stride=1, dtype=torch.bfloat16,
+                 device=None):
+        super().__init__()
+        specs = self.layers(cin, filters, stride)
+        self.convs = nn.ModuleList(Conv(*s, dtype=dtype, device=device)
+                                   for s in specs)
+        self.norms = nn.ModuleList(norm(s[1]) for s in specs)
+        cout = specs[-1][1]
+        self.conv_proj = self.norm_proj = None
+        if cin != cout or stride != 1:
+            self.conv_proj = Conv(cin, cout, 1, stride, dtype=dtype,
+                                  device=device)
+            self.norm_proj = norm(cout)
+
+    def forward(self, x):
+        y = x
+        last = len(self.convs) - 1
+        for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
+            y = norm(conv(y))
+            if i < last:
+                y = F.relu(y)
+        residual = x
+        if self.conv_proj is not None:
+            residual = self.norm_proj(self.conv_proj(x))
+        return F.relu(residual + y)
+
+
+class BottleneckBlock(ResNetBlock):
+    """1x1 -> 3x3 (stride) -> 1x1 bottleneck (ResNet-50/101/152, v1.5)."""
+    expansion = 4
+
+    @staticmethod
+    def layers(cin, filters, stride):
+        return [(cin, filters, 1, 1), (filters, filters, 3, stride),
+                (filters, filters * 4, 1, 1)]
+
+
+class ResNet(nn.Module):
+    """ResNet v1.5: images [N, 3, H, W] -> f32 logits [N, num_classes].
+
+    Built on ``device`` (default: the GPU; ``"cpu"`` for tests), its
+    weights drawn from ``generator`` (a ``torch.Generator`` on that device)
+    with flax's initializers: convolutions and the head lecun-normal
+    (truncated normal of variance 1/fan_in), head bias 0, BN scale 1 and
+    bias 0, the block-final BN scale 0."""
+
+    def __init__(self, stage_sizes, block_cls, num_classes=1000,
+                 num_filters=64, dtype=torch.bfloat16, norm="batch",
+                 bn_group=None, bn_virtual_batch_size=None, device=None,
+                 generator=None):
+        super().__init__()
+        if norm in _LATER:
+            raise NotImplementedError(
+                "norm=%r is a later slice of the port (ROADMAP A3)" % norm)
+        if norm not in ("batch", "pallas"):
+            raise ValueError("norm=%r is not batch|pallas|group|none|lean"
+                             % norm)
+        device = resolve_device(device)
+        self.dtype = dtype
+        if norm == "pallas":
+            norm_cls = functools.partial(
+                FusedBatchNorm, group=bn_group, device=device,
+                virtual_batch_size=bn_virtual_batch_size)
+        else:
+            if bn_virtual_batch_size:
+                raise NotImplementedError(
+                    "ghost BN (bn_virtual_batch_size) is a later slice of "
+                    "the port (ROADMAP A3)")
+            norm_cls = functools.partial(StockBatchNorm, group=bn_group,
+                                         device=device)
+        self.conv_init = Conv(3, num_filters, 7, 2, ((3, 3), (3, 3)),
+                              dtype=dtype, device=device)
+        self.bn_init = norm_cls(num_filters)
+        blocks, cin = [], num_filters
+        for i, n in enumerate(stage_sizes):
+            for j in range(n):
+                stride = 2 if i > 0 and j == 0 else 1
+                filters = num_filters * 2 ** i
+                blocks.append(block_cls(cin, filters, norm_cls, stride,
+                                        dtype=dtype, device=device))
+                cin = filters * block_cls.expansion
+        self.blocks = nn.ModuleList(blocks)
+        self.head = nn.Linear(cin, num_classes, device=device)
+        self.reset_parameters(generator)
+        self.to(memory_format=torch.channels_last)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        for m in self.modules():
+            if isinstance(m, (Conv, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                # flax lecun_normal: a normal truncated at +-2 sigma, scaled
+                # so its variance is 1 / fan_in
+                std = fan_in ** -0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+            elif isinstance(m, (FusedBatchNorm, StockBatchNorm)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        self.head.bias.zero_()
+        for block in self.blocks:
+            block.norms[-1].weight.zero_()
+
+    def forward(self, x):
+        x = x.to(self.dtype, memory_format=torch.channels_last)
+        x = F.relu(self.bn_init(self.conv_init(x)))
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        for block in self.blocks:
+            x = block(x)
+        x = x.mean(dim=(2, 3))
+        return F.linear(x.to(self.dtype), self.head.weight.to(self.dtype),
+                        self.head.bias.to(self.dtype)).float()
+
+
+ResNet18 = functools.partial(ResNet, stage_sizes=[2, 2, 2, 2],
+                             block_cls=ResNetBlock)
+ResNet34 = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3],
+                             block_cls=ResNetBlock)
+ResNet50 = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3],
+                             block_cls=BottleneckBlock)
+ResNet101 = functools.partial(ResNet, stage_sizes=[3, 4, 23, 3],
+                              block_cls=BottleneckBlock)
+ResNet152 = functools.partial(ResNet, stage_sizes=[3, 8, 36, 3],
+                              block_cls=BottleneckBlock)
+ResNet50PBN = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3],
+                                block_cls=BottleneckBlock, norm="pallas")

@@ -2,6 +2,12 @@
 versions. The kernels build at first use (``_build.py``), never at
 import."""
 
+from horovod_tpu_torch.ops.batch_norm import (  # noqa: F401
+    FusedBatchNorm,
+    batch_norm_grad_stats,
+    batch_norm_stats,
+    fused_batch_norm_train,
+)
 from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
     analytic_attention_flops,
     apply_rotary,

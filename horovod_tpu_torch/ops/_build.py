@@ -20,7 +20,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_fwd", "flash_bwd")
+SOURCES = ("flash_fwd", "flash_bwd", "batch_norm")
+# Every library exports this (csrc/hvd_error.cuh): cudaGetErrorString.
+ERROR_SYMBOL = "hvd_error_string"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -39,7 +41,7 @@ def nvcc():
         if c and os.path.isfile(c) and os.access(c, os.X_OK):
             return c
     raise KernelBuildError(
-        "nvcc not found (CUDA_HOME, PATH, /usr/local/cuda/bin): the flash "
+        "nvcc not found (CUDA_HOME, PATH, /usr/local/cuda/bin): the port's "
         "kernels are CUDA C++ and build on a machine with the CUDA toolkit")
 
 
@@ -95,8 +97,9 @@ def library(name):
     if lib is None:
         build((name,))
         lib = ctypes.CDLL(str(library_path(name)))
-        lib.hvd_flash_error_string.argtypes = [ctypes.c_int]
-        lib.hvd_flash_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, ERROR_SYMBOL)
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
 
@@ -104,5 +107,5 @@ def library(name):
 def check(lib, err, what):
     """Raises if a C entry point returned a non-zero cudaError_t."""
     if err != 0:
-        msg = lib.hvd_flash_error_string(err).decode()
+        msg = getattr(lib, ERROR_SYMBOL)(err).decode()
         raise RuntimeError("%s: CUDA error %d (%s)" % (what, err, msg))

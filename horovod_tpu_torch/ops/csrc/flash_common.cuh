@@ -227,6 +227,4 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream,
 
 }  // namespace hvdflash
 
-extern "C" const char* hvd_flash_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+#include "hvd_error.cuh"

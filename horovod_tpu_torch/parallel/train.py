@@ -23,12 +23,14 @@ def make_train_step(model, loss_fn, optimizer, accum_steps=1, device=None):
     Args:
       model: an ``nn.Module`` on ``device``.
       loss_fn: ``loss_fn(model, batch) -> scalar`` over this rank's shard.
+        ``batch`` is a tensor, or a tuple, list or dict of tensors (the JAX
+        step's pytree), every leaf with the shard's rows along dim 0.
       optimizer: a torch optimizer over the model's parameters, or one
         already wrapped in ``DistributedOptimizer`` (it is wrapped here
         otherwise).
-      accum_steps: gradient accumulation. The shard is split into
-        ``accum_steps`` microbatches along dim 0 (which must divide it);
-        their mean gradient takes one reduction and one update.
+      accum_steps: gradient accumulation. Every leaf of the shard is split
+        into ``accum_steps`` microbatches along dim 0 (which must divide
+        its rows); their mean gradient takes one reduction and one update.
       device: where the batch is moved; default the GPU (``"cpu"`` for
         tests).
 
@@ -40,13 +42,16 @@ def make_train_step(model, loss_fn, optimizer, accum_steps=1, device=None):
         optimizer = DistributedOptimizer(optimizer, model.named_parameters())
 
     def step(batch):
-        batch = batch.to(device, non_blocking=True)
-        if batch.shape[0] % accum_steps:
-            raise ValueError("accum_steps=%d must divide the shard's %d rows"
-                             % (accum_steps, batch.shape[0]))
+        batch = _tree_map(lambda t: t.to(device, non_blocking=True), batch)
+        for leaf in _leaves(batch):
+            if leaf.shape[0] % accum_steps:
+                raise ValueError(
+                    "accum_steps=%d must divide the shard's %d rows"
+                    % (accum_steps, leaf.shape[0]))
         optimizer.zero_grad(set_to_none=True)
         total = torch.zeros((), device=device)
-        for micro in batch.chunk(accum_steps):
+        for i in range(accum_steps):
+            micro = _tree_map(lambda t: t.chunk(accum_steps)[i], batch)
             loss = loss_fn(model, micro)
             (loss / accum_steps).backward()
             total += loss.detach().float() / accum_steps
@@ -55,6 +60,21 @@ def make_train_step(model, loss_fn, optimizer, accum_steps=1, device=None):
 
     step.optimizer = optimizer
     return step
+
+
+def _tree_map(fn, tree):
+    """``fn`` over every tensor of a tensor, tuple, list or dict."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree):
+    out = []
+    _tree_map(out.append, tree)
+    return out
 
 
 def cross_entropy_loss(logits, labels):
@@ -68,3 +88,11 @@ def lm_loss(model, tokens):
     one to the left, log-softmax in float32, mean over every position."""
     logits = model(tokens)
     return cross_entropy_loss(logits, torch.roll(tokens, -1, dims=1))
+
+
+def classification_loss(model, batch):
+    """Loss of the image-classification benchmark: the logits of
+    ``batch["x"]`` with the model in training mode (BN on the batch
+    statistics), the mean f32 cross entropy against ``batch["y"]``."""
+    model.train()
+    return cross_entropy_loss(model(batch["x"]), batch["y"])

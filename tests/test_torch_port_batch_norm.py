@@ -1,0 +1,188 @@
+"""The port's BatchNorm (K7 and K8 plain versions, the training-mode
+autograd function, the module, sync BN) against the JAX package's, on the
+CPU. The Pallas kernels run in interpret mode, as tests/test_batch_norm.py
+runs them; inputs are made with numpy from a seed and handed to both."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from horovod_tpu.ops import batch_norm as jbn
+from horovod_tpu_torch.ops import batch_norm as tbn
+
+import torch_port_bn_worker as worker
+
+jax.config.update("jax_default_matmul_precision", "highest")
+
+# f32 sums of a few hundred terms in another order.
+SUM_RTOL, SUM_ATOL = 1e-5, 1e-4
+# The normalize and dx passes: f32 elementwise math in another order.
+BN_TOL = 2e-5
+
+
+def _inputs(M, C, seed, x_bf16=False, dy_bf16=False):
+    """x, dy as (torch, numpy f32 of the same values); bf16 inputs are
+    rounded once in torch, so both packages read the same numbers."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(M, C).astype(np.float32) * 2.0 + 0.5)
+    dy = torch.from_numpy(rng.randn(M, C).astype(np.float32))
+    if x_bf16:
+        x = x.to(torch.bfloat16)
+    if dy_bf16:
+        dy = dy.to(torch.bfloat16)
+    return x, dy
+
+
+def _jnp(t):
+    a = jnp.asarray(t.float().numpy())
+    return a.astype(jnp.bfloat16) if t.dtype == torch.bfloat16 else a
+
+
+@pytest.mark.parametrize("M,C,x_bf16", [
+    (512, 64, False),    # lane-packed on the TPU (4 rows a 128-lane row)
+    (256, 256, False),   # wide
+    (1024, 64, True),    # bf16 read, f32 accumulation
+    (392, 96, True),     # 8 * 49 rows, 64 < C < 128: not packed
+])
+def test_stats_plain_version_matches_jax(M, C, x_bf16):
+    x, _ = _inputs(M, C, 0, x_bf16)
+    s_j, ss_j = jbn.batch_norm_stats(_jnp(x), interpret=True)
+    s, ss = tbn.batch_norm_stats(x)
+    assert s.dtype == ss.dtype == torch.float32
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_j), rtol=SUM_RTOL,
+                               atol=SUM_ATOL)
+    np.testing.assert_allclose(ss.numpy(), np.asarray(ss_j), rtol=SUM_RTOL,
+                               atol=SUM_ATOL)
+
+
+@pytest.mark.parametrize("M,C,x_bf16,dy_bf16", [
+    (512, 64, False, False),
+    (256, 256, False, False),
+    (1024, 64, True, True),
+    (512, 128, True, False),     # f32 dy with bf16 x
+])
+def test_grad_stats_plain_version_matches_jax(M, C, x_bf16, dy_bf16):
+    x, dy = _inputs(M, C, 1, x_bf16, dy_bf16)
+    xf = x.float()
+    mean = xf.mean(0)
+    rstd = torch.rsqrt(xf.var(0, unbiased=False) + 1e-5)
+    db_j, dg_j = jbn.batch_norm_grad_stats(
+        _jnp(dy), _jnp(x), jnp.asarray(mean.numpy()),
+        jnp.asarray(rstd.numpy()), interpret=True)
+    db, dg = tbn.batch_norm_grad_stats(dy, x, mean, rstd)
+    np.testing.assert_allclose(db.numpy(), np.asarray(db_j), rtol=SUM_RTOL,
+                               atol=SUM_ATOL)
+    np.testing.assert_allclose(dg.numpy(), np.asarray(dg_j), rtol=SUM_RTOL,
+                               atol=SUM_ATOL)
+
+
+@pytest.mark.parametrize("M,C", [(512, 128), (392, 64)])
+def test_fused_batch_norm_train_forward_and_vjp_match_jax(M, C):
+    """(y, mean, var) and the VJP (dx, dgamma, dbeta) under nonzero
+    cotangents of y, mean and var, against the JAX custom_vjp."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(M, C).astype(np.float32) * 2.0 + 0.5
+    gamma = rng.rand(C).astype(np.float32) + 0.5
+    beta = rng.randn(C).astype(np.float32)
+    gy = rng.randn(M, C).astype(np.float32)
+    gm = rng.randn(C).astype(np.float32)
+    gv = rng.randn(C).astype(np.float32)
+
+    def f(x, gamma, beta):
+        return jbn.fused_batch_norm_train(x, gamma, beta, 1e-5, True)
+
+    outs_j, vjp = jax.vjp(f, *map(jnp.asarray, (x, gamma, beta)))
+    grads_j = vjp(tuple(map(jnp.asarray, (gy, gm, gv))))
+
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, gamma, beta)]
+    outs = tbn.fused_batch_norm_train(*leaves, 1e-5)
+    grads = torch.autograd.grad(outs, leaves, [torch.from_numpy(a)
+                                               for a in (gy, gm, gv)])
+    for name, a, b in zip(("y", "mean", "var", "dx", "dgamma", "dbeta"),
+                          list(outs) + list(grads),
+                          list(outs_j) + list(grads_j)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=BN_TOL, atol=BN_TOL, err_msg=name)
+
+
+def test_fused_batch_norm_module_matches_pallas_batch_norm():
+    """Two training steps update the running statistics as flax does
+    (ra = 0.9 ra + 0.1 batch, biased variance), then eval mode uses
+    them; against PallasBatchNorm(interpret=True). The port's module takes
+    [N, C, H, W] channels_last; the flax one [N, H, W, C]."""
+    rng = np.random.RandomState(4)
+    xs = [rng.randn(4, 8, 8, 32).astype(np.float32) * 1.5 + 0.3
+          for _ in range(2)]
+    ours = jbn.PallasBatchNorm(use_running_average=False, momentum=0.9,
+                               epsilon=1e-5, interpret=True)
+    variables = ours.init(jax.random.PRNGKey(0), jnp.asarray(xs[0]))
+    scale = rng.rand(32).astype(np.float32) + 0.5
+    bias = rng.randn(32).astype(np.float32)
+    variables = {"params": {"scale": jnp.asarray(scale),
+                            "bias": jnp.asarray(bias)},
+                 "batch_stats": variables["batch_stats"]}
+
+    bn = tbn.FusedBatchNorm(32, eps=1e-5, momentum=0.9, device="cpu")
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(scale))
+        bn.bias.copy_(torch.from_numpy(bias))
+
+    def nchw(a):
+        return torch.from_numpy(a).permute(0, 3, 1, 2)
+
+    for x in xs:
+        y_j, upd = ours.apply(variables, jnp.asarray(x),
+                              mutable=["batch_stats"])
+        variables = {"params": variables["params"], **upd}
+        y = bn(nchw(x))
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        np.testing.assert_allclose(y.detach().permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(y_j), rtol=BN_TOL, atol=BN_TOL)
+        for ours_k, flax_k in (("running_mean", "mean"),
+                               ("running_var", "var")):
+            np.testing.assert_allclose(
+                getattr(bn, ours_k).numpy(),
+                np.asarray(variables["batch_stats"][flax_k]), rtol=1e-6,
+                atol=1e-6, err_msg=ours_k)
+
+    ours_e = jbn.PallasBatchNorm(use_running_average=True, epsilon=1e-5)
+    bn.eval()
+    before = tbn.launch_counts()
+    y_e = bn(nchw(xs[0]))
+    assert tbn.launch_counts() == before
+    np.testing.assert_allclose(
+        y_e.detach().permute(0, 2, 3, 1).numpy(),
+        np.asarray(ours_e.apply(variables, jnp.asarray(xs[0]))), rtol=BN_TOL,
+        atol=BN_TOL)
+
+
+def test_module_refuses_what_it_does_not_take():
+    bn = tbn.FusedBatchNorm(4, device="cpu")
+    with pytest.raises(ValueError, match="channels-last"):
+        bn(torch.zeros(2, 4, 3, 3))  # contiguous NCHW, not channels_last
+    with pytest.raises(NotImplementedError, match="A3"):
+        tbn.FusedBatchNorm(4, virtual_batch_size=2, device="cpu")
+
+
+def test_sync_bn_on_two_gloo_ranks_equals_global_batch_bn(tmp_path):
+    """Each of 2 ranks holds half the rows; with group= the statistics,
+    y and dx equal BN over the whole batch, and the ranks' local dgamma
+    and dbeta sum to the global ones (the gradient allreduce's job)."""
+    outs = worker.spawn(worker.run_bn, tmp_path)
+    x, gamma, beta, gy = worker.bn_inputs()
+    leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    y, mean, var = tbn.fused_batch_norm_train(*leaves, 1e-5)
+    dx, dgamma, dbeta = torch.autograd.grad(y, leaves, gy)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for out in outs:
+        torch.testing.assert_close(out["mean"], mean, **tol)
+        torch.testing.assert_close(out["var"], var, **tol)
+    torch.testing.assert_close(torch.cat([o["y"] for o in outs]),
+                               y.detach(), **tol)
+    torch.testing.assert_close(torch.cat([o["dx"] for o in outs]), dx,
+                               **tol)
+    torch.testing.assert_close(sum(o["dgamma"] for o in outs), dgamma, **tol)
+    torch.testing.assert_close(sum(o["dbeta"] for o in outs), dbeta, **tol)

@@ -1,12 +1,14 @@
-"""The port's flash kernels against their plain versions on a GPU.
+"""The port's kernels against their plain versions on a GPU.
 
 Marked ``cuda``: they need a card and nvcc, and skip without them. They
 import no JAX, so they also run where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-chip_smoke.py covers the training shape; these cover the other head
-dims, float32 inputs, GQA, MQA and ragged lengths at small sizes.
+chip_smoke.py covers the training shapes; these cover, for the flash
+kernels, the other head dims, float32 inputs, GQA, MQA and ragged lengths
+at small sizes, and for the BN statistics kernels ragged M and C, both
+dtypes, mixed dy and x, layouts they refuse, and run-to-run determinism.
 """
 
 import sys
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 import horovod_tpu_torch.ops.flash_attention  # noqa: F401
+from horovod_tpu_torch.ops import batch_norm as bn
 
 fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
 
@@ -25,6 +28,10 @@ pytestmark = pytest.mark.cuda
 # ||kernel - plain||_2 / ||plain||_2 is a few 1e-3; lse stays f32 through.
 REL_TOL = 1e-2
 LSE_TOL = 1e-3
+# The BN statistics kernels and their plain versions both sum the same f32
+# values, in another order: ||kernel - plain||_2 / ||plain||_2 of each
+# output row is about 1e-7 to 1e-6 (chip_smoke.py uses the same limit).
+BN_TOL = 1e-4
 
 
 @pytest.fixture
@@ -116,3 +123,94 @@ def test_bad_layouts_raise_before_launch(cuda):
     h = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_fwd(h, h, h, 0.125, True)
+
+
+def _bn_inputs(cuda, M, C, x_dtype, dy_dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(M, C, generator=g, device=cuda) * 2.0 + 0.5).to(x_dtype)
+    dy = torch.randn(M, C, generator=g, device=cuda).to(dy_dtype)
+    mean = x.float().mean(0)
+    rstd = torch.rsqrt(x.float().var(0, unbiased=False) + 1e-5)
+    return x, dy, mean, rstd
+
+
+def _rows_rel(out, ref):
+    """The worse of the two output rows' ||kernel - plain|| / ||plain||."""
+    return max(_rel(a, b) for a, b in zip(out, ref))
+
+
+@pytest.mark.parametrize("M,C,x_dtype,dy_dtype", [
+    (1, 1, torch.float32, torch.float32),
+    (1, 2048, torch.bfloat16, torch.bfloat16),
+    (7, 3, torch.bfloat16, torch.bfloat16),
+    (7, 72, torch.float32, torch.float32),
+    (7, 2048, torch.bfloat16, torch.float32),      # f32 dy, bf16 x
+    (1_000_003, 1, torch.bfloat16, torch.bfloat16),
+    (1_000_003, 3, torch.float32, torch.float32),
+    (1_000_003, 72, torch.bfloat16, torch.float32),
+    (4099, 2048, torch.bfloat16, torch.bfloat16),
+    (4099, 2056, torch.float32, torch.bfloat16),   # two column tiles
+])
+def test_bn_kernels_match_plain_versions(cuda, M, C, x_dtype, dy_dtype):
+    x, dy, mean, rstd = _bn_inputs(cuda, M, C, x_dtype, dy_dtype)
+    before = bn.launch_counts()
+    stats = bn.batch_norm_stats(x)
+    grads = bn.batch_norm_grad_stats(dy, x, mean, rstd)
+    torch.cuda.synchronize()
+    assert bn.launch_counts() == {k: v + 1 for k, v in before.items()}
+    for out in stats + grads:
+        assert out.shape == (C,) and out.dtype == torch.float32
+    assert _rows_rel(stats, bn.batch_norm_stats_ref(x)) <= BN_TOL
+    assert _rows_rel(grads, bn.batch_norm_grad_stats_ref(
+        dy, x, mean, rstd)) <= BN_TOL
+
+
+def test_bn_kernels_are_deterministic(cuda):
+    """No float atomics: two runs on the same input agree bit for bit."""
+    x, dy, mean, rstd = _bn_inputs(cuda, 300_007, 256, torch.bfloat16,
+                                   torch.bfloat16, seed=1)
+    for fn, args in ((bn.batch_norm_stats, (x,)),
+                     (bn.batch_norm_grad_stats, (dy, x, mean, rstd))):
+        a, b = fn(*args), fn(*args)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_bn_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(64, 16, device=cuda)[:, :8]  # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        bn.batch_norm_stats(x)
+    y = torch.zeros(64, 8, device=cuda)
+    m = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        bn.batch_norm_grad_stats(x, y, m, m)
+    with pytest.raises(TypeError):
+        bn.batch_norm_stats(y.half())
+    with pytest.raises(ValueError, match="non-empty"):
+        bn.batch_norm_stats(y[:0])
+    with pytest.raises(ValueError, match="channels-last"):
+        bn.FusedBatchNorm(8, device=cuda)(torch.zeros(2, 8, 3, 3,
+                                                      device=cuda))
+
+
+def test_fused_batch_norm_on_the_gpu(cuda):
+    """The module's forward and backward through K7 and K8 on a bf16
+    channels_last activation, against the plain path on the CPU in f32 on
+    the same values: the gap is the bf16 rounding of y and dx."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = (torch.randn(4, 72, 9, 7, generator=g, device=cuda) * 2 + 0.5).to(
+        torch.bfloat16).to(memory_format=torch.channels_last)
+    gy = torch.randn(x.shape, generator=g, device=cuda).to(torch.bfloat16)
+    outs = []
+    for dev, xin, gin in (("cuda", x, gy), ("cpu", x.float().cpu(),
+                                             gy.float().cpu())):
+        mod = bn.FusedBatchNorm(72, device=dev)
+        with torch.no_grad():
+            mod.weight.copy_(torch.linspace(0.5, 1.5, 72))
+        xin = xin.detach().requires_grad_()
+        y = mod(xin)
+        grads = torch.autograd.grad(y, (xin, mod.weight, mod.bias), gin)
+        outs.append([t.float().cpu() for t in (y, *grads, mod.running_mean,
+                                               mod.running_var)])
+    for name, a, b in zip(("y", "dx", "dgamma", "dbeta", "running_mean",
+                           "running_var"), *outs):
+        assert _rel(a, b) <= REL_TOL, (name, _rel(a, b))

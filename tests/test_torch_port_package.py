@@ -4,6 +4,7 @@ and its entry points refuse to fall back to the CPU quietly."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -22,6 +23,8 @@ PACKAGE_FILES = sorted(p for p in (ROOT / "horovod_tpu_torch").rglob("*.py")
 PORT_FILES = PACKAGE_FILES + [
     ROOT / "chip_smoke.py",
     ROOT / "tests" / "torch_port_dp_worker.py",
+    ROOT / "tests" / "torch_port_bn_worker.py",
+    ROOT / "tests" / "torch_port_planted_faults.py",
     ROOT / "tests" / "test_torch_port_cuda.py",
 ]
 
@@ -87,17 +90,40 @@ def test_missing_nvcc_is_a_named_error(monkeypatch, tmp_path):
 def test_library_name_follows_the_sources():
     """An edited source gets a new library name, so a stale build is never
     loaded."""
-    a, b = (_build.library_path(s) for s in _build.SOURCES)
-    assert a != b and a.parent == _build.BUILD_DIR
+    paths = [_build.library_path(s) for s in _build.SOURCES]
+    assert len(set(paths)) == len(paths)
+    a = paths[0]
+    assert a.parent == _build.BUILD_DIR
     assert a.name.startswith("libflash_fwd.") and a.suffix == ".so"
+
+
+@pytest.mark.parametrize("source", _build.SOURCES)
+def test_every_source_exports_the_shared_error_symbol(source):
+    """_build.library() binds one error-string symbol in every library: each
+    source reaches csrc/hvd_error.cuh, which defines it, and no source
+    defines a kernel-named one of its own."""
+    header = (_build.CSRC / "hvd_error.cuh").read_text()
+    assert 'extern "C" const char* %s(' % _build.ERROR_SYMBOL in header
+    texts = [(_build.CSRC / (source + ".cu")).read_text()]
+    for inc in re.findall(r'#include "([^"]+)"', texts[0]):
+        texts.append((_build.CSRC / inc).read_text())
+    assert any('#include "hvd_error.cuh"' in t for t in texts)
+    assert not any(re.search(r"_error_string\(", t.replace(
+        _build.ERROR_SYMBOL + "(", "")) for t in texts)
 
 
 def test_entry_points_without_a_gpu_raise_the_named_error():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU")
+    from horovod_tpu_torch.models import ResNet50PBN
+    from horovod_tpu_torch.ops import FusedBatchNorm
     from horovod_tpu_torch.parallel import lm_loss, make_train_step
     with pytest.raises(hvd.CudaUnavailableError):
         hvd.init()
+    with pytest.raises(hvd.CudaUnavailableError):
+        ResNet50PBN(num_classes=1000)
+    with pytest.raises(hvd.CudaUnavailableError):
+        FusedBatchNorm(64)
     assert not hvd.is_initialized()
     model = torch.nn.Linear(2, 2)
     with pytest.raises(hvd.CudaUnavailableError):

@@ -106,6 +106,39 @@ def test_accumulation_matches_one_pass(one_rank):
             model.parameters(), lr=0.5), accum_steps=3, device="cpu")(x)
 
 
+@pytest.mark.parametrize("kind", ["dict", "tuple"])
+def test_pytree_batches_split_every_leaf(one_rank, kind):
+    """A dict or tuple batch, as the JAX step takes a pytree: every leaf is
+    moved, split along dim 0 for accum_steps, and checked to divide."""
+    seen = []
+
+    def loss_fn(model, batch):
+        x, y = (batch["x"], batch["y"]) if kind == "dict" else batch
+        seen.append((x.shape[0], y.shape[0]))
+        return cross_entropy_loss(model(x), y)
+
+    g = torch.Generator().manual_seed(3)
+    x, y = torch.randn(6, 4, generator=g), torch.randint(0, 3, (6,),
+                                                         generator=g)
+    results = []
+    for accum in (1, 2):
+        model = torch.nn.Linear(4, 3)
+        with torch.no_grad():
+            model.weight.copy_(torch.arange(12.0).view(3, 4) / 10)
+            model.bias.zero_()
+        step = make_train_step(model, loss_fn,
+                               torch.optim.SGD(model.parameters(), lr=0.5),
+                               accum_steps=accum, device="cpu")
+        batch = {"x": x, "y": y} if kind == "dict" else (x, y)
+        results.append((step(batch).item(), model.weight.detach().clone()))
+    assert seen == [(6, 6), (3, 3), (3, 3)]
+    assert abs(results[0][0] - results[1][0]) <= 1e-6
+    torch.testing.assert_close(results[0][1], results[1][1])
+    bad = {"x": x, "y": y[:5]} if kind == "dict" else (x, y[:5])
+    with pytest.raises(ValueError, match="5 rows"):
+        step(bad)
+
+
 def test_cross_entropy_loss_matches_jax():
     from horovod_tpu.parallel.train import cross_entropy_loss as jax_xent
     rng = np.random.RandomState(4)

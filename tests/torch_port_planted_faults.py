@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Mutation check of chip_smoke.py's kernel and gradient checks (one GPU).
 
-    python3 tests/torch_port_planted_faults.py
+    python3 tests/torch_port_planted_faults.py [fault ...]   # default: all
 
 For each planted fault below, copies ``chip_smoke.py`` and
 ``horovod_tpu_torch/`` into ``horovod_tpu_torch/ops/_build/planted_<fault>/``
 (git-ignored), plants the fault in the copy's CUDA source, and runs
-``chip_smoke.py --only kernels`` and ``--only train`` there. Both runs must
-fail. Prints the readings each run logged (errors against the plain
-versions, the gradient gap) and exits 1 if a planted fault passed a check.
+``chip_smoke.py --only <phase>`` there for the kernel phase and the model
+phase that the faulty kernel is on (kernels and train for the flash
+kernels, bn_kernels and resnet for the BN kernels). Every run must fail.
+Prints the readings each run logged (errors against the plain versions,
+the gradient gaps, the first losses) and exits 1 if a planted fault passed
+a check.
 """
 
 import shutil
@@ -18,22 +21,38 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# fault -> (source, the line after which it goes, the line planted)
+FLASH_PHASES = ("kernels", "train")
+BN_PHASES = ("bn_kernels", "resnet")
+BN_ROW_LOOP = ("    for (long long r = r_begin + ty; r < r_end; "
+               "r += sh.ty) {\n")
+# fault -> (source, the line after which it goes, the line planted, the
+# chip_smoke.py phases that must fail)
 FAULTS = {
     # K1 skips key tile 1 for the q tiles from row 1024 on
     "fwd_skip_tile": (
         "flash_fwd.cu", "    const bf16* cV = sV + (j & 1) * kTile;\n",
-        "    if (m0 >= 1024 && j == 1) { __syncthreads(); continue; }\n"),
+        "    if (m0 >= 1024 && j == 1) { __syncthreads(); continue; }\n",
+        FLASH_PHASES),
     # K3 skips q tile 1 for the key tiles from row 1024 on
     "dkv_skip_tile": (
         "flash_bwd.cu",
         "    const float* cDelta = sDelta + (j & 1) * kBlockN;\n",
-        "    if (n0 >= 1024 && j == 1) { __syncthreads(); continue; }\n"),
+        "    if (n0 >= 1024 && j == 1) { __syncthreads(); continue; }\n",
+        FLASH_PHASES),
+    # K8 skips the last chunk of rows (the last row split's block)
+    "bn_grad_skip_rows": (
+        "batch_norm.cu", BN_ROW_LOOP,
+        "      if (GRAD && gridDim.x > 1 && blockIdx.x + 1 == gridDim.x) "
+        "break;\n", BN_PHASES),
+    # K7 drops the last tile of channels (the last VEC channels)
+    "bn_stats_drop_channels": (
+        "batch_norm.cu", BN_ROW_LOOP,
+        "      if (!GRAD && c0 + VEC >= C) break;\n", BN_PHASES),
 }
 
 
 def planted_copy(fault):
-    source, anchor, line = FAULTS[fault]
+    source, anchor, line, _ = FAULTS[fault]
     dst = ROOT / "horovod_tpu_torch" / "ops" / "_build" / ("planted_" + fault)
     shutil.rmtree(dst, ignore_errors=True)
     dst.mkdir(parents=True)
@@ -50,15 +69,20 @@ def planted_copy(fault):
 
 
 def main():
+    faults = sys.argv[1:] or list(FAULTS)
+    unknown = [f for f in faults if f not in FAULTS]
+    if unknown:
+        raise SystemExit("unknown faults %s; known: %s"
+                         % (unknown, ", ".join(FAULTS)))
     missed = []
-    for fault in FAULTS:
+    for fault in faults:
         dst = planted_copy(fault)
-        for phase in ("kernels", "train"):
+        for phase in FAULTS[fault][3]:
             run = subprocess.run(
                 [sys.executable, "chip_smoke.py", "--only", phase], cwd=dst,
-                capture_output=True, text=True, timeout=600)
+                capture_output=True, text=True, timeout=900)
             for line in run.stderr.splitlines():
-                if "err" in line or "gap" in line or "FAIL" in line:
+                if any(k in line for k in ("err", "gap", "FAIL", "loss ")):
                     print("%s %s: %s" % (fault, phase, line))
             print("%s %s: exit %d" % (fault, phase, run.returncode),
                   flush=True)
