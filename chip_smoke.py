@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (horovod_tpu_torch) on one GPU.
 
     python3 chip_smoke.py              # every phase, one card
-    python3 chip_smoke.py --only kernels   # or train, bn_kernels, resnet
+    python3 chip_smoke.py --only kernels   # or train, bn_kernels, resnet,
+                                           # ring_kernels, sp
 
 Phases, in order; any failure exits non-zero:
 
@@ -48,6 +49,33 @@ Phases, in order; any failure exits non-zero:
    ||g_stock||_2 <= 5e-2).
    Checks finite and falling losses and 53 launches of K7 and of K8 per
    step.
+7. ring_kernels: the ring-attention step kernels K4 (forward step with
+   carried state), K5 (ring dQ) and K6 (ring dK/dV) through a whole 4-rank
+   ring inside this process, every virtual rank with its own offsets and
+   carried state, and each k/v shard's dK/dV accumulators carried across
+   the ranks that see it: bf16, causal, B=2, H=12, D=64, global L=8192
+   (shards of 2048), zigzag and contiguous; GQA H=4, G=2 with ragged
+   shards of 160, contiguous, causal and not; and the sp phase's own
+   launches, one rank holding the whole 8192 as the zigzag chunks at
+   (0, 4096). Every launch is held against
+   its plain version on the same inputs (o, l, and the increments of dQ,
+   dK, dV: norm-relative <= 1e-2; m: <= 1e-3), and the assembled out, lse,
+   dQ, dK, dV (natural order) against plain full attention and against
+   K1-K3 over the whole sequence, with the same limits. Times one
+   off-diagonal and one diagonal step of each kernel at [2, 12, 2048, 64],
+   and PyTorch's scaled_dot_product_attention forward and backward on the
+   same block (the nearest yardstick, not the same function: it carries
+   no state).
+8. sp: ``hvd.init()``, ``hybrid_mesh((1,), ("sp",))``, the GPT-2-small LM
+   of the train phase with ``attention="ring"``, ``sp_axis="sp"``,
+   ``sp_schedule="zigzag"``; a dict batch {tokens, positions, labels} of
+   2 x 8192 tokens (labels shifted in natural order, then
+   ``zigzag_shard``), ``shard_lm_loss``, Adam(1e-4) in
+   ``DistributedOptimizer`` and ``make_train_step``; 2 warm-up and 5 timed
+   steps. Before the steps, the same weights through ``attention="flash"``:
+   the first loss (relative gap <= 2e-2) and every parameter's gradient at
+   1 x 8192 (worst gap <= 5e-2). Checks finite and falling losses, 12
+   launches each of K4, K5 and K6 per step and none of K1-K3.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -115,9 +143,31 @@ KERNELS = {
                          "horovod_tpu/ops/batch_norm.py:100", 3),
     "batch_norm_grad_stats": ("horovod_tpu_torch/ops/csrc/batch_norm.cu",
                               "horovod_tpu/ops/batch_norm.py:133", 5),
+    "flash_ring_step": ("horovod_tpu_torch/ops/csrc/flash_ring.cu",
+                        "horovod_tpu/ops/flash_attention.py:431", 2),
+    "flash_ring_bwd_dq": ("horovod_tpu_torch/ops/csrc/flash_ring.cu",
+                          "horovod_tpu/ops/flash_attention.py:620", 3),
+    "flash_ring_bwd_dkv": ("horovod_tpu_torch/ops/csrc/flash_ring.cu",
+                           "horovod_tpu/ops/flash_attention.py:673", 4),
 }
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 BN = ("batch_norm_stats", "batch_norm_grad_stats")
+RING = ("flash_ring_step", "flash_ring_bwd_dq", "flash_ring_bwd_dkv")
+# The ring: n virtual ranks over a global sequence of L (shards of L / n).
+RING_SHAPE = dict(B=2, H=12, G=12, L=8192, D=64, n=4)
+# The sp phase's own launches: one rank, its zigzag shard the whole sequence
+# as two chunks at offsets (0, 4096).
+RING_SP = dict(RING_SHAPE, n=1)
+RING_ODD = dict(B=1, H=4, G=2, L=640, D=64, n=4)
+# (label, shape, schedule, causal) of the ring_kernels phase
+RING_RUNS = (("main", RING_SHAPE, "zigzag", True),
+             ("main", RING_SHAPE, "contiguous", True),
+             ("odd", RING_ODD, "contiguous", True),
+             ("odd", RING_ODD, "contiguous", False),
+             ("sp", RING_SP, "zigzag", True))
+# The sequence-parallel LM: 2 sequences of 8192 tokens a step; the gradient
+# check against the flash model on the first of them.
+SP_BATCH, SP_GRAD_BATCH = (2, 8192), 1
 
 
 def log(*args):
@@ -498,8 +548,8 @@ def phase_train(profile_dir=None):
         fail("non-finite loss: %s" % losses)
     if not losses[-1] < losses[0]:
         fail("loss did not fall: %s" % losses)
-    per_step = cfg.num_layers
     for name, n in counts.items():
+        per_step = cfg.num_layers if name in FLASH else 0
         if n != per_step * steps:
             fail("%s launched %d times in %d steps, expected %d per step"
                  % (name, n, steps, per_step))
@@ -527,7 +577,7 @@ def phase_train(profile_dir=None):
     if profile_dir:
         profile_steps(step, tokens, profile_dir, "lm")
     hvd.shutdown()
-    return counts
+    return {name: counts[name] for name in FLASH}
 
 
 def phase_resnet(profile_dir=None):
@@ -641,6 +691,401 @@ def phase_resnet(profile_dir=None):
     return {name: counts[name] for name in BN}
 
 
+def _m_err(a, b):
+    """max |a - b| of two running maxima or lse rows; the -inf entries (rows
+    that saw no key) must be the same in both, else inf."""
+    import torch
+    if not torch.equal(torch.isneginf(a), torch.isneginf(b)):
+        return float("inf")
+    fin = ~torch.isneginf(b)
+    return (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0
+
+
+def _by_row(ref, tensors, *rest):
+    """``ref(*tensors, *rest)`` one batch row of ``tensors`` at a time, the
+    outputs joined again: at one rank and L = 8192 the f32 scores of one
+    row are 3.2 GB."""
+    import torch
+    parts = [ref(*(t[b:b + 1] for t in tensors), *rest)
+             for b in range(tensors[0].shape[0])]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p, dim=0) for p in zip(*parts))
+    return torch.cat(parts, dim=0)
+
+
+def run_ring(shape, schedule, causal, seed):
+    """A whole ring of ``shape["n"]`` virtual ranks through K4-K6 in this
+    process: each rank with its own offsets and carried state, each k/v
+    shard's dK/dV accumulators carried across the ranks that see it, in the
+    order of the real ring. Returns (per-launch errors {kernel: {key:
+    worst}}, errors of the assembled results {key: value}): every launch
+    against its plain version on the same inputs, the assembled out, lse,
+    dQ, dK, dV (natural order) against plain full attention in f32 and
+    against K1-K3 over the whole sequence."""
+    import torch
+    import horovod_tpu_torch.ops.flash_attention  # noqa: F401
+    from horovod_tpu_torch.parallel.ring import (_schedule_offsets,
+                                                 _step_runs, zigzag_shard,
+                                                 zigzag_unshard)
+    fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
+    n, L, D = shape["n"], shape["L"], shape["D"]
+    Ls, scale = L // n, D ** -0.5
+    q, k, v, dout = _inputs(shape, seed)  # global, natural order
+    zig = schedule == "zigzag"
+
+    def unlay(parts):
+        x = torch.cat(parts, dim=2)
+        return zigzag_unshard(x, n, axis=2) if zig else x
+
+    qs, ks, vs, dos = (torch.chunk(zigzag_shard(x, n, axis=2) if zig else x,
+                                   n, dim=2) for x in (q, k, v, dout))
+
+    def off(r):
+        return _schedule_offsets(schedule, r, n, Ls)
+
+    def runs(src, r):
+        return _step_runs(causal, schedule, src, r, Ls, Ls)
+
+    errs = {name: {} for name in RING}
+
+    def note(name, key, pair):
+        mx, rel = _err(*pair)
+        got = errs[name]
+        got["max_abs_err"] = max(got.get("max_abs_err", 0.0), mx)
+        got[key] = max(got.get(key, 0.0), rel)
+
+    outs, lses = [], []
+    for r in range(n):
+        o = torch.zeros(qs[r].shape, device=q.device)
+        m = torch.full(qs[r].shape[:3], float("-inf"), device=q.device)
+        l = torch.zeros(qs[r].shape[:3], device=q.device)
+        for i in range(n):
+            src = (r - i) % n
+            if not runs(src, r):
+                continue
+            args = (qs[r], ks[src], vs[src])
+            ref = _by_row(fa.flash_ring_step_ref, (*args, o, m, l), off(r),
+                          off(src), scale, causal)
+            fa.flash_ring_step(*args, o, m, l, off(r), off(src), scale,
+                               causal)
+            torch.cuda.synchronize()
+            note("flash_ring_step", "o_rel_l2_err", (o, ref[0]))
+            note("flash_ring_step", "l_rel_l2_err", (l, ref[2]))
+            e = errs["flash_ring_step"]
+            e["m_abs_err"] = max(e.get("m_abs_err", 0.0), _m_err(m, ref[1]))
+            del ref
+        l1 = torch.where(l == 0.0, 1.0, l)
+        outs.append((o / l1[..., None]).to(q.dtype))
+        lses.append(m + torch.log(l1))
+        del o, m, l
+
+    deltas = [fa._delta(outs[r], dos[r]) for r in range(n)]
+    dq = [torch.zeros(x.shape, device=q.device) for x in qs]
+    dk = [torch.zeros(x.shape, device=q.device) for x in ks]
+    dv = [torch.zeros(x.shape, device=q.device) for x in vs]
+    for i in range(n):
+        for r in range(n):
+            src = (r - i) % n
+            if not runs(src, r):
+                continue
+            args = (qs[r], ks[src], vs[src], dos[r], lses[r], deltas[r])
+            offs = (off(r), off(src), scale, causal)
+            before = [t.clone() for t in (dq[r], dk[src], dv[src])]
+            ref_dq = _by_row(fa.flash_ring_bwd_dq_ref, (*args, dq[r]), *offs)
+            ref_dk, ref_dv = _by_row(fa.flash_ring_bwd_dkv_ref,
+                                     (*args, dk[src], dv[src]), *offs)
+            fa.flash_ring_bwd_dq(*args, dq[r], *offs)
+            fa.flash_ring_bwd_dkv(*args, dk[src], dv[src], *offs)
+            torch.cuda.synchronize()
+            # what this launch added, against what the plain version added
+            note("flash_ring_bwd_dq", "dq_rel_l2_err",
+                 (dq[r] - before[0], ref_dq - before[0]))
+            note("flash_ring_bwd_dkv", "dk_rel_l2_err",
+                 (dk[src] - before[1], ref_dk - before[1]))
+            note("flash_ring_bwd_dkv", "dv_rel_l2_err",
+                 (dv[src] - before[2], ref_dv - before[2]))
+            del before, ref_dq, ref_dk, ref_dv
+
+    got = dict(out=unlay(outs), lse=unlay(lses), dq=unlay(dq), dk=unlay(dk),
+               dv=unlay(dv))
+    del outs, lses, dq, dk, dv, deltas
+    # Plain full attention in f32, one sequence at a time (at L = 8192 the
+    # scores of one sequence are 3.2 GB).
+    plain = {key: [] for key in got}
+    for b in range(shape["B"]):
+        f32 = [t[b:b + 1].float() for t in (q, k, v, dout)]
+        out_p, lse_p = fa.flash_forward_ref(*f32[:3], scale, causal)
+        delta_p = fa._delta(out_p, f32[3])
+        dk_p, dv_p = fa.flash_bwd_dkv_ref(*f32, lse_p, delta_p, scale, causal)
+        dq_p = fa.flash_bwd_dq_ref(*f32, lse_p, delta_p, scale, causal)
+        for key, t in zip(("out", "lse", "dq", "dk", "dv"),
+                          (out_p, lse_p, dq_p, dk_p, dv_p)):
+            plain[key].append(t)
+        del f32, out_p, lse_p, delta_p, dk_p, dv_p, dq_p
+        torch.cuda.empty_cache()
+    plain = {key: torch.cat(t, dim=0) for key, t in plain.items()}
+    out_k, lse_k = fa.flash_fwd(q, k, v, scale, causal)
+    delta_k = fa._delta(out_k, dout)
+    dq_k = fa.flash_bwd_dq(q, k, v, dout, lse_k, delta_k, scale, causal)
+    dk_k, dv_k = fa.flash_bwd_dkv(q, k, v, dout, lse_k, delta_k, scale,
+                                  causal)
+    torch.cuda.synchronize()
+    flash = dict(out=out_k, lse=lse_k, dq=dq_k, dk=dk_k, dv=dv_k)
+    assembled = {}
+    for label, ref in (("plain", plain), ("k1_k3", flash)):
+        for key in got:
+            if key == "lse":
+                assembled["%s_lse_abs_err" % label] = _m_err(got[key],
+                                                            ref[key])
+            else:
+                assembled["%s_%s_rel_l2_err" % (label, key)] = _err(
+                    got[key], ref[key])[1]
+    return errs, assembled
+
+
+def _ring_bound_ms(name, shape, diagonal):
+    """Least time of one ring step at ``shape`` (Lq = Lk = L): the
+    products over the bf16 peak (causal diagonal: the pairs it needs), or
+    its bytes over the HBM rate (bf16 q, k, v, dO read once; f32 rows and
+    state or accumulators read and written once)."""
+    B, H, G, L, D = (shape[k] for k in "BHGLD")
+    pairs = L * (L + 1) / 2 if diagonal else L * L
+    t_ops = KERNELS[name][2] * 2.0 * B * H * pairs * D / PEAK_BF16_FLOPS
+    act, kv = B * H * L * D * 2, B * G * L * D * 2
+    rows, q_f32, kv_f32 = B * H * L * 4, B * H * L * D * 4, B * G * L * D * 4
+    n_bytes = {"flash_ring_step": act + 2 * kv + 2 * q_f32 + 4 * rows,
+               "flash_ring_bwd_dq": 2 * act + 2 * kv + 2 * rows + 2 * q_f32,
+               "flash_ring_bwd_dkv": (2 * act + 2 * kv + 2 * rows
+                                      + 4 * kv_f32)}[name]
+    t_bytes = n_bytes / PEAK_BYTES
+    return ((t_ops * 1e3, "operations") if t_ops >= t_bytes
+            else (t_bytes * 1e3, "bytes"))
+
+
+def ring_timings(seed):
+    """K4-K6 timed at one ring step of the main shape, [2, 12, 2048, 64]:
+    an off-diagonal step (every tile visible) and the diagonal step (causal,
+    half the tiles); their plain versions at the off-diagonal step; SDPA
+    forward and backward on the same block, non-causal."""
+    import torch
+    fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
+    shape = dict(RING_SHAPE, L=RING_SHAPE["L"] // RING_SHAPE["n"],
+                 causal=False)
+    Ls, scale = shape["L"], shape["D"] ** -0.5
+    q, k, v, dout = _inputs(shape, seed)
+    o, m, l = fa.flash_ring_step_ref(
+        q, k, v, torch.zeros(q.shape, device=q.device),
+        torch.full(q.shape[:3], float("-inf"), device=q.device),
+        torch.zeros(q.shape[:3], device=q.device), (0,), (0,), scale, False)
+    lse = m + torch.log(l)
+    delta = fa._delta((o / l[..., None]).to(q.dtype), dout)
+    dq = torch.zeros(q.shape, device=q.device)
+    dk, dv = (torch.zeros(k.shape, device=q.device) for _ in range(2))
+    steps = {"": ((Ls,), (0,)), "diag_": ((0,), (0,))}
+    rows = {name: {} for name in RING}
+    for label, (qo, ko) in steps.items():
+        runs = {
+            "flash_ring_step": lambda: fa.flash_ring_step(
+                q, k, v, o, m, l, qo, ko, scale, True),
+            "flash_ring_bwd_dq": lambda: fa.flash_ring_bwd_dq(
+                q, k, v, dout, lse, delta, dq, qo, ko, scale, True),
+            "flash_ring_bwd_dkv": lambda: fa.flash_ring_bwd_dkv(
+                q, k, v, dout, lse, delta, dk, dv, qo, ko, scale, True),
+        }
+        for name, fn in runs.items():
+            rows[name][label + "ms"] = time_ms(fn)
+            bound, by = _ring_bound_ms(name, shape, diagonal=bool(label))
+            rows[name][label + "bound_ms"] = bound
+            rows[name][label + "bound_by"] = by
+    qo, ko = steps[""]
+    plain = {
+        "flash_ring_step": lambda: fa.flash_ring_step_ref(
+            q, k, v, o, m, l, qo, ko, scale, True),
+        "flash_ring_bwd_dq": lambda: fa.flash_ring_bwd_dq_ref(
+            q, k, v, dout, lse, delta, dq, qo, ko, scale, True),
+        "flash_ring_bwd_dkv": lambda: fa.flash_ring_bwd_dkv_ref(
+            q, k, v, dout, lse, delta, dk, dv, qo, ko, scale, True),
+    }
+    for name, fn in plain.items():
+        rows[name]["plain_ms"] = time_ms(fn, n=5, reps=3, warmup=1)
+    library = sdpa_times(q, k, v, dout, False, scale)
+    for name in RING:
+        rows[name]["library_ms"] = library["sdpa_fwd_ms" if name ==
+                                           "flash_ring_step" else
+                                           "sdpa_bwd_ms"]
+        rows[name]["library"] = (
+            "scaled_dot_product_attention %s on the same block, non-causal: "
+            "the nearest yardstick, not the same function (no carried "
+            "state)" % ("forward" if name == "flash_ring_step" else
+                        "backward (dQ, dK, dV in one call)"))
+    return rows
+
+
+def phase_ring_kernels():
+    """K4-K6 through whole rings (RING_RUNS) against their plain versions,
+    plain full attention and K1-K3; then their times. Returns {name: row}."""
+    import torch
+    rows = {name: {} for name in RING}
+    assembled, bad = {}, []
+    for seed, (tag, shape, schedule, causal) in enumerate(RING_RUNS):
+        label = "%s_%s_%s" % (tag, schedule, "causal" if causal else "full")
+        per_launch, whole = run_ring(shape, schedule, causal, seed + 10)
+        torch.cuda.empty_cache()
+        for name, errs in per_launch.items():
+            log("%s %s: %s" % (name, label, ", ".join(
+                "%s %.3g" % kv for kv in sorted(errs.items()))))
+            for key, val in errs.items():
+                rows[name]["%s_%s" % (label, key)] = val
+                limit = (LSE_TOL if key == "m_abs_err" else
+                         REL_TOL if key.endswith("rel_l2_err") else None)
+                if limit is not None and not val <= limit:
+                    bad.append("%s, %s ring: %s %.3g > %g"
+                               % (name, label, key, val, limit))
+        log("ring %s assembled: %s" % (label, ", ".join(
+            "%s %.3g" % kv for kv in sorted(whole.items()))))
+        for key, val in whole.items():
+            assembled["%s_%s" % (label, key)] = val
+            limit = LSE_TOL if key.endswith("lse_abs_err") else REL_TOL
+            if not val <= limit:
+                bad.append("%s ring assembled: %s %.3g > %g"
+                           % (label, key, val, limit))
+    if bad:
+        fail("ring kernels disagree: " + "; ".join(bad))
+    for name, row in rows.items():
+        row["odd_rel_l2_err"] = max(v for k, v in row.items()
+                                    if k.startswith("odd_")
+                                    and k.endswith("rel_l2_err"))
+    rows["flash_ring_step"]["lse_abs_err"] = max(
+        v for k, v in rows["flash_ring_step"].items()
+        if k.endswith("m_abs_err"))
+    for name, timing in ring_timings(seed=20).items():
+        rows[name].update(timing)
+        log("%s: off-diagonal %.4f ms (bound %.4f, plain %.3f, SDPA %.4f), "
+            "diagonal %.4f ms (bound %.4f)" % (
+                name, timing["ms"], timing["bound_ms"], timing["plain_ms"],
+                timing["library_ms"], timing["diag_ms"],
+                timing["diag_bound_ms"]))
+    torch.cuda.empty_cache()
+    print("ring_kernels: " + json.dumps(dict(
+        assembled=assembled, times={n: {k: v for k, v in r.items()
+                                        if "ms" in k} for n, r in
+                                    rows.items()})), flush=True)
+    return rows
+
+
+def phase_sp(profile_dir=None):
+    """The sequence-parallel LM step (ring attention, zigzag) at full width
+    on a one-rank "sp" axis; returns K4-K6's launch counts of its 7 steps."""
+    import dataclasses
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.ops import analytic_attention_flops
+    from horovod_tpu_torch.ops.flash_attention import (launch_counts,
+                                                       reset_launch_counts)
+    from horovod_tpu_torch.parallel import (hybrid_mesh, make_train_step,
+                                            shard_lm_loss, zigzag_shard)
+
+    hvd.init()
+    dev = hvd.device()
+    mesh = hybrid_mesh((hvd.size(),), ("sp",))
+    n, rank = mesh.size("sp"), mesh.rank("sp")
+    cfg = TransformerConfig(attention="ring", sp_axis="sp",
+                            sp_schedule="zigzag", dtype=torch.bfloat16,
+                            max_seq_len=8192, **MODEL)
+    B, L = SP_BATCH
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (B, L), device=dev,
+                           generator=torch.Generator(device=dev
+                                                     ).manual_seed(1))
+    # Labels shifted in natural order, then every array laid out in zigzag
+    # order and cut into the ranks' shards (examples/jax_zigzag_lm.py).
+    whole = {"tokens": tokens,
+             "positions": torch.arange(L, device=dev).expand(B, L),
+             "labels": torch.roll(tokens, -1, dims=1)}
+    batch = {key: torch.chunk(zigzag_shard(t, n), n, dim=1)[rank]
+             for key, t in whole.items()}
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+
+    # The same weights through the flash model: at one rank the shard is
+    # the whole sequence in natural order (zigzag_shard at n = 1 is the
+    # identity), so the first loss and every parameter's gradient must
+    # agree. Dense attention is out of reach at L = 8192 (6.4 GB of scores
+    # a layer).
+    if n != 1:
+        fail("the sp phase compares against the flash model on one rank")
+    flash = Transformer(dataclasses.replace(cfg, attention="flash"),
+                        device=dev)
+    flash.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        loss_flash = shard_lm_loss(flash, batch).item()
+    small = {key: t[:SP_GRAD_BATCH] for key, t in batch.items()}
+    grad_gaps = gradient_gaps(model, flash, small, shard_lm_loss)
+    del flash
+    torch.cuda.empty_cache()
+    worst = max(grad_gaps, key=grad_gaps.get)
+    log("gradient gap ring vs flash attention at %d x %d: worst %s %.3g, "
+        "median %.3g" % (SP_GRAD_BATCH, L, worst, grad_gaps[worst],
+                         statistics.median(grad_gaps.values())))
+    if not grad_gaps[worst] <= GRAD_TOL:
+        fail("gradients through the ring kernels disagree with the flash "
+             "model: %s %.3g > %g" % (worst, grad_gaps[worst], GRAD_TOL))
+
+    opt = hvd.DistributedOptimizer(torch.optim.Adam(model.parameters(),
+                                                    lr=1e-4),
+                                   model.named_parameters())
+    step = make_train_step(model, shard_lm_loss, opt)
+    warmup, timed = 2, 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        loss = step(batch).item()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log("sp step %d: loss %.5f, %.1f ms" % (i, loss, times[-1] * 1e3))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = warmup + timed
+
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        fail("non-finite sp loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        fail("sp loss did not fall: %s" % losses)
+    for name, c in counts.items():
+        per_step = cfg.num_layers if name in RING else 0
+        if c != per_step * steps:
+            fail("%s launched %d times in %d sp steps, expected %d per step"
+                 % (name, c, steps, per_step))
+    rel = abs(losses[0] - loss_flash) / abs(loss_flash)
+    log("sp first loss %.6f, flash model %.6f, rel %.3g"
+        % (losses[0], loss_flash, rel))
+    if not rel <= 2e-2:
+        fail("sp first loss %.6f vs the flash model %.6f (rel %.3g)"
+             % (losses[0], loss_flash, rel))
+
+    step_s = statistics.median(times[warmup:])
+    E, F_, V = cfg.embed_dim, cfg.mlp_dim, cfg.vocab_size
+    D = E // cfg.num_heads
+    matmul_params = cfg.num_layers * (4 * E * E + 2 * E * F_) + E * V
+    flops = (6.0 * matmul_params * B * L + cfg.num_layers *
+             analytic_attention_flops(B, cfg.num_heads, L, D, causal=True,
+                                      training=True))
+    result = dict(step_ms=step_s * 1e3, tokens_per_s=B * L / step_s,
+                  peak_mem_gb=peak / 1e9, tflops=flops / step_s / 1e12,
+                  loss_first=losses[0], loss_last=losses[-1],
+                  loss_flash=loss_flash, grad_gap_worst=grad_gaps[worst],
+                  launches=counts, steps=steps, ranks=n)
+    print("sp: " + json.dumps(result), flush=True)
+    if profile_dir:
+        profile_steps(step, batch, profile_dir, "sp")
+    hvd.shutdown()
+    return {name: counts[name] for name in RING}
+
+
 def gradient_gaps(model, dense, tokens, loss_fn):
     """{parameter: ||g_model - g_dense||_2 / ||g_dense||_2} of one loss on
     ``tokens`` (any batch ``loss_fn`` takes); the .grad fields are left
@@ -658,6 +1103,8 @@ def gradient_gaps(model, dense, tokens, loss_fn):
 
 def _category(name, model):
     low = name.lower()
+    if "ring_" in low and "kernel" in low:
+        return "ring kernels"
     if "flash" in low:
         return "flash kernels"
     if "hvdbn" in low:
@@ -723,12 +1170,12 @@ def profile_steps(step, tokens, out_dir, model, n=3):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "train", "bn_kernels",
-                                       "resnet"),
+                                       "resnet", "ring_kernels", "sp"),
                     help="run the device and build phases and this one")
     ap.add_argument("--profile", metavar="DIR",
-                    help="after the train and resnet phases, profile 3 more "
-                    "steps each and write the kernel tables to "
-                    "DIR/chip_smoke_{lm,resnet}_profile.txt")
+                    help="after the train, resnet and sp phases, profile 3 "
+                    "more steps each and write the kernel tables to "
+                    "DIR/chip_smoke_{lm,resnet,sp}_profile.txt")
     args = ap.parse_args()
     phase_device()
     if not (ROOT / "horovod_tpu_torch").is_dir():
@@ -752,6 +1199,10 @@ def main():
         rows.update(phase_bn_kernels())
     if run("resnet"):
         counts.update(phase_resnet(profile_dir=args.profile))
+    if run("ring_kernels"):
+        rows.update(phase_ring_kernels())
+    if run("sp"):
+        counts.update(phase_sp(profile_dir=args.profile))
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         row = rows.get(name, {})
@@ -770,7 +1221,7 @@ def main():
             "max_abs_err": max(abs_errs) if abs_errs else None,
             "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),
             "bound_ms": row.get("bound_ms"), "bound_by": row.get("bound_by"),
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "library_note": row.get("library"),
             "rel_l2_err": max(rel_errs) if rel_errs else None,
             "odd_rel_l2_err": row.get("odd_rel_l2_err"),
             "lse_abs_err": row.get("lse_abs_err")})

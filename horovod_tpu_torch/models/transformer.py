@@ -2,9 +2,12 @@
 
 Counterpart of ``horovod_tpu/models/transformer.py``: pre-norm blocks,
 RMSNorm, rotary position embedding applied to q and k outside the
-attention kernel, attention ``"dense"`` (plain PyTorch) or ``"flash"``
-(the Hopper kernels of ``ops/flash_attention``), GQA through
-``num_kv_heads``, a SiLU MLP and an untied lm_head.
+attention kernel (at the positions the caller passes, global ones for a
+sequence shard), attention ``"dense"`` (plain PyTorch), ``"flash"`` (the
+Hopper kernels of ``ops/flash_attention``) or ``"ring"`` (sequence-parallel
+ring attention over the mesh axis ``sp_axis``, ``parallel/ring.py``), GQA
+through ``num_kv_heads``, a SiLU MLP and an untied lm_head. The parameters
+are the same for every attention.
 
 Precision follows flax's ``dtype=``/``param_dtype=``: parameters are
 float32, and with ``cfg.dtype=torch.bfloat16`` each product casts its
@@ -23,14 +26,16 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch.common.basics import resolve_device
 from horovod_tpu_torch.ops.flash_attention import apply_rotary, flash_attention
+from horovod_tpu_torch.parallel.ring import ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """Same fields as the JAX package's config. The port's first slice
-    runs ``attention`` "dense" and "flash" with ``num_kv_heads``; the
-    sequence-, tensor- and expert-parallel fields and ``rope_fused`` must
-    keep their defaults until their slices land.
+    """Same fields as the JAX package's config. The port runs
+    ``attention`` "dense", "flash" and "ring" (with ``sp_axis`` and
+    ``sp_schedule``) with ``num_kv_heads``; "ulysses", the tensor- and
+    expert-parallel fields and ``rope_fused`` must keep their defaults until
+    their slices land.
 
     With ``attention="flash"`` on a GPU the kernels' products take bf16
     inputs whatever ``dtype`` is: a float32 config gets f32 softmax and
@@ -42,7 +47,7 @@ class TransformerConfig:
     embed_dim: int = 768
     mlp_dim: int = 3072
     max_seq_len: int = 8192
-    attention: str = "dense"      # dense | flash (ring | ulysses later)
+    attention: str = "dense"      # dense | flash | ring (ulysses later)
     num_kv_heads: Optional[int] = None
     rope_fused: bool = False
     rope_base: float = 10000.0
@@ -60,12 +65,14 @@ class TransformerConfig:
 
     def __post_init__(self):
         later = []
-        if self.attention in ("ring", "ulysses") or self.sp_axis:
-            later.append("sequence parallelism (attention=%r, sp_axis)"
-                         % self.attention)
-        elif self.attention not in ("dense", "flash"):
+        if self.attention == "ulysses":
+            later.append("Ulysses sequence parallelism (attention='ulysses')")
+        elif self.attention not in ("dense", "flash", "ring"):
             raise ValueError("attention=%r is not dense|flash|ring|ulysses"
                              % self.attention)
+        if self.attention == "ring" and not self.sp_axis:
+            raise ValueError("attention='ring' needs sp_axis, the mesh axis "
+                             "that holds the sequence shards")
         if self.tp_axis is not None:
             later.append("tensor parallelism (tp_axis)")
         if self.moe_experts is not None or self.ep_axis is not None:
@@ -133,6 +140,9 @@ class Attention(nn.Module):
         k = _rotary(k, positions, cfg.rope_base)
         if cfg.attention == "flash":
             o = flash_attention(q, k, v, causal=True)
+        elif cfg.attention == "ring":
+            o = ring_attention(q, k, v, cfg.sp_axis, causal=True,
+                               schedule=cfg.sp_schedule)
         else:
             o = _dense_attention(q, k, v, D ** -0.5)
         return _linear(o.reshape(B, L, H * D), self.out, cfg.dtype)

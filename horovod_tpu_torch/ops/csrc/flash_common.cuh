@@ -1,4 +1,5 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
+// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_ring.cu):
 // the tile sizes, the argument block, global -> shared staging of a tile
 // (cp.async for bf16), and the bf16 tensor-core product (mma.sync m16n8k16,
 // f32 accumulation) with its ldmatrix fragment loads from shared memory.
@@ -215,9 +216,9 @@ inline void fill_strides(Strides* s, const long long* src, int n) {
 }
 
 // Launches `kernel` after lifting its dynamic shared-memory cap to `smem`.
-template <typename Kernel>
+template <typename Kernel, typename P>
 cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream,
-                   const Params& p) {
+                   const P& p) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

@@ -1,8 +1,8 @@
 """Flash attention: hand-written CUDA kernels for Hopper and their plain
 PyTorch versions.
 
-Counterpart of ``horovod_tpu/ops/flash_attention.py``. Three kernels,
-in ``csrc/``:
+Counterpart of ``horovod_tpu/ops/flash_attention.py``. Six kernels in
+``csrc/``; the flash attention of one sequence:
 
 - K1 ``flash_fwd`` (``flash_fwd.cu``): O and the per-row log-sum-exp;
 - K2 ``flash_bwd_dq`` (``flash_bwd.cu``): dQ;
@@ -25,6 +25,22 @@ GPU, float32 attention is bf16 attention with f32 outputs; only the plain
 versions on the CPU compute it exactly in f32.
 
 Each wrapper counts its launches in ``.launches``.
+
+The ring-attention steps (``csrc/flash_ring.cu``) run one step of
+``parallel.ring.ring_attention``: the rank's q shard against the k/v shard
+it holds. Each shard is one chunk of global positions ``(off,)`` or two
+equal chunks ``(off0, off1)`` (the zigzag schedule); the causal mask runs
+on those positions.
+
+- K4 ``flash_ring_step``: one online-softmax update of the carried state
+  (o f32 [B, H, Lq, D], un-normalised; m and l f32 [B, H, Lq], m in
+  natural-log units);
+- K5 ``flash_ring_bwd_dq``: adds this shard's dQ contribution to an f32
+  accumulator;
+- K6 ``flash_ring_bwd_dkv``: adds its dK, dV contribution to the f32
+  accumulators that travel with the k/v shard.
+
+All three update their state or accumulators in place and return them.
 """
 
 import ctypes
@@ -39,11 +55,21 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_Y = 65535
 
-# C entry point -> (source, number of tensor pointers before the strides)
+# The arguments after the tensor pointers and the strides: K1-K3 take
+# B, H, G, L, D, dtype; the ring steps B, H, G, Lq, Lk, D, dtype and the
+# chunk offsets; then scale, causal and the stream.
+_TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_FLASH_ARGS = [ctypes.c_int] * 6 + _TAIL
+_RING_ARGS = [ctypes.c_int] * 7 + [ctypes.c_void_p] + _TAIL
+# C entry point -> (source, number of tensor pointers before the strides,
+# the other arguments)
 _ENTRIES = {
-    "hvd_flash_fwd": ("flash_fwd", 5),
-    "hvd_flash_bwd_dq": ("flash_bwd", 7),
-    "hvd_flash_bwd_dkv": ("flash_bwd", 8),
+    "hvd_flash_fwd": ("flash_fwd", 5, _FLASH_ARGS),
+    "hvd_flash_bwd_dq": ("flash_bwd", 7, _FLASH_ARGS),
+    "hvd_flash_bwd_dkv": ("flash_bwd", 8, _FLASH_ARGS),
+    "hvd_flash_ring_fwd": ("flash_ring", 6, _RING_ARGS),
+    "hvd_flash_ring_bwd_dq": ("flash_ring", 7, _RING_ARGS),
+    "hvd_flash_ring_bwd_dkv": ("flash_ring", 8, _RING_ARGS),
 }
 _bound = {}
 
@@ -174,17 +200,97 @@ def blockwise_reference(q, k, v, scale, causal, rotary_base=None):
     return torch.cat(blocks, dim=2)
 
 
+def shard_chunks(offset, L):
+    """(off0, off1, chunk length) of a shard of length ``L`` given as
+    ``(off,)`` (one chunk, then off1 = off0 + L) or ``(off0, off1)`` (two
+    equal chunks): row r lies at off0 + r below the chunk length, else at
+    off1 + r - length."""
+    if isinstance(offset, tuple) and len(offset) == 1:
+        return int(offset[0]), int(offset[0]) + L, L
+    if isinstance(offset, tuple) and len(offset) == 2 and L % 2 == 0:
+        return int(offset[0]), int(offset[1]), L // 2
+    raise ValueError("a shard is one chunk (off,) or two equal chunks "
+                     "(off0, off1); got %r for length %d" % (offset, L))
+
+
+def shard_positions(offset, L, device=None):
+    """Global positions [L] (int64) of a shard described by its chunk
+    offsets (see ``shard_chunks``)."""
+    off0, off1, n = shard_chunks(offset, L)
+    r = torch.arange(L, device=device)
+    return torch.where(r < n, off0 + r, off1 + r - n)
+
+
+def _ring_scores(q, k, q_offset, kv_offset, scale, causal):
+    """(f32 scale * q.k^T over G | H kv heads, the causal mask on global
+    positions or None)."""
+    s = torch.matmul(q.float(), _expand_kv(k, q.shape[1] // k.shape[1])
+                     .float().transpose(-1, -2)) * scale
+    if not causal:
+        return s, None
+    mask = (shard_positions(q_offset, q.shape[2], q.device)[:, None] <
+            shard_positions(kv_offset, k.shape[2], q.device)[None, :])
+    return s.masked_fill(mask, float("-inf")), mask
+
+
+def flash_ring_step_ref(q, k, v, o, m, l, q_offset, kv_offset, scale,
+                        causal):
+    """Plain version of K4 in f32: the carried (o, m, l) after this k/v
+    shard, as new tensors. Rows with no visible key yet keep m = -inf."""
+    s, _ = _ring_scores(q, k, q_offset, kv_offset, scale, causal)
+    m_new = torch.maximum(m, s.amax(-1))
+    empty = torch.isneginf(m_new)
+    alpha = torch.where(empty, 0.0, torch.exp(m - m_new))
+    p = torch.where(empty[..., None], 0.0, torch.exp(s - m_new[..., None]))
+    vf = _expand_kv(v, q.shape[1] // v.shape[1]).float()
+    return (o * alpha[..., None] + torch.matmul(p, vf),
+            m_new, l * alpha + p.sum(-1))
+
+
+def _ring_probs_and_ds(q, k, v, dout, lse, delta, q_offset, kv_offset,
+                       scale, causal):
+    s, mask = _ring_scores(q, k, q_offset, kv_offset, scale, causal)
+    p = torch.exp(s - lse[..., None])
+    if mask is not None:
+        p = p.masked_fill(mask, 0.0)
+    vf = _expand_kv(v, q.shape[1] // v.shape[1]).float()
+    dp = torch.matmul(dout.float(), vf.transpose(-1, -2))
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_ring_bwd_dq_ref(q, k, v, dout, lse, delta, dq, q_offset,
+                          kv_offset, scale, causal):
+    """Plain version of K5 in f32: dq + dS.K, P from the ring's lse."""
+    _, ds = _ring_probs_and_ds(q, k, v, dout, lse, delta, q_offset,
+                               kv_offset, scale, causal)
+    return dq + torch.matmul(ds, _expand_kv(k, q.shape[1] // k.shape[1])
+                             .float())
+
+
+def flash_ring_bwd_dkv_ref(q, k, v, dout, lse, delta, dk, dv, q_offset,
+                           kv_offset, scale, causal):
+    """Plain version of K6 in f32: (dk + dS^T.Q, dv + P^T.dO), summed over
+    the query heads of each kv head."""
+    B, H, _, D = q.shape
+    G, Lk = k.shape[1], k.shape[2]
+    p, ds = _ring_probs_and_ds(q, k, v, dout, lse, delta, q_offset,
+                               kv_offset, scale, causal)
+    ddk = torch.matmul(ds.transpose(-1, -2), q.float())
+    ddv = torch.matmul(p.transpose(-1, -2), dout.float())
+    return (dk + ddk.view(B, G, H // G, Lk, D).sum(2),
+            dv + ddv.view(B, G, H // G, Lk, D).sum(2))
+
+
 # --------------------------------------------------------------- kernels
 
 
 def _entry(name):
     """(library, C function) of an entry point, built and bound once."""
     if name not in _bound:
-        source, n_ptrs = _ENTRIES[name]
+        source, n_ptrs, args = _ENTRIES[name]
         lib = _build.library(source)
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * (n_ptrs + 1) + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = [ctypes.c_void_p] * (n_ptrs + 1) + args
         fn.restype = ctypes.c_int
         _bound[name] = (lib, fn)
     return _bound[name]
@@ -258,12 +364,13 @@ def _strides(*tensors):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launch(name, q, ptrs, strides, dims, scale, causal):
+def _launch(name, q, ptrs, strides, dims, scale, causal, *extra):
+    """``extra``: the ring steps' chunk offsets, after the dtype."""
     lib, fn = _entry(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*ptrs, strides, *dims, _DTYPES[q.dtype], float(scale),
-                 int(bool(causal)), stream)
+        err = fn(*ptrs, strides, *dims, _DTYPES[q.dtype], *extra,
+                 float(scale), int(bool(causal)), stream)
     _build.check(lib, err, name)
 
 
@@ -321,10 +428,117 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal):
     return dk, dv
 
 
+def _check_ring(what, q, k, tensors, rows=(), q_state=(), kv_state=()):
+    """Validates a ring kernel's arguments; returns (B, H, G, Lq, Lk, D).
+    q and dout are [B, H, Lq, D], k and v [B, G, Lk, D] (views with a
+    contiguous last dim); ``rows`` are contiguous f32 [B, H, Lq]; the
+    state and accumulators contiguous f32 [B, H, Lq, D] (``q_state``) or
+    [B, G, Lk, D] (``kv_state``)."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("%s: q and k must be [B, heads, L, D]" % what)
+    B, H, Lq, D = q.shape
+    G, Lk = k.shape[1], k.shape[2]
+    if k.shape != (B, G, Lk, D) or G == 0 or H % G:
+        raise ValueError("%s: k/v of shape %s do not fit q %s (kv heads "
+                         "must divide query heads)"
+                         % (what, tuple(k.shape), tuple(q.shape)))
+    if Lk == 0:
+        raise ValueError("%s: empty k/v %s" % (what, tuple(k.shape)))
+    for name, t in tensors.items():
+        want = (B, G, Lk, D) if name in ("k", "v") else (B, H, Lq, D)
+        if t.shape != want:
+            raise ValueError("%s: %s is %s, expected %s"
+                             % (what, name, tuple(t.shape), want))
+    # head dim, empty q, grid, dtypes, devices and layouts as K1-K3's
+    _check(what, q, q, tensors)
+    for name, t, shape in ([(n, t, (B, H, Lq)) for n, t in rows] +
+                           [(n, t, (B, H, Lq, D)) for n, t in q_state] +
+                           [(n, t, (B, G, Lk, D)) for n, t in kv_state]):
+        if (t.device != q.device or t.dtype != torch.float32 or
+                t.shape != shape or not t.is_contiguous()):
+            raise ValueError("%s: %s must be contiguous float32 %s on %s"
+                             % (what, name, list(shape), q.device))
+    return B, H, G, Lq, Lk, D
+
+
+def _ring_launch(name, tensors, n_strided, dims, q_offset, kv_offset,
+                 scale, causal):
+    """Launches a ring step on ``tensors``; the strides are those of the
+    first ``n_strided`` (q, k, v and dout)."""
+    Lq, Lk = dims[3], dims[4]
+    chunks = (ctypes.c_int * 6)(*shard_chunks(q_offset, Lq),
+                                *shard_chunks(kv_offset, Lk))
+    _launch(name, tensors[0], [t.data_ptr() for t in tensors],
+            _strides(*tensors[:n_strided]), dims, scale, causal, chunks)
+
+
+def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal):
+    """K4: one ring step of the online softmax. q [B, H, Lq, D], k/v
+    [B, G, Lk, D] (bf16 or f32); the carried state o f32 [B, H, Lq, D]
+    (un-normalised), m and l f32 [B, H, Lq] is updated IN PLACE and
+    returned as (o, m, l). ``q_offset``/``kv_offset``: the shards' global
+    chunk offsets (``shard_chunks``)."""
+    if _on_cpu("flash_ring_step", q):
+        new = flash_ring_step_ref(q, k, v, o, m, l, q_offset, kv_offset,
+                                  scale, causal)
+        for t, n in zip((o, m, l), new):
+            t.copy_(n)
+        return o, m, l
+    dims = _check_ring("flash_ring_step", q, k, {"q": q, "k": k, "v": v},
+                       rows=(("m", m), ("l", l)), q_state=(("o", o),))
+    _ring_launch("hvd_flash_ring_fwd", (q, k, v, o, m, l), 3, dims,
+                 q_offset, kv_offset, scale, causal)
+    flash_ring_step.launches += 1
+    return o, m, l
+
+
+def flash_ring_bwd_dq(q, k, v, dout, lse, delta, dq, q_offset, kv_offset,
+                      scale, causal):
+    """K5: adds this step's dQ contribution to the f32 accumulator dq
+    [B, H, Lq, D] IN PLACE and returns it. lse (the whole ring's, natural
+    log) and delta = rowsum(dO * O) are f32 [B, H, Lq]."""
+    if _on_cpu("flash_ring_bwd_dq", q):
+        return dq.copy_(flash_ring_bwd_dq_ref(q, k, v, dout, lse, delta, dq,
+                                              q_offset, kv_offset, scale,
+                                              causal))
+    dims = _check_ring("flash_ring_bwd_dq", q, k,
+                       {"q": q, "k": k, "v": v, "dout": dout},
+                       rows=(("lse", lse), ("delta", delta)),
+                       q_state=(("dq", dq),))
+    _ring_launch("hvd_flash_ring_bwd_dq", (q, k, v, dout, lse, delta, dq), 4,
+                 dims, q_offset, kv_offset, scale, causal)
+    flash_ring_bwd_dq.launches += 1
+    return dq
+
+
+def flash_ring_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, q_offset,
+                       kv_offset, scale, causal):
+    """K6: adds this step's dK, dV contribution (the GQA group summed in
+    the kernel) to the f32 accumulators dk, dv [B, G, Lk, D] IN PLACE and
+    returns them."""
+    if _on_cpu("flash_ring_bwd_dkv", q):
+        new = flash_ring_bwd_dkv_ref(q, k, v, dout, lse, delta, dk, dv,
+                                     q_offset, kv_offset, scale, causal)
+        return dk.copy_(new[0]), dv.copy_(new[1])
+    dims = _check_ring("flash_ring_bwd_dkv", q, k,
+                       {"q": q, "k": k, "v": v, "dout": dout},
+                       rows=(("lse", lse), ("delta", delta)),
+                       kv_state=(("dk", dk), ("dv", dv)))
+    _ring_launch("hvd_flash_ring_bwd_dkv",
+                 (q, k, v, dout, lse, delta, dk, dv), 4, dims, q_offset,
+                 kv_offset, scale, causal)
+    flash_ring_bwd_dkv.launches += 1
+    return dk, dv
+
+
 flash_fwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
-KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+flash_ring_step.launches = 0
+flash_ring_bwd_dq.launches = 0
+flash_ring_bwd_dkv.launches = 0
+KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_ring_step,
+                   flash_ring_bwd_dq, flash_ring_bwd_dkv)
 
 
 def launch_counts():

@@ -1,0 +1,233 @@
+"""Sequence-parallel ring attention over a process group.
+
+Counterpart of the attention half of ``horovod_tpu/parallel/ring.py``
+(``ring_attention``, its forward and backward rings, ``zigzag_shard``,
+``zigzag_unshard``). Each rank of the group holds a shard of the sequence;
+the k/v shards travel around the ring, one hop a step, and each step runs
+one kernel on the rank's q shard and the k/v shard it holds:
+
+- forward: K4 (``ops.flash_attention.flash_ring_step``) carries the
+  online-softmax state (o, m, l) across the steps; after the last one the
+  ring divides o by l and keeps lse = m + log l for the backward;
+- backward: a second ring over the saved lse, with no recompute of the
+  forward. K5 adds each step's dQ contribution to a local f32 accumulator;
+  K6 adds dK and dV to f32 accumulators that travel with their k/v shard,
+  so after n steps each shard's gradient is back on its home rank.
+
+On CPU tensors the same loop calls the steps' plain versions (the JAX
+package's separate jnp ring is not needed: the kernels take any length and
+the scale is never traced).
+
+The exchange sends to rank (idx + 1) % n of the group and receives from
+(idx - 1) % n with ``torch.distributed.batch_isend_irecv`` (NCCL on the
+GPU, gloo on the CPU). A step posts the transfer of the k/v shard the next
+step needs before its kernel and waits after it, so the transfer overlaps
+the compute; in the backward the dK/dV accumulators leave after K6 and are
+waited for only before the next step's K6, so their transfer overlaps K5.
+A buffer being sent is never written again. One rank sends nothing.
+
+Schedules (``schedule=``): "contiguous" gives rank r the tokens
+[r * L, (r + 1) * L); a causal ring then launches nothing for a k/v shard
+entirely in the rank's future, so rank r launches r + 1 steps. "zigzag"
+splits the global sequence into 2n chunks and gives rank r chunks r and
+2n - 1 - r (``zigzag_shard``), so every rank does the same causal work at
+every step.
+"""
+
+import torch
+import torch.distributed as dist
+
+from horovod_tpu_torch.ops.flash_attention import (_delta, _kernel_layout,
+                                                   flash_ring_bwd_dkv,
+                                                   flash_ring_bwd_dq,
+                                                   flash_ring_step)
+from horovod_tpu_torch.parallel.mesh import axis_group
+
+
+def _schedule_offsets(schedule, rank, n, L):
+    """Global chunk offsets of the shard of length L held by ``rank``: one
+    chunk at rank * L, or (zigzag) chunks rank and 2n - 1 - rank of L / 2."""
+    if schedule == "zigzag":
+        c = L // 2
+        return (rank * c, (2 * n - 1 - rank) * c)
+    return (rank * L,)
+
+
+def _shard_visible(src, idx, Lq, Lk):
+    """Whether the contiguous kv shard of rank ``src`` overlaps the causal
+    lower triangle of rank ``idx``'s q rows [idx * Lq, (idx + 1) * Lq)."""
+    return src * Lk <= idx * Lq + (Lq - 1)
+
+
+def _step_runs(causal, schedule, src, idx, Lq, Lk):
+    """Whether a ring step launches its kernels: always, except on a
+    contiguous causal ring for a kv shard entirely in this rank's future
+    (zigzag gives every step work on every rank by construction)."""
+    return (not causal or schedule == "zigzag" or
+            _shard_visible(src, idx, Lq, Lk))
+
+
+class _Exchange:
+    """One hop of the ring: sends tensors to the next rank and receives
+    same-shaped ones from the previous rank, posted now and waited for in
+    ``wait()``."""
+
+    def __init__(self, tensors, group, n, idx):
+        self.recv = [torch.empty_like(t) for t in tensors]
+        nxt = dist.get_global_rank(group, (idx + 1) % n)
+        prv = dist.get_global_rank(group, (idx - 1) % n)
+        ops = ([dist.P2POp(dist.isend, t, nxt, group) for t in tensors] +
+               [dist.P2POp(dist.irecv, t, prv, group) for t in self.recv])
+        self.works = dist.batch_isend_irecv(ops)
+
+    def wait(self):
+        for w in self.works:
+            w.wait()
+        return self.recv
+
+
+def _ring_forward(q, k, v, group, causal, scale, schedule):
+    """q [B, H, Lq, D], k/v [B, G, Lk, D]: (out [B, H, Lq, D] in q's dtype,
+    lse f32 [B, H, Lq])."""
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    o = torch.zeros(B, H, Lq, D, dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Lq), float("-inf"), device=q.device)
+    l = torch.zeros(B, H, Lq, device=q.device)
+    q_off = _schedule_offsets(schedule, idx, n, Lq)
+    if n > 1:  # what is sent goes as a contiguous buffer
+        k, v = k.contiguous(), v.contiguous()
+    for i in range(n):
+        src = (idx - i) % n
+        hop = _Exchange((k, v), group, n, idx) if i + 1 < n else None
+        if _step_runs(causal, schedule, src, idx, Lq, Lk):
+            flash_ring_step(q, k, v, o, m, l, q_off,
+                            _schedule_offsets(schedule, src, n, Lk), scale,
+                            causal)
+        if hop is not None:
+            k, v = hop.wait()
+    l1 = torch.where(l == 0.0, 1.0, l)  # rows that saw no key: out 0
+    out = (o / l1[..., None]).to(q.dtype)
+    return out, m + torch.log(l1)  # such rows keep lse = -inf
+
+
+def _ring_backward(q, k, v, out, lse, dout, group, causal, scale, schedule):
+    """The second ring: (dq, dk, dv) in q's, k's and v's dtypes."""
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    Lq, Lk = q.shape[2], k.shape[2]
+    delta = _delta(out, dout)  # once per shard, read by every step
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    q_off = _schedule_offsets(schedule, idx, n, Lq)
+    k_dtype, v_dtype = k.dtype, v.dtype
+    if n > 1:
+        k, v = k.contiguous(), v.contiguous()
+    grads = None  # the dk/dv hop in flight
+    for i in range(n):
+        src = (idx - i) % n
+        hop = _Exchange((k, v), group, n, idx) if i + 1 < n else None
+        runs = _step_runs(causal, schedule, src, idx, Lq, Lk)
+        kv_off = _schedule_offsets(schedule, src, n, Lk)
+        if runs:
+            flash_ring_bwd_dq(q, k, v, dout, lse, delta, dq, q_off, kv_off,
+                              scale, causal)
+        if grads is not None:
+            dk, dv = grads.wait()
+        if runs:
+            flash_ring_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, q_off,
+                               kv_off, scale, causal)
+        # dk/dv ride the ring with their k/v shard; the n-th hop takes them
+        # home.
+        grads = _Exchange((dk, dv), group, n, idx) if n > 1 else None
+        if hop is not None:
+            k, v = hop.wait()
+    if grads is not None:
+        dk, dv = grads.wait()
+    return dq.to(q.dtype), dk.to(k_dtype), dv.to(v_dtype)
+
+
+class _RingFn(torch.autograd.Function):
+    """Ring attention over [B, H, L, D] shards; saves (q, k, v, out, lse)
+    for the backward ring."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal, scale, schedule):
+        out, lse = _ring_forward(q, k, v, group, causal, scale, schedule)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (group, causal, scale, schedule)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g.is_cuda:
+            g = _kernel_layout(g)
+        return _ring_backward(q, k, v, out, lse, g, *ctx.args) + (
+            None, None, None, None)
+
+
+def ring_attention(q, k, v, axis_name, causal=True, scale=None,
+                   schedule="contiguous", rotary_base=None):
+    """Exact multi-head attention over a sequence sharded on ``axis_name``.
+
+    q [B, L_local, H, D], k/v [B, L_local, G, D] with G | H (query head h
+    reads kv head h // (H // G)): this rank's shard, equal L_local on every
+    rank of the axis. ``axis_name`` names an axis of the last
+    ``hybrid_mesh``. Returns [B, L_local, H, D] in q's dtype; differentiable.
+    ``schedule`` is "contiguous" or "zigzag" (see the module docstring; lay
+    the sequence out with ``zigzag_shard`` first). On CUDA tensors the
+    products take bf16 inputs, as in ``flash_attention``."""
+    if schedule not in ("contiguous", "zigzag"):
+        raise ValueError(f"unknown ring schedule: {schedule!r}")
+    if rotary_base is not None:
+        raise NotImplementedError(
+            "fused rotary in the ring kernels is a later slice of the port; "
+            "rotate q and k with apply_rotary at their global positions")
+    B, Lq, H, D = q.shape
+    Lk, G = k.shape[1], k.shape[2]
+    if H % G:
+        raise ValueError(
+            f"num_heads={H} must be a multiple of num_kv_heads={G}")
+    if scale is None:
+        scale = D ** -0.5
+    if schedule == "zigzag":
+        if not causal:
+            raise ValueError("schedule='zigzag' is a causal load-"
+                             "balancing layout; use contiguous for "
+                             "non-causal attention")
+        if Lq % 256 or Lk % 256:
+            raise ValueError(
+                f"zigzag needs 256-multiple shard lengths (two "
+                f"128-aligned chunks per rank); got Lq={Lq}, Lk={Lk}")
+    group = axis_group(axis_name)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if q.is_cuda:
+        qt, kt, vt = (_kernel_layout(x) for x in (qt, kt, vt))
+    return _RingFn.apply(qt, kt, vt, group, causal, scale,
+                         schedule).transpose(1, 2)
+
+
+def zigzag_shard(x, n, axis=1):
+    """Lays a GLOBAL sequence axis out in zigzag rank order: split into 2n
+    chunks, rank r's shard = chunk r then chunk 2n - 1 - r. Sharded
+    contiguously over n ranks, that is the layout
+    ``ring_attention(schedule="zigzag")`` expects. Inverse:
+    ``zigzag_unshard``."""
+    ch = torch.chunk(x, 2 * n, dim=axis)
+    if len(ch) != 2 * n or ch[0].shape[axis] * 2 * n != x.shape[axis]:
+        raise ValueError("a length of %d does not split into %d equal chunks"
+                         % (x.shape[axis], 2 * n))
+    return torch.cat([t for r in range(n) for t in (ch[r], ch[2 * n - 1 - r])],
+                     dim=axis)
+
+
+def zigzag_unshard(x, n, axis=1):
+    """Inverse of ``zigzag_shard``: zigzag rank order -> natural order."""
+    pairs = torch.chunk(x, 2 * n, dim=axis)  # [r0, r0', r1, r1', ...]
+    out = [None] * (2 * n)
+    for r in range(n):
+        out[r] = pairs[2 * r]
+        out[2 * n - 1 - r] = pairs[2 * r + 1]
+    return torch.cat(out, dim=axis)

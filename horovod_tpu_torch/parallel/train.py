@@ -90,6 +90,16 @@ def lm_loss(model, tokens):
     return cross_entropy_loss(logits, torch.roll(tokens, -1, dims=1))
 
 
+def shard_lm_loss(model, batch):
+    """Next-token loss of a sequence shard, ``batch = {"tokens",
+    "positions", "labels"}`` ([B, L_local] each): the labels were shifted
+    in natural order before the sequence was sharded (``zigzag_shard``), and
+    the positions are global. Mean over the shard's tokens; averaged over
+    equal shards by the step, that is the mean over the whole sequence."""
+    logits = model(batch["tokens"], batch["positions"])
+    return cross_entropy_loss(logits, batch["labels"])
+
+
 def classification_loss(model, batch):
     """Loss of the image-classification benchmark: the logits of
     ``batch["x"]`` with the model in training mode (BN on the batch

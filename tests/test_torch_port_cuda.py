@@ -90,7 +90,7 @@ def test_kernels_match_plain_versions(cuda, B, H, G, L, D, causal, dtype):
             assert _rel(a, b) <= REL_TOL, (name, _rel(a, b))
     after = fa.launch_counts()
     assert all(after[n] == before[n] + (1 if n == "flash_fwd" else 2)
-               for n in after)
+               for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
 
 
 def test_flash_attention_autograd_on_the_gpu(cuda):
@@ -123,6 +123,126 @@ def test_bad_layouts_raise_before_launch(cuda):
     h = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_fwd(h, h, h, 0.125, True)
+
+
+def _ring_state(cuda, q, k, v, scale, seed):
+    """A carried (o, m, l), nonzero in every row: the plain step of a full
+    (non-causal) pass over another random k/v shard."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    k0, v0 = (torch.randn(k.shape, generator=g, device=cuda) for _ in range(2))
+    B, H, Lq, D = q.shape
+    fresh = (torch.zeros(B, H, Lq, D, device=cuda),
+             torch.full((B, H, Lq), float("-inf"), device=cuda),
+             torch.zeros(B, H, Lq, device=cuda))
+    return fa.flash_ring_step_ref(q.float(), k0, v0, *fresh, (0,), (0,),
+                                  scale, False)
+
+
+def _m_err(a, b):
+    """max |a - b| of two running maxima, -inf where both are -inf."""
+    assert torch.equal(torch.isneginf(a), torch.isneginf(b))
+    fin = ~torch.isneginf(b)
+    return (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0
+
+
+@pytest.mark.parametrize("B,H,G,Lq,Lk,D,q_off,kv_off,causal,dtype", [
+    (2, 4, 4, 256, 256, 64, (256,), (0,), True, torch.bfloat16),  # past
+    (2, 4, 4, 256, 256, 64, (0,), (0,), True, torch.bfloat16),    # diagonal
+    (1, 4, 2, 160, 160, 64, (160,), (0,), False, torch.bfloat16),  # GQA
+    (1, 4, 2, 160, 160, 64, (0,), (0,), True, torch.bfloat16),
+    (1, 4, 1, 200, 136, 32, (136,), (64,), True, torch.bfloat16),  # MQA
+    # zigzag chunks: n = 2, chunks of 256; rank 0's q, rank 1's k/v
+    (1, 2, 2, 512, 512, 128, (0, 768), (256, 512), True, torch.bfloat16),
+    (1, 2, 2, 512, 512, 64, (256, 512), (0, 768), True, torch.float32),
+    # chunks of 48: tiles straddle the chunk boundary
+    (1, 2, 2, 96, 96, 64, (0, 144), (48, 96), True, torch.bfloat16),
+])
+def test_ring_kernels_match_plain_versions(cuda, B, H, G, Lq, Lk, D, q_off,
+                                           kv_off, causal, dtype):
+    """K4 on a fresh and on a carried state, K5 and K6 on carried
+    accumulators, each against its plain version on the same values."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, dout = (torch.randn(B, H, Lq, D, generator=g, device=cuda).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(B, G, Lk, D, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    scale = D ** -0.5
+    f32 = [t.to(torch.bfloat16).float() for t in (q, k, v, dout)]
+    carried = _ring_state(cuda, f32[0], f32[1], f32[2], scale, seed=4)
+    fresh = (torch.zeros(B, H, Lq, D, device=cuda),
+             torch.full((B, H, Lq), float("-inf"), device=cuda),
+             torch.zeros(B, H, Lq, device=cuda))
+    before = fa.launch_counts()
+    for state in (fresh, carried):
+        ref = fa.flash_ring_step_ref(*f32[:3], *state, q_off, kv_off, scale,
+                                     causal)
+        got = fa.flash_ring_step(q, k, v, *(t.clone() for t in state), q_off,
+                                 kv_off, scale, causal)
+        torch.cuda.synchronize()
+        assert _rel(got[0], ref[0]) <= REL_TOL
+        assert _m_err(got[1], ref[1]) <= LSE_TOL
+        assert _rel(got[2], ref[2]) <= REL_TOL
+
+    # The backward steps on the lse of the carried state plus this step.
+    o, m, l = fa.flash_ring_step_ref(*f32[:3], *carried, q_off, kv_off,
+                                     scale, causal)
+    lse = m + torch.log(l)
+    delta = fa._delta(o / l[..., None], f32[3])
+    dq0 = torch.randn(B, H, Lq, D, generator=g, device=cuda)
+    dk0, dv0 = (torch.randn(B, G, Lk, D, generator=g, device=cuda)
+                for _ in range(2))
+    dq = fa.flash_ring_bwd_dq(q, k, v, dout, lse, delta, dq0.clone(), q_off,
+                              kv_off, scale, causal)
+    dk, dv = fa.flash_ring_bwd_dkv(q, k, v, dout, lse, delta, dk0.clone(),
+                                   dv0.clone(), q_off, kv_off, scale, causal)
+    torch.cuda.synchronize()
+    ref_dq = fa.flash_ring_bwd_dq_ref(*f32, lse, delta, dq0, q_off, kv_off,
+                                      scale, causal)
+    ref_dk, ref_dv = fa.flash_ring_bwd_dkv_ref(*f32, lse, delta, dk0, dv0,
+                                               q_off, kv_off, scale, causal)
+    # What this step added, against what the plain version added.
+    for name, a, b, a0 in (("dq", dq, ref_dq, dq0), ("dk", dk, ref_dk, dk0),
+                           ("dv", dv, ref_dv, dv0)):
+        assert _rel(a, b) <= REL_TOL, name
+        assert _rel(a - a0, b - a0) <= REL_TOL, name
+    after = fa.launch_counts()
+    assert after["flash_ring_step"] == before["flash_ring_step"] + 2
+    assert after["flash_ring_bwd_dq"] == before["flash_ring_bwd_dq"] + 1
+    assert after["flash_ring_bwd_dkv"] == before["flash_ring_bwd_dkv"] + 1
+
+
+def test_ring_step_with_nothing_visible_leaves_the_state(cuda):
+    """A k/v shard entirely in the future: no tile runs, the state stays."""
+    q, k, v = (torch.randn(1, 2, 128, 64, device=cuda, dtype=torch.bfloat16)
+               for _ in range(3))
+    o, m, l = _ring_state(cuda, q.float(), k.float(), v.float(), 0.125, 5)
+    got = fa.flash_ring_step(q, k, v, o.clone(), m.clone(), l.clone(),
+                             (0,), (128,), 0.125, True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, (o, m, l)):
+        assert torch.equal(a, b)
+
+
+def test_ring_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16)
+    o = torch.zeros(1, 2, 64, 64, device=cuda)
+    m, l = torch.zeros(1, 2, 64, device=cuda), torch.zeros(1, 2, 64,
+                                                           device=cuda)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        fa.flash_ring_step(q, q, q, o.bfloat16(), m, l, (0,), (0,), 0.1,
+                           True)
+    with pytest.raises(ValueError, match="l must be contiguous float32"):
+        fa.flash_ring_step(q, q, q, o, m, l[:, :1], (0,), (0,), 0.1, True)
+    with pytest.raises(ValueError, match="two equal chunks"):
+        fa.flash_ring_step(q, q, q, o, m, l, (0, 64, 128), (0,), 0.1, True)
+    with pytest.raises(ValueError, match="two equal chunks"):
+        q63 = torch.zeros(1, 2, 63, 64, device=cuda, dtype=torch.bfloat16)
+        fa.flash_ring_bwd_dq(q63, q63, q63, q63, m[..., :63].contiguous(),
+                             m[..., :63].contiguous(), o[:, :, :63].clone(),
+                             (0, 32), (0,), 0.1, True)
+    with pytest.raises(ValueError, match="dk must be"):
+        fa.flash_ring_bwd_dkv(q, q, q, q, m, l, o[:, :1], o, (0,), (0,), 0.1,
+                              True)
 
 
 def _bn_inputs(cuda, M, C, x_dtype, dy_dtype, seed=0):

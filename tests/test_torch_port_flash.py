@@ -184,7 +184,9 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     rk, rv = fa.flash_bwd_dkv_ref(q, k, v, g, lse, delta, 0.25, True)
     assert torch.equal(dk, rk) and torch.equal(dv, rv)
     assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                                  "flash_bwd_dkv": 0}
+                                  "flash_bwd_dkv": 0, "flash_ring_step": 0,
+                                  "flash_ring_bwd_dq": 0,
+                                  "flash_ring_bwd_dkv": 0}
 
 
 def test_other_devices_raise():

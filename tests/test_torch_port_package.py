@@ -24,6 +24,7 @@ PORT_FILES = PACKAGE_FILES + [
     ROOT / "chip_smoke.py",
     ROOT / "tests" / "torch_port_dp_worker.py",
     ROOT / "tests" / "torch_port_bn_worker.py",
+    ROOT / "tests" / "torch_port_ring_worker.py",
     ROOT / "tests" / "torch_port_planted_faults.py",
     ROOT / "tests" / "test_torch_port_cuda.py",
 ]

@@ -116,7 +116,7 @@ def test_seeded_init_is_reproducible():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("attention", "ring"), ("attention", "ulysses"), ("tp_axis", "tp"),
+    ("ep_axis", "ep"), ("attention", "ulysses"), ("tp_axis", "tp"),
     ("moe_experts", 4), ("rope_fused", True)])
 def test_later_slices_raise_not_implemented(field, value):
     with pytest.raises(NotImplementedError, match="later slice"):

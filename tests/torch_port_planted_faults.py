@@ -8,7 +8,9 @@ For each planted fault below, copies ``chip_smoke.py`` and
 (git-ignored), plants the fault in the copy's CUDA source, and runs
 ``chip_smoke.py --only <phase>`` there for the kernel phase and the model
 phase that the faulty kernel is on (kernels and train for the flash
-kernels, bn_kernels and resnet for the BN kernels). Every run must fail.
+kernels, bn_kernels and resnet for the BN kernels), or for the ring kernels
+the ring_kernels phase, whose 4-rank ring carries state and offsets that
+the one-rank sp phase does not. Every run must fail.
 Prints the readings each run logged (errors against the plain versions,
 the gradient gaps, the first losses) and exits 1 if a planted fault passed
 a check.
@@ -23,6 +25,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 FLASH_PHASES = ("kernels", "train")
 BN_PHASES = ("bn_kernels", "resnet")
+RING_PHASES = ("ring_kernels",)
 BN_ROW_LOOP = ("    for (long long r = r_begin + ty; r < r_end; "
                "r += sh.ty) {\n")
 # fault -> (source, the line after which it goes, the line planted, the
@@ -48,6 +51,24 @@ FAULTS = {
     "bn_stats_drop_channels": (
         "batch_norm.cu", BN_ROW_LOOP,
         "      if (!GRAD && c0 + VEC >= C) break;\n", BN_PHASES),
+    # K4 ignores the carried running max, starting it from -inf
+    "ring_fwd_drop_carried_m": (
+        "flash_ring.cu",
+        "    m_run[r] = valid ? p.m[row_base + rows[r]] * kLog2e : -INFINITY;\n",
+        "    m_run[r] = -INFINITY;\n", RING_PHASES),
+    # K5 drops dq_in, the dq carried from the earlier ring steps
+    "ring_dq_drop_carried": (
+        "flash_ring.cu",
+        "  load_acc<D>(acc, dq, rows, p.Lq, tc);  // the carried dq\n",
+        "  for (int dt = 0; dt < D / 8; ++dt)\n"
+        "    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;\n",
+        RING_PHASES),
+    # K6 gives every key row chunk 0's offset (zigzag shards go wrong)
+    "ring_dkv_chunk0_offset": (
+        "flash_ring.cu",
+        "  for (int r = 0; r < 2; ++r) key_pos[r] = pos_of(p.kc, keys[r]);\n",
+        "  for (int r = 0; r < 2; ++r) key_pos[r] = p.kc.off0 + keys[r];\n",
+        RING_PHASES),
 }
 
 
