@@ -65,7 +65,9 @@ Phases, in order; any failure exits non-zero:
    off-diagonal and one diagonal step of each kernel at [2, 12, 2048, 64],
    and PyTorch's scaled_dot_product_attention forward and backward on the
    same block (the nearest yardstick, not the same function: it carries
-   no state).
+   no state); and each kernel at the sp phase's own launch, [2, 12, 8192,
+   64] causal with zigzag chunks (0, 4096), beside SDPA's causal forward
+   and backward at that shape.
 8. sp: ``hvd.init()``, ``hybrid_mesh((1,), ("sp",))``, the GPT-2-small LM
    of the train phase with ``attention="ring"``, ``sp_axis="sp"``,
    ``sp_schedule="zigzag"``; a dict batch {tokens, positions, labels} of
@@ -143,7 +145,7 @@ KERNELS = {
                          "horovod_tpu/ops/batch_norm.py:100", 3),
     "batch_norm_grad_stats": ("horovod_tpu_torch/ops/csrc/batch_norm.cu",
                               "horovod_tpu/ops/batch_norm.py:133", 5),
-    "flash_ring_step": ("horovod_tpu_torch/ops/csrc/flash_ring.cu",
+    "flash_ring_step": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
                         "horovod_tpu/ops/flash_attention.py:431", 2),
     "flash_ring_bwd_dq": ("horovod_tpu_torch/ops/csrc/flash_ring.cu",
                           "horovod_tpu/ops/flash_attention.py:620", 3),
@@ -234,6 +236,8 @@ def phase_build():
                 kernel = line.split("'")[1]  # mangled: name, dtype, D
             elif "spill stores" in line:
                 spills = line.strip()
+            elif "Performance Loss" in line or "is injected" in line:
+                log("ptxas " + line.split(":", 1)[1].strip())
             elif "registers" in line:
                 log("ptxas %s: %s; %s" % (kernel, line.split(":", 1)[1]
                                            .strip(), spills))
@@ -866,7 +870,12 @@ def ring_timings(seed):
     """K4-K6 timed at one ring step of the main shape, [2, 12, 2048, 64]:
     an off-diagonal step (every tile visible) and the diagonal step (causal,
     half the tiles); their plain versions at the off-diagonal step; SDPA
-    forward and backward on the same block, non-causal."""
+    forward and backward on the same block, non-causal. Then each at the
+    sp phase's own launch (``sp_`` keys): [2, 12, 8192, 64], causal, one
+    rank's zigzag chunks (0, 4096), K4 from a fresh state (the timed
+    repeats carry it: the same tiles run), K5 and K6 on that state's lse;
+    SDPA's causal forward and backward at that shape as the nearest
+    yardstick."""
     import torch
     fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
     shape = dict(RING_SHAPE, L=RING_SHAPE["L"] // RING_SHAPE["n"],
@@ -918,6 +927,35 @@ def ring_timings(seed):
             "the nearest yardstick, not the same function (no carried "
             "state)" % ("forward" if name == "flash_ring_step" else
                         "backward (dQ, dK, dV in one call)"))
+    del q, k, v, dout, o, m, l, lse, delta, dq, dk, dv
+
+    sp = dict(RING_SP, causal=True)
+    q, k, v, dout = _inputs(sp, seed + 1)
+    offs = (0, sp["L"] // 2)
+    o = torch.zeros(q.shape, device=q.device)
+    m = torch.full(q.shape[:3], float("-inf"), device=q.device)
+    l = torch.zeros(q.shape[:3], device=q.device)
+    fa.flash_ring_step(q, k, v, o, m, l, offs, offs, scale, True)
+    lse = m + torch.log(l)
+    delta = fa._delta((o / l[..., None]).to(q.dtype), dout)
+    dq = torch.zeros(q.shape, device=q.device)
+    dk, dv = (torch.zeros(k.shape, device=q.device) for _ in range(2))
+    runs = {
+        "flash_ring_step": lambda: fa.flash_ring_step(
+            q, k, v, o, m, l, offs, offs, scale, True),
+        "flash_ring_bwd_dq": lambda: fa.flash_ring_bwd_dq(
+            q, k, v, dout, lse, delta, dq, offs, offs, scale, True),
+        "flash_ring_bwd_dkv": lambda: fa.flash_ring_bwd_dkv(
+            q, k, v, dout, lse, delta, dk, dv, offs, offs, scale, True),
+    }
+    library = sdpa_times(q, k, v, dout, True, scale)
+    for name, fn in runs.items():
+        r = rows[name]
+        r["sp_ms"] = time_ms(fn)
+        r["sp_bound_ms"], r["sp_bound_by"] = _ring_bound_ms(name, sp,
+                                                            diagonal=True)
+        r["sp_library_ms"] = library["sdpa_fwd_ms" if name ==
+                                     "flash_ring_step" else "sdpa_bwd_ms"]
     return rows
 
 
@@ -961,10 +999,12 @@ def phase_ring_kernels():
     for name, timing in ring_timings(seed=20).items():
         rows[name].update(timing)
         log("%s: off-diagonal %.4f ms (bound %.4f, plain %.3f, SDPA %.4f), "
-            "diagonal %.4f ms (bound %.4f)" % (
+            "diagonal %.4f ms (bound %.4f); sp launch %.4f ms (bound %.4f, "
+            "SDPA causal %.4f)" % (
                 name, timing["ms"], timing["bound_ms"], timing["plain_ms"],
                 timing["library_ms"], timing["diag_ms"],
-                timing["diag_bound_ms"]))
+                timing["diag_bound_ms"], timing["sp_ms"],
+                timing["sp_bound_ms"], timing["sp_library_ms"]))
     torch.cuda.empty_cache()
     print("ring_kernels: " + json.dumps(dict(
         assembled=assembled, times={n: {k: v for k, v in r.items()
@@ -1103,7 +1143,9 @@ def gradient_gaps(model, dense, tokens, loss_fn):
 
 def _category(name, model):
     low = name.lower()
-    if "ring_" in low and "kernel" in low:
+    # K4 runs on K1's mainloop: flash_fwd_kernel<D, true, ...>
+    if ("ring_" in low and "kernel" in low) or (
+            "flash_fwd_kernel<" in low and ", true," in low):
         return "ring kernels"
     if "flash" in low:
         return "flash kernels"
@@ -1224,7 +1266,11 @@ def main():
             "library_ms": lib_ms, "library_note": row.get("library"),
             "rel_l2_err": max(rel_errs) if rel_errs else None,
             "odd_rel_l2_err": row.get("odd_rel_l2_err"),
-            "lse_abs_err": row.get("lse_abs_err")})
+            "lse_abs_err": row.get("lse_abs_err"),
+            # the ring kernels at the sp phase's own launch
+            **{key: row[key] for key in ("sp_ms", "sp_bound_ms",
+                                         "sp_bound_by", "sp_library_ms")
+               if key in row}})
     print(json.dumps({"kernels": kernels, "library": library}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,6 +62,26 @@ struct Params {
   int causal;
 };
 
+// Global positions of a ring shard's rows: row r lies at off0 + r when r < len,
+// else at off1 + (r - len). One chunk has off1 = off0 + len.
+struct Chunks {
+  int off0, off1, len;
+};
+
+__device__ __forceinline__ int pos_of(const Chunks& c, int r) {
+  return r < c.len ? c.off0 + r : c.off1 + (r - c.len);
+}
+
+// Smallest and largest position of rows [a, b].
+__device__ __forceinline__ int min_pos(const Chunks& c, int a, int b) {
+  return (a < c.len && b >= c.len) ? min(c.off0 + a, c.off1) : pos_of(c, a);
+}
+
+__device__ __forceinline__ int max_pos(const Chunks& c, int a, int b) {
+  return (a < c.len && b >= c.len) ? max(c.off0 + c.len - 1, pos_of(c, b))
+                                   : pos_of(c, b);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

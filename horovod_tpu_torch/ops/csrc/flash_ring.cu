@@ -1,76 +1,41 @@
-// Ring-attention steps: the forward step with carried online-softmax state
-// (kernel K4), its dQ contribution (kernel K5) and its dK/dV contribution
-// (kernel K6).
+// Ring-attention backward steps: the dQ contribution (kernel K5) and the
+// dK/dV contribution (kernel K6) of one ring step. The forward step (K4)
+// runs on the Hopper forward mainloop in flash_fwd.cu.
 //
-// Replaces: horovod_tpu/ops/flash_attention.py:_ring_step_kernel (launched by
-// flash_ring_step), _ring_bwd_dq_kernel and _ring_bwd_dkv_kernel (both
-// launched by flash_ring_bwd_step). One launch is one ring step: the rank's
-// q shard against the k/v shard it holds at that step.
-//   K4: (o, m, l) += the online-softmax update of this k/v shard. The state
-//       is carried in from the previous step and written back
-//       un-normalised: the caller divides o by l, and forms lse = m + log l,
-//       after the last step. m and l are f32 [B, H, Lq], m in natural-log
-//       units.
+// Replaces: horovod_tpu/ops/flash_attention.py:_ring_bwd_dq_kernel and
+// _ring_bwd_dkv_kernel (both launched by flash_ring_bwd_step). One launch is
+// one ring step: the rank's q shard against the k/v shard it holds at that
+// step.
 //   K5: dq += dS K, P = exp(scale * Q K^T - lse) from the forward ring's lse
 //       (no recompute of the forward), dS = P * (dO V^T - delta) * scale.
 //   K6: dv += P^T dO, dk += dS^T Q, the GQA group summed in the block. The
 //       f32 accumulators travel around the ring with their k/v shard.
-// All state and accumulators are f32 and updated in place.
+// All accumulators are f32 and updated in place.
 //
 // Causal masks run on GLOBAL positions. A shard is one contiguous chunk or
 // two equal chunks (the zigzag schedule: rank r holds chunks r and 2n-1-r),
-// so row r of a shard sits at off0 + r (r < len) or off1 + r - len. A 64-row
-// tile may straddle the two chunks; the mask is per element, so any ragged
-// length works.
+// so row r of a shard sits at off0 + r (r < len) or off1 + r - len
+// (Chunks, flash_common.cuh). A 64-row tile may straddle the two chunks; the
+// mask is per element, so any ragged length works.
 //
 // Bound on the H100 for one off-diagonal step at B=2, H=12, Lq=Lk=2048, D=64
-// (every tile visible): K4 does 2 products of 2*B*H*Lq*Lk*D, 25.8 GFLOP, 26 us
-// at 989 TFLOP/s bf16, and moves about 45 MB (q, k, v in bf16; o, m, l read
-// and written in f32), 13 us at 3.35 TB/s. K5 does 3 products (38.7 GFLOP,
-// 39 us) and moves 51 MB; K6 4 products (51.5 GFLOP, 52 us) and 76 MB. All
-// three are bound by the tensor cores.
+// (every tile visible): K5 does 3 products of 2*B*H*Lq*Lk*D (38.7 GFLOP,
+// 39 us at 989 TFLOP/s bf16) and moves 51 MB; K6 4 products (51.5 GFLOP,
+// 52 us) and 76 MB. Both are bound by the tensor cores.
 //
-// Design: K1-K3's (flash_fwd.cu, flash_bwd.cu). One block of 4 warps per
-// 64-row tile that the block owns (q rows in K4 and K5, key rows in K6); the
-// owned rows' operands go once into registers as mma A fragments; the other
-// side streams in 64-row tiles, double-buffered in shared memory by
-// cp.async, read with ldmatrix, multiplied by mma.sync (bf16 in, f32
-// accumulators). What the ring adds:
-// - the carried state enters the registers before the first tile and leaves
-//   after the last: K4's running max in log2 units inside the kernel (as
-//   K1), converted on load and on store; its carried row sum enters one lane
-//   of each quad, since each lane holds a partial sum that the quad adds at
-//   the end;
+// Design: K2-K3's (flash_bwd.cu). One block of 4 warps per 64-row tile that
+// the block owns (q rows in K5, key rows in K6); the owned rows' operands go
+// once into registers as mma A fragments; the other side streams in 64-row
+// tiles, double-buffered in shared memory by cp.async, read with ldmatrix,
+// multiplied by mma.sync (bf16 in, f32 accumulators). What the ring adds:
 // - a tile pair whose smallest key position exceeds its largest query
 //   position is skipped, and the prefetch fetches the next VISIBLE tile, so
 //   the double buffer stays in step; a step with no visible tile returns
-//   before loading anything and leaves the state as it was;
-// - a row with no visible key keeps m = -inf: the score's base is 0 then,
-//   so exp2(-inf - 0) = 0 and no NaN appears, whatever the carried m.
+//   before loading anything and leaves the accumulators as they were.
 // Not yet done (later work): wgmma, TMA and warp specialisation.
 #include "flash_common.cuh"
 
 namespace hvdflash {
-
-// Global positions of a shard's rows: row r lies at off0 + r when r < len,
-// else at off1 + (r - len). One chunk has off1 = off0 + len.
-struct Chunks {
-  int off0, off1, len;
-};
-
-__device__ __forceinline__ int pos_of(const Chunks& c, int r) {
-  return r < c.len ? c.off0 + r : c.off1 + (r - c.len);
-}
-
-// Smallest and largest position of rows [a, b].
-__device__ __forceinline__ int min_pos(const Chunks& c, int a, int b) {
-  return (a < c.len && b >= c.len) ? min(c.off0 + a, c.off1) : pos_of(c, a);
-}
-
-__device__ __forceinline__ int max_pos(const Chunks& c, int a, int b) {
-  return (a < c.len && b >= c.len) ? max(c.off0 + c.len - 1, pos_of(c, b))
-                                   : pos_of(c, b);
-}
 
 struct RingParams {
   const void* q;
@@ -79,9 +44,6 @@ struct RingParams {
   const void* dout;
   const float* lse;    // [B, H, Lq], natural log
   const float* delta;  // [B, H, Lq]
-  float* o;            // K4: [B, H, Lq, D], in place
-  float* m;            // K4: [B, H, Lq], natural log, in place
-  float* l;            // K4: [B, H, Lq], in place
   float* dq;           // K5: [B, H, Lq, D], in place
   float* dk;           // K6: [B, G, Lk, D], in place
   float* dv;           // K6: [B, G, Lk, D], in place
@@ -157,163 +119,6 @@ __device__ __forceinline__ void store_acc(float* base,
     for (int dt = 0; dt < D / 8; ++dt)
       store2(base + static_cast<long long>(rows[r]) * D + dt * 8 + tc,
              acc[dt][2 * r], acc[dt][2 * r + 1]);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    ring_fwd_kernel(const RingParams p) {
-  constexpr int kLd = D + kPad;
-  constexpr int kTile = kBlockN * kLd;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kBlockM * kLd;  // 2 buffers
-  bf16* sV = sK + 2 * kTile;      // 2 buffers
-
-  // The last q tiles (the latest positions, most visible keys) first.
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
-  const int n_tiles = (p.Lk + kBlockN - 1) / kBlockN;
-  int j = next_key_tile(p, m0, 0, n_tiles);
-  if (j >= n_tiles) return;  // nothing visible: the state stays as it is
-
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int kvh = h / (p.H / p.G);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tc = (lane & 3) * 2;
-  const int row0 = m0 + warp * 16 + (lane >> 2);
-  const int rows[2] = {row0, row0 + 8};
-  const int offa = a_off<kLd>(lane), offb = bt_off<kLd>(lane);
-
-  const T* q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const T* k = static_cast<const T*>(p.k) + b * p.sk.b + kvh * p.sk.h;
-  const T* v = static_cast<const T*>(p.v) + b * p.sv.b + kvh * p.sv.h;
-  const long long row_base = (static_cast<long long>(b) * p.H + h) * p.Lq;
-  float* o = p.o + row_base * D;
-
-  load_tile<T, D>(sQ, q, p.sq.l, m0, p.Lq);
-  cp_async_commit();
-  load_tile<T, D>(sK, k, p.sk.l, j * kBlockN, p.Lk);
-  load_tile<T, D>(sV, v, p.sv.l, j * kBlockN, p.Lk);
-  cp_async_commit();
-
-  // The carried state, while the copies fly.
-  float acc[D / 8][4];
-  load_acc<D>(acc, o, rows, p.Lq, tc);
-  float m_run[2], l_run[2];
-  int row_pos[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool valid = rows[r] < p.Lq;
-    m_run[r] = valid ? p.m[row_base + rows[r]] * kLog2e : -INFINITY;
-    l_run[r] = (valid && tc == 0) ? p.l[row_base + rows[r]] : 0.f;
-    row_pos[r] = pos_of(p.qc, rows[r]);
-  }
-
-  cp_async_wait<1>();  // Q has landed
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(qa[kk], sQ + warp * 16 * kLd + kk * 16 + offa);
-  const float scale2 = p.scale * kLog2e;
-
-  for (int it = 0; j < n_tiles; ++it) {
-    const int n0 = j * kBlockN;
-    const int jn = next_key_tile(p, m0, j + 1, n_tiles);
-    if (jn < n_tiles) {  // the next visible tile into the other buffer
-      load_tile<T, D>(sK + ((it + 1) & 1) * kTile, k, p.sk.l, jn * kBlockN,
-                      p.Lk);
-      load_tile<T, D>(sV + ((it + 1) & 1) * kTile, v, p.sv.l, jn * kBlockN,
-                      p.Lk);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // tile j has landed
-    __syncthreads();
-    const bf16* cK = sK + (it & 1) * kTile;
-    const bf16* cV = sV + (it & 1) * kTile;
-
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; nt += 2) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bk[4];
-        ldsm_x4(bk, cK + nt * 8 * kLd + kk * 16 + offb);
-        mma_pair(s[nt], s[nt + 1], qa[kk], bk);
-      }
-    }
-
-    const bool need_mask = tile_needs_mask(p, m0, n0);
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale2;
-        if (need_mask) {
-          const int col = n0 + nt * 8 + tc + (e & 1);
-          if (masked(p, rows[e >> 1], col, row_pos[e >> 1],
-                     pos_of(p.kc, col)))
-            x = -INFINITY;
-        }
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float base[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      // No visible key yet (carried or in this tile): m stays -inf and the
-      // base 0 turns every masked score into exp2(-inf) = 0, never NaN.
-      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];
-      const float alpha = exp2f(m_run[r] - base[r]);
-      m_run[r] = mx[r];
-      l_run[r] *= alpha;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        acc[dt][2 * r] *= alpha;
-        acc[dt][2 * r + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - base[e >> 1]);
-        l_run[e >> 1] += s[nt][e];
-      }
-    }
-
-    // O += P . V, P rounded to bf16 as the TPU kernel rounds it to V's type.
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t bv[4];
-        ldsm_x4_t(bv, cV + kk * 16 * kLd + dt * 8 + offa);
-        mma_pair(acc[dt], acc[dt + 1], pa, bv);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before refill
-    j = jn;
-  }
-
-  // Un-normalised: o, the quad's summed l, and m back in natural-log units.
-  store_acc<D>(o, acc, rows, p.Lq, tc);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(l_run[r]);
-    if (rows[r] < p.Lq && tc == 0) {
-      p.m[row_base + rows[r]] = m_run[r] * kLn2;
-      p.l[row_base + rows[r]] = l;
-    }
   }
 }
 
@@ -599,19 +404,16 @@ __global__ void __launch_bounds__(kThreads)
   store_acc<D>(dvp, dv, keys, p.Lk, tc);
 }
 
-enum RingKernel { kRingFwd = 0, kRingDq = 1, kRingDkv = 2 };
+enum RingKernel { kRingDq = 1, kRingDkv = 2 };
 
 template <typename T, int D>
 cudaError_t run_ring(const RingParams& p, int which, cudaStream_t stream) {
   const int ld = (D + kPad) * sizeof(bf16);
-  const dim3 q_grid((p.Lq + kBlockM - 1) / kBlockM, p.B * p.H);
   switch (which) {
-    case kRingFwd:
-      return launch(ring_fwd_kernel<T, D>, q_grid,
-                         (kBlockM + 4 * kBlockN) * ld, stream, p);
     case kRingDq:
-      return launch(ring_bwd_dq_kernel<T, D>, q_grid,
-                         (2 * kBlockM + 4 * kBlockN) * ld, stream, p);
+      return launch(ring_bwd_dq_kernel<T, D>,
+                    dim3((p.Lq + kBlockM - 1) / kBlockM, p.B * p.H),
+                    (2 * kBlockM + 4 * kBlockN) * ld, stream, p);
     case kRingDkv:
       return launch(
           ring_bwd_dkv_kernel<T, D>,
@@ -634,18 +436,18 @@ cudaError_t run_ring_d(const RingParams& p, int D, int which,
   }
 }
 
-// The shared part of the three entry points: dims, chunks, strides (4 x
-// (batch, head, row) element strides of q, k, v, dout; dout's unused by K4).
+// The shared part of the two entry points: dims, chunks, strides (4 x
+// (batch, head, row) element strides of q, k, v, dout).
 int run_ring_entry(RingParams& p, int which, const long long* strides, int B,
                    int H, int G, int Lq, int Lk, int D, int dtype,
                    const int* chunks, float scale, int causal,
                    void* stream) {
   Strides s[4];
-  fill_strides(s, strides, which == kRingFwd ? 3 : 4);
+  fill_strides(s, strides, 4);
   p.sq = s[0];
   p.sk = s[1];
   p.sv = s[2];
-  if (which != kRingFwd) p.sdo = s[3];
+  p.sdo = s[3];
   p.B = B;
   p.H = H;
   p.G = G;
@@ -666,24 +468,6 @@ int run_ring_entry(RingParams& p, int which, const long long* strides, int B,
 // chunks: (off0, off1, len) of the q shard, then of the k/v shard.
 // dtype: 0 = bfloat16, 1 = float32 (products then take bf16-rounded inputs).
 // Each returns the cudaError_t of the launch.
-extern "C" int hvd_flash_ring_fwd(const void* q, const void* k, const void* v,
-                                  void* o, void* m, void* l,
-                                  const long long* strides, int B, int H,
-                                  int G, int Lq, int Lk, int D, int dtype,
-                                  const int* chunks, float scale, int causal,
-                                  void* stream) {
-  using namespace hvdflash;
-  RingParams p = {};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = static_cast<float*>(o);
-  p.m = static_cast<float*>(m);
-  p.l = static_cast<float*>(l);
-  return run_ring_entry(p, kRingFwd, strides, B, H, G, Lq, Lk, D, dtype,
-                        chunks, scale, causal, stream);
-}
-
 extern "C" int hvd_flash_ring_bwd_dq(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,

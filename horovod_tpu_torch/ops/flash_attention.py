@@ -22,11 +22,15 @@ products always run on bf16 inputs with f32 accumulation, as the TPU
 kernels do; a float32 tensor is rounded to bf16 as it is staged into
 shared memory (the softmax, lse, delta and the outputs stay f32). So on a
 GPU, float32 attention is bf16 attention with f32 outputs; only the plain
-versions on the CPU compute it exactly in f32.
+versions on the CPU compute it exactly in f32. The forward kernels (K1,
+K4) load their tiles by TMA, which copies bytes and cannot round: their
+wrappers round float32 q, k and v to bf16 (``.to(torch.bfloat16)``)
+before the launch, and K1 still writes O in q's dtype.
 
 Each wrapper counts its launches in ``.launches``.
 
-The ring-attention steps (``csrc/flash_ring.cu``) run one step of
+The ring-attention steps (K4 in ``csrc/flash_fwd.cu``, K5 and K6 in
+``csrc/flash_ring.cu``) run one step of
 ``parallel.ring.ring_attention``: the rank's q shard against the k/v shard
 it holds. Each shard is one chunk of global positions ``(off,)`` or two
 equal chunks ``(off0, off1)`` (the zigzag schedule); the causal mask runs
@@ -55,22 +59,30 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_Y = 65535
 
-# The arguments after the tensor pointers and the strides: K1-K3 take
-# B, H, G, L, D, dtype; the ring steps B, H, G, Lq, Lk, D, dtype and the
-# chunk offsets; then scale, causal and the stream.
-_TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# The arguments after the tensor pointers and the strides (K1: the tensor
+# maps and out's strides): K1-K3 take B, H, G, L, D and the dtype (K1: of
+# out); the ring steps B, H, G, Lq, Lk, D, the dtype (not K4) and the chunk
+# offsets; then scale, causal and the stream.
+_P = ctypes.c_void_p
+_TAIL = [ctypes.c_float, ctypes.c_int, _P]
 _FLASH_ARGS = [ctypes.c_int] * 6 + _TAIL
-_RING_ARGS = [ctypes.c_int] * 7 + [ctypes.c_void_p] + _TAIL
-# C entry point -> (source, number of tensor pointers before the strides,
-# the other arguments)
+_RING_ARGS = [ctypes.c_int] * 7 + [_P] + _TAIL
+# C entry point -> (source, argument types)
 _ENTRIES = {
-    "hvd_flash_fwd": ("flash_fwd", 5, _FLASH_ARGS),
-    "hvd_flash_bwd_dq": ("flash_bwd", 7, _FLASH_ARGS),
-    "hvd_flash_bwd_dkv": ("flash_bwd", 8, _FLASH_ARGS),
-    "hvd_flash_ring_fwd": ("flash_ring", 6, _RING_ARGS),
-    "hvd_flash_ring_bwd_dq": ("flash_ring", 7, _RING_ARGS),
-    "hvd_flash_ring_bwd_dkv": ("flash_ring", 8, _RING_ARGS),
+    "hvd_flash_fwd": ("flash_fwd", [_P] * 7 + _FLASH_ARGS),
+    "hvd_flash_bwd_dq": ("flash_bwd", [_P] * 8 + _FLASH_ARGS),
+    "hvd_flash_bwd_dkv": ("flash_bwd", [_P] * 9 + _FLASH_ARGS),
+    "hvd_flash_ring_fwd": ("flash_fwd", [_P] * 7 + [ctypes.c_int] * 6 + [_P]
+                           + _TAIL),
+    "hvd_flash_ring_bwd_dq": ("flash_ring", [_P] * 8 + _RING_ARGS),
+    "hvd_flash_ring_bwd_dkv": ("flash_ring", [_P] * 9 + _RING_ARGS),
 }
+# The forward kernels' TMA boxes: at most 64 bf16 columns (a head dim of
+# 128 is two boxes); 128 rows of K and V (a key tile), 64 rows of Q (one
+# consumer warpgroup's).
+TMA_BOX_COLS = 64
+TMA_BOX_ROWS = 128
+TMA_Q_BOX_ROWS = 64
 _bound = {}
 
 
@@ -287,10 +299,10 @@ def flash_ring_bwd_dkv_ref(q, k, v, dout, lse, delta, dk, dv, q_offset,
 def _entry(name):
     """(library, C function) of an entry point, built and bound once."""
     if name not in _bound:
-        source, n_ptrs, args = _ENTRIES[name]
+        source, args = _ENTRIES[name]
         lib = _build.library(source)
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * (n_ptrs + 1) + args
+        fn.argtypes = args
         fn.restype = ctypes.c_int
         _bound[name] = (lib, fn)
     return _bound[name]
@@ -364,14 +376,66 @@ def _strides(*tensors):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launch(name, q, ptrs, strides, dims, scale, causal, *extra):
-    """``extra``: the ring steps' chunk offsets, after the dtype."""
+def tensor_map(t, box_rows=TMA_BOX_ROWS):
+    """The layout of the TMA tensor map over a bf16 ``[B, heads, L, D]``
+    view ``t`` with a contiguous last dim, as the forward kernels encode it
+    (``csrc/hopper.cuh``), innermost first: dims ``(D, L, heads, B)``, the
+    byte strides of L, heads and B, and the box ``(min(D, 64), box_rows, 1,
+    1)``.
+    Raises ValueError where TMA cannot read ``t`` in place: a base that is
+    not 16-byte aligned, or a byte stride that is not a multiple of 16 (a
+    dim of size 1 is never stepped over, and its stride is rounded up)."""
+    if t.dim() != 4 or t.dtype != torch.bfloat16 or t.stride(-1) != 1:
+        raise ValueError("tensor_map: needs a bf16 [B, heads, L, D] view "
+                         "with a contiguous last dim; got %s %s strides %s"
+                         % (t.dtype, tuple(t.shape), tuple(t.stride())))
+    if t.data_ptr() % 16:
+        raise ValueError("tensor_map: the base is not 16-byte aligned")
+    B, heads, L, D = t.shape
+    strides = []
+    for dim, n in ((2, L), (1, heads), (0, B)):
+        stride = t.stride(dim) * t.element_size()
+        if stride % 16:
+            if n != 1:
+                raise ValueError(
+                    "tensor_map: byte stride %d of dim %d is not a multiple "
+                    "of 16" % (stride, dim))
+            stride += 16 - stride % 16
+        strides.append(stride)
+    return ((D, L, heads, B), tuple(strides),
+            (min(D, TMA_BOX_COLS), box_rows, 1, 1))
+
+
+def _maps(q, k, v):
+    """The tensor maps of q, k and v for a C entry point: 11 values each."""
+    vals = [x for t, rows in ((q, TMA_Q_BOX_ROWS), (k, TMA_BOX_ROWS),
+                              (v, TMA_BOX_ROWS))
+            for part in tensor_map(t, rows) for x in part]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _bf16(*tensors):
+    """The tensors as bf16, for the forward kernels' TMA loads: a float32
+    tensor is rounded (an explicit cast; the products always took
+    bf16-rounded inputs)."""
+    return tuple(t if t.dtype == torch.bfloat16 else t.to(torch.bfloat16)
+                 for t in tensors)
+
+
+def _call(name, q, *args):
+    """Calls C entry point ``name`` on q's device and stream; raises on a
+    CUDA error."""
     lib, fn = _entry(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*ptrs, strides, *dims, _DTYPES[q.dtype], *extra,
-                 float(scale), int(bool(causal)), stream)
+        err = fn(*args, stream)
     _build.check(lib, err, name)
+
+
+def _launch(name, q, ptrs, strides, dims, scale, causal, *extra):
+    """``extra``: the ring steps' chunk offsets, after the dtype."""
+    _call(name, q, *ptrs, strides, *dims, _DTYPES[q.dtype], *extra,
+          float(scale), int(bool(causal)))
 
 
 def _empty_like_heads(q, heads):
@@ -389,9 +453,10 @@ def flash_fwd(q, k, v, scale, causal):
     B, H, G, L, D = _check("flash_fwd", q, k, {"q": q, "k": k, "v": v})
     out = _empty_like_heads(q, H)
     lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    qkv = _bf16(q, k, v)
     _launch("hvd_flash_fwd", q,
-            [t.data_ptr() for t in (q, k, v, out, lse)],
-            _strides(q, k, v, out), (B, H, G, L, D), scale, causal)
+            [t.data_ptr() for t in (*qkv, out, lse)] + [_maps(*qkv)],
+            _strides(out), (B, H, G, L, D), scale, causal)
     flash_fwd.launches += 1
     return out, lse
 
@@ -461,15 +526,19 @@ def _check_ring(what, q, k, tensors, rows=(), q_state=(), kv_state=()):
     return B, H, G, Lq, Lk, D
 
 
+def _chunks(q_offset, kv_offset, Lq, Lk):
+    """(off0, off1, len) of the q shard, then of the k/v shard, for C."""
+    return (ctypes.c_int * 6)(*shard_chunks(q_offset, Lq),
+                              *shard_chunks(kv_offset, Lk))
+
+
 def _ring_launch(name, tensors, n_strided, dims, q_offset, kv_offset,
                  scale, causal):
     """Launches a ring step on ``tensors``; the strides are those of the
     first ``n_strided`` (q, k, v and dout)."""
-    Lq, Lk = dims[3], dims[4]
-    chunks = (ctypes.c_int * 6)(*shard_chunks(q_offset, Lq),
-                                *shard_chunks(kv_offset, Lk))
     _launch(name, tensors[0], [t.data_ptr() for t in tensors],
-            _strides(*tensors[:n_strided]), dims, scale, causal, chunks)
+            _strides(*tensors[:n_strided]), dims, scale, causal,
+            _chunks(q_offset, kv_offset, dims[3], dims[4]))
 
 
 def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal):
@@ -486,8 +555,11 @@ def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal):
         return o, m, l
     dims = _check_ring("flash_ring_step", q, k, {"q": q, "k": k, "v": v},
                        rows=(("m", m), ("l", l)), q_state=(("o", o),))
-    _ring_launch("hvd_flash_ring_fwd", (q, k, v, o, m, l), 3, dims,
-                 q_offset, kv_offset, scale, causal)
+    qkv = _bf16(q, k, v)
+    _call("hvd_flash_ring_fwd", q,
+          *[t.data_ptr() for t in (*qkv, o, m, l)], _maps(*qkv), *dims,
+          _chunks(q_offset, kv_offset, dims[3], dims[4]), float(scale),
+          int(bool(causal)))
     flash_ring_step.launches += 1
     return o, m, l
 

@@ -6,8 +6,9 @@ import no JAX, so they also run where only the port is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 chip_smoke.py covers the training shapes; these cover, for the flash
-kernels, the other head dims, float32 inputs, GQA, MQA and ragged lengths
-at small sizes, and for the BN statistics kernels ragged M and C, both
+kernels, the other head dims, float32 inputs, GQA, MQA, ragged lengths
+(one short of and one past the forward's 128-row tiles), zigzag chunks
+that a tile straddles, and grids of many blocks at small sizes, and for the BN statistics kernels ragged M and C, both
 dtypes, mixed dy and x, layouts they refuse, and run-to-run determinism.
 """
 
@@ -54,6 +55,8 @@ def _rel(a, b):
     (2, 2, 2, 130, 64, True, torch.float32),
     # 3 rows, one ragged tile (a single row would have dQ = 0 exactly)
     (1, 2, 2, 3, 64, True, torch.bfloat16),
+    (1, 4, 2, 300, 128, True, torch.bfloat16),    # D = 128, GQA, causal
+    (50, 4, 2, 160, 64, True, torch.bfloat16),    # B * H = 200 blocks
 ])
 def test_kernels_match_plain_versions(cuda, B, H, G, L, D, causal, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -91,6 +94,23 @@ def test_kernels_match_plain_versions(cuda, B, H, G, L, D, causal, dtype):
     after = fa.launch_counts()
     assert all(after[n] == before[n] + (1 if n == "flash_fwd" else 2)
                for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+
+
+@pytest.mark.parametrize("L", [1, 127, 129, 255])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_lengths_around_the_tile(cuda, L, causal):
+    """K1 one row short of and one past its 128-row tiles (and L = 1), in
+    the model's [B, L, H, D] layout."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(2, L, 4, 64, generator=g, device=cuda).to(
+        torch.bfloat16).transpose(1, 2) for _ in range(3))
+    out, lse = fa.flash_fwd(q, k, v, 0.125, causal)
+    torch.cuda.synchronize()
+    out_ref, lse_ref = fa.flash_forward_ref(q.float(), k.float(), v.float(),
+                                            0.125, causal)
+    assert out.shape == (2, 4, L, 64) and lse.shape == (2, 4, L)
+    assert _rel(out, out_ref) <= REL_TOL
+    assert (lse - lse_ref).abs().max() <= LSE_TOL
 
 
 def test_flash_attention_autograd_on_the_gpu(cuda):
@@ -156,6 +176,14 @@ def _m_err(a, b):
     (1, 2, 2, 512, 512, 64, (256, 512), (0, 768), True, torch.float32),
     # chunks of 48: tiles straddle the chunk boundary
     (1, 2, 2, 96, 96, 64, (0, 144), (48, 96), True, torch.bfloat16),
+    # Lq != Lk, both ragged against K4's 128-row tiles: past, overlapping
+    (1, 4, 2, 300, 200, 64, (200,), (0,), True, torch.bfloat16),
+    (1, 4, 2, 300, 200, 64, (100,), (150,), True, torch.bfloat16),
+    # zigzag chunks of 200 (n = 2, global 800): a 128-row tile straddles
+    # the chunk boundary
+    (1, 4, 2, 400, 400, 64, (0, 600), (200, 400), True, torch.bfloat16),
+    (1, 4, 2, 400, 400, 64, (200, 400), (0, 600), True, torch.bfloat16),
+    (1, 4, 2, 400, 400, 64, (0, 600), (0, 600), True, torch.bfloat16),
 ])
 def test_ring_kernels_match_plain_versions(cuda, B, H, G, Lq, Lk, D, q_off,
                                            kv_off, causal, dtype):

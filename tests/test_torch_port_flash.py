@@ -226,3 +226,54 @@ def test_kernel_argument_checks():
     fa._check("t", q, k, {}, (("lse", lse),))
     with pytest.raises(ValueError, match="lse"):
         fa._check("t", q, k, {}, (("lse", lse[:, :, :50]),))
+
+
+def _bhld(B, H, L, D):
+    """A [B, H, L, D] bf16 view of [B, L, H, D] memory, as the model's."""
+    return torch.zeros(B, L, H, D, dtype=torch.bfloat16).transpose(1, 2)
+
+
+@pytest.mark.parametrize("case", ["model_layout", "contiguous", "gqa_kv",
+                                  "head_dim_128", "refused"])
+def test_tensor_map_layouts(case):
+    """The TMA tensor maps of the forward kernels (K1, K4), computed in
+    Python: dims (D, L, heads, B), byte strides of L, heads and B, and the
+    box; a layout TMA cannot read in place raises."""
+    if case == "model_layout":
+        # [B, L, H, D] activations seen as [B, H, L, D]: row stride H * D
+        t = _bhld(2, 12, 100, 64)
+        assert fa.tensor_map(t) == ((64, 100, 12, 2),
+                                    (12 * 64 * 2, 64 * 2, 100 * 12 * 64 * 2),
+                                    (64, 128, 1, 1))
+    elif case == "contiguous":
+        t = torch.zeros(3, 4, 257, 32, dtype=torch.bfloat16)
+        assert fa.tensor_map(t) == ((32, 257, 4, 3),
+                                    (64, 257 * 64, 4 * 257 * 64),
+                                    (32, 128, 1, 1))
+    elif case == "gqa_kv":
+        # k and v carry G = 2 of H = 8 heads: their own map over G heads
+        q, k = _bhld(1, 8, 300, 64), _bhld(1, 2, 300, 64)
+        assert fa.tensor_map(q, fa.TMA_Q_BOX_ROWS) == (
+            (64, 300, 8, 1), (8 * 64 * 2, 64 * 2, 300 * 8 * 64 * 2),
+            (64, 64, 1, 1))
+        assert fa.tensor_map(k) == ((64, 300, 2, 1),
+                                    (2 * 64 * 2, 64 * 2, 300 * 2 * 64 * 2),
+                                    (64, 128, 1, 1))
+    elif case == "head_dim_128":
+        # two boxes of 64 columns a tile; a size-1 dim's stride is never
+        # stepped over and is rounded up to 16 bytes
+        t = torch.zeros(1, 1, 1, 132, dtype=torch.bfloat16)[..., :128]
+        assert fa.tensor_map(t) == ((128, 1, 1, 1), (272, 272, 272),
+                                    (64, 128, 1, 1))
+    else:
+        odd = torch.zeros(1, 100, 2, 66, dtype=torch.bfloat16)[..., :64]
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fa.tensor_map(odd.transpose(1, 2))
+        flat = torch.zeros(2 * 64 * 64 + 8, dtype=torch.bfloat16)
+        shifted = flat[1:1 + 2 * 64 * 64].view(1, 2, 64, 64)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.tensor_map(shifted)
+        with pytest.raises(ValueError, match="bf16"):
+            fa.tensor_map(torch.zeros(1, 2, 64, 64))
+        with pytest.raises(ValueError, match="contiguous last dim"):
+            fa.tensor_map(_bhld(1, 2, 64, 64).transpose(2, 3))

@@ -3,6 +3,7 @@ horovod_tpu, imports cleanly on a machine with no nvcc, triton or GPU,
 and its entry points refuse to fall back to the CPU quietly."""
 
 import ast
+import importlib.util
 import os
 import re
 import subprocess
@@ -26,6 +27,7 @@ PORT_FILES = PACKAGE_FILES + [
     ROOT / "tests" / "torch_port_bn_worker.py",
     ROOT / "tests" / "torch_port_ring_worker.py",
     ROOT / "tests" / "torch_port_planted_faults.py",
+    ROOT / "tests" / "torch_port_fwd_ab.py",
     ROOT / "tests" / "test_torch_port_cuda.py",
 ]
 
@@ -111,6 +113,27 @@ def test_every_source_exports_the_shared_error_symbol(source):
     assert any('#include "hvd_error.cuh"' in t for t in texts)
     assert not any(re.search(r"_error_string\(", t.replace(
         _build.ERROR_SYMBOL + "(", "")) for t in texts)
+
+
+def _planted_faults():
+    """FAULTS of tests/torch_port_planted_faults.py (a script, not a
+    module of a package)."""
+    path = ROOT / "tests" / "torch_port_planted_faults.py"
+    spec = importlib.util.spec_from_file_location("planted_faults", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.FAULTS
+
+
+@pytest.mark.parametrize("fault", sorted(_planted_faults()))
+def test_every_planted_fault_anchors_once_in_its_source(fault):
+    """The mutation check plants each fault after one anchor line; a
+    redesigned kernel that loses or repeats the line would make the check
+    stop, so each anchor occurs exactly once."""
+    source, anchor, line, phases = _planted_faults()[fault]
+    text = (_build.CSRC / source).read_text()
+    assert text.count(anchor) == 1, (fault, source)
+    assert line.endswith("\n") and phases
 
 
 def test_entry_points_without_a_gpu_raise_the_named_error():

@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Times the flash forward kernels K1 and K4 of this tree against another
+tree's, in one call on one GPU.
+
+    python3 tests/torch_port_fwd_ab.py OTHER_ROOT [--rounds N]
+
+OTHER_ROOT holds another version's ``chip_smoke.py`` and
+``horovod_tpu_torch/`` (e.g. ``git archive`` of the parent commit, unpacked
+under the git-ignored ``horovod_tpu_torch/ops/_build/``). Runs
+other, this, this, other (N rounds) in separate processes, each timing with
+its own tree's kernels and ``chip_smoke.time_ms``:
+
+- K1 at the LM's shape, [8, 12, 2048, 64] causal bf16, beside SDPA's
+  forward (a yardstick the port never calls), and the same without the
+  causal mask;
+- K4 at the sp phase's launch, [2, 12, 8192, 64] causal, zigzag chunks
+  (0, 4096) on one rank (the timed repeats carry the state: the same tiles
+  run), beside SDPA's causal forward at that shape; and K4 at one
+  off-diagonal ring step, [2, 12, 2048, 64].
+
+Prints one ``AB {...}`` JSON line a run and the card's name and power limit.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def one(root, label):
+    import torch
+    import torch.nn.functional as F
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    import horovod_tpu_torch.ops.flash_attention  # noqa: F401
+    from horovod_tpu_torch.ops import _build
+    fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
+    _build.build()
+    res = {"label": label, "root": str(root)}
+    q, k, v, _ = cs._inputs(dict(B=8, H=12, G=12, L=2048, D=64), 1)
+    res["k1_ms"] = cs.time_ms(lambda: fa.flash_fwd(q, k, v, 0.125, True))
+    # twice the pairs and no causal tail: the causal run's per-pair cost
+    # against this one's shows what the tail of the grid costs
+    res["k1_full_ms"] = cs.time_ms(lambda: fa.flash_fwd(q, k, v, 0.125,
+                                                         False))
+    res["sdpa_fwd_ms"] = cs.time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=0.125))
+    del q, k, v
+    for tag, L, q_off, kv_off in (("k4_sp", 8192, (0, 4096), (0, 4096)),
+                                  ("k4_off", 2048, (2048,), (0,))):
+        q, k, v, _ = cs._inputs(dict(B=2, H=12, G=12, L=L, D=64), 2)
+        o = torch.zeros(q.shape, device="cuda")
+        m = torch.full(q.shape[:3], float("-inf"), device="cuda")
+        l = torch.zeros(q.shape[:3], device="cuda")
+        res[tag + "_ms"] = cs.time_ms(lambda: fa.flash_ring_step(
+            q, k, v, o, m, l, q_off, kv_off, 0.125, True))
+        if tag == "k4_sp":
+            res["sdpa_sp_fwd_ms"] = cs.time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True,
+                                                       scale=0.125))
+    print("AB " + json.dumps(res), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", help="root of the other tree")
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--one", metavar="LABEL", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        one(Path(args.other).resolve(), args.one)
+        return
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    other = Path(args.other).resolve()
+    order = []
+    for _ in range(args.rounds):
+        order += [(other, "other"), (ROOT, "this"), (ROOT, "this"),
+                  (other, "other")]
+    for root, label in order:
+        run = subprocess.run([sys.executable, __file__, str(root), "--one",
+                              label], capture_output=True, text=True,
+                             timeout=600)
+        lines = [x for x in run.stdout.splitlines() if x.startswith("AB ")]
+        if run.returncode != 0 or not lines:
+            sys.exit("%s run failed (%d):\n%s" % (label, run.returncode,
+                                                  run.stderr[-3000:]))
+        print(lines[0], flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -31,10 +31,12 @@ BN_ROW_LOOP = ("    for (long long r = r_begin + ty; r < r_end; "
 # fault -> (source, the line after which it goes, the line planted, the
 # chip_smoke.py phases that must fail)
 FAULTS = {
-    # K1 skips key tile 1 for the q tiles from row 1024 on
+    # K1 skips key tile 1 for the q tiles from row 1024 on (its scores
+    # count as masked)
     "fwd_skip_tile": (
-        "flash_fwd.cu", "    const bf16* cV = sV + (j & 1) * kTile;\n",
-        "    if (m0 >= 1024 && j == 1) { __syncthreads(); continue; }\n",
+        "flash_fwd.cu", "      wgmma_wait<0>();\n      fence_operands(s);\n",
+        "      if (!kRing && m0 >= 1024 && j == 1)\n"
+        "        for (int e = 0; e < kFwdN / 2; ++e) s[e] = -INFINITY;\n",
         FLASH_PHASES),
     # K3 skips q tile 1 for the key tiles from row 1024 on
     "dkv_skip_tile": (
@@ -53,9 +55,10 @@ FAULTS = {
         "      if (!GRAD && c0 + VEC >= C) break;\n", BN_PHASES),
     # K4 ignores the carried running max, starting it from -inf
     "ring_fwd_drop_carried_m": (
-        "flash_ring.cu",
-        "    m_run[r] = valid ? p.m[row_base + rows[r]] * kLog2e : -INFINITY;\n",
-        "    m_run[r] = -INFINITY;\n", RING_PHASES),
+        "flash_fwd.cu",
+        "      m_run[r] = valid ? p.m[row_base + rows[r]] * kLog2e : -INFINITY;"
+        "\n",
+        "      m_run[r] = -INFINITY;\n", RING_PHASES),
     # K5 drops dq_in, the dq carried from the earlier ring steps
     "ring_dq_drop_carried": (
         "flash_ring.cu",
