@@ -98,10 +98,10 @@ PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # Limits against the f32 plain versions on the same bf16 inputs, set
 # between the readings of the sound kernels on an H100 and of kernels with a
-# planted fault (K1 skipping one 64-key tile, or K3 one q tile, for the rows
-# from 1024 on): O, dQ, dK, dV read 2.0e-3 to 2.5e-3 sound and 1.9e-2 to
-# 7.6e-2 planted; lse 1.9e-6 and 0.16; the worst parameter's gradient gap
-# 0.019 and 0.135 to 0.194.
+# planted fault (K1 or K2 skipping one key tile, or K3 one q tile, for the
+# rows from 1024 on): O, dQ, dK, dV read 2.0e-3 to 2.5e-3 sound and 5.1e-2
+# to 9.2e-2 planted; lse 1.9e-6 and 0.23; the worst parameter's gradient
+# gap 0.0196 and 0.099 to 0.258.
 REL_TOL = 1e-2             # ||kernel - plain||_2 / ||plain||_2
 LSE_TOL = 1e-3             # max |lse - plain lse|, natural-log units
 GRAD_TOL = 5e-2            # worst parameter's gradient gap, flash vs dense

@@ -1,8 +1,9 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
-// flash_ring.cu):
-// the tile sizes, the argument block, global -> shared staging of a tile
-// (cp.async for bf16), and the bf16 tensor-core product (mma.sync m16n8k16,
-// f32 accumulation) with its ldmatrix fragment loads from shared memory.
+// flash_ring.cu): strides, chunk positions, bf16 packing and stores, and
+// quad reductions; and for the ring's backward steps (flash_ring.cu) the
+// tile sizes, global -> shared staging of a tile (cp.async for bf16), and
+// the bf16 tensor-core product (mma.sync m16n8k16, f32 accumulation) with
+// its ldmatrix fragment loads from shared memory.
 //
 // Layout. Every tensor is addressed as [B, heads, L, D] through three element
 // strides (batch, head, row); the last dim is contiguous. The Python wrapper
@@ -42,24 +43,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, h, l;
-};
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;
-  const float* delta;
-  void* out;
-  float* lse_out;
-  void* dq;
-  void* dk;
-  void* dv;
-  Strides sq, sk, sv, sdo, so, sdq, sdk, sdv;
-  int B, H, G, L;
-  float scale;
-  int causal;
 };
 
 // Global positions of a ring shard's rows: row r lies at off0 + r when r < len,

@@ -128,16 +128,6 @@ __device__ __forceinline__ int fwd_next_tile(const FwdParams& p, int m0,
   return j;
 }
 
-// O = [O +] P V for one k16 slice: P's A fragment from registers.
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int accumulate) {
-  if constexpr (D == 32) wgmma_rs_m64n32(o, a, db, accumulate);
-  if constexpr (D == 64) wgmma_rs_m64n64(o, a, db, accumulate);
-  if constexpr (D == 128) wgmma_rs_m64n128(o, a, db, accumulate);
-}
-
 // All of O += P V for one tile, V at `v` (MN-major); `accumulate` false
 // makes the first slice write O instead.
 template <int D>
@@ -147,7 +137,7 @@ __device__ __forceinline__ void tile_pv(float (&o)[D / 2],
   using Tile = FwdTile<D>;
 #pragma unroll
   for (int kk = 0; kk < kFwdN / 16; ++kk)
-    wgmma_pv<D>(o, pa[kk],
+    wgmma_rs<D>(o, pa[kk],
                 make_desc(v + kk * 16 * Tile::kRow, Tile::kBox, Tile::kSbo,
                           Tile::kSwizzle),
                 accumulate || kk > 0);

@@ -23,7 +23,7 @@
 // 39 us at 989 TFLOP/s bf16) and moves 51 MB; K6 4 products (51.5 GFLOP,
 // 52 us) and 76 MB. Both are bound by the tensor cores.
 //
-// Design: K2-K3's (flash_bwd.cu). One block of 4 warps per 64-row tile that
+// Design (mma.sync): one block of 4 warps per 64-row tile that
 // the block owns (q rows in K5, key rows in K6); the owned rows' operands go
 // once into registers as mma A fragments; the other side streams in 64-row
 // tiles, double-buffered in shared memory by cp.async, read with ldmatrix,

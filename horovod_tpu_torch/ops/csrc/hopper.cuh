@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels, in PTX: the
 // Tensor Memory Accelerator (TMA) with its tensor maps, mbarriers, wgmma
 // with its shared-memory matrix descriptors, the fences between them and
-// setmaxnreg. The flash forward (flash_fwd.cu) is built on them.
+// setmaxnreg. The flash forward (flash_fwd.cu) and backward (flash_bwd.cu)
+// are built on them.
 //
 // Tensor maps are encoded on the host with the driver's
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
@@ -13,12 +14,14 @@
 // Shared-memory tiles are written by TMA with a 128-byte swizzle (rows of
 // 64 bf16; D = 128 is two boxes of 64 columns) or a 64-byte swizzle (rows
 // of 32 bf16), and read by wgmma through descriptors of the same swizzle:
-//  - K-major operands (Q and K for S = Q K^T, D contiguous): leading byte
-//    offset unused (16), stride byte offset 8 rows (1024 or 512 bytes); a
-//    k16 slice starts 32 bytes further along the row.
-//  - MN-major operands (V for O += P V, D contiguous, keys along K; the
+//  - K-major operands (D contiguous and summed over: Q and K for S = Q K^T,
+//    dO and V for dP = dO V^T): leading byte offset unused (16), stride
+//    byte offset 8 rows (1024 or 512 bytes); a k16 slice starts 32 bytes
+//    further along the row.
+//  - MN-major operands (D contiguous, rows summed over: V for O += P V, K
+//    for dQ += dS K, dO and Q for dV += P^T dO and dK += dS^T Q; the
 //    transpose bit set): leading byte offset = the next box of 64 columns,
-//    stride byte offset = 8 keys; a k16 slice starts 16 rows further.
+//    stride byte offset = 8 rows; a k16 slice starts 16 rows further.
 // Tiles start on 1024-byte boundaries, so the descriptors' base offset is 0.
 #pragma once
 
@@ -164,7 +167,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// The wgmma shapes of the flash forward. Accumulator layout (PTX ISA,
+// The wgmma shapes of the flash kernels. Accumulator layout (PTX ISA,
 // "Register fragments: wgmma .m64nNk16"): warp w of the warpgroup holds
 // rows 16w..16w+15; with g = lane / 4 and t = 2 * (lane % 4), d[4i + 0, 1]
 // are row g, columns 8i + t, 8i + t + 1 and d[4i + 2, 3] row g + 8, the
@@ -200,6 +203,42 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) = [d +] A . B, A and B from shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32, f32) = [d +] A . B, A and B from shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss_m64n32(float (&d)[16], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -276,6 +315,25 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N) = [d +] A . B with both operands from shared memory (the
+// backward's widths; the forward calls m64n128 itself).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 32) wgmma_ss_m64n32(d, da, db, accumulate);
+  if constexpr (N == 64) wgmma_ss_m64n64(d, da, db, accumulate);
+}
+
+// d (64 x N) = [d +] A . B with A from registers, B MN-major.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 32) wgmma_rs_m64n32(d, a, db, accumulate);
+  if constexpr (N == 64) wgmma_rs_m64n64(d, a, db, accumulate);
+  if constexpr (N == 128) wgmma_rs_m64n128(d, a, db, accumulate);
 }
 
 // ------------------------------------------------------------- host side

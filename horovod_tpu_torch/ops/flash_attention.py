@@ -19,13 +19,13 @@ copy) and allocate every output. ``lse`` is a plain f32 ``[B, H, L]``.
 
 Precision: the kernels take bfloat16 or float32 tensors, but their
 products always run on bf16 inputs with f32 accumulation, as the TPU
-kernels do; a float32 tensor is rounded to bf16 as it is staged into
-shared memory (the softmax, lse, delta and the outputs stay f32). So on a
+kernels do (the softmax, lse, delta and the outputs stay f32). So on a
 GPU, float32 attention is bf16 attention with f32 outputs; only the plain
-versions on the CPU compute it exactly in f32. The forward kernels (K1,
-K4) load their tiles by TMA, which copies bytes and cannot round: their
-wrappers round float32 q, k and v to bf16 (``.to(torch.bfloat16)``)
-before the launch, and K1 still writes O in q's dtype.
+versions on the CPU compute it exactly in f32. K1-K4 load their tiles by
+TMA, which copies bytes and cannot round: their wrappers round float32 q,
+k, v and dout to bf16 (``.to(torch.bfloat16)``) before the launch, and
+K1-K3 still write O, dQ, dK and dV in q's dtype; K5 and K6 round a
+float32 tile as they stage it into shared memory.
 
 Each wrapper counts its launches in ``.launches``.
 
@@ -59,10 +59,10 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_Y = 65535
 
-# The arguments after the tensor pointers and the strides (K1: the tensor
-# maps and out's strides): K1-K3 take B, H, G, L, D and the dtype (K1: of
-# out); the ring steps B, H, G, Lq, Lk, D, the dtype (not K4) and the chunk
-# offsets; then scale, causal and the stream.
+# The arguments after the tensor pointers and the strides (K1-K3: the
+# tensor maps and their outputs' strides): K1-K3 take B, H, G, L, D and
+# the dtype of their outputs; the ring steps B, H, G, Lq, Lk, D, the dtype
+# (not K4) and the chunk offsets; then scale, causal and the stream.
 _P = ctypes.c_void_p
 _TAIL = [ctypes.c_float, ctypes.c_int, _P]
 _FLASH_ARGS = [ctypes.c_int] * 6 + _TAIL
@@ -70,8 +70,8 @@ _RING_ARGS = [ctypes.c_int] * 7 + [_P] + _TAIL
 # C entry point -> (source, argument types)
 _ENTRIES = {
     "hvd_flash_fwd": ("flash_fwd", [_P] * 7 + _FLASH_ARGS),
-    "hvd_flash_bwd_dq": ("flash_bwd", [_P] * 8 + _FLASH_ARGS),
-    "hvd_flash_bwd_dkv": ("flash_bwd", [_P] * 9 + _FLASH_ARGS),
+    "hvd_flash_bwd_dq": ("flash_bwd", [_P] * 9 + _FLASH_ARGS),
+    "hvd_flash_bwd_dkv": ("flash_bwd", [_P] * 10 + _FLASH_ARGS),
     "hvd_flash_ring_fwd": ("flash_fwd", [_P] * 7 + [ctypes.c_int] * 6 + [_P]
                            + _TAIL),
     "hvd_flash_ring_bwd_dq": ("flash_ring", [_P] * 8 + _RING_ARGS),
@@ -83,6 +83,10 @@ _ENTRIES = {
 TMA_BOX_COLS = 64
 TMA_BOX_ROWS = 128
 TMA_Q_BOX_ROWS = 64
+# The backward kernels' TMA boxes: 64 rows of the operands that a consumer
+# warpgroup owns (K2: q and dout; K3: k and v), and the streamed tiles'
+# rows: 64, or 32 for K3's q tiles at a head dim of 128.
+BWD_BOX_ROWS = 64
 _bound = {}
 
 
@@ -378,7 +382,7 @@ def _strides(*tensors):
 
 def tensor_map(t, box_rows=TMA_BOX_ROWS):
     """The layout of the TMA tensor map over a bf16 ``[B, heads, L, D]``
-    view ``t`` with a contiguous last dim, as the forward kernels encode it
+    view ``t`` with a contiguous last dim, as K1-K4 encode it
     (``csrc/hopper.cuh``), innermost first: dims ``(D, L, heads, B)``, the
     byte strides of L, heads and B, and the box ``(min(D, 64), box_rows, 1,
     1)``.
@@ -406,18 +410,36 @@ def tensor_map(t, box_rows=TMA_BOX_ROWS):
             (min(D, TMA_BOX_COLS), box_rows, 1, 1))
 
 
-def _maps(q, k, v):
-    """The tensor maps of q, k and v for a C entry point: 11 values each."""
-    vals = [x for t, rows in ((q, TMA_Q_BOX_ROWS), (k, TMA_BOX_ROWS),
-                              (v, TMA_BOX_ROWS))
+def _maps(*tensors_and_rows):
+    """The tensor maps of (tensor, box rows) pairs for a C entry point: 11
+    values each."""
+    vals = [x for t, rows in tensors_and_rows
             for part in tensor_map(t, rows) for x in part]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def _fwd_maps(q, k, v):
+    """The maps of K1 and K4: 64-row q boxes, 128-row k and v boxes."""
+    return _maps((q, TMA_Q_BOX_ROWS), (k, TMA_BOX_ROWS), (v, TMA_BOX_ROWS))
+
+
+def bwd_box_rows(dkv, D):
+    """(rows of q's and dout's boxes, rows of k's and v's) for K2
+    (``dkv=False``) or K3 at head dim D."""
+    stream = BWD_BOX_ROWS // 2 if dkv and D == 128 else BWD_BOX_ROWS
+    return (stream, BWD_BOX_ROWS) if dkv else (BWD_BOX_ROWS, stream)
+
+
+def _bwd_maps(q, k, v, dout, dkv):
+    """The maps of K2 or K3 over q, k, v and dout."""
+    q_rows, kv_rows = bwd_box_rows(dkv, q.shape[-1])
+    return _maps((q, q_rows), (k, kv_rows), (v, kv_rows), (dout, q_rows))
+
+
 def _bf16(*tensors):
-    """The tensors as bf16, for the forward kernels' TMA loads: a float32
-    tensor is rounded (an explicit cast; the products always took
-    bf16-rounded inputs)."""
+    """The tensors as bf16, for K1-K4's TMA loads: a float32 tensor is
+    rounded (an explicit cast; the products always took bf16-rounded
+    inputs)."""
     return tuple(t if t.dtype == torch.bfloat16 else t.to(torch.bfloat16)
                  for t in tensors)
 
@@ -455,7 +477,7 @@ def flash_fwd(q, k, v, scale, causal):
     lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
     qkv = _bf16(q, k, v)
     _launch("hvd_flash_fwd", q,
-            [t.data_ptr() for t in (*qkv, out, lse)] + [_maps(*qkv)],
+            [t.data_ptr() for t in (*qkv, out, lse)] + [_fwd_maps(*qkv)],
             _strides(out), (B, H, G, L, D), scale, causal)
     flash_fwd.launches += 1
     return out, lse
@@ -469,9 +491,11 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal):
                            {"q": q, "k": k, "v": v, "dout": dout},
                            (("lse", lse), ("delta", delta)))
     dq = _empty_like_heads(q, H)
+    qkvd = _bf16(q, k, v, dout)
     _launch("hvd_flash_bwd_dq", q,
-            [t.data_ptr() for t in (q, k, v, dout, lse, delta, dq)],
-            _strides(q, k, v, dout, dq), (B, H, G, L, D), scale, causal)
+            [t.data_ptr() for t in (*qkvd, lse, delta, dq)] +
+            [_bwd_maps(*qkvd, dkv=False)],
+            _strides(dq), (B, H, G, L, D), scale, causal)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -486,9 +510,11 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal):
                            (("lse", lse), ("delta", delta)))
     dk = _empty_like_heads(k, G)
     dv = _empty_like_heads(k, G)
+    qkvd = _bf16(q, k, v, dout)
     _launch("hvd_flash_bwd_dkv", q,
-            [t.data_ptr() for t in (q, k, v, dout, lse, delta, dk, dv)],
-            _strides(q, k, v, dout, dk, dv), (B, H, G, L, D), scale, causal)
+            [t.data_ptr() for t in (*qkvd, lse, delta, dk, dv)] +
+            [_bwd_maps(*qkvd, dkv=True)],
+            _strides(dk, dv), (B, H, G, L, D), scale, causal)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -557,7 +583,7 @@ def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal):
                        rows=(("m", m), ("l", l)), q_state=(("o", o),))
     qkv = _bf16(q, k, v)
     _call("hvd_flash_ring_fwd", q,
-          *[t.data_ptr() for t in (*qkv, o, m, l)], _maps(*qkv), *dims,
+          *[t.data_ptr() for t in (*qkv, o, m, l)], _fwd_maps(*qkv), *dims,
           _chunks(q_offset, kv_offset, dims[3], dims[4]), float(scale),
           int(bool(causal)))
     flash_ring_step.launches += 1

@@ -7,9 +7,11 @@ import no JAX, so they also run where only the port is installed:
 
 chip_smoke.py covers the training shapes; these cover, for the flash
 kernels, the other head dims, float32 inputs, GQA, MQA, ragged lengths
-(one short of and one past the forward's 128-row tiles), zigzag chunks
-that a tile straddles, and grids of many blocks at small sizes, and for the BN statistics kernels ragged M and C, both
-dtypes, mixed dy and x, layouts they refuse, and run-to-run determinism.
+(one short of and one past the forward's 128-row tiles and the backward's
+32-, 64- and 192-row tiles), a strided dout view, zigzag chunks that a
+tile straddles, and grids of many blocks at small sizes, and for the BN
+statistics kernels ragged M and C, both dtypes, mixed dy and x, layouts
+they refuse, and run-to-run determinism.
 """
 
 import sys
@@ -111,6 +113,61 @@ def test_flash_fwd_lengths_around_the_tile(cuda, L, causal):
     assert out.shape == (2, 4, L, 64) and lse.shape == (2, 4, L)
     assert _rel(out, out_ref) <= REL_TOL
     assert (lse - lse_ref).abs().max() <= LSE_TOL
+
+
+def _bwd_case(cuda, B, H, G, L, D, causal, dtype, seed, dout_view=False):
+    """K2 and K3 on the model's [B, L, heads, D] layout (dout a strided
+    view of a wider tensor when ``dout_view``) against their plain versions
+    on the bf16-rounded values; returns the three norm-relative errors."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(heads, width=D):
+        return torch.randn(B, L, heads, width, generator=g, device=cuda
+                           ).to(dtype).transpose(1, 2)
+    q, k, v = rnd(H), rnd(G), rnd(G)
+    dout = rnd(H, D + 8)[..., :D] if dout_view else rnd(H)
+    scale = D ** -0.5
+    f32 = [t.to(torch.bfloat16).float() for t in (q, k, v, dout)]
+    out_ref, lse = fa.flash_forward_ref(*f32[:3], scale, causal)
+    delta = fa._delta(out_ref, f32[3])
+    dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    assert dq.shape == (B, H, L, D) and dk.shape == dv.shape == (B, G, L, D)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*f32, lse, delta, scale, causal)
+    return (_rel(dq, fa.flash_bwd_dq_ref(*f32, lse, delta, scale, causal)),
+            _rel(dk, dk_ref), _rel(dv, dv_ref))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("case", ["gqa", "float32", "dout_view"])
+def test_flash_bwd_kernels_at_every_head_dim(cuda, case, D, causal):
+    """K2 and K3 at each head dim, causal and full: GQA (6 query heads on
+    2 kv heads), float32 inputs (rounded to bf16 for the TMA loads, the
+    outputs float32), and dout a strided view (row stride D + 8) that TMA
+    reads in place. L = 300: K2's 192- or 128-row blocks and 64-key tiles,
+    K3's 128-key blocks and 64- or 32-row q tiles, each with a ragged end."""
+    before = fa.launch_counts()
+    errs = _bwd_case(cuda, 2, 6, 2 if case == "gqa" else 6, 300, D, causal,
+                     torch.float32 if case == "float32" else torch.bfloat16,
+                     seed=7, dout_view=case == "dout_view")
+    assert max(errs) <= REL_TOL, errs
+    after = fa.launch_counts()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+
+
+@pytest.mark.parametrize("L", [31, 33, 63, 65, 191, 193])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_lengths_around_the_tile(cuda, L, causal, D):
+    """K2 and K3 one row short of and one past their tiles: K3's 32-row q
+    tiles (D = 128), the 64-row tiles and warpgroups, and K2's 192-row
+    blocks (D = 64), with GQA."""
+    errs = _bwd_case(cuda, 2, 4, 2, L, D, causal, torch.bfloat16, seed=8)
+    assert max(errs) <= REL_TOL, errs
 
 
 def test_flash_attention_autograd_on_the_gpu(cuda):

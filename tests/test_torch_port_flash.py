@@ -277,3 +277,55 @@ def test_tensor_map_layouts(case):
             fa.tensor_map(torch.zeros(1, 2, 64, 64))
         with pytest.raises(ValueError, match="contiguous last dim"):
             fa.tensor_map(_bhld(1, 2, 64, 64).transpose(2, 3))
+
+
+def _autograd_dout(case, B, H, L, D):
+    """dO as autograd hands it to _FlashFn.backward: the gradient of the
+    [B, H, L, D] output that the public function transposes back to
+    [B, L, H, D], after the wrapper's ``_kernel_layout`` and ``_bf16``."""
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    o = torch.zeros(B, H, L, D, dtype=dtype, requires_grad=True)
+    got = []
+    o.register_hook(got.append)
+    out = o.transpose(1, 2)
+    if case == "sum":
+        out.sum().backward()        # a stride-0 (expanded) gradient
+    else:
+        (out * torch.ones(B, L, H, D, dtype=dtype)).sum().backward()
+    g = fa._kernel_layout(got[0])
+    return fa._bf16(g)[0]
+
+
+@pytest.mark.parametrize("case", ["model_layout", "sum", "float32",
+                                  "head_dim_128", "gqa_head_dim_32"])
+def test_backward_tensor_maps_on_autograd_layouts(case):
+    """The TMA maps of K2 and K3 (q, k, v, dout; 11 values each) on the
+    layouts the backward receives: q, k, v as the model's transposed
+    [B, L, heads, D] activations, dO from autograd. K2's q and dout boxes
+    and K3's k and v boxes are 64 rows (one consumer warpgroup's); the
+    streamed tiles are 64 rows, K3's q tiles 32 at a head dim of 128."""
+    B, L = 2, 100
+    H, G, D = {"head_dim_128": (4, 4, 128),
+               "gqa_head_dim_32": (8, 2, 32)}.get(case, (12, 12, 64))
+    q = _bhld(B, H, L, D)
+    k, v = _bhld(B, G, L, D), _bhld(B, G, L, D)
+    dout = _autograd_dout(case, B, H, L, D)
+    assert dout.dtype == torch.bfloat16 and dout.stride(-1) == 1
+    if case == "sum":
+        assert dout.is_contiguous()   # the expanded gradient was copied
+    else:
+        assert dout.stride() == q.stride()  # read in place, no copy
+
+    def layout(t, heads, rows):
+        return [D, L, heads, B, *(s * 2 for s in t.stride()[2::-1]),
+                min(D, 64), rows, 1, 1]
+
+    for dkv in (False, True):
+        q_rows, kv_rows = fa.bwd_box_rows(dkv, D)
+        assert (q_rows, kv_rows) == (
+            (32 if D == 128 else 64, 64) if dkv else (64, 64))
+        want = (layout(q, H, q_rows) + layout(k, G, kv_rows) +
+                layout(v, G, kv_rows) + layout(dout, H, q_rows))
+        assert list(fa._bwd_maps(q, k, v, dout, dkv)) == want
+    # dims, then the byte strides of L, heads and B of the model layout
+    assert layout(q, H, 64)[4:7] == [H * D * 2, D * 2, L * H * D * 2]

@@ -19,6 +19,7 @@ its own tree's kernels and ``chip_smoke.time_ms``:
   off-diagonal ring step, [2, 12, 2048, 64].
 
 Prints one ``AB {...}`` JSON line a run and the card's name and power limit.
+``tests/torch_port_bwd_ab.py`` runs the backward kernels on the same runner.
 """
 
 import argparse
@@ -30,15 +31,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def one(root, label):
-    import torch
-    import torch.nn.functional as F
+def load(root):
+    """(chip_smoke, flash_attention) of the tree at ``root``, its kernels
+    built."""
     sys.path.insert(0, str(root))
     import chip_smoke as cs
     import horovod_tpu_torch.ops.flash_attention  # noqa: F401
     from horovod_tpu_torch.ops import _build
-    fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
     _build.build()
+    return cs, sys.modules["horovod_tpu_torch.ops.flash_attention"]
+
+
+def one(root, label):
+    import torch
+    import torch.nn.functional as F
+    cs, fa = load(root)
     res = {"label": label, "root": str(root)}
     q, k, v, _ = cs._inputs(dict(B=8, H=12, G=12, L=2048, D=64), 1)
     res["k1_ms"] = cs.time_ms(lambda: fa.flash_fwd(q, k, v, 0.125, True))
@@ -65,8 +72,9 @@ def one(root, label):
     print("AB " + json.dumps(res), flush=True)
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def main(one=one, script=__file__, doc=__doc__):
+    """Runs ``one`` of ``script`` in turns, other/this/this/other."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("other", help="root of the other tree")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--one", metavar="LABEL", help=argparse.SUPPRESS)
@@ -84,7 +92,7 @@ def main():
         order += [(other, "other"), (ROOT, "this"), (ROOT, "this"),
                   (other, "other")]
     for root, label in order:
-        run = subprocess.run([sys.executable, __file__, str(root), "--one",
+        run = subprocess.run([sys.executable, script, str(root), "--one",
                               label], capture_output=True, text=True,
                              timeout=600)
         lines = [x for x in run.stdout.splitlines() if x.startswith("AB ")]

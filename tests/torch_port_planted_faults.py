@@ -28,6 +28,8 @@ BN_PHASES = ("bn_kernels", "resnet")
 RING_PHASES = ("ring_kernels",)
 BN_ROW_LOOP = ("    for (long long r = r_begin + ty; r < r_end; "
                "r += sh.ty) {\n")
+# K2's and K3's scores, masked and before the exponentials
+BWD_SCORES = "        const float* st = stats + stage * Tile::kStats;\n"
 # fault -> (source, the line after which it goes, the line planted, the
 # chip_smoke.py phases that must fail)
 FAULTS = {
@@ -38,11 +40,19 @@ FAULTS = {
         "      if (!kRing && m0 >= 1024 && j == 1)\n"
         "        for (int e = 0; e < kFwdN / 2; ++e) s[e] = -INFINITY;\n",
         FLASH_PHASES),
-    # K3 skips q tile 1 for the key tiles from row 1024 on
+    # K2 skips key tile 1 for the q tiles from row 1024 on (its scores
+    # count as masked)
+    "dq_skip_tile": (
+        "flash_bwd.cu", BWD_SCORES,
+        "        if (!kDkv && m0 >= 1024 && j == 1)\n"
+        "          for (int e = 0; e < kN / 2; ++e) x[e] = -INFINITY;\n",
+        FLASH_PHASES),
+    # K3 skips the second q tile it visits for the key tiles from row 1024
+    # on
     "dkv_skip_tile": (
-        "flash_bwd.cu",
-        "    const float* cDelta = sDelta + (j & 1) * kBlockN;\n",
-        "    if (n0 >= 1024 && j == 1) { __syncthreads(); continue; }\n",
+        "flash_bwd.cu", BWD_SCORES,
+        "        if (kDkv && m0 >= 1024 && j == j_first + 1)\n"
+        "          for (int e = 0; e < kN / 2; ++e) x[e] = -INFINITY;\n",
         FLASH_PHASES),
     # K8 skips the last chunk of rows (the last row split's block)
     "bn_grad_skip_rows": (
