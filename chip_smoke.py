@@ -85,6 +85,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -147,9 +148,9 @@ KERNELS = {
                               "horovod_tpu/ops/batch_norm.py:133", 5),
     "flash_ring_step": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
                         "horovod_tpu/ops/flash_attention.py:431", 2),
-    "flash_ring_bwd_dq": ("horovod_tpu_torch/ops/csrc/flash_ring.cu",
+    "flash_ring_bwd_dq": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
                           "horovod_tpu/ops/flash_attention.py:620", 3),
-    "flash_ring_bwd_dkv": ("horovod_tpu_torch/ops/csrc/flash_ring.cu",
+    "flash_ring_bwd_dkv": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
                            "horovod_tpu/ops/flash_attention.py:673", 4),
 }
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -1143,9 +1144,9 @@ def gradient_gaps(model, dense, tokens, loss_fn):
 
 def _category(name, model):
     low = name.lower()
-    # K4 runs on K1's mainloop: flash_fwd_kernel<D, true, ...>
-    if ("ring_" in low and "kernel" in low) or (
-            "flash_fwd_kernel<" in low and ", true," in low):
+    # K4-K6 are the ring instantiations of the flash mainloops:
+    # flash_fwd_kernel<D, true, ...>, flash_bwd_kernel<D, kDkv, true, ...>
+    if re.search(r"flash_(fwd_kernel<\d+|bwd_kernel<\d+, \w+), true,", low):
         return "ring kernels"
     if "flash" in low:
         return "flash kernels"

@@ -1,8 +1,10 @@
-// The flash-attention backward on Hopper: one mainloop, two epilogues.
+// The flash-attention backward on Hopper: one mainloop, four epilogues.
 //
 // Replaces: horovod_tpu/ops/flash_attention.py:_bwd_dq_kernel (:841) as
 // kernel K2 and _bwd_dkv_kernel (:895) as kernel K3, both launched by
-// _pallas_backward (:959). P is recomputed from the forward's log-sum-exp;
+// _pallas_backward (:959); and _ring_bwd_dq_kernel (:620) as kernel K5 and
+// _ring_bwd_dkv_kernel (:673) as kernel K6, both launched by
+// flash_ring_bwd_step. P is recomputed from the forward's log-sum-exp;
 // delta = rowsum(dO * O) is computed outside (as XLA computes it for the
 // TPU kernels):
 //   P = exp(scale * Q K^T - lse),  dS = P * (dO V^T - delta) * scale
@@ -10,6 +12,14 @@
 //   K3: dV = P^T dO, dK = dS^T Q   (4 products), summed over the H / G
 //       query heads of a kv head inside the block (GQA), so dK and dV are
 //       written once at G heads.
+//   K5, K6: one ring step of K2 and K3 (the kRing instantiations): the
+//       rank's q shard against the k/v shard it holds at that step, P from
+//       the whole ring's lse, causal masks on the shards' GLOBAL positions
+//       (Chunks: one chunk, or two for the zigzag schedule, which a tile may
+//       straddle), Lq and Lk apart. The step's sums are added to f32
+//       accumulators in place (K5: dq; K6: dk and dv, which travel around
+//       the ring with their k/v shard); rows that see no key of the shard
+//       keep their value bit for bit.
 // Precision follows the TPU kernels: the products take bf16 inputs and sum
 // in f32; P is rounded to bf16 (dO's type) before the dV product, and dS
 // before the dK and dQ products.
@@ -19,7 +29,12 @@
 //   K2: 77.3 GFLOP, 78 us at 989 TFLOP/s; 201 M exp2, 52 us on the
 //       special-function units; about 127 MB read and written, 38 us.
 //   K3: 103.1 GFLOP, 104 us; the same exponentials and bytes.
-// Both are bound by the tensor cores.
+// At the sp step's launch, [2, 12, 8192, 64] causal over zigzag chunks
+// (0, 4096) on one rank (the same pairs as a causal L = 8192):
+//   K5: 309 GFLOP, 0.313 ms; K6: 412 GFLOP, 0.417 ms; 805 M exp2, 0.206 ms;
+//   bf16 inputs 25 MB, f32 rows 1.6 MB, f32 accumulators read and written
+//   50 MB (K5) or 101 MB (K6), 23 and 38 us.
+// All four are bound by the tensor cores.
 //
 // Design (flash_fwd.cu's shape on hopper.cuh's PTX; one mainloop):
 // - A block owns rows of one side and streams tiles of the other. K2 owns
@@ -47,11 +62,16 @@
 //   in the forward's P V.
 // - The stream stops at the last tile the block sees (K2: the diagonal; K3
 //   starts there), a warpgroup skips a tile that none of its rows sees, and
-//   only tiles that straddle the diagonal or a ragged end are masked. Masks
-//   run on positions (Chunks; one chunk at 0 here), and the accumulators
-//   start from the first product (`live`), so a ring step can run on this
-//   mainloop with global offsets and carried accumulators.
-// - Two launches, each writing its outputs once: no float atomics.
+//   only tiles that straddle the diagonal, a chunk boundary or a ragged end
+//   are masked. Masks run on positions (Chunks; one chunk at 0 in K2 and
+//   K3), and the accumulators start from their first product (`live`; a
+//   constant zero or a loaded value there can make ptxas copy accumulator
+//   registers between the wgmmas and serialize them).
+// - Two launches, each writing its outputs once: no float atomics. The
+//   ring's epilogue reads the carried f32 row and writes it back with the
+//   step's sum added; a warpgroup that saw no tile stores nothing. (A block
+//   that sees no tile still loads its owned rows: returning before the
+//   roles split made ptxas spill in K6 at D = 64.)
 // Tiles: three consumers (192 owned rows a block) and 64-row streamed tiles
 // at D <= 64; two consumers at D = 128, where K3 streams 32-row q tiles (its
 // dK and dV alone take 128 registers a thread there). Measured against this
@@ -107,11 +127,12 @@ struct BwdParams {
   CUtensorMap tq, tk, tv, tdo;  // 4-D bf16 maps (hopper.cuh)
   const float* lse;             // [B, H, Lq], natural log
   const float* delta;           // [B, H, Lq]
-  void* out1;                   // K2: dq [B, H, Lq, D]; K3: dk [B, G, Lk, D]
-  void* out2;                   // K3: dv [B, G, Lk, D]
+  void* out1;                   // K2, K5: dq [B, H, Lq, D]; K3, K6: dk
+                                // [B, G, Lk, D] (K5, K6: f32, in place)
+  void* out2;                   // K3, K6: dv [B, G, Lk, D]
   Strides s1, s2;               // their (batch, head, row) element strides
   int H, G, Lq, Lk;
-  Chunks qc, kc;                // one chunk at 0
+  Chunks qc, kc;                // K2, K3: one chunk at 0; K5, K6: the shards'
   float scale;
   int causal;
 };
@@ -284,7 +305,26 @@ __device__ __forceinline__ void store_rows(TO* out, long long sl,
   }
 }
 
-template <int D, bool kDkv, typename TO>
+// The ring's epilogue: this lane's rows of a 64 x D f32 accumulator added to
+// the carried f32 rows at sum (row stride sl), in place.
+template <int D>
+__device__ __forceinline__ void add_rows(float* sum, long long sl,
+                                         const float (&acc)[D / 2],
+                                         int row0, int n, int tc) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      float* at = sum + row * sl + i * 8 + tc;
+      const float2 c = *reinterpret_cast<const float2*>(at);
+      store2(at, c.x + acc[4 * i + 2 * r], c.y + acc[4 * i + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D, bool kDkv, bool kRing, typename TO>
 __global__ void __launch_bounds__(BwdTile<D, kDkv>::kThreads, 1)
     flash_bwd_kernel(__grid_constant__ const BwdParams p) {
   using Tile = BwdTile<D, kDkv>;
@@ -493,18 +533,29 @@ __global__ void __launch_bounds__(BwdTile<D, kDkv>::kThreads, 1)
     }
   }
 
-  TO* out1 = static_cast<TO*>(p.out1) + b * p.s1.b + hb * p.s1.h;
-  store_rows<D, TO>(out1, p.s1.l, acc1, row0, n_own, tc, live);
-  if constexpr (kDkv) {
-    TO* out2 = static_cast<TO*>(p.out2) + b * p.s2.b + hb * p.s2.h;
-    store_rows<D, TO>(out2, p.s2.l, acc2, row0, n_own, tc, live);
+  if constexpr (kRing) {
+    // The carried sums plus this step's; a warpgroup that saw no tile
+    // leaves its rows as they were (where K2 and K3 store zeros).
+    float* sum1 = static_cast<float*>(p.out1) + b * p.s1.b + hb * p.s1.h;
+    if (!live) return;
+    add_rows<D>(sum1, p.s1.l, acc1, row0, n_own, tc);
+    if constexpr (kDkv)
+      add_rows<D>(static_cast<float*>(p.out2) + b * p.s2.b + hb * p.s2.h,
+                  p.s2.l, acc2, row0, n_own, tc);
+  } else {
+    TO* out1 = static_cast<TO*>(p.out1) + b * p.s1.b + hb * p.s1.h;
+    store_rows<D, TO>(out1, p.s1.l, acc1, row0, n_own, tc, live);
+    if constexpr (kDkv) {
+      TO* out2 = static_cast<TO*>(p.out2) + b * p.s2.b + hb * p.s2.h;
+      store_rows<D, TO>(out2, p.s2.l, acc2, row0, n_own, tc, live);
+    }
   }
 }
 
 // Encodes the maps of q, k, v and dout from `maps` (4 x 11: dims, byte
 // strides, box, as flash_attention.tensor_map returns them) after checking
 // that the boxes are the tiles this kernel takes, and launches.
-template <int D, bool kDkv, typename TO>
+template <int D, bool kDkv, bool kRing, typename TO>
 cudaError_t run_bwd(BwdParams& p, const void* const* qkvd,
                     const long long* maps, int B, cudaStream_t stream) {
   using Tile = BwdTile<D, kDkv>;
@@ -521,7 +572,7 @@ cudaError_t run_bwd(BwdParams& p, const void* const* qkvd,
                                      : CU_TENSOR_MAP_SWIZZLE_64B);
     if (err != cudaSuccess) return err;
   }
-  auto kernel = flash_bwd_kernel<D, kDkv, TO>;
+  auto kernel = flash_bwd_kernel<D, kDkv, kRing, TO>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmem);
   if (err != cudaSuccess) return err;
@@ -531,44 +582,64 @@ cudaError_t run_bwd(BwdParams& p, const void* const* qkvd,
   return cudaGetLastError();
 }
 
-template <bool kDkv>
-int run_bwd_d(BwdParams& p, const void* const* qkvd, const long long* maps,
-              int B, int D, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+template <bool kDkv, bool kRing, typename TO>
+cudaError_t run_bwd_d(BwdParams& p, const void* const* qkvd,
+                      const long long* maps, int B, int D,
+                      cudaStream_t stream) {
   switch (D) {
-    case 32:
-      return dtype == 0 ? run_bwd<32, kDkv, bf16>(p, qkvd, maps, B, st)
-                        : run_bwd<32, kDkv, float>(p, qkvd, maps, B, st);
-    case 64:
-      return dtype == 0 ? run_bwd<64, kDkv, bf16>(p, qkvd, maps, B, st)
-                        : run_bwd<64, kDkv, float>(p, qkvd, maps, B, st);
-    case 128:
-      return dtype == 0 ? run_bwd<128, kDkv, bf16>(p, qkvd, maps, B, st)
-                        : run_bwd<128, kDkv, float>(p, qkvd, maps, B, st);
-    default:
-      return cudaErrorInvalidValue;
+    case 32: return run_bwd<32, kDkv, kRing, TO>(p, qkvd, maps, B, stream);
+    case 64: return run_bwd<64, kDkv, kRing, TO>(p, qkvd, maps, B, stream);
+    case 128: return run_bwd<128, kDkv, kRing, TO>(p, qkvd, maps, B, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
+// K2 or K3 with outputs in `dtype` (0 = bfloat16, 1 = float32).
+template <bool kDkv>
+int run_flash_bwd(BwdParams& p, const void* const* qkvd,
+                  const long long* maps, int B, int D, int dtype,
+                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_bwd_d<kDkv, false, bf16>(p, qkvd, maps, B, D, st);
+  if (dtype == 1)
+    return run_bwd_d<kDkv, false, float>(p, qkvd, maps, B, D, st);
+  return cudaErrorInvalidValue;
+}
+
 BwdParams bwd_params(const void* lse, const void* delta, void* out1,
-                     void* out2, const long long* out_strides, int H, int G,
-                     int L, float scale, int causal) {
+                     void* out2, int H, int G, int Lq, int Lk, float scale,
+                     int causal) {
   BwdParams p = {};
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.out1 = out1;
   p.out2 = out2;
-  fill_strides(&p.s1, out_strides, 1);
-  if (out2 != nullptr) fill_strides(&p.s2, out_strides + 3, 1);
   p.H = H;
   p.G = G;
-  p.Lq = L;
-  p.Lk = L;
-  p.qc = p.kc = Chunks{0, L, L};
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.qc = Chunks{0, Lq, Lq};
+  p.kc = Chunks{0, Lk, Lk};
   p.scale = scale;
   p.causal = causal;
   return p;
+}
+
+// K5 or K6: the shards' chunks, contiguous f32 sums ([B, H, Lq, D] or
+// [B, G, Lk, D]), launched.
+template <bool kDkv>
+int run_ring_bwd(BwdParams& p, const void* const* qkvd,
+                 const long long* maps, int B, int D, const int* chunks,
+                 void* stream) {
+  p.qc = Chunks{chunks[0], chunks[1], chunks[2]};
+  p.kc = Chunks{chunks[3], chunks[4], chunks[5]};
+  const int heads = kDkv ? p.G : p.H, rows = kDkv ? p.Lk : p.Lq;
+  const Strides s = {static_cast<long long>(heads) * rows * D,
+                     static_cast<long long>(rows) * D, D};
+  p.s1 = p.s2 = s;
+  return run_bwd_d<kDkv, true, float>(p, qkvd, maps, B, D,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace hvdflash
@@ -586,10 +657,11 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int G, int L, int D, int dtype, float scale,
                                 int causal, void* stream) {
   using namespace hvdflash;
-  BwdParams p = bwd_params(lse, delta, dq, nullptr, out_strides, H, G, L,
-                           scale, causal);
+  BwdParams p = bwd_params(lse, delta, dq, nullptr, H, G, L, L, scale,
+                           causal);
+  fill_strides(&p.s1, out_strides, 1);
   const void* qkvd[4] = {q, k, v, dout};
-  return run_bwd_d<false>(p, qkvd, maps, B, D, dtype, stream);
+  return run_flash_bwd<false>(p, qkvd, maps, B, D, dtype, stream);
 }
 
 // K3. As K2, with k and v in 64-row boxes and q and dout in the streamed
@@ -602,8 +674,43 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int G, int L, int D, int dtype, float scale,
                                  int causal, void* stream) {
   using namespace hvdflash;
-  BwdParams p = bwd_params(lse, delta, dk, dv, out_strides, H, G, L, scale,
+  BwdParams p = bwd_params(lse, delta, dk, dv, H, G, L, L, scale, causal);
+  fill_strides(&p.s1, out_strides, 1);
+  fill_strides(&p.s2, out_strides + 3, 1);
+  const void* qkvd[4] = {q, k, v, dout};
+  return run_flash_bwd<true>(p, qkvd, maps, B, D, dtype, stream);
+}
+
+// K5. q, dout [B, H, Lq, D] and k, v [B, G, Lk, D]: bf16 views through
+// `maps`, boxed as K2's; lse (the whole ring's, natural log), delta: f32
+// [B, H, Lq]; dq: the carried f32 sum [B, H, Lq, D], contiguous, updated in
+// place; chunks: (off0, off1, len) of the q shard, then of the k/v shard.
+extern "C" int hvd_flash_ring_bwd_dq(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dq, const long long* maps, int B,
+                                     int H, int G, int Lq, int Lk, int D,
+                                     const int* chunks, float scale,
+                                     int causal, void* stream) {
+  using namespace hvdflash;
+  BwdParams p = bwd_params(lse, delta, dq, nullptr, H, G, Lq, Lk, scale,
                            causal);
   const void* qkvd[4] = {q, k, v, dout};
-  return run_bwd_d<true>(p, qkvd, maps, B, D, dtype, stream);
+  return run_ring_bwd<false>(p, qkvd, maps, B, D, chunks, stream);
+}
+
+// K6. As K5, boxed as K3's; dk, dv: the carried f32 sums [B, G, Lk, D],
+// contiguous, updated in place.
+extern "C" int hvd_flash_ring_bwd_dkv(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dk, void* dv,
+                                      const long long* maps, int B, int H,
+                                      int G, int Lq, int Lk, int D,
+                                      const int* chunks, float scale,
+                                      int causal, void* stream) {
+  using namespace hvdflash;
+  BwdParams p = bwd_params(lse, delta, dk, dv, H, G, Lq, Lk, scale, causal);
+  const void* qkvd[4] = {q, k, v, dout};
+  return run_ring_bwd<true>(p, qkvd, maps, B, D, chunks, stream);
 }

@@ -21,16 +21,15 @@ Precision: the kernels take bfloat16 or float32 tensors, but their
 products always run on bf16 inputs with f32 accumulation, as the TPU
 kernels do (the softmax, lse, delta and the outputs stay f32). So on a
 GPU, float32 attention is bf16 attention with f32 outputs; only the plain
-versions on the CPU compute it exactly in f32. K1-K4 load their tiles by
-TMA, which copies bytes and cannot round: their wrappers round float32 q,
-k, v and dout to bf16 (``.to(torch.bfloat16)``) before the launch, and
-K1-K3 still write O, dQ, dK and dV in q's dtype; K5 and K6 round a
-float32 tile as they stage it into shared memory.
+versions on the CPU compute it exactly in f32. The kernels load their
+tiles by TMA, which copies bytes and cannot round: the wrappers round
+float32 q, k, v and dout to bf16 (``.to(torch.bfloat16)``) before the
+launch, and K1-K3 still write O, dQ, dK and dV in q's dtype.
 
 Each wrapper counts its launches in ``.launches``.
 
-The ring-attention steps (K4 in ``csrc/flash_fwd.cu``, K5 and K6 in
-``csrc/flash_ring.cu``) run one step of
+The ring-attention steps (K4 in ``csrc/flash_fwd.cu`` on K1's mainloop,
+K5 and K6 in ``csrc/flash_bwd.cu`` on K2's and K3's) run one step of
 ``parallel.ring.ring_attention``: the rank's q shard against the k/v shard
 it holds. Each shard is one chunk of global positions ``(off,)`` or two
 equal chunks ``(off0, off1)`` (the zigzag schedule); the causal mask runs
@@ -59,23 +58,22 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_Y = 65535
 
-# The arguments after the tensor pointers and the strides (K1-K3: the
-# tensor maps and their outputs' strides): K1-K3 take B, H, G, L, D and
-# the dtype of their outputs; the ring steps B, H, G, Lq, Lk, D, the dtype
-# (not K4) and the chunk offsets; then scale, causal and the stream.
+# The arguments after the tensor pointers, the tensor maps and (K1-K3) the
+# outputs' strides: K1-K3 take B, H, G, L, D and the dtype of their
+# outputs; the ring steps B, H, G, Lq, Lk, D and the chunk offsets; then
+# scale, causal and the stream.
 _P = ctypes.c_void_p
 _TAIL = [ctypes.c_float, ctypes.c_int, _P]
 _FLASH_ARGS = [ctypes.c_int] * 6 + _TAIL
-_RING_ARGS = [ctypes.c_int] * 7 + [_P] + _TAIL
+_RING_ARGS = [ctypes.c_int] * 6 + [_P] + _TAIL
 # C entry point -> (source, argument types)
 _ENTRIES = {
     "hvd_flash_fwd": ("flash_fwd", [_P] * 7 + _FLASH_ARGS),
     "hvd_flash_bwd_dq": ("flash_bwd", [_P] * 9 + _FLASH_ARGS),
     "hvd_flash_bwd_dkv": ("flash_bwd", [_P] * 10 + _FLASH_ARGS),
-    "hvd_flash_ring_fwd": ("flash_fwd", [_P] * 7 + [ctypes.c_int] * 6 + [_P]
-                           + _TAIL),
-    "hvd_flash_ring_bwd_dq": ("flash_ring", [_P] * 8 + _RING_ARGS),
-    "hvd_flash_ring_bwd_dkv": ("flash_ring", [_P] * 9 + _RING_ARGS),
+    "hvd_flash_ring_fwd": ("flash_fwd", [_P] * 7 + _RING_ARGS),
+    "hvd_flash_ring_bwd_dq": ("flash_bwd", [_P] * 8 + _RING_ARGS),
+    "hvd_flash_ring_bwd_dkv": ("flash_bwd", [_P] * 9 + _RING_ARGS),
 }
 # The forward kernels' TMA boxes: at most 64 bf16 columns (a head dim of
 # 128 is two boxes); 128 rows of K and V (a key tile), 64 rows of Q (one
@@ -84,8 +82,8 @@ TMA_BOX_COLS = 64
 TMA_BOX_ROWS = 128
 TMA_Q_BOX_ROWS = 64
 # The backward kernels' TMA boxes: 64 rows of the operands that a consumer
-# warpgroup owns (K2: q and dout; K3: k and v), and the streamed tiles'
-# rows: 64, or 32 for K3's q tiles at a head dim of 128.
+# warpgroup owns (K2, K5: q and dout; K3, K6: k and v), and the streamed
+# tiles' rows: 64, or 32 for K3's and K6's q tiles at a head dim of 128.
 BWD_BOX_ROWS = 64
 _bound = {}
 
@@ -424,20 +422,21 @@ def _fwd_maps(q, k, v):
 
 
 def bwd_box_rows(dkv, D):
-    """(rows of q's and dout's boxes, rows of k's and v's) for K2
-    (``dkv=False``) or K3 at head dim D."""
+    """(rows of q's and dout's boxes, rows of k's and v's) for K2 and K5
+    (``dkv=False``) or K3 and K6 at head dim D."""
     stream = BWD_BOX_ROWS // 2 if dkv and D == 128 else BWD_BOX_ROWS
     return (stream, BWD_BOX_ROWS) if dkv else (BWD_BOX_ROWS, stream)
 
 
 def _bwd_maps(q, k, v, dout, dkv):
-    """The maps of K2 or K3 over q, k, v and dout."""
+    """The maps of K2 and K5 (``dkv=False``) or K3 and K6 over q, k, v and
+    dout."""
     q_rows, kv_rows = bwd_box_rows(dkv, q.shape[-1])
     return _maps((q, q_rows), (k, kv_rows), (v, kv_rows), (dout, q_rows))
 
 
 def _bf16(*tensors):
-    """The tensors as bf16, for K1-K4's TMA loads: a float32 tensor is
+    """The tensors as bf16, for the kernels' TMA loads: a float32 tensor is
     rounded (an explicit cast; the products always took bf16-rounded
     inputs)."""
     return tuple(t if t.dtype == torch.bfloat16 else t.to(torch.bfloat16)
@@ -454,10 +453,9 @@ def _call(name, q, *args):
     _build.check(lib, err, name)
 
 
-def _launch(name, q, ptrs, strides, dims, scale, causal, *extra):
-    """``extra``: the ring steps' chunk offsets, after the dtype."""
-    _call(name, q, *ptrs, strides, *dims, _DTYPES[q.dtype], *extra,
-          float(scale), int(bool(causal)))
+def _launch(name, q, ptrs, strides, dims, scale, causal):
+    _call(name, q, *ptrs, strides, *dims, _DTYPES[q.dtype], float(scale),
+          int(bool(causal)))
 
 
 def _empty_like_heads(q, heads):
@@ -552,19 +550,14 @@ def _check_ring(what, q, k, tensors, rows=(), q_state=(), kv_state=()):
     return B, H, G, Lq, Lk, D
 
 
-def _chunks(q_offset, kv_offset, Lq, Lk):
-    """(off0, off1, len) of the q shard, then of the k/v shard, for C."""
-    return (ctypes.c_int * 6)(*shard_chunks(q_offset, Lq),
-                              *shard_chunks(kv_offset, Lk))
-
-
-def _ring_launch(name, tensors, n_strided, dims, q_offset, kv_offset,
-                 scale, causal):
-    """Launches a ring step on ``tensors``; the strides are those of the
-    first ``n_strided`` (q, k, v and dout)."""
-    _launch(name, tensors[0], [t.data_ptr() for t in tensors],
-            _strides(*tensors[:n_strided]), dims, scale, causal,
-            _chunks(q_offset, kv_offset, dims[3], dims[4]))
+def _ring_call(name, q, tensors, maps, dims, q_offset, kv_offset, scale,
+               causal):
+    """Launches ring step ``name`` on ``tensors`` (bf16 inputs, f32 rows
+    and state) through ``maps``, with the shards' chunk offsets."""
+    chunks = (ctypes.c_int * 6)(*shard_chunks(q_offset, dims[3]),
+                                *shard_chunks(kv_offset, dims[4]))
+    _call(name, q, *[t.data_ptr() for t in tensors], maps, *dims, chunks,
+          float(scale), int(bool(causal)))
 
 
 def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal):
@@ -582,10 +575,8 @@ def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal):
     dims = _check_ring("flash_ring_step", q, k, {"q": q, "k": k, "v": v},
                        rows=(("m", m), ("l", l)), q_state=(("o", o),))
     qkv = _bf16(q, k, v)
-    _call("hvd_flash_ring_fwd", q,
-          *[t.data_ptr() for t in (*qkv, o, m, l)], _fwd_maps(*qkv), *dims,
-          _chunks(q_offset, kv_offset, dims[3], dims[4]), float(scale),
-          int(bool(causal)))
+    _ring_call("hvd_flash_ring_fwd", q, (*qkv, o, m, l), _fwd_maps(*qkv),
+               dims, q_offset, kv_offset, scale, causal)
     flash_ring_step.launches += 1
     return o, m, l
 
@@ -603,8 +594,10 @@ def flash_ring_bwd_dq(q, k, v, dout, lse, delta, dq, q_offset, kv_offset,
                        {"q": q, "k": k, "v": v, "dout": dout},
                        rows=(("lse", lse), ("delta", delta)),
                        q_state=(("dq", dq),))
-    _ring_launch("hvd_flash_ring_bwd_dq", (q, k, v, dout, lse, delta, dq), 4,
-                 dims, q_offset, kv_offset, scale, causal)
+    qkvd = _bf16(q, k, v, dout)
+    maps = _bwd_maps(*qkvd, dkv=False)
+    _ring_call("hvd_flash_ring_bwd_dq", q, (*qkvd, lse, delta, dq), maps,
+               dims, q_offset, kv_offset, scale, causal)
     flash_ring_bwd_dq.launches += 1
     return dq
 
@@ -622,9 +615,10 @@ def flash_ring_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, q_offset,
                        {"q": q, "k": k, "v": v, "dout": dout},
                        rows=(("lse", lse), ("delta", delta)),
                        kv_state=(("dk", dk), ("dv", dv)))
-    _ring_launch("hvd_flash_ring_bwd_dkv",
-                 (q, k, v, dout, lse, delta, dk, dv), 4, dims, q_offset,
-                 kv_offset, scale, causal)
+    qkvd = _bf16(q, k, v, dout)
+    maps = _bwd_maps(*qkvd, dkv=True)
+    _ring_call("hvd_flash_ring_bwd_dkv", q, (*qkvd, lse, delta, dk, dv),
+               maps, dims, q_offset, kv_offset, scale, causal)
     flash_ring_bwd_dkv.launches += 1
     return dk, dv
 

@@ -241,6 +241,9 @@ def _m_err(a, b):
     (1, 4, 2, 400, 400, 64, (0, 600), (200, 400), True, torch.bfloat16),
     (1, 4, 2, 400, 400, 64, (200, 400), (0, 600), True, torch.bfloat16),
     (1, 4, 2, 400, 400, 64, (0, 600), (0, 600), True, torch.bfloat16),
+    # D = 128, GQA, zigzag chunks of 48: K6's 32-row q tiles and K5's
+    # 64-row key tiles straddle the chunk boundary
+    (1, 4, 2, 96, 96, 128, (0, 144), (48, 96), True, torch.bfloat16),
 ])
 def test_ring_kernels_match_plain_versions(cuda, B, H, G, Lq, Lk, D, q_off,
                                            kv_off, causal, dtype):
@@ -297,15 +300,49 @@ def test_ring_kernels_match_plain_versions(cuda, B, H, G, Lq, Lk, D, q_off,
 
 
 def test_ring_step_with_nothing_visible_leaves_the_state(cuda):
-    """A k/v shard entirely in the future: no tile runs, the state stays."""
-    q, k, v = (torch.randn(1, 2, 128, 64, device=cuda, dtype=torch.bfloat16)
-               for _ in range(3))
+    """A k/v shard entirely in the future: no tile runs, the state of K4
+    and the carried sums of K5 and K6 stay as they were, bit for bit. Then
+    q rows in zigzag chunks of 128 at (0, 384) against keys at 128-255:
+    the rows of chunk 0 (K5's first two 64-row warpgroups of a 192-row
+    block) see none, and their carried dq stays."""
+    q, k, v, dout = (torch.randn(1, 2, 128, 64, device=cuda,
+                                 dtype=torch.bfloat16) for _ in range(4))
     o, m, l = _ring_state(cuda, q.float(), k.float(), v.float(), 0.125, 5)
     got = fa.flash_ring_step(q, k, v, o.clone(), m.clone(), l.clone(),
                              (0,), (128,), 0.125, True)
     torch.cuda.synchronize()
     for a, b in zip(got, (o, m, l)):
         assert torch.equal(a, b)
+    lse = m + torch.log(l)
+    delta = fa._delta(o / l[..., None], dout.float())
+    dq0, dk0, dv0 = (torch.randn(1, 2, 128, 64, device=cuda)
+                     for _ in range(3))
+    dq = fa.flash_ring_bwd_dq(q, k, v, dout, lse, delta, dq0.clone(), (0,),
+                              (128,), 0.125, True)
+    dk, dv = fa.flash_ring_bwd_dkv(q, k, v, dout, lse, delta, dk0.clone(),
+                                   dv0.clone(), (0,), (128,), 0.125, True)
+    torch.cuda.synchronize()
+    for a, b in ((dq, dq0), (dk, dk0), (dv, dv0)):
+        assert torch.equal(a, b)
+
+    q2, dout2 = (torch.randn(1, 2, 256, 64, device=cuda,
+                             dtype=torch.bfloat16) for _ in range(2))
+    f32 = (q2.float(), k.float(), v.float())
+    o, m, l = fa.flash_ring_step_ref(
+        *f32, *_ring_state(cuda, *f32, 0.125, 6), (0, 384), (128,), 0.125,
+        True)
+    lse = m + torch.log(l)
+    delta = fa._delta(o / l[..., None], dout2.float())
+    dq0 = torch.randn(1, 2, 256, 64, device=cuda)
+    dq = fa.flash_ring_bwd_dq(q2, k, v, dout2, lse, delta, dq0.clone(),
+                              (0, 384), (128,), 0.125, True)
+    ref = fa.flash_ring_bwd_dq_ref(q2.float(), k.float(), v.float(),
+                                   dout2.float(), lse, delta, dq0, (0, 384),
+                                   (128,), 0.125, True)
+    torch.cuda.synchronize()
+    assert torch.equal(dq[:, :, :128], dq0[:, :, :128])
+    assert _rel(dq[:, :, 128:] - dq0[:, :, 128:],
+                ref[:, :, 128:] - dq0[:, :, 128:]) <= REL_TOL
 
 
 def test_ring_kernels_refuse_what_they_do_not_take(cuda):

@@ -9,6 +9,8 @@ held against the same plain versions on the GPU (chip_smoke.py and
 tests/test_torch_port_cuda.py).
 """
 
+import ctypes
+import re
 import sys
 
 import numpy as np
@@ -19,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 import horovod_tpu_torch.ops.flash_attention  # noqa: F401
+from horovod_tpu_torch.ops import _build
 
 from horovod_tpu.ops import flash_attention as jax_flash_attention
 from horovod_tpu.ops.flash_attention import (_blockwise_reference,
@@ -329,3 +332,70 @@ def test_backward_tensor_maps_on_autograd_layouts(case):
         assert list(fa._bwd_maps(q, k, v, dout, dkv)) == want
     # dims, then the byte strides of L, heads and B of the model layout
     assert layout(q, H, 64)[4:7] == [H * D * 2, D * 2, L * H * D * 2]
+
+
+@pytest.mark.parametrize("case", ["lq_ne_lk", "gqa", "head_dim_128",
+                                  "float32"])
+def test_backward_tensor_maps_on_ring_layouts(case):
+    """The TMA maps of the ring's backward steps K5 (K2's boxes) and K6
+    (K3's) on the shards the ring hands them: q and dout over Lq rows and
+    k, v over Lk, each with its own map (Lq != Lk), GQA k/v at G heads,
+    K6's 32-row q boxes at a head dim of 128, and a float32 q and dout
+    rounded to bf16 by ``_bf16`` before the maps (TMA copies bytes and
+    cannot round)."""
+    B, Lq, Lk = 2, 100, 72
+    H, G, D = {"gqa": (8, 2, 64), "head_dim_128": (4, 4, 128)}.get(
+        case, (4, 4, 64))
+    if case == "float32":
+        q, dout = (torch.zeros(B, Lq, H, D).transpose(1, 2)
+                   for _ in range(2))
+        with pytest.raises(ValueError, match="bf16"):
+            fa._bwd_maps(q, _bhld(B, G, Lk, D), _bhld(B, G, Lk, D), dout,
+                         False)
+    else:
+        q, dout = _bhld(B, H, Lq, D), _bhld(B, H, Lq, D)
+    k, v = _bhld(B, G, Lk, D), _bhld(B, G, Lk, D)
+    qkvd = fa._bf16(q, k, v, dout)
+    assert all(t.dtype == torch.bfloat16 for t in qkvd)
+    assert (qkvd[1] is k) and (qkvd[2] is v)
+    if case == "float32":
+        # the cast keeps the model's layout; the maps read it in place
+        assert qkvd[0].stride() == q.stride()
+        assert qkvd[3].stride() == dout.stride()
+    else:
+        assert qkvd[0] is q and qkvd[3] is dout
+
+    def layout(t, rows):
+        B_, heads, L, D_ = t.shape
+        return [D_, L, heads, B_, *(s * 2 for s in t.stride()[2::-1]),
+                min(D_, 64), rows, 1, 1]
+
+    for dkv in (False, True):
+        q_rows, kv_rows = fa.bwd_box_rows(dkv, D)
+        if dkv and D == 128:
+            assert q_rows == 32
+        want = (layout(qkvd[0], q_rows) + layout(k, kv_rows) +
+                layout(v, kv_rows) + layout(qkvd[3], q_rows))
+        assert list(fa._bwd_maps(*qkvd, dkv)) == want
+        assert want[1] == Lq and want[12] == Lk
+        assert want[2] == H and want[13] == G
+
+
+_C_TYPES = {"float": ctypes.c_float, "int": ctypes.c_int}
+
+
+@pytest.mark.parametrize("name", sorted(fa._ENTRIES))
+def test_every_entry_names_a_source_that_defines_it(name):
+    """Each C entry point the wrappers bind lies in a source that
+    ``_build.SOURCES`` builds, and the ctypes argument types follow its
+    parameters: a pointer as c_void_p, an int as c_int, a float as
+    c_float."""
+    source, args = fa._ENTRIES[name]
+    assert source in _build.SOURCES
+    text = (_build.CSRC / (source + ".cu")).read_text()
+    found = re.findall(r'extern "C" int %s\(([^)]*)\)' % name, text)
+    assert len(found) == 1, (name, source)
+    params = [" ".join(p.split()) for p in found[0].split(",")]
+    want = [ctypes.c_void_p if "*" in p else _C_TYPES[p.split()[-2]]
+            for p in params]
+    assert args == want, (name, params)

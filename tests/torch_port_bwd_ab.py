@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times the flash backward kernels K2 and K3 of this tree against another
-tree's, in one call on one GPU.
+"""Times the flash backward kernels K2 and K3 and the ring's backward steps
+K5 and K6 of this tree against another tree's, in one call on one GPU.
 
     python3 tests/torch_port_bwd_ab.py OTHER_ROOT [--rounds N]
 
@@ -12,7 +12,15 @@ this, other (N rounds) in separate processes on the runner of
 ``chip_smoke.time_ms``, at the LM's shape [8, 12, 2048, 64] bf16, causal and
 without the causal mask, on the lse of the tree's own K1 and delta from its
 O: K2, K3, and K2 + K3 back to back, beside SDPA's backward (dQ, dK and dV
-in one ``autograd.grad`` call: a yardstick the port never calls).
+in one ``autograd.grad`` call: a yardstick the port never calls). Then K5,
+K6 and K5 + K6 on the lse of the tree's own K4 and delta from its state:
+
+- at the sp phase's launch, [2, 12, 8192, 64] causal, zigzag chunks
+  (0, 4096) on one rank, beside SDPA's causal backward at that shape;
+- at one off-diagonal ring step, [2, 12, 2048, 64], q at offset 2048 and
+  k/v at 0 (every tile visible), beside SDPA's backward without the mask.
+
+The timed repeats add into the same f32 sums: the same tiles run.
 
 Prints one ``AB {...}`` JSON line a run and the card's name and power limit.
 """
@@ -26,6 +34,7 @@ import torch_port_fwd_ab as ab  # noqa: E402
 
 
 def one(root, label):
+    import torch
     cs, fa = ab.load(root)
     res = {"label": label, "root": str(root)}
     shape = dict(B=8, H=12, G=12, L=2048, D=64)
@@ -42,6 +51,32 @@ def one(root, label):
         res["sdpa_bwd" + tag + "_ms"] = cs.sdpa_times(
             q, k, v, dout, causal, scale)["sdpa_bwd_ms"]
         del out, lse, delta, args
+    del q, k, v, dout
+    for tag, L, q_off, kv_off in (("sp", 8192, (0, 4096), (0, 4096)),
+                                  ("off", 2048, (2048,), (0,))):
+        q, k, v, dout = cs._inputs(dict(B=2, H=12, G=12, L=L, D=64), 2)
+        o = torch.zeros(q.shape, device="cuda")
+        m = torch.full(q.shape[:3], float("-inf"), device="cuda")
+        l = torch.zeros(q.shape[:3], device="cuda")
+        fa.flash_ring_step(q, k, v, o, m, l, q_off, kv_off, scale, True)
+        lse = m + torch.log(l)
+        delta = fa._delta((o / l[..., None]).to(q.dtype), dout)
+        dq = torch.zeros(q.shape, device="cuda")
+        dk, dv = (torch.zeros(k.shape, device="cuda") for _ in range(2))
+        args = (q, k, v, dout, lse, delta)
+        offs = (q_off, kv_off, scale, True)
+
+        def k5():
+            fa.flash_ring_bwd_dq(*args, dq, *offs)
+
+        def k6():
+            fa.flash_ring_bwd_dkv(*args, dk, dv, *offs)
+        res["k5_%s_ms" % tag] = cs.time_ms(k5)
+        res["k6_%s_ms" % tag] = cs.time_ms(k6)
+        res["k5k6_%s_ms" % tag] = cs.time_ms(lambda: (k5(), k6()))
+        res["sdpa_bwd_%s_ms" % tag] = cs.sdpa_times(
+            q, k, v, dout, tag == "sp", scale)["sdpa_bwd_ms"]
+        del q, k, v, dout, o, m, l, lse, delta, dq, dk, dv, args
     print("AB " + json.dumps(res), flush=True)
 
 

@@ -30,6 +30,11 @@ BN_ROW_LOOP = ("    for (long long r = r_begin + ty; r < r_end; "
                "r += sh.ty) {\n")
 # K2's and K3's scores, masked and before the exponentials
 BWD_SCORES = "        const float* st = stats + stage * Tile::kStats;\n"
+# The ring's epilogue in flash_bwd.cu (K5, K6): the carried sums' rows,
+# and K5's add of its step's dQ to them
+RING_SUMS = ("    float* sum1 = static_cast<float*>(p.out1) + b * p.s1.b + hb "
+             "* p.s1.h;\n")
+RING_DQ_ADD = "    add_rows<D>(sum1, p.s1.l, acc1, row0, n_own, tc);\n"
 # fault -> (source, the line after which it goes, the line planted, the
 # chip_smoke.py phases that must fail)
 FAULTS = {
@@ -69,19 +74,27 @@ FAULTS = {
         "      m_run[r] = valid ? p.m[row_base + rows[r]] * kLog2e : -INFINITY;"
         "\n",
         "      m_run[r] = -INFINITY;\n", RING_PHASES),
-    # K5 drops dq_in, the dq carried from the earlier ring steps
+    # K5 drops dq_in, the dq carried from the earlier ring steps: it
+    # writes this step's sum over it
     "ring_dq_drop_carried": (
-        "flash_ring.cu",
-        "  load_acc<D>(acc, dq, rows, p.Lq, tc);  // the carried dq\n",
-        "  for (int dt = 0; dt < D / 8; ++dt)\n"
-        "    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;\n",
-        RING_PHASES),
-    # K6 gives every key row chunk 0's offset (zigzag shards go wrong)
+        "flash_bwd.cu", RING_DQ_ADD,
+        "    if (!kDkv) store_rows<D, float>(sum1, p.s1.l, acc1, row0, n_own, "
+        "tc, true);\n", RING_PHASES),
+    # K5's warpgroups that saw no tile store zeros over the carried dq
+    # (K2's epilogue); in the 4-rank zigzag ring a 192-row block of rank 0
+    # straddles its q chunks 0 and 7, and the rows in chunk 0 see no key of
+    # ranks 1-3
+    "ring_dq_zero_unseen": (
+        "flash_bwd.cu", RING_SUMS,
+        "    if (!kDkv && !live) store_rows<D, float>(sum1, p.s1.l, acc1, "
+        "row0, n_own, tc, false);\n", RING_PHASES),
+    # K6 gives every key row chunk 0's offset in its masks (zigzag shards
+    # go wrong)
     "ring_dkv_chunk0_offset": (
-        "flash_ring.cu",
-        "  for (int r = 0; r < 2; ++r) key_pos[r] = pos_of(p.kc, keys[r]);\n",
-        "  for (int r = 0; r < 2; ++r) key_pos[r] = p.kc.off0 + keys[r];\n",
-        RING_PHASES),
+        "flash_bwd.cu",
+        "    row_pos[r] = pos_of(kDkv ? p.kc : p.qc, row0 + 8 * r);\n",
+        "  for (int r = 0; kDkv && r < 2; ++r) row_pos[r] = p.kc.off0 + row0 "
+        "+ 8 * r;\n", RING_PHASES),
 }
 
 
