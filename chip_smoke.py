@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # every phase, one card
     python3 chip_smoke.py --only kernels   # or train, bn_kernels, resnet,
-                                           # ring_kernels, sp
+                                           # ring_kernels, sp, lc, lc_sp
 
 Phases, in order; any failure exits non-zero:
 
@@ -20,7 +20,12 @@ Phases, in order; any failure exits non-zero:
    version's lse and delta, and chained on K1's own lse and O. Times
    kernel, plain version and PyTorch's scaled_dot_product_attention
    forward and backward (a yardstick the port never calls) with CUDA
-   events.
+   events. Then the rotary instantiations K1_rot-K3_rot the same way
+   (chained too) at the lc phase's launch (B=2, H=6, G=2, L=8192, D=128,
+   causal) and at an odd shape (B=1, H=6, G=2, L=333, D=128, full)
+   against the rotary plain versions on the same bf16 inputs, timed
+   beside the same launch without rotary and beside SDPA (enable_gqa) on
+   q and k rotated beforehand, the rotation's time apart.
 4. train: ``hvd.init()`` (a one-rank NCCL group), the GPT-2-small flash LM
    (vocab 32000, 12 layers, 12 x 64 heads, embed 768, MLP 3072, bf16 over
    f32 params) from a seeded generator, Adam(1e-4) in
@@ -67,7 +72,13 @@ Phases, in order; any failure exits non-zero:
    same block (the nearest yardstick, not the same function: it carries
    no state); and each kernel at the sp phase's own launch, [2, 12, 8192,
    64] causal with zigzag chunks (0, 4096), beside SDPA's causal forward
-   and backward at that shape.
+   and backward at that shape. The zigzag ring at [2, 12, 8192, 64] and
+   the sp launch run again through the rotary instantiations K4_rot-K6_rot
+   (dQ and dK counter-rotated after the ring by ``ring._counter_rotate``,
+   the references rotary too), and so do a 4-rank zigzag ring and the
+   lc_sp phase's own launch at the lc model's widths (B=2, H=6, G=2,
+   L=8192, D=128; one rank: chunks (0, 4096)). K4_rot-K6_rot are timed at
+   that launch as K1_rot-K3_rot, beside the same launches without rotary.
 8. sp: ``hvd.init()``, ``hybrid_mesh((1,), ("sp",))``, the GPT-2-small LM
    of the train phase with ``attention="ring"``, ``sp_axis="sp"``,
    ``sp_schedule="zigzag"``; a dict batch {tokens, positions, labels} of
@@ -78,6 +89,22 @@ Phases, in order; any failure exits non-zero:
    the first loss (relative gap <= 2e-2) and every parameter's gradient at
    1 x 8192 (worst gap <= 5e-2). Checks finite and falling losses, 12
    launches each of K4, K5 and K6 per step and none of K1-K3.
+9. lc: the long-context GQA LM (``bench.py --seq-len 8192 --fused-xent
+   --tokens-batch 2 --num-heads 6 --num-kv-heads 2 --fused-rope``: vocab
+   32000, 12 layers, 6 query heads of 128 on 2 kv heads, embed 768, MLP
+   3072, ``rope_fused=True``, bf16 over f32), ``lm_loss_streaming``,
+   Adam(1e-4), 2 x 8192 tokens; every parameter's gradient at 2 x 2048
+   and the first loss at 2 x 8192 against the same weights through dense
+   attention with rotary outside, and every parameter's gradient at 2 x
+   8192 against the same weights with ``rope_fused=False`` (rotary outside,
+   K1-K3): worst gap <= 5e-2 each; 2 warm-up and 5 timed steps, a profile
+   of 3 more (device busy and idle); then the same step on the same
+   weights with ``rope_fused=False``, timed and profiled the same way.
+   Checks finite, falling losses and 12 launches of each of K1_rot-K3_rot
+   a step (K1-K3 in the unfused run).
+10. lc_sp: the lc model with ``attention="ring"`` (zigzag, one-rank "sp"
+   axis, ``shard_lm_loss``): 12 launches of each of K4_rot-K6_rot a step,
+   the first loss and gradients at 1 x 8192 against the lc flash model.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -117,6 +144,12 @@ RESNET_GRAD_TOL = 5e-2
 
 SLICE = dict(B=8, H=12, G=12, L=2048, D=64, causal=True)
 ODD = dict(B=1, H=4, G=2, L=160, D=64, causal=False)
+# Fused rotary (the kernels' rotary instantiations, K1_rot-K6_rot): the base
+# of bench.py's TransformerConfig (rope_base), K1-K3 at the lc phase's
+# launch and at an odd shape (a ragged L, GQA 3, full attention).
+ROPE_BASE = 10000.0
+ROT_SLICE = dict(B=2, H=6, G=2, L=8192, D=128, causal=True)
+ROT_ODD = dict(B=1, H=6, G=2, L=333, D=128, causal=False)
 # bench.py --model transformer: GPT-2-small widths and depth, 8 x 2048
 MODEL = dict(vocab_size=32000, num_layers=12, num_heads=12, embed_dim=768,
              mlp_dim=3072)
@@ -132,7 +165,17 @@ BN_SHAPES = {
     "odd": (1_000_003, 72, "float32"),
 }
 
-# wrapper name -> (source, TPU kernel it replaces, products per (q,k) pair)
+# The long-context GQA LM, bench.py --model transformer --seq-len 8192
+# --fused-xent --tokens-batch 2 --num-heads 6 --num-kv-heads 2 --fused-rope
+# (bench.py:2513-2560): 12 layers, 6 query heads of 128 on 2 kv heads, the
+# streaming loss, fused rotary; 2 x 8192 tokens a step, the gradient check
+# against dense attention at 2 x 2048.
+LC_MODEL = dict(vocab_size=32000, num_layers=12, num_heads=6, num_kv_heads=2,
+                embed_dim=768, mlp_dim=3072)
+LC_BATCH, LC_GRAD_LEN = (2, 8192), 2048
+
+# wrapper name -> (source, TPU kernel it replaces, products per (q,k) pair);
+# "<name>_rot" is the wrapper's rotary instantiation (its own counter)
 KERNELS = {
     "flash_fwd": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
                   "horovod_tpu/ops/flash_attention.py:170", 2),
@@ -152,22 +195,44 @@ KERNELS = {
                           "horovod_tpu/ops/flash_attention.py:620", 3),
     "flash_ring_bwd_dkv": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
                            "horovod_tpu/ops/flash_attention.py:673", 4),
+    # the rotary branches of the same TPU kernels
+    "flash_fwd_rot": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
+                      "horovod_tpu/ops/flash_attention.py:201", 2),
+    "flash_bwd_dq_rot": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                         "horovod_tpu/ops/flash_attention.py:869", 3),
+    "flash_bwd_dkv_rot": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                          "horovod_tpu/ops/flash_attention.py:928", 4),
+    "flash_ring_step_rot": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
+                            "horovod_tpu/ops/flash_attention.py:470", 2),
+    "flash_ring_bwd_dq_rot": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                              "horovod_tpu/ops/flash_attention.py:651", 3),
+    "flash_ring_bwd_dkv_rot": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                               "horovod_tpu/ops/flash_attention.py:705", 4),
 }
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 BN = ("batch_norm_stats", "batch_norm_grad_stats")
 RING = ("flash_ring_step", "flash_ring_bwd_dq", "flash_ring_bwd_dkv")
+FLASH_ROT = tuple(n + "_rot" for n in FLASH)
+RING_ROT = tuple(n + "_rot" for n in RING)
 # The ring: n virtual ranks over a global sequence of L (shards of L / n).
 RING_SHAPE = dict(B=2, H=12, G=12, L=8192, D=64, n=4)
 # The sp phase's own launches: one rank, its zigzag shard the whole sequence
 # as two chunks at offsets (0, 4096).
 RING_SP = dict(RING_SHAPE, n=1)
 RING_ODD = dict(B=1, H=4, G=2, L=640, D=64, n=4)
-# (label, shape, schedule, causal) of the ring_kernels phase
-RING_RUNS = (("main", RING_SHAPE, "zigzag", True),
-             ("main", RING_SHAPE, "contiguous", True),
-             ("odd", RING_ODD, "contiguous", True),
-             ("odd", RING_ODD, "contiguous", False),
-             ("sp", RING_SP, "zigzag", True))
+# The lc_sp phase's own launches (LC_MODEL's widths at one rank, zigzag
+# chunks (0, 4096)), and a 4-rank ring at the same widths.
+LC_SP = dict(B=2, H=6, G=2, L=8192, D=128, n=1)
+LC_RING = dict(LC_SP, n=4)
+# (label, shape, schedule, causal, rotary base) of the ring_kernels phase
+RING_RUNS = (("main", RING_SHAPE, "zigzag", True, None),
+             ("main", RING_SHAPE, "contiguous", True, None),
+             ("odd", RING_ODD, "contiguous", True, None),
+             ("odd", RING_ODD, "contiguous", False, None),
+             ("sp", RING_SP, "zigzag", True, None),
+             ("rot_sp", RING_SP, "zigzag", True, ROPE_BASE),
+             ("rot_lc", LC_RING, "zigzag", True, ROPE_BASE),
+             ("rot_lc_sp", LC_SP, "zigzag", True, ROPE_BASE))
 # The sequence-parallel LM: 2 sequences of 8192 tokens a step; the gradient
 # check against the flash model on the first of them.
 SP_BATCH, SP_GRAD_BATCH = (2, 8192), 1
@@ -274,43 +339,54 @@ def _bound_ms(shape, products, n_bytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_kernels(shape, seed, timed):
+def check_kernels(shape, seed, timed, rotary=None):
     """Runs K1-K3 at ``shape`` against their plain versions; returns
     {name: row} with errors and, when ``timed``, times. K2 and K3 run on
     the plain version's lse and delta, and again chained on K1's own lse
-    and O (delta from K1's O), as the model's backward runs them."""
+    and O (delta from K1's O), as the model's backward runs them. With
+    ``rotary`` (a base) the rotary instantiations run (rows ``<name>_rot``)
+    against the rotary plain versions on the same bf16 inputs, which round
+    the rotated q and k to bf16 as the kernels do; their times stand beside
+    the kernels' without rotary and SDPA's (GQA) on q and k rotated
+    beforehand, the rotation's own time apart."""
     import torch
     import horovod_tpu_torch.ops.flash_attention  # noqa: F401
     fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
     q, k, v, dout = _inputs(shape, seed)
     causal = shape["causal"]
     scale = shape["D"] ** -0.5
-    f32 = [t.float() for t in (q, k, v, dout)]
-    out_ref, lse = fa.flash_forward_ref(*f32[:3], scale, causal)
-    delta = fa._delta(out_ref, f32[3])
-    dq_ref = fa.flash_bwd_dq_ref(*f32, lse, delta, scale, causal)
-    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*f32, lse, delta, scale, causal)
+    rb = rotary
+    # the plain versions' inputs: f32 copies, or (rotary) the bf16 tensors
+    ref_in = ([q, k, v, dout] if rb is not None else
+              [t.float() for t in (q, k, v, dout)])
+    out_ref, lse = fa.flash_forward_ref(*ref_in[:3], scale, causal, rb)
+    delta = fa._delta(out_ref, ref_in[3])
+    dq_ref = fa.flash_bwd_dq_ref(*ref_in, lse, delta, scale, causal, rb)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*ref_in, lse, delta, scale, causal,
+                                          rb)
 
     def row(pairs):
         errs = [_err(a, b) for a, b in pairs]
         return dict(max_abs_err=max(e[0] for e in errs),
                     rel_l2_err=max(e[1] for e in errs))
 
-    out, lse_k = fa.flash_fwd(q, k, v, scale, causal)
+    sfx = "" if rb is None else "_rot"
+    out, lse_k = fa.flash_fwd(q, k, v, scale, causal, rb)
     torch.cuda.synchronize()
-    rows = {"flash_fwd": row([(out, out_ref)])}
-    rows["flash_fwd"]["lse_abs_err"] = (lse_k - lse).abs().max().item()
+    rows = {"flash_fwd" + sfx: row([(out, out_ref)])}
+    rows["flash_fwd" + sfx]["lse_abs_err"] = (lse_k - lse).abs().max().item()
     delta_k = fa._delta(out, dout)
     for name, lse_in, delta_in in (("", lse, delta),
                                    ("chained_", lse_k, delta_k)):
-        dq = fa.flash_bwd_dq(q, k, v, dout, lse_in, delta_in, scale, causal)
+        dq = fa.flash_bwd_dq(q, k, v, dout, lse_in, delta_in, scale, causal,
+                             rb)
         torch.cuda.synchronize()
         dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse_in, delta_in, scale,
-                                  causal)
+                                  causal, rb)
         torch.cuda.synchronize()
-        for kname, r in (("flash_bwd_dq", row([(dq, dq_ref)])),
-                         ("flash_bwd_dkv", row([(dk, dk_ref),
-                                                (dv, dv_ref)]))):
+        for kname, r in (("flash_bwd_dq" + sfx, row([(dq, dq_ref)])),
+                         ("flash_bwd_dkv" + sfx, row([(dk, dk_ref),
+                                                      (dv, dv_ref)]))):
             got = rows.setdefault(kname, {})
             for key, val in r.items():
                 got[name + key] = val
@@ -326,27 +402,38 @@ def check_kernels(shape, seed, timed):
               "flash_bwd_dq": 3 * act + 2 * kv + 2 * stat,
               "flash_bwd_dkv": 2 * act + 4 * kv + 2 * stat}
         runs = {
-            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, scale, causal),
-                          lambda: fa.flash_forward_ref(*f32[:3], scale,
-                                                       causal)),
+            "flash_fwd": (lambda r: fa.flash_fwd(q, k, v, scale, causal, r),
+                          lambda: fa.flash_forward_ref(*ref_in[:3], scale,
+                                                       causal, rb)),
             "flash_bwd_dq": (
-                lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale,
-                                        causal),
-                lambda: fa.flash_bwd_dq_ref(*f32, lse, delta, scale,
-                                            causal)),
+                lambda r: fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale,
+                                          causal, r),
+                lambda: fa.flash_bwd_dq_ref(*ref_in, lse, delta, scale,
+                                            causal, rb)),
             "flash_bwd_dkv": (
-                lambda: fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale,
-                                         causal),
-                lambda: fa.flash_bwd_dkv_ref(*f32, lse, delta, scale,
-                                             causal)),
+                lambda r: fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale,
+                                           causal, r),
+                lambda: fa.flash_bwd_dkv_ref(*ref_in, lse, delta, scale,
+                                             causal, rb)),
         }
         for name, (kern, plain) in runs.items():
-            rows[name]["ms"] = time_ms(kern)
-            rows[name]["plain_ms"] = time_ms(plain, n=5, reps=3, warmup=1)
-            bound, by = _bound_ms(shape, KERNELS[name][2], io[name])
-            rows[name]["bound_ms"] = bound
-            rows[name]["bound_by"] = by
-        rows["library"] = sdpa_times(q, k, v, dout, causal, scale)
+            r = rows[name + sfx]
+            r["ms"] = time_ms(lambda: kern(rb))
+            if rb is not None:  # the same launch without rotary
+                r["norot_ms"] = time_ms(lambda: kern(None))
+            r["plain_ms"] = time_ms(plain, n=5, reps=3, warmup=1)
+            r["bound_ms"], r["bound_by"] = _bound_ms(
+                shape, KERNELS[name][2], io[name])
+        if rb is None:
+            rows["library"] = sdpa_times(q, k, v, dout, causal, scale)
+        else:
+            lib = rotated_sdpa_times(q, k, v, dout, causal, scale, rb)
+            for name in FLASH:
+                rows[name + sfx].update(
+                    library_ms=lib["sdpa_fwd_ms" if name == "flash_fwd"
+                                   else "sdpa_bwd_ms"],
+                    rotate_ms=lib["rotate_ms"],
+                    library=lib["note"])
     return rows
 
 
@@ -354,19 +441,20 @@ def sdpa_times(q, k, v, dout, causal, scale):
     """PyTorch's fused attention on the same inputs: the forward (one
     ``scaled_dot_product_attention`` call, K1's function) and the backward
     (one ``autograd.grad`` call through it, dQ, dK and dV together: K2's
-    and K3's functions in one launch). A yardstick only, never called by
-    the port."""
+    and K3's functions in one launch). GQA (fewer k/v heads) through
+    ``enable_gqa``. A yardstick only, never called by the port."""
     import torch
     import torch.nn.functional as F
+    gqa = dict(enable_gqa=True) if k.shape[1] != q.shape[1] else {}
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
 
     def fwd():
         with torch.no_grad():
             F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                           scale=scale)
+                                           scale=scale, **gqa)
 
     o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
-                                       scale=scale)
+                                       scale=scale, **gqa)
 
     def bwd():
         torch.autograd.grad(o, (qq, kk, vv), dout, retain_graph=True)
@@ -374,14 +462,46 @@ def sdpa_times(q, k, v, dout, causal, scale):
     return {"sdpa_fwd_ms": time_ms(fwd), "sdpa_bwd_ms": time_ms(bwd)}
 
 
+def rotated_sdpa_times(q, k, v, dout, causal, scale, rotary, q_pos=None,
+                       k_pos=None):
+    """The yardstick of the rotary kernels: ``sdpa_times`` on q and k
+    rotated beforehand (``apply_rotary`` at ``q_pos``/``k_pos``, default
+    0..L-1), and apart from it the time of that rotation of q and k (which
+    the kernels do inside)."""
+    import torch
+    fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
+    L = q.shape[2]
+    q_pos = torch.arange(L, device=q.device) if q_pos is None else q_pos
+    k_pos = torch.arange(L, device=q.device) if k_pos is None else k_pos
+
+    def rotate():
+        return (fa.apply_rotary(q, q_pos, rotary),
+                fa.apply_rotary(k, k_pos, rotary))
+    qr, kr = rotate()
+    times = sdpa_times(qr, kr, v, dout, causal, scale)
+    times["rotate_ms"] = time_ms(rotate)
+    times["note"] = ("scaled_dot_product_attention%s on q and k rotated "
+                     "beforehand; rotate_ms, the rotation of q and k, is "
+                     "not in it" % (" (enable_gqa)" if k.shape[1] !=
+                                    q.shape[1] else ""))
+    return times
+
+
 def phase_kernels():
     import torch
     slice_rows = check_kernels(SLICE, seed=1, timed=True)
     torch.cuda.empty_cache()
     odd_rows = check_kernels(ODD, seed=2, timed=False)
+    torch.cuda.empty_cache()
+    slice_rows.update(check_kernels(ROT_SLICE, seed=3, timed=True,
+                                    rotary=ROPE_BASE))
+    torch.cuda.empty_cache()
+    odd_rows.update(check_kernels(ROT_ODD, seed=4, timed=False,
+                                  rotary=ROPE_BASE))
+    torch.cuda.empty_cache()
     library = slice_rows.pop("library")
     bad = []
-    for name in FLASH:
+    for name in FLASH + FLASH_ROT:
         for label, rows in (("slice", slice_rows), ("odd", odd_rows)):
             r = rows[name]
             log("%s %s: %s" % (name, label, ", ".join(
@@ -398,6 +518,13 @@ def phase_kernels():
             if key.endswith("rel_l2_err"))
     if bad:
         fail("kernels disagree with their plain versions: " + "; ".join(bad))
+    for name in FLASH_ROT:
+        r = slice_rows[name]
+        log("%s at %s: %.4f ms (without rotary %.4f, bound %.4f, plain %.3f, "
+            "SDPA on rotated q, k %.4f + rotation %.4f)" % (
+                name, "x".join(str(ROT_SLICE[c]) for c in "BHGLD"), r["ms"],
+                r["norot_ms"], r["bound_ms"], r["plain_ms"], r["library_ms"],
+                r["rotate_ms"]))
     return slice_rows, library
 
 
@@ -491,7 +618,6 @@ def phase_train(profile_dir=None):
     import torch
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import Transformer, TransformerConfig
-    from horovod_tpu_torch.ops import analytic_attention_flops
     from horovod_tpu_torch.ops.flash_attention import (launch_counts,
                                                        reset_launch_counts)
     from horovod_tpu_torch.parallel import lm_loss, make_train_step
@@ -566,18 +692,12 @@ def phase_train(profile_dir=None):
              % (losses[0], loss_plain, rel))
 
     step_s = statistics.median(times[warmup:])
-    E, F_, V = cfg.embed_dim, cfg.mlp_dim, cfg.vocab_size
-    D = E // cfg.num_heads
-    matmul_params = cfg.num_layers * (4 * E * E + 2 * E * F_) + E * V
-    flops = (6.0 * matmul_params * B * L + cfg.num_layers *
-             analytic_attention_flops(B, cfg.num_heads, L, D, causal=True,
-                                      training=True))
     result = dict(step_ms=step_s * 1e3, seq_per_s=B / step_s,
                   tokens_per_s=B * L / step_s, peak_mem_gb=peak / 1e9,
-                  tflops=flops / step_s / 1e12, loss_first=losses[0],
-                  loss_last=losses[-1], loss_plain=loss_plain,
-                  grad_gap_worst=grad_gaps[worst], launches=counts,
-                  steps=steps)
+                  tflops=lm_step_flops(cfg, B, L) / step_s / 1e12,
+                  loss_first=losses[0], loss_last=losses[-1],
+                  loss_plain=loss_plain, grad_gap_worst=grad_gaps[worst],
+                  launches=counts, steps=steps)
     print("train: " + json.dumps(result), flush=True)
     if profile_dir:
         profile_steps(step, tokens, profile_dir, "lm")
@@ -718,7 +838,7 @@ def _by_row(ref, tensors, *rest):
     return torch.cat(parts, dim=0)
 
 
-def run_ring(shape, schedule, causal, seed):
+def run_ring(shape, schedule, causal, seed, rotary=None):
     """A whole ring of ``shape["n"]`` virtual ranks through K4-K6 in this
     process: each rank with its own offsets and carried state, each k/v
     shard's dK/dV accumulators carried across the ranks that see it, in the
@@ -726,10 +846,15 @@ def run_ring(shape, schedule, causal, seed):
     worst}}, errors of the assembled results {key: value}): every launch
     against its plain version on the same inputs, the assembled out, lse,
     dQ, dK, dV (natural order) against plain full attention in f32 and
-    against K1-K3 over the whole sequence."""
+    against K1-K3 over the whole sequence. With ``rotary`` (a base) the
+    rotary instantiations run (K4_rot-K6_rot, errors under ``<name>_rot``),
+    dQ and dK are counter-rotated after the last step by the ring's own
+    ``_counter_rotate``, and the references rotate too (on the bf16 inputs,
+    rounding the rotation as the kernels do)."""
     import torch
     import horovod_tpu_torch.ops.flash_attention  # noqa: F401
-    from horovod_tpu_torch.parallel.ring import (_schedule_offsets,
+    from horovod_tpu_torch.parallel.ring import (_counter_rotate,
+                                                 _schedule_offsets,
                                                  _step_runs, zigzag_shard,
                                                  zigzag_unshard)
     fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
@@ -751,11 +876,12 @@ def run_ring(shape, schedule, causal, seed):
     def runs(src, r):
         return _step_runs(causal, schedule, src, r, Ls, Ls)
 
-    errs = {name: {} for name in RING}
+    rb, sfx = rotary, "" if rotary is None else "_rot"
+    errs = {name + sfx: {} for name in RING}
 
     def note(name, key, pair):
         mx, rel = _err(*pair)
-        got = errs[name]
+        got = errs[name + sfx]
         got["max_abs_err"] = max(got.get("max_abs_err", 0.0), mx)
         got[key] = max(got.get(key, 0.0), rel)
 
@@ -770,13 +896,13 @@ def run_ring(shape, schedule, causal, seed):
                 continue
             args = (qs[r], ks[src], vs[src])
             ref = _by_row(fa.flash_ring_step_ref, (*args, o, m, l), off(r),
-                          off(src), scale, causal)
+                          off(src), scale, causal, rb)
             fa.flash_ring_step(*args, o, m, l, off(r), off(src), scale,
-                               causal)
+                               causal, rb)
             torch.cuda.synchronize()
             note("flash_ring_step", "o_rel_l2_err", (o, ref[0]))
             note("flash_ring_step", "l_rel_l2_err", (l, ref[2]))
-            e = errs["flash_ring_step"]
+            e = errs["flash_ring_step" + sfx]
             e["m_abs_err"] = max(e.get("m_abs_err", 0.0), _m_err(m, ref[1]))
             del ref
         l1 = torch.where(l == 0.0, 1.0, l)
@@ -794,7 +920,7 @@ def run_ring(shape, schedule, causal, seed):
             if not runs(src, r):
                 continue
             args = (qs[r], ks[src], vs[src], dos[r], lses[r], deltas[r])
-            offs = (off(r), off(src), scale, causal)
+            offs = (off(r), off(src), scale, causal, rb)
             before = [t.clone() for t in (dq[r], dk[src], dv[src])]
             ref_dq = _by_row(fa.flash_ring_bwd_dq_ref, (*args, dq[r]), *offs)
             ref_dk, ref_dv = _by_row(fa.flash_ring_bwd_dkv_ref,
@@ -811,6 +937,9 @@ def run_ring(shape, schedule, causal, seed):
                  (dv[src] - before[2], ref_dv - before[2]))
             del before, ref_dq, ref_dk, ref_dv
 
+    if rb is not None:  # shard r's dk is home on rank r after the ring
+        for r in range(n):
+            dq[r], dk[r] = _counter_rotate(dq[r], dk[r], off(r), off(r), rb)
     got = dict(out=unlay(outs), lse=unlay(lses), dq=unlay(dq), dk=unlay(dk),
                dv=unlay(dv))
     del outs, lses, dq, dk, dv, deltas
@@ -818,22 +947,24 @@ def run_ring(shape, schedule, causal, seed):
     # scores of one sequence are 3.2 GB).
     plain = {key: [] for key in got}
     for b in range(shape["B"]):
-        f32 = [t[b:b + 1].float() for t in (q, k, v, dout)]
-        out_p, lse_p = fa.flash_forward_ref(*f32[:3], scale, causal)
+        f32 = [t[b:b + 1] if rb is not None else t[b:b + 1].float()
+               for t in (q, k, v, dout)]
+        out_p, lse_p = fa.flash_forward_ref(*f32[:3], scale, causal, rb)
         delta_p = fa._delta(out_p, f32[3])
-        dk_p, dv_p = fa.flash_bwd_dkv_ref(*f32, lse_p, delta_p, scale, causal)
-        dq_p = fa.flash_bwd_dq_ref(*f32, lse_p, delta_p, scale, causal)
+        dk_p, dv_p = fa.flash_bwd_dkv_ref(*f32, lse_p, delta_p, scale, causal,
+                                          rb)
+        dq_p = fa.flash_bwd_dq_ref(*f32, lse_p, delta_p, scale, causal, rb)
         for key, t in zip(("out", "lse", "dq", "dk", "dv"),
                           (out_p, lse_p, dq_p, dk_p, dv_p)):
             plain[key].append(t)
         del f32, out_p, lse_p, delta_p, dk_p, dv_p, dq_p
         torch.cuda.empty_cache()
     plain = {key: torch.cat(t, dim=0) for key, t in plain.items()}
-    out_k, lse_k = fa.flash_fwd(q, k, v, scale, causal)
+    out_k, lse_k = fa.flash_fwd(q, k, v, scale, causal, rb)
     delta_k = fa._delta(out_k, dout)
-    dq_k = fa.flash_bwd_dq(q, k, v, dout, lse_k, delta_k, scale, causal)
+    dq_k = fa.flash_bwd_dq(q, k, v, dout, lse_k, delta_k, scale, causal, rb)
     dk_k, dv_k = fa.flash_bwd_dkv(q, k, v, dout, lse_k, delta_k, scale,
-                                  causal)
+                                  causal, rb)
     torch.cuda.synchronize()
     flash = dict(out=out_k, lse=lse_k, dq=dq_k, dk=dk_k, dv=dv_k)
     assembled = {}
@@ -960,15 +1091,71 @@ def ring_timings(seed):
     return rows
 
 
+def ring_rot_timings(seed):
+    """K4_rot-K6_rot at the lc_sp phase's launch (LC_SP: one rank, 6 heads
+    of 128 on 2 kv heads, zigzag chunks (0, 4096), the positions 0..8191):
+    each kernel beside the same launch without rotary (``norot_ms``), its
+    bound, its plain version (one batch row at a time) and SDPA's causal
+    forward and backward (enable_gqa) on q and k rotated beforehand, the
+    rotation apart."""
+    import torch
+    fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
+    rb, sp = ROPE_BASE, dict(LC_SP, causal=True)
+    q, k, v, dout = _inputs(sp, seed)
+    offs, scale = (0, sp["L"] // 2), sp["D"] ** -0.5
+    o = torch.zeros(q.shape, device=q.device)
+    m = torch.full(q.shape[:3], float("-inf"), device=q.device)
+    l = torch.zeros(q.shape[:3], device=q.device)
+    fa.flash_ring_step(q, k, v, o, m, l, offs, offs, scale, True, rb)
+    lse = m + torch.log(l)
+    delta = fa._delta((o / l[..., None]).to(q.dtype), dout)
+    dq = torch.zeros(q.shape, device=q.device)
+    dk, dv = (torch.zeros(k.shape, device=q.device) for _ in range(2))
+    args = (q, k, v, dout, lse, delta)
+    # (the kernel, given a rotary base or None; the rotary plain version)
+    runs = {
+        "flash_ring_step": (
+            lambda b: fa.flash_ring_step(q, k, v, o, m, l, offs, offs, scale,
+                                         True, b),
+            lambda: _by_row(fa.flash_ring_step_ref, (q, k, v, o, m, l), offs,
+                            offs, scale, True, rb)),
+        "flash_ring_bwd_dq": (
+            lambda b: fa.flash_ring_bwd_dq(*args, dq, offs, offs, scale, True,
+                                           b),
+            lambda: _by_row(fa.flash_ring_bwd_dq_ref, (*args, dq), offs,
+                            offs, scale, True, rb)),
+        "flash_ring_bwd_dkv": (
+            lambda b: fa.flash_ring_bwd_dkv(*args, dk, dv, offs, offs, scale,
+                                            True, b),
+            lambda: _by_row(fa.flash_ring_bwd_dkv_ref, (*args, dk, dv), offs,
+                            offs, scale, True, rb)),
+    }
+    pos = fa.shard_positions(offs, q.shape[2], q.device)
+    lib = rotated_sdpa_times(q, k, v, dout, True, scale, rb, pos, pos)
+    rows = {}
+    for name, (kern, plain) in runs.items():
+        r = rows[name + "_rot"] = {}
+        r["ms"] = time_ms(lambda: kern(rb))
+        r["norot_ms"] = time_ms(lambda: kern(None))
+        r["plain_ms"] = time_ms(plain, n=2, reps=3, warmup=1)
+        r["bound_ms"], r["bound_by"] = _ring_bound_ms(name, sp, diagonal=True)
+        r["library_ms"] = lib["sdpa_fwd_ms" if name == "flash_ring_step"
+                              else "sdpa_bwd_ms"]
+        r["rotate_ms"] = lib["rotate_ms"]
+        r["library"] = lib["note"] + " (causal; the nearest yardstick: no "
+        r["library"] += "carried state)"
+    return rows
+
+
 def phase_ring_kernels():
     """K4-K6 through whole rings (RING_RUNS) against their plain versions,
     plain full attention and K1-K3; then their times. Returns {name: row}."""
     import torch
-    rows = {name: {} for name in RING}
+    rows = {name: {} for name in RING + RING_ROT}
     assembled, bad = {}, []
-    for seed, (tag, shape, schedule, causal) in enumerate(RING_RUNS):
+    for seed, (tag, shape, schedule, causal, rb) in enumerate(RING_RUNS):
         label = "%s_%s_%s" % (tag, schedule, "causal" if causal else "full")
-        per_launch, whole = run_ring(shape, schedule, causal, seed + 10)
+        per_launch, whole = run_ring(shape, schedule, causal, seed + 10, rb)
         torch.cuda.empty_cache()
         for name, errs in per_launch.items():
             log("%s %s: %s" % (name, label, ", ".join(
@@ -990,15 +1177,24 @@ def phase_ring_kernels():
                            % (label, key, val, limit))
     if bad:
         fail("ring kernels disagree: " + "; ".join(bad))
-    for name, row in rows.items():
-        row["odd_rel_l2_err"] = max(v for k, v in row.items()
-                                    if k.startswith("odd_")
-                                    and k.endswith("rel_l2_err"))
-    rows["flash_ring_step"]["lse_abs_err"] = max(
-        v for k, v in rows["flash_ring_step"].items()
-        if k.endswith("m_abs_err"))
-    for name, timing in ring_timings(seed=20).items():
+    for name in RING:
+        rows[name]["odd_rel_l2_err"] = max(
+            v for k, v in rows[name].items()
+            if k.startswith("odd_") and k.endswith("rel_l2_err"))
+    for name in ("flash_ring_step", "flash_ring_step_rot"):
+        rows[name]["lse_abs_err"] = max(v for k, v in rows[name].items()
+                                        if k.endswith("m_abs_err"))
+    for name, timing in {**ring_timings(seed=20),
+                         **ring_rot_timings(seed=21)}.items():
         rows[name].update(timing)
+        if name in RING_ROT:
+            log("%s at the lc_sp launch: %.4f ms (without rotary %.4f, bound "
+                "%.4f, plain %.3f, SDPA causal on rotated q, k %.4f + "
+                "rotation %.4f)" % (name, timing["ms"], timing["norot_ms"],
+                                    timing["bound_ms"], timing["plain_ms"],
+                                    timing["library_ms"],
+                                    timing["rotate_ms"]))
+            continue
         log("%s: off-diagonal %.4f ms (bound %.4f, plain %.3f, SDPA %.4f), "
             "diagonal %.4f ms (bound %.4f); sp launch %.4f ms (bound %.4f, "
             "SDPA causal %.4f)" % (
@@ -1014,14 +1210,15 @@ def phase_ring_kernels():
     return rows
 
 
-def phase_sp(profile_dir=None):
+def phase_sp(profile_dir=None, lc=False):
     """The sequence-parallel LM step (ring attention, zigzag) at full width
-    on a one-rank "sp" axis; returns K4-K6's launch counts of its 7 steps."""
+    on a one-rank "sp" axis; returns K4-K6's launch counts of its 7 steps.
+    ``lc``: the long-context GQA LM (LC_MODEL) with fused rotary instead
+    (phase lc_sp), through K4_rot-K6_rot, 2 warm-up and 3 timed steps."""
     import dataclasses
     import torch
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import Transformer, TransformerConfig
-    from horovod_tpu_torch.ops import analytic_attention_flops
     from horovod_tpu_torch.ops.flash_attention import (launch_counts,
                                                        reset_launch_counts)
     from horovod_tpu_torch.parallel import (hybrid_mesh, make_train_step,
@@ -1031,9 +1228,12 @@ def phase_sp(profile_dir=None):
     dev = hvd.device()
     mesh = hybrid_mesh((hvd.size(),), ("sp",))
     n, rank = mesh.size("sp"), mesh.rank("sp")
+    tag = "lc_sp" if lc else "sp"
     cfg = TransformerConfig(attention="ring", sp_axis="sp",
                             sp_schedule="zigzag", dtype=torch.bfloat16,
-                            max_seq_len=8192, **MODEL)
+                            max_seq_len=8192, rope_fused=lc,
+                            **(LC_MODEL if lc else MODEL))
+    kernels = RING_ROT if lc else RING
     B, L = SP_BATCH
     model = Transformer(cfg, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
@@ -1066,8 +1266,8 @@ def phase_sp(profile_dir=None):
     del flash
     torch.cuda.empty_cache()
     worst = max(grad_gaps, key=grad_gaps.get)
-    log("gradient gap ring vs flash attention at %d x %d: worst %s %.3g, "
-        "median %.3g" % (SP_GRAD_BATCH, L, worst, grad_gaps[worst],
+    log("%s gradient gap ring vs flash attention at %d x %d: worst %s %.3g, "
+        "median %.3g" % (tag, SP_GRAD_BATCH, L, worst, grad_gaps[worst],
                          statistics.median(grad_gaps.values())))
     if not grad_gaps[worst] <= GRAD_TOL:
         fail("gradients through the ring kernels disagree with the flash "
@@ -1077,7 +1277,7 @@ def phase_sp(profile_dir=None):
                                                     lr=1e-4),
                                    model.named_parameters())
     step = make_train_step(model, shard_lm_loss, opt)
-    warmup, timed = 2, 5
+    warmup, timed = 2, 3 if lc else 5
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1087,7 +1287,8 @@ def phase_sp(profile_dir=None):
         loss = step(batch).item()
         times.append(time.perf_counter() - t0)
         losses.append(loss)
-        log("sp step %d: loss %.5f, %.1f ms" % (i, loss, times[-1] * 1e3))
+        log("%s step %d: loss %.5f, %.1f ms" % (tag, i, loss,
+                                                 times[-1] * 1e3))
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = warmup + timed
@@ -1097,34 +1298,178 @@ def phase_sp(profile_dir=None):
     if not losses[-1] < losses[0]:
         fail("sp loss did not fall: %s" % losses)
     for name, c in counts.items():
-        per_step = cfg.num_layers if name in RING else 0
+        per_step = cfg.num_layers if name in kernels else 0
         if c != per_step * steps:
-            fail("%s launched %d times in %d sp steps, expected %d per step"
-                 % (name, c, steps, per_step))
+            fail("%s launched %d times in %d %s steps, expected %d per step"
+                 % (name, c, steps, tag, per_step))
     rel = abs(losses[0] - loss_flash) / abs(loss_flash)
-    log("sp first loss %.6f, flash model %.6f, rel %.3g"
-        % (losses[0], loss_flash, rel))
+    log("%s first loss %.6f, flash model %.6f, rel %.3g"
+        % (tag, losses[0], loss_flash, rel))
     if not rel <= 2e-2:
         fail("sp first loss %.6f vs the flash model %.6f (rel %.3g)"
              % (losses[0], loss_flash, rel))
 
     step_s = statistics.median(times[warmup:])
-    E, F_, V = cfg.embed_dim, cfg.mlp_dim, cfg.vocab_size
-    D = E // cfg.num_heads
-    matmul_params = cfg.num_layers * (4 * E * E + 2 * E * F_) + E * V
-    flops = (6.0 * matmul_params * B * L + cfg.num_layers *
-             analytic_attention_flops(B, cfg.num_heads, L, D, causal=True,
-                                      training=True))
     result = dict(step_ms=step_s * 1e3, tokens_per_s=B * L / step_s,
-                  peak_mem_gb=peak / 1e9, tflops=flops / step_s / 1e12,
+                  peak_mem_gb=peak / 1e9,
+                  tflops=lm_step_flops(cfg, B, L) / step_s / 1e12,
                   loss_first=losses[0], loss_last=losses[-1],
                   loss_flash=loss_flash, grad_gap_worst=grad_gaps[worst],
                   launches=counts, steps=steps, ranks=n)
-    print("sp: " + json.dumps(result), flush=True)
+    print("%s: %s" % (tag, json.dumps(result)), flush=True)
     if profile_dir:
-        profile_steps(step, batch, profile_dir, "sp")
+        profile_steps(step, batch, profile_dir, tag)
     hvd.shutdown()
-    return {name: counts[name] for name in RING}
+    return {name: counts[name] for name in kernels}
+
+
+def lm_step_flops(cfg, B, L):
+    """FLOPs of one LM training step: 6 per matmul parameter and token
+    (GQA: the k and v projections at G heads) and the flash kernels'
+    analytic count (causal, forward and backward)."""
+    from horovod_tpu_torch.ops import analytic_attention_flops
+    E, F_, V = cfg.embed_dim, cfg.mlp_dim, cfg.vocab_size
+    H = cfg.num_heads
+    G = cfg.num_kv_heads or H
+    D = cfg.head_dim or E // H
+    matmul_params = (cfg.num_layers * (2 * E * H * D + 2 * E * G * D +
+                                       2 * E * F_) + E * V)
+    return (6.0 * matmul_params * B * L + cfg.num_layers *
+            analytic_attention_flops(B, H, L, D, causal=True, training=True))
+
+
+def phase_lc(profile_dir=None):
+    """The long-context GQA LM (LC_MODEL: 6 heads of 128 on 2 kv heads,
+    fused rotary through K1_rot-K3_rot, the streaming loss) at 2 x 8192
+    tokens: the gradient check against dense attention with rotary outside
+    at 2 x 2048, the first loss against it at 2 x 8192, the gradient check
+    against rope_fused=False (rotary outside, K1-K3) at 2 x 8192, then 2
+    warm-up and
+    5 timed Adam steps through make_train_step and lm_loss_streaming, a
+    profile of 3 more (device busy and idle), and the same step with
+    rope_fused=False on the same weights (K1-K3 and rotary outside) timed
+    and profiled the same way. Returns K1_rot-K3_rot's launch counts."""
+    import dataclasses
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.ops.flash_attention import (launch_counts,
+                                                       reset_launch_counts)
+    from horovod_tpu_torch.parallel import (lm_loss_streaming,
+                                            make_train_step)
+
+    hvd.init()
+    dev = hvd.device()
+    cfg = TransformerConfig(attention="flash", rope_fused=True,
+                            dtype=torch.bfloat16, max_seq_len=8192,
+                            **LC_MODEL)
+    B, L = LC_BATCH
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (B, L), device=dev,
+                           generator=torch.Generator(device=dev
+                                                     ).manual_seed(1))
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    init = {k: t.clone() for k, t in model.state_dict().items()}
+
+    # The same weights through dense attention, which rotates q and k
+    # outside (rope_fused has no kernel to go into there): every
+    # parameter's gradient at 2 x 2048, and the first loss at 2 x 8192 (6
+    # heads: 3.2 GB of f32 scores a layer, without gradients).
+    dense = Transformer(dataclasses.replace(cfg, attention="dense"),
+                        device=dev)
+    dense.load_state_dict(model.state_dict())
+    grad_gaps = gradient_gaps(model, dense, tokens[:, :LC_GRAD_LEN],
+                              lm_loss_streaming)
+    worst = max(grad_gaps, key=grad_gaps.get)
+    log("lc gradient gap fused-rotary flash vs dense at %d x %d: worst %s "
+        "%.3g, median %.3g" % (B, LC_GRAD_LEN, worst, grad_gaps[worst],
+                               statistics.median(grad_gaps.values())))
+    if not grad_gaps[worst] <= GRAD_TOL:
+        fail("lc gradients through K1_rot-K3_rot disagree with dense "
+             "attention: %s %.3g > %g" % (worst, grad_gaps[worst], GRAD_TOL))
+    with torch.no_grad():
+        loss_plain = lm_loss_streaming(dense, tokens).item()
+    del dense
+    torch.cuda.empty_cache()
+    # Every position: the same weights with rotary outside the kernels
+    # (apply_rotary, then K1-K3 without rotary), every parameter's gradient
+    # at 2 x 8192. At the seeded initialisation the loss is about ln(vocab)
+    # whatever attention does, so only the gradients see the rotation and
+    # the mask past the dense check's 2048 positions.
+    unfused_model = Transformer(dataclasses.replace(cfg, rope_fused=False),
+                                device=dev)
+    unfused_model.load_state_dict(init)
+    full_gaps = gradient_gaps(model, unfused_model, tokens,
+                              lm_loss_streaming)
+    full_worst = max(full_gaps, key=full_gaps.get)
+    log("lc gradient gap fused vs unfused rotary at %d x %d: worst %s %.3g, "
+        "median %.3g" % (B, L, full_worst, full_gaps[full_worst],
+                         statistics.median(full_gaps.values())))
+    if not full_gaps[full_worst] <= GRAD_TOL:
+        fail("lc gradients through K1_rot-K3_rot at %d x %d disagree with "
+             "rotary outside K1-K3: %s %.3g > %g"
+             % (B, L, full_worst, full_gaps[full_worst], GRAD_TOL))
+    del init
+    torch.cuda.empty_cache()
+
+    def run(m, kernels, label):
+        opt = hvd.DistributedOptimizer(torch.optim.Adam(m.parameters(),
+                                                        lr=1e-4),
+                                       m.named_parameters())
+        step = make_train_step(m, lm_loss_streaming, opt)
+        warmup, timed = 2, 5
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, times = [], []
+        for i in range(warmup + timed):
+            t0 = time.perf_counter()
+            loss = step(tokens).item()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+            log("%s step %d: loss %.5f, %.1f ms" % (label, i, loss,
+                                                     times[-1] * 1e3))
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps = warmup + timed
+        if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+            fail("non-finite %s loss: %s" % (label, losses))
+        if not losses[-1] < losses[0]:
+            fail("%s loss did not fall: %s" % (label, losses))
+        for name, c in counts.items():
+            per_step = cfg.num_layers if name in kernels else 0
+            if c != per_step * steps:
+                fail("%s launched %d times in %d %s steps, expected %d per "
+                     "step" % (name, c, steps, label, per_step))
+        step_s = statistics.median(times[warmup:])
+        result = dict(step_ms=step_s * 1e3, tokens_per_s=B * L / step_s,
+                      peak_mem_gb=peak / 1e9,
+                      tflops=lm_step_flops(cfg, B, L) / step_s / 1e12,
+                      loss_first=losses[0], loss_last=losses[-1],
+                      launches_per_step={n: c // steps for n, c in
+                                         counts.items() if c},
+                      steps=steps)
+        result.update(profile_steps(step, tokens, profile_dir, label))
+        return result, counts
+
+    fused, counts = run(model, FLASH_ROT, "lc")
+    rel = abs(fused["loss_first"] - loss_plain) / abs(loss_plain)
+    log("lc first loss %.6f, dense attention %.6f, rel %.3g"
+        % (fused["loss_first"], loss_plain, rel))
+    if not rel <= 2e-2:
+        fail("lc first loss %.6f vs dense attention %.6f (rel %.3g)"
+             % (fused["loss_first"], loss_plain, rel))
+    fused.update(loss_plain=loss_plain, grad_gap_worst=grad_gaps[worst],
+                 grad_gap_worst_unfused_full=full_gaps[full_worst])
+    # the same weights and step with rotary outside the kernels
+    del model
+    torch.cuda.empty_cache()
+    unfused, _ = run(unfused_model, FLASH, "lc_unfused")
+    print("lc: " + json.dumps(dict(fused, rope_fused_false=unfused)),
+          flush=True)
+    hvd.shutdown()
+    return {name: counts[name] for name in FLASH_ROT}
 
 
 def gradient_gaps(model, dense, tokens, loss_fn):
@@ -1166,8 +1511,9 @@ def _category(name, model):
 
 def profile_steps(step, tokens, out_dir, model, n=3):
     """Device time by kernel over ``n`` steps (torch.profiler), the device's
-    busy share of the window, and the top kernels; the full table goes to
-    ``out_dir``/chip_smoke_<model>_profile.txt."""
+    busy share of the window, and the top kernels, printed and returned;
+    the full table goes to ``out_dir``/chip_smoke_<model>_profile.txt when
+    ``out_dir`` is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1204,21 +1550,26 @@ def profile_steps(step, tokens, out_dir, model, n=3):
                    top=[dict(ms=ms, calls=c, name=name[:90])
                         for ms, c, name in kernels[:12]])
     print("profile %s: %s" % (model, json.dumps(summary)), flush=True)
-    out = Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / ("chip_smoke_%s_profile.txt" % model)).write_text(avgs.table(
-        sort_by="self_device_time_total", row_limit=60))
+    if out_dir:
+        out = Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / ("chip_smoke_%s_profile.txt" % model)).write_text(avgs.table(
+            sort_by="self_device_time_total", row_limit=60))
+    return dict(device_busy_ms=busy_ms, idle_share=summary["idle_share"],
+                by_category_ms=cats)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "train", "bn_kernels",
-                                       "resnet", "ring_kernels", "sp"),
+                                       "resnet", "ring_kernels", "sp", "lc",
+                                       "lc_sp"),
                     help="run the device and build phases and this one")
     ap.add_argument("--profile", metavar="DIR",
-                    help="after the train, resnet and sp phases, profile 3 "
-                    "more steps each and write the kernel tables to "
-                    "DIR/chip_smoke_{lm,resnet,sp}_profile.txt")
+                    help="after the train, resnet, sp and lc_sp phases, "
+                    "profile 3 more steps each (lc always profiles) and write "
+                    "the kernel tables to DIR/chip_smoke_{lm,resnet,sp,lc,"
+                    "lc_unfused,lc_sp}_profile.txt")
     args = ap.parse_args()
     phase_device()
     if not (ROOT / "horovod_tpu_torch").is_dir():
@@ -1246,6 +1597,10 @@ def main():
         rows.update(phase_ring_kernels())
     if run("sp"):
         counts.update(phase_sp(profile_dir=args.profile))
+    if run("lc"):
+        counts.update(phase_lc(profile_dir=args.profile))
+    if run("lc_sp"):
+        counts.update(phase_sp(profile_dir=args.profile, lc=True))
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         row = rows.get(name, {})
@@ -1265,6 +1620,10 @@ def main():
             "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),
             "bound_ms": row.get("bound_ms"), "bound_by": row.get("bound_by"),
             "library_ms": lib_ms, "library_note": row.get("library"),
+            # the rotary kernels: the same launch without rotary, and the
+            # rotation of q and k that library_ms leaves out
+            **{key: row[key] for key in ("norot_ms", "rotate_ms")
+               if key in row},
             "rel_l2_err": max(rel_errs) if rel_errs else None,
             "odd_rel_l2_err": row.get("odd_rel_l2_err"),
             "lse_abs_err": row.get("lse_abs_err"),

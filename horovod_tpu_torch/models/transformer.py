@@ -3,11 +3,12 @@
 Counterpart of ``horovod_tpu/models/transformer.py``: pre-norm blocks,
 RMSNorm, rotary position embedding applied to q and k outside the
 attention kernel (at the positions the caller passes, global ones for a
-sequence shard), attention ``"dense"`` (plain PyTorch), ``"flash"`` (the
-Hopper kernels of ``ops/flash_attention``) or ``"ring"`` (sequence-parallel
-ring attention over the mesh axis ``sp_axis``, ``parallel/ring.py``), GQA
-through ``num_kv_heads``, a SiLU MLP and an untied lm_head. The parameters
-are the same for every attention.
+sequence shard) or, with ``rope_fused=True`` under flash or ring attention,
+inside the kernels, attention ``"dense"`` (plain PyTorch), ``"flash"``
+(the Hopper kernels of ``ops/flash_attention``) or ``"ring"``
+(sequence-parallel ring attention over the mesh axis ``sp_axis``,
+``parallel/ring.py``), GQA through ``num_kv_heads``, a SiLU MLP and an
+untied lm_head. The parameters are the same for every attention.
 
 Precision follows flax's ``dtype=``/``param_dtype=``: parameters are
 float32, and with ``cfg.dtype=torch.bfloat16`` each product casts its
@@ -33,9 +34,16 @@ from horovod_tpu_torch.parallel.ring import ring_attention
 class TransformerConfig:
     """Same fields as the JAX package's config. The port runs
     ``attention`` "dense", "flash" and "ring" (with ``sp_axis`` and
-    ``sp_schedule``) with ``num_kv_heads``; "ulysses", the tensor- and
-    expert-parallel fields and ``rope_fused`` must keep their defaults until
-    their slices land.
+    ``sp_schedule``) with ``num_kv_heads`` and ``rope_fused``; "ulysses"
+    and the tensor- and expert-parallel fields must keep their defaults
+    until their slices land.
+
+    ``rope_fused=True`` rotates q and k inside the flash or ring kernels
+    (``rotary_base=rope_base``), at positions 0..L-1 of the sequence (the
+    ring: its shards' global positions): the ``positions`` the model is
+    given are then ignored, as in the JAX package, so packed sequences or
+    shifted windows need ``rope_fused=False``. Dense attention rotates
+    outside either way.
 
     With ``attention="flash"`` on a GPU the kernels' products take bf16
     inputs whatever ``dtype`` is: a float32 config gets f32 softmax and
@@ -77,8 +85,6 @@ class TransformerConfig:
             later.append("tensor parallelism (tp_axis)")
         if self.moe_experts is not None or self.ep_axis is not None:
             later.append("mixture of experts (moe_experts, ep_axis)")
-        if self.rope_fused:
-            later.append("rotary fused into the flash kernels (rope_fused)")
         if later:
             raise NotImplementedError(
                 "not in the port yet, each is a later slice: "
@@ -136,13 +142,16 @@ class Attention(nn.Module):
         q = _linear(x, self.query, cfg.dtype).view(B, L, H, D)
         k = _linear(x, self.key, cfg.dtype).view(B, L, G, D)
         v = _linear(x, self.value, cfg.dtype).view(B, L, G, D)
-        q = _rotary(q, positions, cfg.rope_base)
-        k = _rotary(k, positions, cfg.rope_base)
+        fused = cfg.rope_fused and cfg.attention in ("flash", "ring")
+        if not fused:
+            q = _rotary(q, positions, cfg.rope_base)
+            k = _rotary(k, positions, cfg.rope_base)
+        rb = cfg.rope_base if fused else None
         if cfg.attention == "flash":
-            o = flash_attention(q, k, v, causal=True)
+            o = flash_attention(q, k, v, causal=True, rotary_base=rb)
         elif cfg.attention == "ring":
             o = ring_attention(q, k, v, cfg.sp_axis, causal=True,
-                               schedule=cfg.sp_schedule)
+                               schedule=cfg.sp_schedule, rotary_base=rb)
         else:
             o = _dense_attention(q, k, v, D ** -0.5)
         return _linear(o.reshape(B, L, H * D), self.out, cfg.dtype)

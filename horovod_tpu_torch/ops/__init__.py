@@ -13,3 +13,6 @@ from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
     apply_rotary,
     flash_attention,
 )
+from horovod_tpu_torch.ops.losses import (  # noqa: F401
+    chunked_softmax_cross_entropy,
+)

@@ -26,7 +26,8 @@ tiles by TMA, which copies bytes and cannot round: the wrappers round
 float32 q, k, v and dout to bf16 (``.to(torch.bfloat16)``) before the
 launch, and K1-K3 still write O, dQ, dK and dV in q's dtype.
 
-Each wrapper counts its launches in ``.launches``.
+Each wrapper counts its launches in ``.launches``, and those of its rotary
+instantiation (a kernel of its own) in ``.rot_launches``.
 
 The ring-attention steps (K4 in ``csrc/flash_fwd.cu`` on K1's mainloop,
 K5 and K6 in ``csrc/flash_bwd.cu`` on K2's and K3's) run one step of
@@ -44,6 +45,18 @@ on those positions.
   accumulators that travel with the k/v shard.
 
 All three update their state or accumulators in place and return them.
+
+Fused rotary (``rotary_base=``, the TPU kernels' ``rotary`` flag): every
+wrapper and plain version takes the base of a rotary embedding and rotates
+q and k inside (at positions 0..L-1 in K1-K3, at the shards' global
+positions in K4-K6), so the caller does not rotate them first. The rotated
+values are rounded to the inputs' dtype, as the TPU kernels round them. K2
+and K3 counter-rotate their finished dQ and dK (the transpose rotation), so
+the gradients are those of the unrotated q and k. K5 and K6 leave dq and dk
+in rotated space: their sums carry across ring steps, and the ring
+counter-rotates them once after the last step. On a CUDA tensor the kernels
+read cos and sin from one f32 table per (head dim, base, device), built at
+first use and grown to the longest positions asked for (``rope_tables``).
 """
 
 import ctypes
@@ -58,22 +71,22 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_Y = 65535
 
-# The arguments after the tensor pointers, the tensor maps and (K1-K3) the
-# outputs' strides: K1-K3 take B, H, G, L, D and the dtype of their
-# outputs; the ring steps B, H, G, Lq, Lk, D and the chunk offsets; then
-# scale, causal and the stream.
+# The arguments after the tensor pointers, the two rotary tables (null
+# without rotary), the tensor maps and (K1-K3) the outputs' strides: K1-K3
+# take B, H, G, L, D and the dtype of their outputs; the ring steps B, H, G,
+# Lq, Lk, D and the chunk offsets; then scale, causal and the stream.
 _P = ctypes.c_void_p
 _TAIL = [ctypes.c_float, ctypes.c_int, _P]
 _FLASH_ARGS = [ctypes.c_int] * 6 + _TAIL
 _RING_ARGS = [ctypes.c_int] * 6 + [_P] + _TAIL
 # C entry point -> (source, argument types)
 _ENTRIES = {
-    "hvd_flash_fwd": ("flash_fwd", [_P] * 7 + _FLASH_ARGS),
-    "hvd_flash_bwd_dq": ("flash_bwd", [_P] * 9 + _FLASH_ARGS),
-    "hvd_flash_bwd_dkv": ("flash_bwd", [_P] * 10 + _FLASH_ARGS),
-    "hvd_flash_ring_fwd": ("flash_fwd", [_P] * 7 + _RING_ARGS),
-    "hvd_flash_ring_bwd_dq": ("flash_bwd", [_P] * 8 + _RING_ARGS),
-    "hvd_flash_ring_bwd_dkv": ("flash_bwd", [_P] * 9 + _RING_ARGS),
+    "hvd_flash_fwd": ("flash_fwd", [_P] * 9 + _FLASH_ARGS),
+    "hvd_flash_bwd_dq": ("flash_bwd", [_P] * 11 + _FLASH_ARGS),
+    "hvd_flash_bwd_dkv": ("flash_bwd", [_P] * 12 + _FLASH_ARGS),
+    "hvd_flash_ring_fwd": ("flash_fwd", [_P] * 9 + _RING_ARGS),
+    "hvd_flash_ring_bwd_dq": ("flash_bwd", [_P] * 10 + _RING_ARGS),
+    "hvd_flash_ring_bwd_dkv": ("flash_bwd", [_P] * 11 + _RING_ARGS),
 }
 # The forward kernels' TMA boxes: at most 64 bf16 columns (a head dim of
 # 128 is two boxes); 128 rows of K and V (a key tile), 64 rows of Q (one
@@ -86,24 +99,49 @@ TMA_Q_BOX_ROWS = 64
 # tiles' rows: 64, or 32 for K3's and K6's q tiles at a head dim of 128.
 BWD_BOX_ROWS = 64
 _bound = {}
+_rope = {}  # (D, base, device) -> f32 [2, positions, D / 2]
+
+
+def _rope_tables(positions, D, base):
+    """(cos, sin) f32 [..., D/2] of the angles positions * base^(-2j/D), j <
+    D/2: the tables of ``horovod_tpu/ops/flash_attention.py:_rope_tables``
+    at half width (pair j and j + D/2 share an angle; the sign of the
+    rotation is applied where they are used)."""
+    half = D // 2
+    inv = base ** (-torch.arange(half, dtype=torch.float32,
+                                 device=positions.device) * 2.0 / D)
+    ang = positions[..., None].to(torch.float32) * inv
+    return torch.cos(ang), torch.sin(ang)
 
 
 def apply_rotary(x, positions, base=10000.0, neg=False):
     """Rotary embedding over the last dim; ``positions`` broadcastable to
     ``x.shape[:-1]``. Pairs are (d, d + D/2). ``neg=True`` applies the
-    transpose rotation R(-pos)."""
+    transpose rotation R(-pos). Computed in f32, rounded to x's dtype."""
     D = x.shape[-1]
     half = D // 2
-    inv = base ** (-torch.arange(half, dtype=torch.float32,
-                                 device=x.device) * 2.0 / D)
-    ang = positions[..., None].to(torch.float32) * inv
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos, sin = _rope_tables(positions.to(x.device), D, base)
     if neg:
         sin = -sin
     xf = x.float()
     x1, x2 = xf[..., :half], xf[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+def rope_tables(n, D, base, device):
+    """The kernels' rotary tables: one f32 [2, m, D/2] tensor (cos, then
+    sin) for positions 0..m-1, m >= n, kept per (D, base, device). Row p is
+    the same at any m, so a longer request rebuilds the one table at the
+    next power of two of n and every launch indexes it by position."""
+    key = (D, float(base), str(device))
+    t = _rope.get(key)
+    if t is None or t.shape[1] < n:
+        m = 1 << max(n - 1, 0).bit_length()
+        t = torch.stack(_rope_tables(torch.arange(m, device=device), D,
+                                     base)).contiguous()
+        _rope[key] = t
+    return t
 
 
 def analytic_attention_flops(B, H, L, D, causal=True, training=False):
@@ -137,6 +175,27 @@ def _scores(q, k, scale, causal):
     return s
 
 
+def _rotate(q, k, q_offset, kv_offset, rotary_base):
+    """q and k rotated at the global positions of their shards (K1-K3: one
+    chunk at 0, positions 0..L-1), as the kernels rotate them; as they are
+    without rotary."""
+    if rotary_base is None:
+        return q, k
+    return (apply_rotary(q, shard_positions(q_offset, q.shape[2], q.device),
+                         rotary_base),
+            apply_rotary(k, shard_positions(kv_offset, k.shape[2], q.device),
+                         rotary_base))
+
+
+def _unrotate(x, rotary_base):
+    """The transpose rotation of an f32 gradient at positions 0..L-1 (K2's
+    dQ, K3's dK), or x as it is without rotary."""
+    if rotary_base is None:
+        return x
+    return apply_rotary(x, torch.arange(x.shape[2], device=x.device),
+                        rotary_base, neg=True)
+
+
 def _probs_and_ds(q, k, v, dout, lse, delta, scale, causal):
     group = q.shape[1] // k.shape[1]
     kf, vf = _expand_kv(k, group).float(), _expand_kv(v, group).float()
@@ -145,8 +204,9 @@ def _probs_and_ds(q, k, v, dout, lse, delta, scale, causal):
     return p, p * (dp - delta[..., None]) * scale, kf
 
 
-def flash_forward_ref(q, k, v, scale, causal):
+def flash_forward_ref(q, k, v, scale, causal, rotary_base=None):
     """Plain version of K1 in f32: (out in q's dtype, lse f32 [B, H, L])."""
+    q, k = _rotate(q, k, (0,), (0,), rotary_base)
     group = q.shape[1] // k.shape[1]
     s = _scores(q, _expand_kv(k, group), scale, causal)
     lse = torch.logsumexp(s, dim=-1)
@@ -155,23 +215,29 @@ def flash_forward_ref(q, k, v, scale, causal):
     return out.to(q.dtype), lse
 
 
-def flash_bwd_dq_ref(q, k, v, dout, lse, delta, scale, causal):
-    """Plain version of K2 in f32: dQ = dS.K with P from lse."""
-    _, ds, kf = _probs_and_ds(q, k, v, dout, lse, delta, scale, causal)
-    return torch.matmul(ds, kf).to(q.dtype)
+def flash_bwd_dq_ref(q, k, v, dout, lse, delta, scale, causal,
+                     rotary_base=None):
+    """Plain version of K2 in f32: dQ = dS.K with P from lse (rotary: on the
+    rotated q and k, dQ counter-rotated)."""
+    qr, kr = _rotate(q, k, (0,), (0,), rotary_base)
+    _, ds, kf = _probs_and_ds(qr, kr, v, dout, lse, delta, scale, causal)
+    return _unrotate(torch.matmul(ds, kf), rotary_base).to(q.dtype)
 
 
-def flash_bwd_dkv_ref(q, k, v, dout, lse, delta, scale, causal):
+def flash_bwd_dkv_ref(q, k, v, dout, lse, delta, scale, causal,
+                      rotary_base=None):
     """Plain version of K3 in f32: dV = P^T.dO and dK = dS^T.Q, summed over
-    the query heads of each kv head."""
+    the query heads of each kv head (rotary: on the rotated q and k, dK
+    counter-rotated)."""
     B, H, L, D = q.shape
     G = k.shape[1]
-    p, ds, _ = _probs_and_ds(q, k, v, dout, lse, delta, scale, causal)
+    qr, kr = _rotate(q, k, (0,), (0,), rotary_base)
+    p, ds, _ = _probs_and_ds(qr, kr, v, dout, lse, delta, scale, causal)
     dv = torch.matmul(p.transpose(-1, -2), dout.float())
-    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dk = torch.matmul(ds.transpose(-1, -2), qr.float())
     dk = dk.view(B, G, H // G, L, D).sum(2)
     dv = dv.view(B, G, H // G, L, D).sum(2)
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return _unrotate(dk, rotary_base).to(k.dtype), dv.to(v.dtype)
 
 
 def _delta(out, dout):
@@ -180,12 +246,14 @@ def _delta(out, dout):
     return (dout.float() * out.float()).sum(-1).contiguous()
 
 
-def flash_backward_ref(q, k, v, out, lse, dout, scale, causal):
+def flash_backward_ref(q, k, v, out, lse, dout, scale, causal,
+                       rotary_base=None):
     """Plain version of the whole backward: (dq, dk, dv)."""
     delta = _delta(out, dout)
-    dk, dv = flash_bwd_dkv_ref(q, k, v, dout, lse, delta, scale, causal)
-    return (flash_bwd_dq_ref(q, k, v, dout, lse, delta, scale, causal),
-            dk, dv)
+    dk, dv = flash_bwd_dkv_ref(q, k, v, dout, lse, delta, scale, causal,
+                               rotary_base)
+    return (flash_bwd_dq_ref(q, k, v, dout, lse, delta, scale, causal,
+                             rotary_base), dk, dv)
 
 
 def blockwise_reference(q, k, v, scale, causal, rotary_base=None):
@@ -248,9 +316,10 @@ def _ring_scores(q, k, q_offset, kv_offset, scale, causal):
 
 
 def flash_ring_step_ref(q, k, v, o, m, l, q_offset, kv_offset, scale,
-                        causal):
+                        causal, rotary_base=None):
     """Plain version of K4 in f32: the carried (o, m, l) after this k/v
     shard, as new tensors. Rows with no visible key yet keep m = -inf."""
+    q, k = _rotate(q, k, q_offset, kv_offset, rotary_base)
     s, _ = _ring_scores(q, k, q_offset, kv_offset, scale, causal)
     m_new = torch.maximum(m, s.amax(-1))
     empty = torch.isneginf(m_new)
@@ -273,8 +342,10 @@ def _ring_probs_and_ds(q, k, v, dout, lse, delta, q_offset, kv_offset,
 
 
 def flash_ring_bwd_dq_ref(q, k, v, dout, lse, delta, dq, q_offset,
-                          kv_offset, scale, causal):
-    """Plain version of K5 in f32: dq + dS.K, P from the ring's lse."""
+                          kv_offset, scale, causal, rotary_base=None):
+    """Plain version of K5 in f32: dq + dS.K, P from the ring's lse (rotary:
+    on the rotated q and k, the sum left in rotated space)."""
+    q, k = _rotate(q, k, q_offset, kv_offset, rotary_base)
     _, ds = _ring_probs_and_ds(q, k, v, dout, lse, delta, q_offset,
                                kv_offset, scale, causal)
     return dq + torch.matmul(ds, _expand_kv(k, q.shape[1] // k.shape[1])
@@ -282,9 +353,11 @@ def flash_ring_bwd_dq_ref(q, k, v, dout, lse, delta, dq, q_offset,
 
 
 def flash_ring_bwd_dkv_ref(q, k, v, dout, lse, delta, dk, dv, q_offset,
-                           kv_offset, scale, causal):
+                           kv_offset, scale, causal, rotary_base=None):
     """Plain version of K6 in f32: (dk + dS^T.Q, dv + P^T.dO), summed over
-    the query heads of each kv head."""
+    the query heads of each kv head (rotary: on the rotated q and k, dk left
+    in rotated space)."""
+    q, k = _rotate(q, k, q_offset, kv_offset, rotary_base)
     B, H, _, D = q.shape
     G, Lk = k.shape[1], k.shape[2]
     p, ds = _ring_probs_and_ds(q, k, v, dout, lse, delta, q_offset,
@@ -458,6 +531,23 @@ def _launch(name, q, ptrs, strides, dims, scale, causal):
           int(bool(causal)))
 
 
+def _count(wrapper, rotary_base):
+    """One launch of ``wrapper``'s kernel, or of its rotary instantiation."""
+    if rotary_base is None:
+        wrapper.launches += 1
+    else:
+        wrapper.rot_launches += 1
+
+
+def _rope_ptrs(n, D, rotary_base, device):
+    """The kernels' two rotary table pointers for positions 0..n-1, or two
+    nulls without rotary."""
+    if rotary_base is None:
+        return [None, None]
+    t = rope_tables(n, D, rotary_base, device)
+    return [t[0].data_ptr(), t[1].data_ptr()]
+
+
 def _empty_like_heads(q, heads):
     """Output [B, heads, L, D] laid out as [B, L, heads, D] in memory, the
     layout of the model's activations."""
@@ -466,25 +556,27 @@ def _empty_like_heads(q, heads):
                        device=q.device).transpose(1, 2)
 
 
-def flash_fwd(q, k, v, scale, causal):
+def flash_fwd(q, k, v, scale, causal, rotary_base=None):
     """K1: (out [B, H, L, D] in q's dtype, lse f32 [B, H, L])."""
     if _on_cpu("flash_fwd", q):
-        return flash_forward_ref(q, k, v, scale, causal)
+        return flash_forward_ref(q, k, v, scale, causal, rotary_base)
     B, H, G, L, D = _check("flash_fwd", q, k, {"q": q, "k": k, "v": v})
     out = _empty_like_heads(q, H)
     lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
     qkv = _bf16(q, k, v)
     _launch("hvd_flash_fwd", q,
-            [t.data_ptr() for t in (*qkv, out, lse)] + [_fwd_maps(*qkv)],
+            [t.data_ptr() for t in (*qkv, out, lse)] +
+            _rope_ptrs(L, D, rotary_base, q.device) + [_fwd_maps(*qkv)],
             _strides(out), (B, H, G, L, D), scale, causal)
-    flash_fwd.launches += 1
+    _count(flash_fwd, rotary_base)
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal):
+def flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal, rotary_base=None):
     """K2: dq [B, H, L, D] in q's dtype."""
     if _on_cpu("flash_bwd_dq", q):
-        return flash_bwd_dq_ref(q, k, v, dout, lse, delta, scale, causal)
+        return flash_bwd_dq_ref(q, k, v, dout, lse, delta, scale, causal,
+                                rotary_base)
     B, H, G, L, D = _check("flash_bwd_dq", q, k,
                            {"q": q, "k": k, "v": v, "dout": dout},
                            (("lse", lse), ("delta", delta)))
@@ -492,17 +584,20 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal):
     qkvd = _bf16(q, k, v, dout)
     _launch("hvd_flash_bwd_dq", q,
             [t.data_ptr() for t in (*qkvd, lse, delta, dq)] +
+            _rope_ptrs(L, D, rotary_base, q.device) +
             [_bwd_maps(*qkvd, dkv=False)],
             _strides(dq), (B, H, G, L, D), scale, causal)
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, rotary_base)
     return dq
 
 
-def flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal):
+def flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
+                  rotary_base=None):
     """K3: (dk, dv) [B, G, L, D] in k's dtype, the GQA group summed in the
     kernel."""
     if _on_cpu("flash_bwd_dkv", q):
-        return flash_bwd_dkv_ref(q, k, v, dout, lse, delta, scale, causal)
+        return flash_bwd_dkv_ref(q, k, v, dout, lse, delta, scale, causal,
+                                 rotary_base)
     B, H, G, L, D = _check("flash_bwd_dkv", q, k,
                            {"q": q, "k": k, "v": v, "dout": dout},
                            (("lse", lse), ("delta", delta)))
@@ -511,9 +606,10 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal):
     qkvd = _bf16(q, k, v, dout)
     _launch("hvd_flash_bwd_dkv", q,
             [t.data_ptr() for t in (*qkvd, lse, delta, dk, dv)] +
+            _rope_ptrs(L, D, rotary_base, q.device) +
             [_bwd_maps(*qkvd, dkv=True)],
             _strides(dk, dv), (B, H, G, L, D), scale, causal)
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, rotary_base)
     return dk, dv
 
 
@@ -551,16 +647,22 @@ def _check_ring(what, q, k, tensors, rows=(), q_state=(), kv_state=()):
 
 
 def _ring_call(name, q, tensors, maps, dims, q_offset, kv_offset, scale,
-               causal):
+               causal, rotary_base):
     """Launches ring step ``name`` on ``tensors`` (bf16 inputs, f32 rows
-    and state) through ``maps``, with the shards' chunk offsets."""
-    chunks = (ctypes.c_int * 6)(*shard_chunks(q_offset, dims[3]),
-                                *shard_chunks(kv_offset, dims[4]))
-    _call(name, q, *[t.data_ptr() for t in tensors], maps, *dims, chunks,
-          float(scale), int(bool(causal)))
+    and state) through ``maps``, with the shards' chunk offsets and, for
+    rotary, tables up to their last global position."""
+    qc, kc = shard_chunks(q_offset, dims[3]), shard_chunks(kv_offset, dims[4])
+    chunks = (ctypes.c_int * 6)(*qc, *kc)
+    # tables for positions 0..n-1: a shard (off0, off1, len) of length L
+    # ends at position off1 + L - len - 1
+    n = max(c[1] + L - c[2] for c, L in ((qc, dims[3]), (kc, dims[4])))
+    _call(name, q, *[t.data_ptr() for t in tensors],
+          *_rope_ptrs(n, dims[5], rotary_base, q.device), maps, *dims,
+          chunks, float(scale), int(bool(causal)))
 
 
-def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal):
+def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal,
+                    rotary_base=None):
     """K4: one ring step of the online softmax. q [B, H, Lq, D], k/v
     [B, G, Lk, D] (bf16 or f32); the carried state o f32 [B, H, Lq, D]
     (un-normalised), m and l f32 [B, H, Lq] is updated IN PLACE and
@@ -568,7 +670,7 @@ def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal):
     chunk offsets (``shard_chunks``)."""
     if _on_cpu("flash_ring_step", q):
         new = flash_ring_step_ref(q, k, v, o, m, l, q_offset, kv_offset,
-                                  scale, causal)
+                                  scale, causal, rotary_base)
         for t, n in zip((o, m, l), new):
             t.copy_(n)
         return o, m, l
@@ -576,20 +678,21 @@ def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal):
                        rows=(("m", m), ("l", l)), q_state=(("o", o),))
     qkv = _bf16(q, k, v)
     _ring_call("hvd_flash_ring_fwd", q, (*qkv, o, m, l), _fwd_maps(*qkv),
-               dims, q_offset, kv_offset, scale, causal)
-    flash_ring_step.launches += 1
+               dims, q_offset, kv_offset, scale, causal, rotary_base)
+    _count(flash_ring_step, rotary_base)
     return o, m, l
 
 
 def flash_ring_bwd_dq(q, k, v, dout, lse, delta, dq, q_offset, kv_offset,
-                      scale, causal):
+                      scale, causal, rotary_base=None):
     """K5: adds this step's dQ contribution to the f32 accumulator dq
-    [B, H, Lq, D] IN PLACE and returns it. lse (the whole ring's, natural
-    log) and delta = rowsum(dO * O) are f32 [B, H, Lq]."""
+    [B, H, Lq, D] IN PLACE and returns it (in rotated space under rotary).
+    lse (the whole ring's, natural log) and delta = rowsum(dO * O) are f32
+    [B, H, Lq]."""
     if _on_cpu("flash_ring_bwd_dq", q):
         return dq.copy_(flash_ring_bwd_dq_ref(q, k, v, dout, lse, delta, dq,
                                               q_offset, kv_offset, scale,
-                                              causal))
+                                              causal, rotary_base))
     dims = _check_ring("flash_ring_bwd_dq", q, k,
                        {"q": q, "k": k, "v": v, "dout": dout},
                        rows=(("lse", lse), ("delta", delta)),
@@ -597,19 +700,20 @@ def flash_ring_bwd_dq(q, k, v, dout, lse, delta, dq, q_offset, kv_offset,
     qkvd = _bf16(q, k, v, dout)
     maps = _bwd_maps(*qkvd, dkv=False)
     _ring_call("hvd_flash_ring_bwd_dq", q, (*qkvd, lse, delta, dq), maps,
-               dims, q_offset, kv_offset, scale, causal)
-    flash_ring_bwd_dq.launches += 1
+               dims, q_offset, kv_offset, scale, causal, rotary_base)
+    _count(flash_ring_bwd_dq, rotary_base)
     return dq
 
 
 def flash_ring_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, q_offset,
-                       kv_offset, scale, causal):
+                       kv_offset, scale, causal, rotary_base=None):
     """K6: adds this step's dK, dV contribution (the GQA group summed in
     the kernel) to the f32 accumulators dk, dv [B, G, Lk, D] IN PLACE and
-    returns them."""
+    returns them (dk in rotated space under rotary)."""
     if _on_cpu("flash_ring_bwd_dkv", q):
         new = flash_ring_bwd_dkv_ref(q, k, v, dout, lse, delta, dk, dv,
-                                     q_offset, kv_offset, scale, causal)
+                                     q_offset, kv_offset, scale, causal,
+                                     rotary_base)
         return dk.copy_(new[0]), dv.copy_(new[1])
     dims = _check_ring("flash_ring_bwd_dkv", q, k,
                        {"q": q, "k": k, "v": v, "dout": dout},
@@ -618,35 +722,38 @@ def flash_ring_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, q_offset,
     qkvd = _bf16(q, k, v, dout)
     maps = _bwd_maps(*qkvd, dkv=True)
     _ring_call("hvd_flash_ring_bwd_dkv", q, (*qkvd, lse, delta, dk, dv),
-               maps, dims, q_offset, kv_offset, scale, causal)
-    flash_ring_bwd_dkv.launches += 1
+               maps, dims, q_offset, kv_offset, scale, causal, rotary_base)
+    _count(flash_ring_bwd_dkv, rotary_base)
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
-flash_ring_step.launches = 0
-flash_ring_bwd_dq.launches = 0
-flash_ring_bwd_dkv.launches = 0
 KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_ring_step,
                    flash_ring_bwd_dq, flash_ring_bwd_dkv)
 
 
 def launch_counts():
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    """{wrapper: launches} and {wrapper + "_rot": launches of its rotary
+    instantiation}."""
+    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    counts.update({fn.__name__ + "_rot": fn.rot_launches
+                   for fn in KERNEL_WRAPPERS})
+    return counts
 
 
 def reset_launch_counts():
     for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
+        fn.launches = fn.rot_launches = 0
 
 
-def flash_backward(q, k, v, out, lse, dout, scale, causal):
+reset_launch_counts()
+
+
+def flash_backward(q, k, v, out, lse, dout, scale, causal, rotary_base=None):
     """delta, then K2 and K3: (dq, dk, dv)."""
     delta = _delta(out, dout)
-    dq = flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal)
-    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal, rotary_base)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
+                           rotary_base)
     return dq, dk, dv
 
 
@@ -655,10 +762,10 @@ class _FlashFn(torch.autograd.Function):
     (q, k, v, out, lse) and recomputes P from lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        out, lse = flash_fwd(q, k, v, scale, causal)
+    def forward(ctx, q, k, v, scale, causal, rotary_base):
+        out, lse = flash_fwd(q, k, v, scale, causal, rotary_base)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.args = (scale, causal, rotary_base)
         return out
 
     @staticmethod
@@ -666,9 +773,8 @@ class _FlashFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if g.is_cuda:
             g = _kernel_layout(g)
-        dq, dk, dv = flash_backward(q, k, v, out, lse, g, ctx.scale,
-                                    ctx.causal)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g, *ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, causal=True, scale=None, rotary_base=None):
@@ -676,11 +782,12 @@ def flash_attention(q, k, v, causal=True, scale=None, rotary_base=None):
     q's dtype. GQA/MQA: k/v may carry G heads with G | H, and query head h
     attends through kv head h // (H // G). ``scale`` defaults to
     D ** -0.5. On CUDA tensors the products take bf16 inputs even when q
-    is float32 (see the module docstring)."""
-    if rotary_base is not None:
-        raise NotImplementedError(
-            "fused rotary in the flash kernels is a later slice of the "
-            "port; rotate q and k with apply_rotary first")
+    is float32 (see the module docstring).
+
+    ``rotary_base`` fuses rotary position embedding into the kernels at
+    positions 0..L-1 (do not also rotate outside); sequences whose
+    positions are not 0..L-1 (packing, shifted windows) rotate outside with
+    ``apply_rotary`` instead, as in the JAX package."""
     B, L, H, D = q.shape
     G = k.shape[2]
     if H % G:
@@ -691,4 +798,5 @@ def flash_attention(q, k, v, causal=True, scale=None, rotary_base=None):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if q.is_cuda:
         qt, kt, vt = (_kernel_layout(x) for x in (qt, kt, vt))
-    return _FlashFn.apply(qt, kt, vt, scale, causal).transpose(1, 2)
+    return _FlashFn.apply(qt, kt, vt, scale, causal,
+                          rotary_base).transpose(1, 2)

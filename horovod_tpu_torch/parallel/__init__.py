@@ -16,6 +16,7 @@ from horovod_tpu_torch.parallel.train import (  # noqa: F401
     classification_loss,
     cross_entropy_loss,
     lm_loss,
+    lm_loss_streaming,
     make_train_step,
     shard_lm_loss,
 )

@@ -14,6 +14,12 @@ one kernel on the rank's q shard and the k/v shard it holds:
   K6 adds dK and dV to f32 accumulators that travel with their k/v shard,
   so after n steps each shard's gradient is back on its home rank.
 
+Fused rotary (``rotary_base=``): K4-K6 rotate q and k at the shards'
+global positions. K5 and K6 keep dq and dk in rotated space, since their
+sums carry across steps; ``_counter_rotate`` turns them back once after the
+last step, dq by the rank's q positions and dk by its home shard's
+positions (it has travelled the whole ring).
+
 On CPU tensors the same loop calls the steps' plain versions (the JAX
 package's separate jnp ring is not needed: the kernels take any length and
 the scale is never traced).
@@ -38,9 +44,11 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.ops.flash_attention import (_delta, _kernel_layout,
+                                                   apply_rotary,
                                                    flash_ring_bwd_dkv,
                                                    flash_ring_bwd_dq,
-                                                   flash_ring_step)
+                                                   flash_ring_step,
+                                                   shard_positions)
 from horovod_tpu_torch.parallel.mesh import axis_group
 
 
@@ -86,7 +94,19 @@ class _Exchange:
         return self.recv
 
 
-def _ring_forward(q, k, v, group, causal, scale, schedule):
+def _counter_rotate(dq, dk, q_offset, kv_offset, rotary_base):
+    """The rotary ring's f32 dq and dk back from rotated space, after the
+    last step: dq by the positions of the rank's q shard, dk by those of
+    its home k/v shard (``shard_chunks`` offsets), each with the transpose
+    rotation (``horovod_tpu/parallel/ring.py:336-346``)."""
+    q_pos = shard_positions(q_offset, dq.shape[2], dq.device)
+    k_pos = shard_positions(kv_offset, dk.shape[2], dk.device)
+    return (apply_rotary(dq, q_pos, rotary_base, neg=True),
+            apply_rotary(dk, k_pos, rotary_base, neg=True))
+
+
+def _ring_forward(q, k, v, group, causal, scale, schedule,
+                  rotary_base=None):
     """q [B, H, Lq, D], k/v [B, G, Lk, D]: (out [B, H, Lq, D] in q's dtype,
     lse f32 [B, H, Lq])."""
     n, idx = dist.get_world_size(group), dist.get_rank(group)
@@ -104,7 +124,7 @@ def _ring_forward(q, k, v, group, causal, scale, schedule):
         if _step_runs(causal, schedule, src, idx, Lq, Lk):
             flash_ring_step(q, k, v, o, m, l, q_off,
                             _schedule_offsets(schedule, src, n, Lk), scale,
-                            causal)
+                            causal, rotary_base)
         if hop is not None:
             k, v = hop.wait()
     l1 = torch.where(l == 0.0, 1.0, l)  # rows that saw no key: out 0
@@ -112,7 +132,8 @@ def _ring_forward(q, k, v, group, causal, scale, schedule):
     return out, m + torch.log(l1)  # such rows keep lse = -inf
 
 
-def _ring_backward(q, k, v, out, lse, dout, group, causal, scale, schedule):
+def _ring_backward(q, k, v, out, lse, dout, group, causal, scale, schedule,
+                   rotary_base=None):
     """The second ring: (dq, dk, dv) in q's, k's and v's dtypes."""
     n, idx = dist.get_world_size(group), dist.get_rank(group)
     Lq, Lk = q.shape[2], k.shape[2]
@@ -132,12 +153,12 @@ def _ring_backward(q, k, v, out, lse, dout, group, causal, scale, schedule):
         kv_off = _schedule_offsets(schedule, src, n, Lk)
         if runs:
             flash_ring_bwd_dq(q, k, v, dout, lse, delta, dq, q_off, kv_off,
-                              scale, causal)
+                              scale, causal, rotary_base)
         if grads is not None:
             dk, dv = grads.wait()
         if runs:
             flash_ring_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, q_off,
-                               kv_off, scale, causal)
+                               kv_off, scale, causal, rotary_base)
         # dk/dv ride the ring with their k/v shard; the n-th hop takes them
         # home.
         grads = _Exchange((dk, dv), group, n, idx) if n > 1 else None
@@ -145,6 +166,10 @@ def _ring_backward(q, k, v, out, lse, dout, group, causal, scale, schedule):
             k, v = hop.wait()
     if grads is not None:
         dk, dv = grads.wait()
+    if rotary_base is not None:
+        dq, dk = _counter_rotate(dq, dk, q_off,
+                                 _schedule_offsets(schedule, idx, n, Lk),
+                                 rotary_base)
     return dq.to(q.dtype), dk.to(k_dtype), dv.to(v_dtype)
 
 
@@ -153,10 +178,11 @@ class _RingFn(torch.autograd.Function):
     for the backward ring."""
 
     @staticmethod
-    def forward(ctx, q, k, v, group, causal, scale, schedule):
-        out, lse = _ring_forward(q, k, v, group, causal, scale, schedule)
+    def forward(ctx, q, k, v, group, causal, scale, schedule, rotary_base):
+        out, lse = _ring_forward(q, k, v, group, causal, scale, schedule,
+                                 rotary_base)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (group, causal, scale, schedule)
+        ctx.args = (group, causal, scale, schedule, rotary_base)
         return out
 
     @staticmethod
@@ -165,7 +191,7 @@ class _RingFn(torch.autograd.Function):
         if g.is_cuda:
             g = _kernel_layout(g)
         return _ring_backward(q, k, v, out, lse, g, *ctx.args) + (
-            None, None, None, None)
+            None, None, None, None, None)
 
 
 def ring_attention(q, k, v, axis_name, causal=True, scale=None,
@@ -178,13 +204,11 @@ def ring_attention(q, k, v, axis_name, causal=True, scale=None,
     ``hybrid_mesh``. Returns [B, L_local, H, D] in q's dtype; differentiable.
     ``schedule`` is "contiguous" or "zigzag" (see the module docstring; lay
     the sequence out with ``zigzag_shard`` first). On CUDA tensors the
-    products take bf16 inputs, as in ``flash_attention``."""
+    products take bf16 inputs, as in ``flash_attention``. ``rotary_base``
+    fuses rotary embedding into the kernels at the shards' global
+    positions under ``schedule`` (do not also rotate outside)."""
     if schedule not in ("contiguous", "zigzag"):
         raise ValueError(f"unknown ring schedule: {schedule!r}")
-    if rotary_base is not None:
-        raise NotImplementedError(
-            "fused rotary in the ring kernels is a later slice of the port; "
-            "rotate q and k with apply_rotary at their global positions")
     B, Lq, H, D = q.shape
     Lk, G = k.shape[1], k.shape[2]
     if H % G:
@@ -205,8 +229,8 @@ def ring_attention(q, k, v, axis_name, causal=True, scale=None,
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if q.is_cuda:
         qt, kt, vt = (_kernel_layout(x) for x in (qt, kt, vt))
-    return _RingFn.apply(qt, kt, vt, group, causal, scale,
-                         schedule).transpose(1, 2)
+    return _RingFn.apply(qt, kt, vt, group, causal, scale, schedule,
+                         rotary_base).transpose(1, 2)
 
 
 def zigzag_shard(x, n, axis=1):

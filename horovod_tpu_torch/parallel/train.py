@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch.common.basics import resolve_device
 from horovod_tpu_torch.common.ops import allreduce
+from horovod_tpu_torch.ops.losses import chunked_softmax_cross_entropy
 from horovod_tpu_torch.optimizer import DistributedOptimizer
 
 
@@ -88,6 +89,21 @@ def lm_loss(model, tokens):
     one to the left, log-softmax in float32, mean over every position."""
     logits = model(tokens)
     return cross_entropy_loss(logits, torch.roll(tokens, -1, dims=1))
+
+
+def lm_loss_streaming(model, tokens):
+    """``lm_loss`` through the streaming loss (``bench.py --fused-xent``):
+    the final hidden states (``return_hidden=True``) go to
+    ``chunked_softmax_cross_entropy`` over ``lm_head.weight`` with the
+    tokens rolled one to the left as targets, so the [B, L, vocab] f32
+    logits never exist. The chunk is bench's: the largest of 512, 256, 128
+    and 64 that divides L, else L."""
+    L = tokens.shape[1]
+    chunk = next((c for c in (512, 256, 128, 64) if L % c == 0), L)
+    hidden = model(tokens, return_hidden=True)
+    return chunked_softmax_cross_entropy(hidden, model.lm_head.weight,
+                                         torch.roll(tokens, -1, dims=1),
+                                         chunk=chunk)
 
 
 def shard_lm_loss(model, batch):

@@ -9,7 +9,8 @@ chip_smoke.py covers the training shapes; these cover, for the flash
 kernels, the other head dims, float32 inputs, GQA, MQA, ragged lengths
 (one short of and one past the forward's 128-row tiles and the backward's
 32-, 64- and 192-row tiles), a strided dout view, zigzag chunks that a
-tile straddles, and grids of many blocks at small sizes, and for the BN
+tile straddles, grids of many blocks at small sizes, and fused rotary in
+K1-K6 (every head dim, ragged lengths, GQA, zigzag chunks), and for the BN
 statistics kernels ragged M and C, both dtypes, mixed dy and x, layouts
 they refuse, and run-to-run determinism.
 """
@@ -202,6 +203,85 @@ def test_bad_layouts_raise_before_launch(cuda):
         fa.flash_fwd(h, h, h, 0.125, True)
 
 
+ROPE = 10000.0
+
+
+@pytest.mark.parametrize("B,H,G,L,D,causal,dtype", [
+    (2, 4, 4, 256, 64, True, torch.bfloat16),
+    (1, 6, 2, 300, 128, True, torch.bfloat16),    # GQA 3, ragged L
+    (1, 6, 2, 97, 128, False, torch.bfloat16),
+    (1, 4, 1, 200, 32, True, torch.bfloat16),     # MQA, ragged L
+    (2, 2, 2, 130, 64, False, torch.float32),
+    (1, 2, 2, 3, 64, True, torch.bfloat16),
+    (1, 4, 2, 1100, 128, True, torch.bfloat16),   # angles past 1000 rad
+])
+def test_rotary_kernels_match_plain_versions(cuda, B, H, G, L, D, causal,
+                                             dtype):
+    """K1, K2 and K3 with fused rotary against their plain versions (q and
+    k rotated at 0..L-1, dQ and dK counter-rotated) on the same values;
+    K2 and K3 on the plain lse and delta, then chained on K1's own."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+
+    def rnd(heads):
+        return torch.randn(B, L, heads, D, generator=g, device=cuda
+                           ).to(dtype).transpose(1, 2)
+    q, k, v, dout = rnd(H), rnd(G), rnd(G), rnd(H)
+    scale = D ** -0.5
+    # The plain versions on the bf16 values the kernels load: they rotate
+    # in f32 and round the rotated q and k to bf16, as the kernels do.
+    bf = [t.to(torch.bfloat16) for t in (q, k, v, dout)]
+    out_ref, lse_ref = fa.flash_forward_ref(*bf[:3], scale, causal, ROPE)
+    delta = fa._delta(out_ref, bf[3])
+    dq_ref = fa.flash_bwd_dq_ref(*bf, lse_ref, delta, scale, causal, ROPE)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*bf, lse_ref, delta, scale,
+                                          causal, ROPE)
+    # the rotation matters: without it the function differs
+    plain_out, _ = fa.flash_forward_ref(*bf[:3], scale, causal)
+    assert L < 8 or _rel(plain_out, out_ref) > 10 * REL_TOL
+
+    before = fa.launch_counts()
+    out, lse = fa.flash_fwd(q, k, v, scale, causal, ROPE)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and (lse - lse_ref).abs().max() <= LSE_TOL
+    assert _rel(out, out_ref) <= REL_TOL, _rel(out, out_ref)
+    for lse_in, delta_in in ((lse_ref, delta), (lse, fa._delta(out, dout))):
+        dq = fa.flash_bwd_dq(q, k, v, dout, lse_in, delta_in, scale, causal,
+                             ROPE)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse_in, delta_in, scale,
+                                  causal, ROPE)
+        torch.cuda.synchronize()
+        for name, a, b in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                           ("dv", dv, dv_ref)):
+            assert a.dtype == dtype and _rel(a, b) <= REL_TOL, (
+                name, _rel(a, b))
+    after = fa.launch_counts()
+    assert all(after[n + "_rot"] == before[n + "_rot"] +
+               (1 if n == "flash_fwd" else 2) and after[n] == before[n]
+               for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+
+
+def test_rotary_flash_attention_autograd_on_the_gpu(cuda):
+    """flash_attention(rotary_base=) and its autograd against the blockwise
+    plain version's with the same rotary, GQA, D = 128."""
+    B, L, H, G, D = 2, 320, 6, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn(B, L, H, D, generator=g, device=cuda,
+                    dtype=torch.bfloat16, requires_grad=True)
+    k, v = (torch.randn(B, L, G, D, generator=g, device=cuda,
+                        dtype=torch.bfloat16, requires_grad=True)
+            for _ in range(2))
+    w = torch.randn(B, L, H, D, generator=g, device=cuda)
+    out = fa.flash_attention(q, k, v, causal=True, rotary_base=ROPE)
+    grads = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = fa.blockwise_reference(*(t.transpose(1, 2) for t in leaves),
+                                 D ** -0.5, True, ROPE).transpose(1, 2)
+    refs = torch.autograd.grad((ref * w).sum(), leaves)
+    assert _rel(out, ref) <= REL_TOL
+    for a, b in zip(grads, refs):
+        assert _rel(a, b) <= REL_TOL
+
+
 def _ring_state(cuda, q, k, v, scale, seed):
     """A carried (o, m, l), nonzero in every row: the plain step of a full
     (non-causal) pass over another random k/v shard."""
@@ -297,6 +377,77 @@ def test_ring_kernels_match_plain_versions(cuda, B, H, G, Lq, Lk, D, q_off,
     assert after["flash_ring_step"] == before["flash_ring_step"] + 2
     assert after["flash_ring_bwd_dq"] == before["flash_ring_bwd_dq"] + 1
     assert after["flash_ring_bwd_dkv"] == before["flash_ring_bwd_dkv"] + 1
+
+
+@pytest.mark.parametrize("B,H,G,Lq,Lk,D,q_off,kv_off,causal", [
+    (2, 4, 4, 256, 256, 64, (256,), (0,), True),         # past
+    (2, 4, 4, 256, 256, 64, (0,), (0,), True),           # diagonal
+    (1, 6, 2, 160, 160, 128, (160,), (0,), False),       # GQA, D = 128
+    (1, 4, 1, 200, 136, 32, (136,), (64,), True),        # MQA, D = 32
+    # zigzag chunks: n = 2, chunks of 256, and of 48 (tiles straddle)
+    (1, 2, 2, 512, 512, 128, (0, 768), (256, 512), True),
+    (1, 2, 2, 512, 512, 64, (256, 512), (0, 768), True),
+    (1, 4, 2, 96, 96, 128, (0, 144), (48, 96), True),
+    # one rank holding the whole sequence as its two zigzag chunks at the
+    # long-context model's widths (6 heads of 128 on 2 kv heads)
+    (2, 6, 2, 512, 512, 128, (0, 256), (0, 256), True),
+    (1, 4, 2, 300, 200, 64, (100,), (150,), True),       # Lq != Lk, ragged
+])
+def test_rotary_ring_kernels_match_plain_versions(cuda, B, H, G, Lq, Lk, D,
+                                                  q_off, kv_off, causal):
+    """K4 (fresh and carried state), K5 and K6 (carried sums) with fused
+    rotary at the shards' global positions against their plain versions;
+    K5's and K6's sums stay in rotated space."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, dout = (torch.randn(B, H, Lq, D, generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, G, Lk, D, generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    scale = D ** -0.5
+    carried = _ring_state(cuda, q.float(), k.float(), v.float(), scale,
+                          seed=14)
+    # The plain versions on the bf16 values: they round the rotated q and k
+    # to bf16, as K4-K6 do.
+    bf = [q, k, v, dout]
+    fresh = (torch.zeros(B, H, Lq, D, device=cuda),
+             torch.full((B, H, Lq), float("-inf"), device=cuda),
+             torch.zeros(B, H, Lq, device=cuda))
+    before = fa.launch_counts()
+    for state in (fresh, carried):
+        ref = fa.flash_ring_step_ref(*bf[:3], *state, q_off, kv_off, scale,
+                                     causal, ROPE)
+        got = fa.flash_ring_step(q, k, v, *(t.clone() for t in state), q_off,
+                                 kv_off, scale, causal, ROPE)
+        torch.cuda.synchronize()
+        assert _rel(got[0], ref[0]) <= REL_TOL
+        assert _m_err(got[1], ref[1]) <= LSE_TOL
+        assert _rel(got[2], ref[2]) <= REL_TOL
+    o, m, l = fa.flash_ring_step_ref(*bf[:3], *carried, q_off, kv_off,
+                                     scale, causal, ROPE)
+    lse = m + torch.log(l)
+    delta = fa._delta(o / l[..., None], bf[3])
+    dq0 = torch.randn(B, H, Lq, D, generator=g, device=cuda)
+    dk0, dv0 = (torch.randn(B, G, Lk, D, generator=g, device=cuda)
+                for _ in range(2))
+    dq = fa.flash_ring_bwd_dq(q, k, v, dout, lse, delta, dq0.clone(), q_off,
+                              kv_off, scale, causal, ROPE)
+    dk, dv = fa.flash_ring_bwd_dkv(q, k, v, dout, lse, delta, dk0.clone(),
+                                   dv0.clone(), q_off, kv_off, scale, causal,
+                                   ROPE)
+    torch.cuda.synchronize()
+    ref_dq = fa.flash_ring_bwd_dq_ref(*bf, lse, delta, dq0, q_off, kv_off,
+                                      scale, causal, ROPE)
+    ref_dk, ref_dv = fa.flash_ring_bwd_dkv_ref(*bf, lse, delta, dk0, dv0,
+                                               q_off, kv_off, scale, causal,
+                                               ROPE)
+    for name, a, b, a0 in (("dq", dq, ref_dq, dq0), ("dk", dk, ref_dk, dk0),
+                           ("dv", dv, ref_dv, dv0)):
+        assert _rel(a - a0, b - a0) <= REL_TOL, (name, _rel(a - a0, b - a0))
+    after = fa.launch_counts()
+    assert after["flash_ring_step_rot"] == before["flash_ring_step_rot"] + 2
+    for n in ("flash_ring_bwd_dq", "flash_ring_bwd_dkv"):
+        assert after[n + "_rot"] == before[n + "_rot"] + 1
+        assert after[n] == before[n]
 
 
 def test_ring_step_with_nothing_visible_leaves_the_state(cuda):

@@ -135,6 +135,103 @@ def test_flash_attention_and_grads_match_jax(B, L, H, G, D, causal):
                                    rtol=BWD_TOL, atol=BWD_TOL, err_msg=name)
 
 
+ROPE = 10000.0
+ROT_CASES = [(causal, H, G) for causal in (True, False)
+             for H, G in ((2, 2), (4, 2))]
+
+
+@pytest.mark.parametrize("case", ROT_CASES, ids=lambda c: "%s-H%dG%d" % (
+    "causal" if c[0] else "full", c[1], c[2]))
+def test_rotary_refs_match_pallas_kernels(case):
+    """The plain versions of K1-K3 with fused rotary (q and k rotated at
+    0..L-1, dQ and dK counter-rotated) against the Pallas kernels' rotary
+    flag in interpret mode: out, lse, dq, dk, dv."""
+    causal, H, G = case
+    B, L, D = 1, 256, 32
+    q, k, v, g = _inputs(B, H, G, L, D, seed=11)
+    scale = D ** -0.5
+    with jax.default_matmul_precision("highest"):
+        qj, kj, vj = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+        out_j, lse_j = _pallas_forward_lse(qj, kj, vj, scale, causal,
+                                           interpret=True, rotary_base=ROPE)
+        grads_j = _pallas_backward(qj, kj, vj, out_j, lse_j, jnp.asarray(g),
+                                   scale, causal, interpret=True,
+                                   rotary_base=ROPE)
+    lse_j = np.asarray(_from_rows(lse_j[..., :1], B, H // G))[..., 0]
+    tq, tk, tv, tg = _t(q, k, v, g)
+    out, lse = fa.flash_fwd(tq, tk, tv, scale, causal, ROPE)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=FWD_TOL,
+                               atol=FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_j, rtol=FWD_TOL,
+                               atol=FWD_TOL)
+    grads = fa.flash_backward(tq, tk, tv, out, lse, tg, scale, causal, ROPE)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, grads_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=BWD_TOL,
+                                   atol=BWD_TOL, err_msg=name)
+    # the rotation is there: without it the output is another function
+    plain, _ = fa.flash_forward_ref(tq, tk, tv, scale, causal)
+    assert (plain - out).abs().max() > 100 * FWD_TOL
+
+
+@pytest.mark.parametrize("B,L,H,G,D", [
+    (2, 128, 2, 2, 32),
+    (1, 160, 4, 2, 16),     # GQA, L = 128 + a 32-row tail
+    (1, 77, 6, 2, 32),      # GQA 3, a ragged L below one block
+])
+def test_rotary_flash_attention_and_grads_match_jax(B, L, H, G, D):
+    """flash_attention(rotary_base=) and its autograd against JAX
+    flash_attention(rotary_base=) and jax.grad, causal."""
+    rng = np.random.RandomState(12)
+    q = rng.randn(B, L, H, D).astype(np.float32)
+    k = rng.randn(B, L, G, D).astype(np.float32)
+    v = rng.randn(B, L, G, D).astype(np.float32)
+    w = rng.randn(B, L, H, D).astype(np.float32)
+
+    def loss_j(q, k, v):
+        return jnp.sum(jax_flash_attention(q, k, v, causal=True,
+                                           rotary_base=ROPE) * w)
+
+    with jax.default_matmul_precision("highest"):
+        out_j = jax_flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=True,
+                                    rotary_base=ROPE)
+        grads_j = jax.grad(loss_j, argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = fa.flash_attention(tq, tk, tv, causal=True, rotary_base=ROPE)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               rtol=FWD_TOL, atol=FWD_TOL)
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, t, gj in zip(("dq", "dk", "dv"), (tq, tk, tv), grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj),
+                                   rtol=BWD_TOL, atol=BWD_TOL, err_msg=name)
+
+
+def test_rope_tables_match_jax():
+    """The kernels' half-width tables against the JAX kernels' full-width
+    ones (C = [cos | cos], S = [-sin | sin]), and the cache: one table per
+    (D, base, device), kept for shorter requests and grown for longer
+    ones."""
+    from horovod_tpu.ops.flash_attention import _rope_tables
+    c_j, s_j = _rope_tables(jnp.arange(600, dtype=jnp.int32), 64, ROPE)
+    cpu = torch.device("cpu")
+    fa._rope.clear()
+    t = fa.rope_tables(300, 64, ROPE, cpu)
+    assert t.shape == (2, 512, 32) and t.dtype == torch.float32
+    np.testing.assert_allclose(t[0].numpy(), np.asarray(c_j)[:512, :32],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(t[1].numpy(), np.asarray(s_j)[:512, 32:],
+                               rtol=1e-5, atol=1e-5)
+    assert fa.rope_tables(300, 64, ROPE, cpu) is t
+    assert fa.rope_tables(17, 64, ROPE, cpu) is t
+    grown = fa.rope_tables(600, 64, ROPE, cpu)
+    assert grown.shape == (2, 1024, 32)
+    assert torch.equal(grown[:, :512], t)
+    assert fa.rope_tables(300, 64, ROPE, cpu) is grown
+    assert fa.rope_tables(300, 32, ROPE, cpu).shape == (2, 512, 16)
+    assert len(fa._rope) == 2
+
+
 @pytest.mark.parametrize("rotary_base", [None, 10000.0])
 def test_blockwise_reference_matches_jax(rotary_base):
     """L=160: a 128-row block and a 32-row tail; GQA 4 over 2."""
@@ -186,22 +283,17 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     dk, dv = fa.flash_bwd_dkv(q, k, v, g, lse, delta, 0.25, True)
     rk, rv = fa.flash_bwd_dkv_ref(q, k, v, g, lse, delta, 0.25, True)
     assert torch.equal(dk, rk) and torch.equal(dv, rv)
-    assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                                  "flash_bwd_dkv": 0, "flash_ring_step": 0,
-                                  "flash_ring_bwd_dq": 0,
-                                  "flash_ring_bwd_dkv": 0}
+    fa.flash_fwd(q, k, v, 0.25, True, rotary_base=10000.0)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_ring_step",
+             "flash_ring_bwd_dq", "flash_ring_bwd_dkv")
+    assert fa.launch_counts() == {n + rot: 0 for n in names
+                                  for rot in ("", "_rot")}
 
 
 def test_other_devices_raise():
     q = torch.empty(1, 2, 64, 16, device="meta")
     with pytest.raises(ValueError, match="meta"):
         fa.flash_fwd(q, q, q, 0.25, True)
-
-
-def test_fused_rotary_is_a_later_slice():
-    q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fa.flash_attention(q, q, q, rotary_base=10000.0)
 
 
 def test_kernel_argument_checks():

@@ -132,7 +132,7 @@ def test_every_planted_fault_anchors_once_in_its_source(fault):
     redesigned kernel that loses or repeats the line would make the check
     stop, so each anchor occurs exactly once."""
     source, anchor, line, phases = _planted_faults()[fault]
-    text = (_build.CSRC / source).read_text()
+    text = (ROOT / "horovod_tpu_torch" / source).read_text()
     assert text.count(anchor) == 1, (fault, source)
     assert line.endswith("\n") and phases
 

@@ -5,11 +5,14 @@ the CPU.
   them on CPU tensors) against JAX ``flash_ring_step`` and
   ``flash_ring_bwd_step`` in Pallas interpret mode, the grouped-rows layout
   and 8-lane stripes converted.
+- The same with fused rotary (``rotary_base``): the steps' rotated-space
+  sums against the JAX kernels' ``rotary_base``.
 - ``ring_attention`` on 2 and 4 gloo ranks (tests/torch_port_ring_worker.py,
   spawned once per world size) against JAX ``ring_attention`` under
   ``shard_map`` on the virtual CPU devices with
   ``HVD_TPU_PALLAS_INTERPRET=1``, contiguous and zigzag, values and
-  gradients, at the shapes of tests/test_parallel.py's ring tests.
+  gradients, at the shapes of tests/test_parallel.py's ring tests, and
+  with fused rotary (the counter-rotation after the last step).
 - The ``attention="ring"`` Transformer on 2 gloo ranks, with flax weights
   through ``convert``, against the JAX model with dense attention over the
   whole natural-order sequence: logits and the averaged gradients of one
@@ -170,6 +173,54 @@ def test_ring_bwd_step_matches_jax(name):
                                    rtol=BWD_TOL, atol=BWD_TOL)
 
 
+ROTARY_STEP_CASES = ("diagonal", "past", "zigzag", "zigzag-reverse", "full")
+
+
+@pytest.mark.parametrize("name", ROTARY_STEP_CASES)
+def test_rotary_ring_steps_match_jax(name):
+    """K4's, K5's and K6's plain versions with fused rotary (q and k rotated
+    at the shards' global positions; dq and dk left in rotated space)
+    against JAX's ring step kernels with ``rotary_base``."""
+    group, q_off, kv_off, causal, _ = STEP_CASES[name]
+    q, k, v, dout, state, lse, delta, accs = _step_inputs(name)
+    scale = D ** -0.5
+    offs = dict(q_offset=_jax_offset(q_off), kv_offset=_jax_offset(kv_off),
+                causal=causal, scale=scale, interpret=True, group=group,
+                rotary_base=worker.ROPE)
+    with jax.default_matmul_precision("highest"):
+        o_j, m_j, l_j = flash_ring_step(
+            _to_rows(jnp.asarray(q), group), _to_rows(jnp.asarray(k), 1),
+            _to_rows(jnp.asarray(v), 1), _to_rows(jnp.asarray(state[0]),
+                                                  group),
+            _stripe(state[1], group), _stripe(state[2], group), **offs)
+        dq_j, dk_j, dv_j = flash_ring_bwd_step(
+            _to_rows(jnp.asarray(q), group), _to_rows(jnp.asarray(k), 1),
+            _to_rows(jnp.asarray(v), 1), _to_rows(jnp.asarray(dout), group),
+            _stripe(lse, group), _stripe(delta, group),
+            _to_rows(jnp.asarray(accs[0]), group),
+            _to_rows(jnp.asarray(accs[1]), 1),
+            _to_rows(jnp.asarray(accs[2]), 1), **offs)
+    tq, tk, tv, tdo, tlse, tdelta = (torch.from_numpy(x) for x in
+                                     (q, k, v, dout, lse, delta))
+    o, m, l = (torch.from_numpy(s.copy()) for s in state)
+    fa.flash_ring_step(tq, tk, tv, o, m, l, q_off, kv_off, scale, causal,
+                       worker.ROPE)
+    dq, dk, dv = (torch.from_numpy(a.copy()) for a in accs)
+    fa.flash_ring_bwd_dq(tq, tk, tv, tdo, tlse, tdelta, dq, q_off, kv_off,
+                         scale, causal, worker.ROPE)
+    fa.flash_ring_bwd_dkv(tq, tk, tv, tdo, tlse, tdelta, dk, dv, q_off,
+                          kv_off, scale, causal, worker.ROPE)
+    for got, want, tol in (
+            (o, _from_rows(o_j, B, group), FWD_TOL),
+            (m, _unstripe(m_j, group), FWD_TOL),
+            (l, _unstripe(l_j, group), FWD_TOL),
+            (dq, _from_rows(dq_j, B, group), BWD_TOL),
+            (dk, dk_j.reshape(B, G, L, D), BWD_TOL),
+            (dv, dv_j.reshape(B, G, L, D), BWD_TOL)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                                   atol=tol)
+
+
 def test_cpu_ring_steps_launch_nothing():
     fa.reset_launch_counts()
     q, k, v, dout, state, lse, delta, accs = _step_inputs("zigzag")
@@ -228,7 +279,7 @@ def ranks(tmp_path_factory):
 def _jax_ring(case):
     """JAX ring_attention under shard_map over the case's ranks: (out, dq,
     dk, dv) of sum(out * w), each the ranks' shards concatenated."""
-    n, _, _, _, _, _, causal, schedule = worker.RING_CASES[case]
+    n, _, _, _, _, _, causal, schedule, rope = worker.ring_case(case)
     arrays = [jnp.asarray(x) for x in worker.ring_inputs(case)]
     if schedule == "zigzag":
         arrays = [jax_zigzag_shard(x, n) for x in arrays]
@@ -236,7 +287,7 @@ def _jax_ring(case):
     def fwd_and_grads(q, k, v, w):
         def loss(q, k, v):
             out = jax_ring_attention(q, k, v, "sp", causal=causal,
-                                     schedule=schedule)
+                                     schedule=schedule, rotary_base=rope)
             return jnp.sum(out.astype(jnp.float32) * w), out
         (_, out), grads = jax.value_and_grad(
             loss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
@@ -250,10 +301,11 @@ def _jax_ring(case):
         return [np.asarray(x) for x in f(*arrays)]
 
 
-@pytest.mark.parametrize("case", sorted(worker.RING_CASES))
+@pytest.mark.parametrize("case", sorted(worker.RING_CASES) +
+                         sorted(worker.ROTARY_CASES))
 def test_ring_attention_matches_jax(ranks, case, monkeypatch):
     monkeypatch.setenv("HVD_TPU_PALLAS_INTERPRET", "1")
-    n = worker.RING_CASES[case][0]
+    n = worker.ring_case(case)[0]
     want = _jax_ring(case)
     for key, ref, tol in zip(("out", "dq", "dk", "dv"), want,
                              (FWD_TOL, BWD_TOL, BWD_TOL, BWD_TOL)):
@@ -345,8 +397,6 @@ def test_ring_attention_argument_errors():
     k3 = torch.zeros(1, 256, 3, 16)
     with pytest.raises(ValueError, match="multiple of num_kv_heads"):
         ring_attention(q, k3, k3, "sp")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ring_attention(q, q, q, "sp", rotary_base=10000.0)
 
 
 def test_one_rank_ring_is_plain_attention():

@@ -150,6 +150,50 @@ def test_cross_entropy_loss_matches_jax():
     assert abs(out - ref) <= 1e-6 * abs(ref)
 
 
+@pytest.mark.parametrize("B,L,chunk", [(2, 192, 64), (1, 96, 96)])
+def test_chunked_softmax_cross_entropy_matches_jax(B, L, chunk):
+    """The streaming loss (ops/losses.py) and its gradients with respect to
+    the hidden states and the lm-head weight against the JAX function; the
+    port's weight is [V, E], the JAX kernel its transpose."""
+    from horovod_tpu.ops.losses import chunked_softmax_cross_entropy as jx
+    from horovod_tpu_torch.ops import chunked_softmax_cross_entropy
+    rng = np.random.RandomState(5)
+    E, V = 24, 50
+    hidden = rng.randn(B, L, E).astype(np.float32)
+    weight = (rng.randn(V, E) / 5).astype(np.float32)
+    targets = rng.randint(0, V, (B, L)).astype(np.int32)
+    with jax.default_matmul_precision("highest"):
+        loss_j, grads_j = jax.value_and_grad(
+            lambda h, w: jx(h, w, jnp.asarray(targets), chunk=chunk),
+            argnums=(0, 1))(jnp.asarray(hidden), jnp.asarray(weight.T))
+    h = torch.from_numpy(hidden).requires_grad_()
+    w = torch.from_numpy(weight).requires_grad_()
+    loss = chunked_softmax_cross_entropy(
+        h, w, torch.from_numpy(targets).long(), chunk=chunk)
+    loss.backward()
+    # the same f32 sums in another order
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-6)
+    np.testing.assert_allclose(h.grad.numpy(), np.asarray(grads_j[0]),
+                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(w.grad.numpy(), np.asarray(grads_j[1]).T,
+                               rtol=1e-5, atol=1e-7)
+    # and the dense loss over the full logits
+    dense = cross_entropy_loss(h @ w.t(), torch.from_numpy(targets).long())
+    np.testing.assert_allclose(loss.item(), dense.item(), rtol=1e-6)
+
+
+def test_chunked_softmax_cross_entropy_needs_chunks_that_divide_l():
+    from horovod_tpu.ops.losses import chunked_softmax_cross_entropy as jx
+    from horovod_tpu_torch.ops import chunked_softmax_cross_entropy
+    h, t = np.zeros((1, 100, 8), np.float32), np.zeros((1, 100), np.int32)
+    with pytest.raises(ValueError, match="not divisible") as port:
+        chunked_softmax_cross_entropy(torch.from_numpy(h), torch.zeros(5, 8),
+                                      torch.from_numpy(t).long(), chunk=64)
+    with pytest.raises(ValueError, match="not divisible") as ref:
+        jx(jnp.asarray(h), jnp.zeros((8, 5)), jnp.asarray(t), chunk=64)
+    assert str(port.value) == str(ref.value)
+
+
 def test_two_gloo_ranks_average_to_the_full_batch_gradient(tmp_path):
     """Each of 2 ranks takes half the batch; after DistributedOptimizer
     their gradients equal the single-process full-batch gradient."""

@@ -19,7 +19,7 @@ from horovod_tpu import models as jax_models
 from horovod_tpu_torch import CudaUnavailableError
 from horovod_tpu_torch.convert import transformer_state_dict_from_jax
 from horovod_tpu_torch.models import Transformer, TransformerConfig
-from horovod_tpu_torch.parallel import lm_loss
+from horovod_tpu_torch.parallel import lm_loss, lm_loss_streaming
 
 # Two f32 models through 2 layers: the same arithmetic in another order.
 LOGIT_TOL = 2e-5
@@ -115,9 +115,111 @@ def test_seeded_init_is_reproducible():
     assert abs(a.blocks[0].mlp_out.weight.std().item() - 256 ** -0.5) < 0.01
 
 
+# The long-context GQA LM (bench.py --seq-len 8192 --fused-xent
+# --num-heads 6 --num-kv-heads 2 --fused-rope) cut to 2 layers and D = 32.
+LC_SMALL = dict(vocab_size=128, num_layers=2, num_heads=6, num_kv_heads=2,
+                embed_dim=192, mlp_dim=384, max_seq_len=256,
+                attention="flash", rope_fused=True)
+
+
+def test_long_context_gqa_slice_matches_jax():
+    """The slice as a whole at a small size: the rope_fused GQA flash model
+    (fused rotary in K1-K3, the plain versions on the CPU) with the
+    streaming loss (lm_loss_streaming: 3 chunks of 64), converted from
+    flax weights, against the JAX model's rope_fused flash attention and
+    chunked_softmax_cross_entropy (bench.py's loss_fn): the loss and every
+    parameter's gradient, both in float32. Tolerances are those of
+    test_transformer_matches_jax: the same f32 arithmetic in another
+    order."""
+    from horovod_tpu.ops.losses import chunked_softmax_cross_entropy
+    B, L = 2, 192
+    tokens = np.random.RandomState(6).randint(
+        0, LC_SMALL["vocab_size"], (B, L)).astype(np.int32)
+    jcfg = jax_models.TransformerConfig(dtype=jnp.float32, **LC_SMALL)
+    model = jax_models.Transformer(jcfg)
+    x = jnp.asarray(tokens)
+    params = model.init(jax.random.PRNGKey(2), x[:1])["params"]
+
+    def loss_fn(params):
+        hidden = model.apply({"params": params}, x, return_hidden=True)
+        return chunked_softmax_cross_entropy(
+            hidden, params["lm_head"]["kernel"], jnp.roll(x, -1, axis=1),
+            chunk=64)
+
+    with jax.default_matmul_precision("highest"):
+        loss_j, grads_j = jax.value_and_grad(loss_fn)(params)
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    cfg = TransformerConfig(dtype=torch.float32, **LC_SMALL)
+    port = Transformer(cfg, device="cpu")
+    port.load_state_dict(transformer_state_dict_from_jax(to_np(params), cfg))
+    assert port.blocks[0].attn.head_dim == 32
+    assert port.blocks[0].attn.key.weight.shape == (2 * 32, 192)
+    loss = lm_loss_streaming(port, torch.from_numpy(tokens).long())
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-6)
+    loss.backward()
+    expected = transformer_state_dict_from_jax(to_np(grads_j), cfg)
+    names = dict(port.named_parameters())
+    assert set(names) == set(expected)
+    for name, p in names.items():
+        np.testing.assert_allclose(p.grad.numpy(), expected[name].numpy(),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=name)
+
+
+def test_convert_carries_the_lc_widths():
+    """convert.py at the long-context LM's attention widths (embed 768, 6
+    query heads of 128, 2 kv heads; one layer, a small vocabulary and MLP):
+    the key and value projections are [2 * 128, 768], and the port's
+    logits match the flax model's."""
+    widths = dict(vocab_size=64, num_layers=1, num_heads=6, num_kv_heads=2,
+                  embed_dim=768, mlp_dim=64, max_seq_len=64,
+                  attention="flash", rope_fused=True)
+    jcfg = jax_models.TransformerConfig(dtype=jnp.float32, **widths)
+    model = jax_models.Transformer(jcfg)
+    x = jnp.asarray(np.random.RandomState(8).randint(0, 64, (1, 24)),
+                    jnp.int32)
+    params = model.init(jax.random.PRNGKey(3), x)["params"]
+    with jax.default_matmul_precision("highest"):
+        logits_j = np.asarray(model.apply({"params": params}, x))
+    cfg = TransformerConfig(dtype=torch.float32, **widths)
+    port = Transformer(cfg, device="cpu")
+    state = transformer_state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, params), cfg)
+    assert state["blocks.0.attn.query.weight"].shape == (768, 768)
+    assert state["blocks.0.attn.key.weight"].shape == (256, 768)
+    assert state["blocks.0.attn.out.weight"].shape == (768, 768)
+    port.load_state_dict(state)
+    logits = port(torch.from_numpy(np.array(x)).long())
+    np.testing.assert_allclose(logits.detach().numpy(), logits_j,
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
+def test_rope_fused_dense_rotates_outside():
+    """rope_fused under dense attention rotates outside, as the reference
+    does: the same model as rope_fused=False. Under flash it ignores the
+    positions it is given (the kernels rotate at 0..L-1)."""
+    cfg = TransformerConfig(dtype=torch.float32, **dict(LC_SMALL,
+                                                        attention="dense"))
+    fused = Transformer(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(4))
+    plain = Transformer(dataclasses.replace(cfg, rope_fused=False),
+                        device="cpu")
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randint(0, 128, (1, 64), generator=torch.Generator(
+        ).manual_seed(5))
+    shifted = torch.arange(64).expand(1, 64) + 7
+    assert torch.equal(fused(x, shifted), plain(x, shifted))
+    flash = Transformer(dataclasses.replace(cfg, attention="flash"),
+                        device="cpu")
+    flash.load_state_dict(fused.state_dict())
+    np.testing.assert_allclose(flash(x, shifted).detach().numpy(),
+                               plain(x).detach().numpy(), rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
+
+
 @pytest.mark.parametrize("field,value", [
     ("ep_axis", "ep"), ("attention", "ulysses"), ("tp_axis", "tp"),
-    ("moe_experts", 4), ("rope_fused", True)])
+    ("moe_experts", 4)])
 def test_later_slices_raise_not_implemented(field, value):
     with pytest.raises(NotImplementedError, match="later slice"):
         TransformerConfig(**{field: value})

@@ -20,7 +20,10 @@ K6 and K5 + K6 on the lse of the tree's own K4 and delta from its state:
 - at one off-diagonal ring step, [2, 12, 2048, 64], q at offset 2048 and
   k/v at 0 (every tile visible), beside SDPA's backward without the mask.
 
-The timed repeats add into the same f32 sums: the same tiles run.
+The timed repeats add into the same f32 sums: the same tiles run. Last,
+K2 and K3 at the lc phase's launch, [2, 6, 8192, 128] with 2 kv heads,
+causal, and, where the tree has fused rotary, K2_rot and K3_rot there and
+K5_rot and K6_rot at the sp launch.
 
 Prints one ``AB {...}`` JSON line a run and the card's name and power limit.
 """
@@ -76,7 +79,25 @@ def one(root, label):
         res["k5k6_%s_ms" % tag] = cs.time_ms(lambda: (k5(), k6()))
         res["sdpa_bwd_%s_ms" % tag] = cs.sdpa_times(
             q, k, v, dout, tag == "sp", scale)["sdpa_bwd_ms"]
+        if tag == "sp" and ab.rotary(fa):
+            rb = dict(rotary_base=10000.0)
+            res["k5_rot_sp_ms"] = cs.time_ms(lambda: fa.flash_ring_bwd_dq(
+                *args, dq, *offs, **rb))
+            res["k6_rot_sp_ms"] = cs.time_ms(lambda: fa.flash_ring_bwd_dkv(
+                *args, dk, dv, *offs, **rb))
         del q, k, v, dout, o, m, l, lse, delta, dq, dk, dv, args
+    q, k, v, dout = cs._inputs(dict(B=2, H=6, G=2, L=8192, D=128), 3)
+    scale = 128 ** -0.5
+    for tag, rb in (("", {}), ("_rot", dict(rotary_base=10000.0))):
+        if rb and not ab.rotary(fa):
+            continue
+        out, lse = fa.flash_fwd(q, k, v, scale, True, **rb)
+        delta = fa._delta(out, dout)
+        args = (q, k, v, dout, lse, delta, scale, True)
+        res["k2%s_lc_ms" % tag] = cs.time_ms(
+            lambda: fa.flash_bwd_dq(*args, **rb))
+        res["k3%s_lc_ms" % tag] = cs.time_ms(
+            lambda: fa.flash_bwd_dkv(*args, **rb))
     print("AB " + json.dumps(res), flush=True)
 
 

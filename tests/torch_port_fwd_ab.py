@@ -16,7 +16,10 @@ its own tree's kernels and ``chip_smoke.time_ms``:
 - K4 at the sp phase's launch, [2, 12, 8192, 64] causal, zigzag chunks
   (0, 4096) on one rank (the timed repeats carry the state: the same tiles
   run), beside SDPA's causal forward at that shape; and K4 at one
-  off-diagonal ring step, [2, 12, 2048, 64].
+  off-diagonal ring step, [2, 12, 2048, 64];
+- K1 at the lc phase's launch, [2, 6, 8192, 128] with 2 kv heads, causal,
+  and, where the tree has fused rotary, K1_rot there and K4_rot at the sp
+  launch.
 
 Prints one ``AB {...}`` JSON line a run and the card's name and power limit.
 ``tests/torch_port_bwd_ab.py`` runs the backward kernels on the same runner.
@@ -69,7 +72,24 @@ def one(root, label):
                 lambda: F.scaled_dot_product_attention(q, k, v,
                                                        is_causal=True,
                                                        scale=0.125))
+            if rotary(fa):
+                res["k4_rot_sp_ms"] = cs.time_ms(lambda: fa.flash_ring_step(
+                    q, k, v, o, m, l, q_off, kv_off, 0.125, True,
+                    rotary_base=10000.0))
+    del q, k, v, o, m, l
+    q, k, v, _ = cs._inputs(dict(B=2, H=6, G=2, L=8192, D=128), 3)
+    scale = 128 ** -0.5
+    res["k1_lc_ms"] = cs.time_ms(lambda: fa.flash_fwd(q, k, v, scale, True))
+    if rotary(fa):
+        res["k1_rot_lc_ms"] = cs.time_ms(lambda: fa.flash_fwd(
+            q, k, v, scale, True, rotary_base=10000.0))
     print("AB " + json.dumps(res), flush=True)
+
+
+def rotary(fa):
+    """Whether the tree's kernels take fused rotary."""
+    import inspect
+    return "rotary_base" in inspect.signature(fa.flash_fwd).parameters
 
 
 def main(one=one, script=__file__, doc=__doc__):

@@ -5,7 +5,8 @@
 
 For each planted fault below, copies ``chip_smoke.py`` and
 ``horovod_tpu_torch/`` into ``horovod_tpu_torch/ops/_build/planted_<fault>/``
-(git-ignored), plants the fault in the copy's CUDA source, and runs
+(git-ignored), plants the fault in the copy's CUDA source (or, for the
+ring's counter-rotation, its Python source), and runs
 ``chip_smoke.py --only <phase>`` there for the kernel phase and the model
 phase that the faulty kernel is on (kernels and train for the flash
 kernels, bn_kernels and resnet for the BN kernels), or for the ring kernels
@@ -26,6 +27,7 @@ ROOT = Path(__file__).resolve().parent.parent
 FLASH_PHASES = ("kernels", "train")
 BN_PHASES = ("bn_kernels", "resnet")
 RING_PHASES = ("ring_kernels",)
+ROT_PHASES = ("kernels",)
 BN_ROW_LOOP = ("    for (long long r = r_begin + ty; r < r_end; "
                "r += sh.ty) {\n")
 # K2's and K3's scores, masked and before the exponentials
@@ -35,49 +37,50 @@ BWD_SCORES = "        const float* st = stats + stage * Tile::kStats;\n"
 RING_SUMS = ("    float* sum1 = static_cast<float*>(p.out1) + b * p.s1.b + hb "
              "* p.s1.h;\n")
 RING_DQ_ADD = "    add_rows<D>(sum1, p.s1.l, acc1, row0, n_own, tc);\n"
-# fault -> (source, the line after which it goes, the line planted, the
-# chip_smoke.py phases that must fail)
+# fault -> (source under horovod_tpu_torch/, the line after which it goes,
+# the line planted, the chip_smoke.py phases that must fail)
 FAULTS = {
     # K1 skips key tile 1 for the q tiles from row 1024 on (its scores
     # count as masked)
     "fwd_skip_tile": (
-        "flash_fwd.cu", "      wgmma_wait<0>();\n      fence_operands(s);\n",
+        "ops/csrc/flash_fwd.cu",
+        "      wgmma_wait<0>();\n      fence_operands(s);\n",
         "      if (!kRing && m0 >= 1024 && j == 1)\n"
         "        for (int e = 0; e < kFwdN / 2; ++e) s[e] = -INFINITY;\n",
         FLASH_PHASES),
     # K2 skips key tile 1 for the q tiles from row 1024 on (its scores
     # count as masked)
     "dq_skip_tile": (
-        "flash_bwd.cu", BWD_SCORES,
+        "ops/csrc/flash_bwd.cu", BWD_SCORES,
         "        if (!kDkv && m0 >= 1024 && j == 1)\n"
         "          for (int e = 0; e < kN / 2; ++e) x[e] = -INFINITY;\n",
         FLASH_PHASES),
     # K3 skips the second q tile it visits for the key tiles from row 1024
     # on
     "dkv_skip_tile": (
-        "flash_bwd.cu", BWD_SCORES,
+        "ops/csrc/flash_bwd.cu", BWD_SCORES,
         "        if (kDkv && m0 >= 1024 && j == j_first + 1)\n"
         "          for (int e = 0; e < kN / 2; ++e) x[e] = -INFINITY;\n",
         FLASH_PHASES),
     # K8 skips the last chunk of rows (the last row split's block)
     "bn_grad_skip_rows": (
-        "batch_norm.cu", BN_ROW_LOOP,
+        "ops/csrc/batch_norm.cu", BN_ROW_LOOP,
         "      if (GRAD && gridDim.x > 1 && blockIdx.x + 1 == gridDim.x) "
         "break;\n", BN_PHASES),
     # K7 drops the last tile of channels (the last VEC channels)
     "bn_stats_drop_channels": (
-        "batch_norm.cu", BN_ROW_LOOP,
+        "ops/csrc/batch_norm.cu", BN_ROW_LOOP,
         "      if (!GRAD && c0 + VEC >= C) break;\n", BN_PHASES),
     # K4 ignores the carried running max, starting it from -inf
     "ring_fwd_drop_carried_m": (
-        "flash_fwd.cu",
+        "ops/csrc/flash_fwd.cu",
         "      m_run[r] = valid ? p.m[row_base + rows[r]] * kLog2e : -INFINITY;"
         "\n",
         "      m_run[r] = -INFINITY;\n", RING_PHASES),
     # K5 drops dq_in, the dq carried from the earlier ring steps: it
     # writes this step's sum over it
     "ring_dq_drop_carried": (
-        "flash_bwd.cu", RING_DQ_ADD,
+        "ops/csrc/flash_bwd.cu", RING_DQ_ADD,
         "    if (!kDkv) store_rows<D, float>(sum1, p.s1.l, acc1, row0, n_own, "
         "tc, true);\n", RING_PHASES),
     # K5's warpgroups that saw no tile store zeros over the carried dq
@@ -85,16 +88,40 @@ FAULTS = {
     # straddles its q chunks 0 and 7, and the rows in chunk 0 see no key of
     # ranks 1-3
     "ring_dq_zero_unseen": (
-        "flash_bwd.cu", RING_SUMS,
+        "ops/csrc/flash_bwd.cu", RING_SUMS,
         "    if (!kDkv && !live) store_rows<D, float>(sum1, p.s1.l, acc1, "
         "row0, n_own, tc, false);\n", RING_PHASES),
     # K6 gives every key row chunk 0's offset in its masks (zigzag shards
     # go wrong)
     "ring_dkv_chunk0_offset": (
-        "flash_bwd.cu",
+        "ops/csrc/flash_bwd.cu",
         "    row_pos[r] = pos_of(kDkv ? p.kc : p.qc, row0 + 8 * r);\n",
         "  for (int r = 0; kDkv && r < 2; ++r) row_pos[r] = p.kc.off0 + row0 "
         "+ 8 * r;\n", RING_PHASES),
+    # K1_rot rotates each key tile twice (by twice its angles)
+    "rot_fwd_k_twice": (
+        "ops/csrc/flash_fwd.cu",
+        "      rotate_tile<D, kFwdN, Tile::kConsumers>(cK, Tile::kBox, n0, "
+        "p.Lk, p.kc,\n                                              p.rope, "
+        "threadIdx.x);\n",
+        "      if (!kRing) rotate_tile<D, kFwdN, Tile::kConsumers>(cK, "
+        "Tile::kBox, n0, p.Lk, p.kc, p.rope, threadIdx.x);\n", ROT_PHASES),
+    # K2_rot counter-rotates its dQ twice
+    "rot_dq_unrotate_twice": (
+        "ops/csrc/flash_bwd.cu",
+        "    if (kRot && live) unrotate_rows<D>(acc1, row0, n_own, own_c, "
+        "p.rope, tc);\n",
+        "    if (kRot && live && !kDkv) unrotate_rows<D>(acc1, row0, n_own, "
+        "own_c, p.rope, tc);\n", ROT_PHASES),
+    # the rotary ring counter-rotates dk as if its home shard were one chunk
+    # at its first offset (zigzag shards go wrong; at one rank the sp
+    # phase's (0, 4096) is the same as (0,), so the 4-rank ring must catch
+    # it)
+    "rot_ring_dk_one_chunk": (
+        "parallel/ring.py",
+        "    k_pos = shard_positions(kv_offset, dk.shape[2], dk.device)\n",
+        "    k_pos = shard_positions(kv_offset[:1], dk.shape[2], dk.device)\n",
+        RING_PHASES),
 }
 
 
@@ -106,7 +133,7 @@ def planted_copy(fault):
     shutil.copy(ROOT / "chip_smoke.py", dst)
     shutil.copytree(ROOT / "horovod_tpu_torch", dst / "horovod_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    cu = dst / "horovod_tpu_torch" / "ops" / "csrc" / source
+    cu = dst / "horovod_tpu_torch" / source
     text = cu.read_text()
     if text.count(anchor) != 1:
         raise SystemExit("%s: the anchor line is not in %s once"

@@ -35,6 +35,14 @@ RING_CASES = {
     "n4-contiguous": (4, 2, 512, 2, 2, 16, True, "contiguous"),
     "n4-zigzag": (4, 1, 4096, 2, 2, 16, True, "zigzag"),
 }
+# the same, with fused rotary (``rotary_base=ROPE``)
+ROTARY_CASES = {
+    "n2-contiguous-rope": (2, 1, 256, 4, 2, 16, True, "contiguous"),
+    "n2-zigzag-rope": (2, 1, 512, 4, 2, 16, True, "zigzag"),
+    "n4-contiguous-rope": (4, 1, 512, 2, 2, 16, True, "contiguous"),
+    "n4-zigzag-rope": (4, 1, 1024, 2, 2, 16, True, "zigzag"),
+}
+ROPE = 10000.0
 # name -> (ranks, B, global L, schedule): the ring Transformer
 LM = dict(vocab_size=128, num_layers=2, num_heads=4, embed_dim=64,
           mlp_dim=256, max_seq_len=512)
@@ -47,11 +55,20 @@ COUNTED = ("flash_ring_step_ref", "flash_ring_bwd_dq_ref",
            "flash_ring_bwd_dkv_ref")
 
 
+def ring_case(case):
+    """(ranks, B, L, H, G, D, causal, schedule, rotary base or None)."""
+    if case in ROTARY_CASES:
+        return ROTARY_CASES[case] + (ROPE,)
+    return RING_CASES[case] + (None,)
+
+
 def ring_inputs(case):
     """q, dout [B, L, H, D], k, v [B, L, G, D] float32 over the global
     sequence, in natural order."""
-    _, B, L, H, G, D, _, _ = RING_CASES[case]
-    rng = np.random.RandomState(sorted(RING_CASES).index(case))
+    _, B, L, H, G, D, _, _, _ = ring_case(case)
+    seed = (100 + sorted(ROTARY_CASES).index(case) if case in ROTARY_CASES
+            else sorted(RING_CASES).index(case))
+    rng = np.random.RandomState(seed)
     q = rng.randn(B, L, H, D).astype(np.float32)
     k = rng.randn(B, L, G, D).astype(np.float32)
     v = rng.randn(B, L, G, D).astype(np.float32)
@@ -85,13 +102,15 @@ class _Counting:
 
 
 def run_ring(rank, size, store_path, out_dir):
-    """Every case of RING_CASES and LM_CASES for ``size`` ranks."""
+    """Every case of RING_CASES, ROTARY_CASES and LM_CASES for ``size``
+    ranks."""
     torch.set_num_threads(2)
     torch_port_bn_worker._start(rank, size, store_path)
     try:
         hybrid_mesh((size,), ("sp",))
         got = {}
-        for case, (n, _, _, _, _, _, causal, schedule) in RING_CASES.items():
+        for case in list(RING_CASES) + list(ROTARY_CASES):
+            n, _, _, _, _, _, causal, schedule, rope = ring_case(case)
             if n != size:
                 continue
             counters = [_Counting(name) for name in COUNTED]
@@ -99,7 +118,7 @@ def run_ring(rank, size, store_path, out_dir):
                           for a in ring_inputs(case))
             q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
             out = ring_attention(q, k, v, "sp", causal=causal,
-                                 schedule=schedule)
+                                 schedule=schedule, rotary_base=rope)
             (out * w).sum().backward()
             got[case] = dict(out=out.detach(), dq=q.grad, dk=k.grad,
                              dv=v.grad,
