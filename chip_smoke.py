@@ -25,7 +25,14 @@ Phases, in order; any failure exits non-zero:
    causal) and at an odd shape (B=1, H=6, G=2, L=333, D=128, full)
    against the rotary plain versions on the same bf16 inputs, timed
    beside the same launch without rotary and beside SDPA (enable_gqa) on
-   q and k rotated beforehand, the rotation's time apart.
+   q and k rotated beforehand, the rotation's time apart. K2_rot and K3_rot
+   read q and k rotated by the rotary pass (``rope_rotate``, rope.cu):
+   checked through their wrappers (which rotate) and through
+   ``flash_backward`` (one rotation for both), timed alone on the rotated
+   copies, and together with the pass beside K2 and K3 without rotary.
+   The pass itself must equal its plain version (``apply_rotary`` at the
+   shard's positions) bit for bit on q and k at the lc launch, a 4-rank
+   zigzag shard and ragged lengths, and is timed at the lc launch.
 4. train: ``hvd.init()`` (a one-rank NCCL group), the GPT-2-small flash LM
    (vocab 32000, 12 layers, 12 x 64 heads, embed 768, MLP 3072, bf16 over
    f32 params) from a seeded generator, Adam(1e-4) in
@@ -77,8 +84,10 @@ Phases, in order; any failure exits non-zero:
    (dQ and dK counter-rotated after the ring by ``ring._counter_rotate``,
    the references rotary too), and so do a 4-rank zigzag ring and the
    lc_sp phase's own launch at the lc model's widths (B=2, H=6, G=2,
-   L=8192, D=128; one rank: chunks (0, 4096)). K4_rot-K6_rot are timed at
-   that launch as K1_rot-K3_rot, beside the same launches without rotary.
+   L=8192, D=128; one rank: chunks (0, 4096)). K4-K6 with rotary are timed
+   at that launch as K1_rot-K3_rot, beside the same launches without
+   rotary, and the rotary ring's backward (the pass, then K5 and K6 on the
+   rotated q and k) beside K5 and K6 without rotary.
 8. sp: ``hvd.init()``, ``hybrid_mesh((1,), ("sp",))``, the GPT-2-small LM
    of the train phase with ``attention="ring"``, ``sp_axis="sp"``,
    ``sp_schedule="zigzag"``; a dict batch {tokens, positions, labels} of
@@ -101,10 +110,12 @@ Phases, in order; any failure exits non-zero:
    of 3 more (device busy and idle); then the same step on the same
    weights with ``rope_fused=False``, timed and profiled the same way.
    Checks finite, falling losses and 12 launches of each of K1_rot-K3_rot
-   a step (K1-K3 in the unfused run).
+   and 24 of the rotary pass a step (K1-K3 and no pass in the unfused
+   run).
 10. lc_sp: the lc model with ``attention="ring"`` (zigzag, one-rank "sp"
-   axis, ``shard_lm_loss``): 12 launches of each of K4_rot-K6_rot a step,
-   the first loss and gradients at 1 x 8192 against the lc flash model.
+   axis, ``shard_lm_loss``): 12 launches of K4_rot, 24 of the rotary pass
+   and 12 each of K5 and K6 (on the rotated q and k) a step, the first
+   loss and gradients at 1 x 8192 against the lc flash model.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -204,16 +215,30 @@ KERNELS = {
                           "horovod_tpu/ops/flash_attention.py:928", 4),
     "flash_ring_step_rot": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
                             "horovod_tpu/ops/flash_attention.py:470", 2),
-    "flash_ring_bwd_dq_rot": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
-                              "horovod_tpu/ops/flash_attention.py:651", 3),
-    "flash_ring_bwd_dkv_rot": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
-                               "horovod_tpu/ops/flash_attention.py:705", 4),
+    # the rotation those branches apply to q and k (_rot_apply), done once
+    # a layer for the backward: K2_rot and K3_rot, and K5 and K6 in the
+    # rotary ring (which have no rotary instantiation), read its output;
+    # f32 operations an element: two products and a sum
+    "rope_rotate": ("horovod_tpu_torch/ops/csrc/rope.cu",
+                    "horovod_tpu/ops/flash_attention.py:93", 3),
 }
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 BN = ("batch_norm_stats", "batch_norm_grad_stats")
 RING = ("flash_ring_step", "flash_ring_bwd_dq", "flash_ring_bwd_dkv")
 FLASH_ROT = tuple(n + "_rot" for n in FLASH)
 RING_ROT = tuple(n + "_rot" for n in RING)
+ROPE = "rope_rotate"
+# The rotary pass against its plain version, bit for bit: (label, [B,
+# heads, L, D], shard offsets). The lc launch's q and k at 0..8191 (one
+# rank's zigzag chunks (0, 4096) are the same positions); rank 1's
+# zigzag shard of the 4-rank ring at the lc widths; a ragged L in one
+# chunk past 0, and in two zigzag chunks.
+ROPE_CHECKS = (("lc_q", (2, 6, 8192, 128), (0,)),
+               ("lc_k", (2, 2, 8192, 128), (0,)),
+               ("lc_ring_q", (2, 6, 2048, 128), (1024, 6144)),
+               ("lc_ring_k", (2, 2, 2048, 128), (1024, 6144)),
+               ("odd", (1, 6, 333, 128), (5000,)),
+               ("odd_zigzag", (1, 6, 334, 128), (167, 501)))
 # The ring: n virtual ranks over a global sequence of L (shards of L / n).
 RING_SHAPE = dict(B=2, H=12, G=12, L=8192, D=64, n=4)
 # The sp phase's own launches: one rank, its zigzag shard the whole sequence
@@ -391,6 +416,17 @@ def check_kernels(shape, seed, timed, rotary=None):
             for key, val in r.items():
                 got[name + key] = val
         del dq, dk, dv
+    if rb is not None:
+        # the model's backward: q and k rotated once, both kernels on them
+        dq, dk, dv = fa.flash_backward(q, k, v, out, lse_k, dout, scale,
+                                       causal, rb)
+        torch.cuda.synchronize()
+        for kname, r in (("flash_bwd_dq" + sfx, row([(dq, dq_ref)])),
+                         ("flash_bwd_dkv" + sfx, row([(dk, dk_ref),
+                                                      (dv, dv_ref)]))):
+            for key, val in r.items():
+                rows[kname]["backward_" + key] = val
+        del dq, dk, dv
     del dq_ref, dk_ref, dv_ref
 
     if timed:
@@ -416,9 +452,19 @@ def check_kernels(shape, seed, timed, rotary=None):
                 lambda: fa.flash_bwd_dkv_ref(*ref_in, lse, delta, scale,
                                              causal, rb)),
         }
+        if rb is not None:
+            # K2_rot and K3_rot alone: on q and k rotated beforehand, as
+            # flash_backward launches them
+            qk = fa._rope_qk(q, k, (0,), (0,), rb)
+            bwd_args = (q, k, v, dout, lse, delta, scale, causal, rb, qk)
+            alone = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, scale,
+                                                       causal, rb),
+                     "flash_bwd_dq": lambda: fa._bwd_dq(*bwd_args),
+                     "flash_bwd_dkv": lambda: fa._bwd_dkv(*bwd_args)}
         for name, (kern, plain) in runs.items():
             r = rows[name + sfx]
-            r["ms"] = time_ms(lambda: kern(rb))
+            r["ms"] = time_ms(alone[name] if rb is not None
+                              else lambda: kern(None))
             if rb is not None:  # the same launch without rotary
                 r["norot_ms"] = time_ms(lambda: kern(None))
             r["plain_ms"] = time_ms(plain, n=5, reps=3, warmup=1)
@@ -434,7 +480,94 @@ def check_kernels(shape, seed, timed, rotary=None):
                                    else "sdpa_bwd_ms"],
                     rotate_ms=lib["rotate_ms"],
                     library=lib["note"])
+            del qk, bwd_args
+            rows[ROPE] = rope_timings(q, k, v, dout, lse, delta, scale,
+                                      causal, rb)
     return rows
+
+
+def check_rope(seed):
+    """The rotary pass against its plain version (``apply_rotary`` at the
+    shard's positions, on the same bf16 values) at ROPE_CHECKS, on views of
+    [B, L, heads, D] activations as the model hands them over: every
+    element must be equal. Returns {label_mismatched: count} and the
+    largest |difference|."""
+    import torch
+    fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    row, bad = {"max_abs_err": 0.0}, []
+    for label, (B, heads, L, D), offset in ROPE_CHECKS:
+        x = torch.randn(B, L, heads, D, generator=g, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+        got = fa.rope_rotate(x, offset, ROPE_BASE)
+        want = fa.apply_rotary(x, fa.shard_positions(offset, L, x.device),
+                               ROPE_BASE)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        row[label + "_mismatched"] = int((got != want).sum().item())
+        row["max_abs_err"] = max(row["max_abs_err"], diff.max().item())
+        if row[label + "_mismatched"]:
+            bad.append("%s %s at %s: %d of %d elements differ (max %.3g)" % (
+                label, tuple(x.shape), offset, row[label + "_mismatched"],
+                got.numel(), diff.max().item()))
+    log("%s against apply_rotary: %s" % (ROPE, ", ".join(
+        "%s %s" % kv for kv in sorted(row.items()))))
+    return row, bad
+
+
+def rope_timings(q, k, v, dout, lse, delta, scale, causal, rb):
+    """The rotary pass at the lc launch: q and k (its two launches a
+    layer's backward), its plain version on the same tensors, its bound
+    (bytes: q and k read and written once, the tables of their positions
+    read once); and the backward's rotary pair with the pass
+    (``pass_pair_ms``: the pass, K2_rot and K3_rot, as flash_backward
+    runs them) beside K2 and K3 without rotary (``norot_pair_ms``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
+    L, D = q.shape[2], q.shape[3]
+
+    def rotate():
+        fa.rope_rotate(q, (0,), rb)
+        fa.rope_rotate(k, (0,), rb)
+    # Two short launches back to back are as fast as the host issues them
+    # (event_ms); ms is the kernels' own device time (torch.profiler).
+    event_ms = time_ms(rotate)
+    n = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            rotate()
+        torch.cuda.synchronize()
+    device_us = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+                    for e in prof.key_averages() if "rope_rotate" in e.key)
+    if not device_us:
+        log("%s: the profiler saw no device time; ms is the events' time"
+            % ROPE)
+    r = {"ms": device_us / 1e3 / n if device_us else event_ms,
+         "event_ms": event_ms,
+         "plain_ms": time_ms(lambda: (
+             fa.apply_rotary(q, fa.shard_positions((0,), L, q.device), rb),
+             fa.apply_rotary(k, fa.shard_positions((0,), L, k.device), rb)),
+             n=5, reps=3, warmup=1)}
+    elements = q.numel() + k.numel()
+    n_bytes = 2 * elements * q.element_size() + 2 * L * (D // 2) * 4
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = KERNELS[ROPE][2] * elements / PEAK_F32_FLOPS * 1e3
+    r["bound_ms"], r["bound_by"] = ((t_ops, "operations") if t_ops > t_bytes
+                                    else (t_bytes, "bytes"))
+    r["library"] = ("none: no one PyTorch call computes the rotation "
+                    "(ms covers q and k, the pass's two launches)")
+    args = (q, k, v, dout, lse, delta, scale, causal)
+
+    def pair():
+        qk = fa._rope_qk(q, k, (0,), (0,), rb)
+        fa._bwd_dq(*args, rb, qk)
+        fa._bwd_dkv(*args, rb, qk)
+    r["pass_pair_ms"] = time_ms(pair)
+    r["norot_pair_ms"] = time_ms(lambda: (fa.flash_bwd_dq(*args),
+                                          fa.flash_bwd_dkv(*args)))
+    return r
 
 
 def sdpa_times(q, k, v, dout, causal, scale):
@@ -500,7 +633,9 @@ def phase_kernels():
                                   rotary=ROPE_BASE))
     torch.cuda.empty_cache()
     library = slice_rows.pop("library")
-    bad = []
+    rope_row, bad = check_rope(seed=5)
+    slice_rows[ROPE].update(rope_row)
+    torch.cuda.empty_cache()
     for name in FLASH + FLASH_ROT:
         for label, rows in (("slice", slice_rows), ("odd", odd_rows)):
             r = rows[name]
@@ -518,13 +653,20 @@ def phase_kernels():
             if key.endswith("rel_l2_err"))
     if bad:
         fail("kernels disagree with their plain versions: " + "; ".join(bad))
+    shape = "x".join(str(ROT_SLICE[c]) for c in "BHGLD")
     for name in FLASH_ROT:
         r = slice_rows[name]
         log("%s at %s: %.4f ms (without rotary %.4f, bound %.4f, plain %.3f, "
             "SDPA on rotated q, k %.4f + rotation %.4f)" % (
-                name, "x".join(str(ROT_SLICE[c]) for c in "BHGLD"), r["ms"],
-                r["norot_ms"], r["bound_ms"], r["plain_ms"], r["library_ms"],
-                r["rotate_ms"]))
+                name, shape, r["ms"], r["norot_ms"], r["bound_ms"],
+                r["plain_ms"], r["library_ms"], r["rotate_ms"]))
+    r = slice_rows[ROPE]
+    log("%s of q and k at %s: %.4f ms on the device, %.4f between events "
+        "(bound %.4f by %s, plain %.3f); the pass with K2_rot and K3_rot "
+        "%.4f ms, K2 and K3 without rotary %.4f (%.3fx)" % (
+            ROPE, shape, r["ms"], r["event_ms"], r["bound_ms"],
+            r["bound_by"], r["plain_ms"], r["pass_pair_ms"],
+            r["norot_pair_ms"], r["pass_pair_ms"] / r["norot_pair_ms"]))
     return slice_rows, library
 
 
@@ -1092,12 +1234,15 @@ def ring_timings(seed):
 
 
 def ring_rot_timings(seed):
-    """K4_rot-K6_rot at the lc_sp phase's launch (LC_SP: one rank, 6 heads
-    of 128 on 2 kv heads, zigzag chunks (0, 4096), the positions 0..8191):
-    each kernel beside the same launch without rotary (``norot_ms``), its
-    bound, its plain version (one batch row at a time) and SDPA's causal
-    forward and backward (enable_gqa) on q and k rotated beforehand, the
-    rotation apart."""
+    """K4-K6 with ``rotary_base`` at the lc_sp phase's launch (LC_SP: one
+    rank, 6 heads of 128 on 2 kv heads, zigzag chunks (0, 4096), the
+    positions 0..8191): each call beside the same launch without rotary
+    (``norot_ms``), its bound, its plain version (one batch row at a time)
+    and SDPA's causal forward and backward (enable_gqa) on q and k rotated
+    beforehand, the rotation apart. K5 and K6 called with ``rotary_base``
+    rotate q and k first (the pass, twice a call); the ring rotates once a
+    layer and runs both on the copies, timed as ``ring_pass_pair_ms`` (the
+    pass, K5, K6) beside ``norot_pair_ms`` (K5, K6 without rotary)."""
     import torch
     fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
     rb, sp = ROPE_BASE, dict(LC_SP, causal=True)
@@ -1144,6 +1289,19 @@ def ring_rot_timings(seed):
         r["rotate_ms"] = lib["rotate_ms"]
         r["library"] = lib["note"] + " (causal; the nearest yardstick: no "
         r["library"] += "carried state)"
+
+    def ring_pair():
+        qr = fa.rope_rotate(q, offs, rb)
+        kr = fa.rope_rotate(k, offs, rb)
+        fa.flash_ring_bwd_dq(qr, kr, v, dout, lse, delta, dq, offs, offs,
+                             scale, True)
+        fa.flash_ring_bwd_dkv(qr, kr, v, dout, lse, delta, dk, dv, offs,
+                              offs, scale, True)
+    pair = {"ring_pass_pair_ms": time_ms(ring_pair),
+            "norot_pair_ms": time_ms(lambda: (runs["flash_ring_bwd_dq"][0](
+                None), runs["flash_ring_bwd_dkv"][0](None)))}
+    for name in RING[1:]:
+        rows[name + "_rot"].update(pair)
     return rows
 
 
@@ -1194,6 +1352,11 @@ def phase_ring_kernels():
                                     timing["bound_ms"], timing["plain_ms"],
                                     timing["library_ms"],
                                     timing["rotate_ms"]))
+            if "ring_pass_pair_ms" in timing and name == RING_ROT[2]:
+                log("the rotary ring's backward at the lc_sp launch: the "
+                    "pass, K5 and K6 %.4f ms, K5 and K6 without rotary %.4f"
+                    % (timing["ring_pass_pair_ms"],
+                       timing["norot_pair_ms"]))
             continue
         log("%s: off-diagonal %.4f ms (bound %.4f, plain %.3f, SDPA %.4f), "
             "diagonal %.4f ms (bound %.4f); sp launch %.4f ms (bound %.4f, "
@@ -1233,7 +1396,12 @@ def phase_sp(profile_dir=None, lc=False):
                             sp_schedule="zigzag", dtype=torch.bfloat16,
                             max_seq_len=8192, rope_fused=lc,
                             **(LC_MODEL if lc else MODEL))
-    kernels = RING_ROT if lc else RING
+    # launches a step: one ring step a layer of each kernel; with rotary,
+    # K4_rot, the backward's pass over the q shard and the k shard, and K5
+    # and K6 on the rotated copies
+    per_layer = ({RING_ROT[0]: 1, RING[1]: 1, RING[2]: 1, ROPE: 2} if lc
+                 else {name: 1 for name in RING})
+    kernels = {name: n * cfg.num_layers for name, n in per_layer.items()}
     B, L = SP_BATCH
     model = Transformer(cfg, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
@@ -1298,7 +1466,7 @@ def phase_sp(profile_dir=None, lc=False):
     if not losses[-1] < losses[0]:
         fail("sp loss did not fall: %s" % losses)
     for name, c in counts.items():
-        per_step = cfg.num_layers if name in kernels else 0
+        per_step = kernels.get(name, 0)
         if c != per_step * steps:
             fail("%s launched %d times in %d %s steps, expected %d per step"
                  % (name, c, steps, tag, per_step))
@@ -1438,7 +1606,7 @@ def phase_lc(profile_dir=None):
         if not losses[-1] < losses[0]:
             fail("%s loss did not fall: %s" % (label, losses))
         for name, c in counts.items():
-            per_step = cfg.num_layers if name in kernels else 0
+            per_step = kernels.get(name, 0)
             if c != per_step * steps:
                 fail("%s launched %d times in %d %s steps, expected %d per "
                      "step" % (name, c, steps, label, per_step))
@@ -1453,7 +1621,9 @@ def phase_lc(profile_dir=None):
         result.update(profile_steps(step, tokens, profile_dir, label))
         return result, counts
 
-    fused, counts = run(model, FLASH_ROT, "lc")
+    # K1_rot-K3_rot once a layer, and the backward's pass over q and k
+    fused, counts = run(model, dict({n: cfg.num_layers for n in FLASH_ROT},
+                                    **{ROPE: 2 * cfg.num_layers}), "lc")
     rel = abs(fused["loss_first"] - loss_plain) / abs(loss_plain)
     log("lc first loss %.6f, dense attention %.6f, rel %.3g"
         % (fused["loss_first"], loss_plain, rel))
@@ -1465,11 +1635,12 @@ def phase_lc(profile_dir=None):
     # the same weights and step with rotary outside the kernels
     del model
     torch.cuda.empty_cache()
-    unfused, _ = run(unfused_model, FLASH, "lc_unfused")
+    unfused, _ = run(unfused_model, {n: cfg.num_layers for n in FLASH},
+                     "lc_unfused")
     print("lc: " + json.dumps(dict(fused, rope_fused_false=unfused)),
           flush=True)
     hvd.shutdown()
-    return {name: counts[name] for name in FLASH_ROT}
+    return {name: counts[name] for name in FLASH_ROT + (ROPE,)}
 
 
 def gradient_gaps(model, dense, tokens, loss_fn):
@@ -1489,6 +1660,8 @@ def gradient_gaps(model, dense, tokens, loss_fn):
 
 def _category(name, model):
     low = name.lower()
+    if "rope_rotate" in low:  # hvdflash::rope_rotate_kernel
+        return "rotary pass"
     # K4-K6 are the ring instantiations of the flash mainloops:
     # flash_fwd_kernel<D, true, ...>, flash_bwd_kernel<D, kDkv, true, ...>
     if re.search(r"flash_(fwd_kernel<\d+|bwd_kernel<\d+, \w+), true,", low):
@@ -1585,22 +1758,26 @@ def main():
         return args.only in (None, phase)
 
     rows, library, counts = {}, {}, {}
+
+    def add(launches):  # a kernel's launches over every main path
+        for name, n in launches.items():
+            counts[name] = counts.get(name, 0) + n
     if run("kernels"):
         rows, library = phase_kernels()
     if run("train"):
-        counts.update(phase_train(profile_dir=args.profile))
+        add(phase_train(profile_dir=args.profile))
     if run("bn_kernels"):
         rows.update(phase_bn_kernels())
     if run("resnet"):
-        counts.update(phase_resnet(profile_dir=args.profile))
+        add(phase_resnet(profile_dir=args.profile))
     if run("ring_kernels"):
         rows.update(phase_ring_kernels())
     if run("sp"):
-        counts.update(phase_sp(profile_dir=args.profile))
+        add(phase_sp(profile_dir=args.profile))
     if run("lc"):
-        counts.update(phase_lc(profile_dir=args.profile))
+        add(phase_lc(profile_dir=args.profile))
     if run("lc_sp"):
-        counts.update(phase_sp(profile_dir=args.profile, lc=True))
+        add(phase_sp(profile_dir=args.profile, lc=True))
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         row = rows.get(name, {})
@@ -1621,8 +1798,11 @@ def main():
             "bound_ms": row.get("bound_ms"), "bound_by": row.get("bound_by"),
             "library_ms": lib_ms, "library_note": row.get("library"),
             # the rotary kernels: the same launch without rotary, and the
-            # rotation of q and k that library_ms leaves out
-            **{key: row[key] for key in ("norot_ms", "rotate_ms")
+            # rotation of q and k that library_ms leaves out; the rotary
+            # pass: K2_rot and K3_rot with it, and K2 and K3 without rotary
+            **{key: row[key] for key in ("norot_ms", "rotate_ms",
+                                         "pass_pair_ms", "norot_pair_ms",
+                                         "event_ms")
                if key in row},
             "rel_l2_err": max(rel_errs) if rel_errs else None,
             "odd_rel_l2_err": row.get("odd_rel_l2_err"),

@@ -20,14 +20,16 @@
 //       accumulators in place (K5: dq; K6: dk and dv, which travel around
 //       the ring with their k/v shard); rows that see no key of the shard
 //       keep their value bit for bit.
-//   All four with fused rotary (the kRot instantiations; the TPU kernels'
-//   `rotary` flag): Q and K rotated at their positions in shared memory
-//   before the products read them, so S, dS and the sums run in rotated
-//   space. K2 and K3 counter-rotate their finished dQ and dK (the transpose
+//   K2 and K3 with rotary (the kRot instantiations; the TPU kernels'
+//   `rotary` flag): S, dS and the sums run in rotated space, on q and k that
+//   rope.cu rotated once a layer (flash_attention.flash_backward); the
+//   kernels counter-rotate their finished dQ and dK (the transpose
 //   rotation, on the f32 accumulators in registers, before the cast); dV is
-//   rotation-free. K5 and K6 leave dq and dk in rotated space: their sums
-//   carry across ring steps, and the ring counter-rotates them once after
-//   its last step (parallel/ring.py).
+//   rotation-free. K5 and K6 have no rotary instantiation: the ring rotates
+//   its q shard and its home k shard once (rope.cu) and they read those, and
+//   their dq and dk stay in rotated space, since their sums carry across
+//   ring steps; the ring counter-rotates them once after its last step
+//   (parallel/ring.py).
 // Precision follows the TPU kernels: the products take bf16 inputs and sum
 // in f32; P is rounded to bf16 (dO's type) before the dV product, and dS
 // before the dK and dQ products.
@@ -42,6 +44,8 @@
 //   K5: 309 GFLOP, 0.313 ms; K6: 412 GFLOP, 0.417 ms; 805 M exp2, 0.206 ms;
 //   bf16 inputs 25 MB, f32 rows 1.6 MB, f32 accumulators read and written
 //   50 MB (K5) or 101 MB (K6), 23 and 38 us.
+// At the long-context LM's launch, [2, 6, 8192, 128] on 2 kv heads, causal,
+// with or without rotary: K2 0.313 ms, K3 0.417 ms.
 // All four are bound by the tensor cores.
 //
 // Design (flash_fwd.cu's shape on hopper.cuh's PTX; one mainloop):
@@ -80,13 +84,18 @@
 //   step's sum added; a warpgroup that saw no tile stores nothing. (A block
 //   that sees no tile still loads its owned rows: returning before the
 //   roles split made ptxas spill in K6 at D = 64.)
-// - Fused rotary (kRot), as flash_fwd.cu does it: each consumer warpgroup
-//   rotates its own rows of the first owned operand (K2: Q; K3: K) once and
-//   waits for its 128 threads on a named barrier; a tile of the first
-//   streamed operand (K2: K; K3: Q) is rotated in place a stage by all the
-//   consumer threads, each a share, who fence their writes for the async
-//   proxy and arrive on the stage's `rot` mbarrier; the warpgroups that see
-//   the tile wait on it. dO and V are never rotated.
+// - Rotary (kRot). The TPU kernels rotate the q or k block a grid step
+//   holds, in VMEM: a q block of K2 rotates its own q and every k block it
+//   reads. Done so here, every block that streams a tile rotated it
+//   again, about 32 times a tile at L = 8192 causal, on the consumer
+//   warpgroups between the TMA landing and the wgmma, with 64 KB of f32
+//   tables a 128-row tile from L2, a fence for the async proxy and a stage
+//   barrier: K2_rot took 2.0x and K3_rot 1.5x the same launch without
+//   rotary. Now q and k arrive rotated (rope.cu, one pass each a layer,
+//   bound by bytes: 0.021 ms at the long-context launch), the mainloop is
+//   the one without rotary, bound by the tensor cores, and the only rotary
+//   work left is the counter-rotation of dQ (K2) and dK (K3) in the
+//   epilogue, once an output row.
 // Tiles: three consumers (192 owned rows a block) and 64-row streamed tiles
 // at D <= 64; two consumers at D = 128, where K3 streams 32-row q tiles (its
 // dK and dV alone take 128 registers a thread there). Measured against this
@@ -109,8 +118,7 @@ constexpr int kBwdRows = 64;  // rows a consumer warpgroup owns (and TMA box
 // The shape of a block and its shared memory, in bytes from a 1024-byte
 // aligned base: the two owned operands (per box of columns, one 64-row box
 // a consumer), the stages of the two streamed operands, K3's lse and delta
-// a stage, then the mbarriers (the owned operands', full[s], empty[s],
-// rot[s]).
+// a stage, then the mbarriers (the owned operands', full[s], empty[s]).
 template <int D, bool kDkv>
 struct BwdTile {
   static constexpr int kWgs = D == 128 ? 2 : 3;  // consumer warpgroups
@@ -134,7 +142,7 @@ struct BwdTile {
   static constexpr int kStats = kDkv ? 2 * kN : 0;  // floats a stage
   static constexpr int kStatsAt = 2 * kOwn + 2 * kStages * kTile;
   static constexpr int kBars = kStatsAt + kStages * kStats * 4;
-  static constexpr int kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;
+  static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
   // arrivals on a full barrier: the TMA thread's, and K3's copying lanes'
   static constexpr int kFullArrivals = kDkv ? 32 : 1;
 };
@@ -149,7 +157,7 @@ struct BwdParams {
   Strides s1, s2;               // their (batch, head, row) element strides
   int H, G, Lq, Lk;
   Chunks qc, kc;                // K2, K3: one chunk at 0; K5, K6: the shards'
-  Rope rope;                    // kRot: the rotary tables
+  Rope rope;                    // kRot: the rotary tables (counter-rotation)
   float scale;
   int causal;
 };
@@ -344,6 +352,7 @@ __device__ __forceinline__ void add_rows(float* sum, long long sl,
 template <int D, bool kDkv, bool kRing, bool kRot, typename TO>
 __global__ void __launch_bounds__(BwdTile<D, kDkv>::kThreads, 1)
     flash_bwd_kernel(__grid_constant__ const BwdParams p) {
+  static_assert(!(kRing && kRot), "K5 and K6 read q and k rotated by rope.cu");
   using Tile = BwdTile<D, kDkv>;
   constexpr int kStages = Tile::kStages;
   constexpr int kWgs = Tile::kWgs;
@@ -372,13 +381,11 @@ __global__ void __launch_bounds__(BwdTile<D, kDkv>::kThreads, 1)
   const uint32_t bar_own = base + Tile::kBars;
   const uint32_t bar_full = bar_own + 8;
   const uint32_t bar_empty = bar_full + 8 * kStages;
-  const uint32_t bar_rot = bar_empty + 8 * kStages;  // kRot: tile rotated
   if (threadIdx.x == 0) {
     mbar_init(bar_own, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_full + 8 * s, Tile::kFullArrivals);
       mbar_init(bar_empty + 8 * s, Tile::kConsumers);
-      if (kRot) mbar_init(bar_rot + 8 * s, Tile::kConsumers);
     }
     fence_barrier_init();
   }
@@ -471,17 +478,7 @@ __global__ void __launch_bounds__(BwdTile<D, kDkv>::kThreads, 1)
   const uint32_t own1 = sOwn1 + wg * Tile::kOwnBox;  // this warpgroup's rows
   const uint32_t own2 = sOwn2 + wg * Tile::kOwnBox;
 
-  // the owned rows' positions and the streamed rows'
-  const Chunks& own_c = kDkv ? p.kc : p.qc;
-  const Chunks& str_c = kDkv ? p.qc : p.kc;
   mbar_wait(bar_own, 0);
-  if constexpr (kRot) {
-    // This warpgroup's own 64 rows of Q (K2) or K (K3), once.
-    rotate_tile<D, kBwdRows, 128>(own1, kWgs * Tile::kOwnBox, wrow, n_own,
-                                  own_c, p.rope, threadIdx.x % 128);
-    fence_proxy_async();
-    named_barrier_sync(1 + wg, 128);
-  }
 
   float x[kN / 2], y[kN / 2];    // X, then P; Y, then dS (64 x kN)
   uint32_t pa[kN / 16][4];       // K3: P^T in bf16, the A fragments of dV
@@ -505,16 +502,6 @@ __global__ void __launch_bounds__(BwdTile<D, kDkv>::kThreads, 1)
       const bool sees = wrow < n_own && bwd_tile_visible<kDkv, kN>(
                                             p, wrow, wrow + kBwdRows - 1, c0);
       mbar_wait(bar_full + 8 * stage, (it / kStages) & 1);
-      if constexpr (kRot) {
-        // Every consumer thread rotates its share of the K (K2) or Q (K3)
-        // tile and arrives; the warpgroups that read it wait for all.
-        rotate_tile<D, kN, Tile::kConsumers>(
-            sStr1 + stage * Tile::kTile, Tile::kBox, c0, stream_len<kDkv>(p),
-            str_c, p.rope, threadIdx.x);
-        fence_proxy_async();
-        mbar_arrive(bar_rot + 8 * stage);
-        if (sees) mbar_wait(bar_rot + 8 * stage, (it / kStages) & 1);
-      }
       if (sees) {
         const uint32_t t1 = sStr1 + stage * Tile::kTile;
         const uint32_t t2 = sStr2 + stage * Tile::kTile;
@@ -582,7 +569,9 @@ __global__ void __launch_bounds__(BwdTile<D, kDkv>::kThreads, 1)
       add_rows<D>(static_cast<float*>(p.out2) + b * p.s2.b + hb * p.s2.h,
                   p.s2.l, acc2, row0, n_own, tc);
   } else {
-    // dQ (K2) or dK (K3) back from rotated space: the transpose rotation
+    // dQ (K2) or dK (K3) back from rotated space: the transpose rotation at
+    // the owned rows' positions
+    const Chunks& own_c = kDkv ? p.kc : p.qc;
     if (kRot && live) unrotate_rows<D>(acc1, row0, n_own, own_c, p.rope, tc);
     TO* out1 = static_cast<TO*>(p.out1) + b * p.s1.b + hb * p.s1.h;
     store_rows<D, TO>(out1, p.s1.l, acc1, row0, n_own, tc, live);
@@ -638,14 +627,15 @@ cudaError_t run_bwd_dr(BwdParams& p, const void* const* qkvd,
   }
 }
 
-// With fused rotary where the tables are given, else without.
-template <bool kDkv, bool kRing, typename TO>
+// K2 or K3, counter-rotating dQ or dK where the tables are given (q and k
+// rotated already), else without rotary.
+template <bool kDkv, typename TO>
 cudaError_t run_bwd_d(BwdParams& p, const void* const* qkvd,
                       const long long* maps, int B, int D,
                       cudaStream_t stream) {
   if (p.rope.cos != nullptr)
-    return run_bwd_dr<kDkv, kRing, true, TO>(p, qkvd, maps, B, D, stream);
-  return run_bwd_dr<kDkv, kRing, false, TO>(p, qkvd, maps, B, D, stream);
+    return run_bwd_dr<kDkv, false, true, TO>(p, qkvd, maps, B, D, stream);
+  return run_bwd_dr<kDkv, false, false, TO>(p, qkvd, maps, B, D, stream);
 }
 
 // K2 or K3 with outputs in `dtype` (0 = bfloat16, 1 = float32).
@@ -654,10 +644,8 @@ int run_flash_bwd(BwdParams& p, const void* const* qkvd,
                   const long long* maps, int B, int D, int dtype,
                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return run_bwd_d<kDkv, false, bf16>(p, qkvd, maps, B, D, st);
-  if (dtype == 1)
-    return run_bwd_d<kDkv, false, float>(p, qkvd, maps, B, D, st);
+  if (dtype == 0) return run_bwd_d<kDkv, bf16>(p, qkvd, maps, B, D, st);
+  if (dtype == 1) return run_bwd_d<kDkv, float>(p, qkvd, maps, B, D, st);
   return cudaErrorInvalidValue;
 }
 
@@ -694,8 +682,8 @@ int run_ring_bwd(BwdParams& p, const void* const* qkvd,
   const Strides s = {static_cast<long long>(heads) * rows * D,
                      static_cast<long long>(rows) * D, D};
   p.s1 = p.s2 = s;
-  return run_bwd_d<kDkv, true, float>(p, qkvd, maps, B, D,
-                                      static_cast<cudaStream_t>(stream));
+  return run_bwd_dr<kDkv, true, false, float>(
+      p, qkvd, maps, B, D, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace hvdflash
@@ -705,7 +693,9 @@ int run_ring_bwd(BwdParams& p, const void* const* qkvd,
 // k and v with the streamed tile's); lse, delta: f32 [B, H, L]; dq in
 // `dtype` (0 = bfloat16, 1 = float32) at out_strides (batch, head, row);
 // rope_cos, rope_sin: f32 [positions, D / 2] rotary tables, or null for no
-// rotary. Returns the cudaError_t of the launch.
+// rotary (with them, q and k must come rotated at 0..L-1, as rope.cu
+// rotates them, and dq is counter-rotated). Returns the cudaError_t of the
+// launch.
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq,
@@ -744,20 +734,18 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // K5. q, dout [B, H, Lq, D] and k, v [B, G, Lk, D]: bf16 views through
 // `maps`, boxed as K2's; lse (the whole ring's, natural log), delta: f32
 // [B, H, Lq]; dq: the carried f32 sum [B, H, Lq, D], contiguous, updated in
-// place (in rotated space under rotary); rope_cos, rope_sin: as K2's, over
-// the global positions; chunks: (off0, off1, len) of the q shard, then of
-// the k/v shard.
+// place; chunks: (off0, off1, len) of the q shard, then of the k/v shard.
+// Under rotary q and k come rotated at their global positions (rope.cu) and
+// dq stays in rotated space.
 extern "C" int hvd_flash_ring_bwd_dq(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
-                                     void* dq, const void* rope_cos,
-                                     const void* rope_sin,
-                                     const long long* maps, int B,
+                                     void* dq, const long long* maps, int B,
                                      int H, int G, int Lq, int Lk, int D,
                                      const int* chunks, float scale,
                                      int causal, void* stream) {
   using namespace hvdflash;
-  BwdParams p = bwd_params(lse, delta, dq, nullptr, rope_cos, rope_sin, H, G,
+  BwdParams p = bwd_params(lse, delta, dq, nullptr, nullptr, nullptr, H, G,
                            Lq, Lk, scale, causal);
   const void* qkvd[4] = {q, k, v, dout};
   return run_ring_bwd<false>(p, qkvd, maps, B, D, chunks, stream);
@@ -768,14 +756,13 @@ extern "C" int hvd_flash_ring_bwd_dq(const void* q, const void* k,
 extern "C" int hvd_flash_ring_bwd_dkv(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
-                                      void* dk, void* dv, const void* rope_cos,
-                                      const void* rope_sin,
+                                      void* dk, void* dv,
                                       const long long* maps, int B, int H,
                                       int G, int Lq, int Lk, int D,
                                       const int* chunks, float scale,
                                       int causal, void* stream) {
   using namespace hvdflash;
-  BwdParams p = bwd_params(lse, delta, dk, dv, rope_cos, rope_sin, H, G, Lq,
+  BwdParams p = bwd_params(lse, delta, dk, dv, nullptr, nullptr, H, G, Lq,
                            Lk, scale, causal);
   const void* qkvd[4] = {q, k, v, dout};
   return run_ring_bwd<true>(p, qkvd, maps, B, D, chunks, stream);

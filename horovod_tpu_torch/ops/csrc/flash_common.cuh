@@ -1,6 +1,7 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// strides, chunk positions, bf16 packing and stores, quad reductions, and
-// the fused rotary embedding of tiles and accumulator rows.
+// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu)
+// and the rotary pass (rope.cu): strides, chunk positions, bf16 packing and
+// stores, quad reductions, and the fused rotary embedding of tiles (the
+// forward mainloop) and accumulator rows (the backward's counter-rotation).
 //
 // Layout. Every tensor is addressed as [B, heads, L, D] through three element
 // strides (batch, head, row); the last dim is contiguous. The Python wrapper

@@ -1,7 +1,7 @@
 """Flash attention: hand-written CUDA kernels for Hopper and their plain
 PyTorch versions.
 
-Counterpart of ``horovod_tpu/ops/flash_attention.py``. Six kernels in
+Counterpart of ``horovod_tpu/ops/flash_attention.py``. Seven kernels in
 ``csrc/``; the flash attention of one sequence:
 
 - K1 ``flash_fwd`` (``flash_fwd.cu``): O and the per-row log-sum-exp;
@@ -57,6 +57,15 @@ in rotated space: their sums carry across ring steps, and the ring
 counter-rotates them once after the last step. On a CUDA tensor the kernels
 read cos and sin from one f32 table per (head dim, base, device), built at
 first use and grown to the longest positions asked for (``rope_tables``).
+
+Where the rotation happens on the card: K1 and K4 rotate q and k in shared
+memory as they load them. The backward kernels read q and k rotated by
+the seventh kernel, ``rope_rotate`` (``rope.cu``: one pass over a tensor,
+bit for bit ``apply_rotary``): ``flash_backward`` rotates q and k once and
+K2 and K3 both read the copies; ``flash_bwd_dq`` and ``flash_bwd_dkv``
+called alone, and K5 and K6 called with ``rotary_base``, rotate their own.
+The ring (``parallel.ring``) rotates its q shard and its home k shard once
+and runs K5 and K6 without rotary.
 """
 
 import ctypes
@@ -72,7 +81,8 @@ _HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_Y = 65535
 
 # The arguments after the tensor pointers, the two rotary tables (null
-# without rotary), the tensor maps and (K1-K3) the outputs' strides: K1-K3
+# without rotary; K5 and K6 take none), the tensor maps and (K1-K3) the
+# outputs' strides: K1-K3
 # take B, H, G, L, D and the dtype of their outputs; the ring steps B, H, G,
 # Lq, Lk, D and the chunk offsets; then scale, causal and the stream.
 _P = ctypes.c_void_p
@@ -85,8 +95,10 @@ _ENTRIES = {
     "hvd_flash_bwd_dq": ("flash_bwd", [_P] * 11 + _FLASH_ARGS),
     "hvd_flash_bwd_dkv": ("flash_bwd", [_P] * 12 + _FLASH_ARGS),
     "hvd_flash_ring_fwd": ("flash_fwd", [_P] * 9 + _RING_ARGS),
-    "hvd_flash_ring_bwd_dq": ("flash_bwd", [_P] * 10 + _RING_ARGS),
-    "hvd_flash_ring_bwd_dkv": ("flash_bwd", [_P] * 11 + _RING_ARGS),
+    "hvd_flash_ring_bwd_dq": ("flash_bwd", [_P] * 8 + _RING_ARGS),
+    "hvd_flash_ring_bwd_dkv": ("flash_bwd", [_P] * 9 + _RING_ARGS),
+    # x, y, the two tables, strides; B, heads, L, D, off0, off1, len; stream
+    "hvd_rope_rotate": ("rope", [_P] * 5 + [ctypes.c_int] * 7 + [_P]),
 }
 # The forward kernels' TMA boxes: at most 64 bf16 columns (a head dim of
 # 128 is two boxes); 128 rows of K and V (a key tile), 64 rows of Q (one
@@ -556,6 +568,41 @@ def _empty_like_heads(q, heads):
                        device=q.device).transpose(1, 2)
 
 
+def rope_rotate(x, offset, rotary_base):
+    """q or k ``[B, heads, L, D]`` rotated at the global positions of a
+    shard (``shard_chunks`` offsets; ``(0,)``: 0..L-1): ``apply_rotary`` at
+    ``shard_positions``. On a CUDA tensor the rotary pass of ``rope.cu``
+    runs once over it and returns a new tensor laid out as ``[B, L, heads,
+    D]`` in memory, bit for bit ``apply_rotary`` of the bf16 values: a
+    float32 ``x`` is rounded to bf16 first and the bf16 result returned as
+    float32, the values the kernels that read it take."""
+    if _on_cpu("rope_rotate", x):
+        return apply_rotary(x, shard_positions(offset, x.shape[2], x.device),
+                            rotary_base)
+    return _rope_launch(x, offset, rotary_base).to(x.dtype)
+
+
+def _rope_launch(x, offset, rotary_base):
+    """The rotary pass over a CUDA tensor: a new bf16 tensor."""
+    B, heads, _, L, D = _check("rope_rotate", x, x, {"x": x})
+    (xb,) = _bf16(x)
+    y = _empty_like_heads(xb, heads)
+    _call("hvd_rope_rotate", x, xb.data_ptr(), y.data_ptr(),
+          *_rope_ptrs(_positions_end(offset, L), D, rotary_base, x.device),
+          _strides(xb, y), B, heads, L, D, *shard_chunks(offset, L))
+    rope_rotate.launches += 1
+    return y
+
+
+def _rope_qk(q, k, q_offset, kv_offset, rotary_base):
+    """q and k as the backward kernels read them (CUDA tensors): bf16,
+    rotated at their shards' positions by the rotary pass under rotary."""
+    if rotary_base is None:
+        return _bf16(q, k)
+    return (_rope_launch(q, q_offset, rotary_base),
+            _rope_launch(k, kv_offset, rotary_base))
+
+
 def flash_fwd(q, k, v, scale, causal, rotary_base=None):
     """K1: (out [B, H, L, D] in q's dtype, lse f32 [B, H, L])."""
     if _on_cpu("flash_fwd", q):
@@ -573,15 +620,24 @@ def flash_fwd(q, k, v, scale, causal, rotary_base=None):
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal, rotary_base=None):
-    """K2: dq [B, H, L, D] in q's dtype."""
+    """K2: dq [B, H, L, D] in q's dtype. Rotary on the card: q and k are
+    rotated first (``rope_rotate``), and K2_rot counter-rotates dQ."""
     if _on_cpu("flash_bwd_dq", q):
         return flash_bwd_dq_ref(q, k, v, dout, lse, delta, scale, causal,
                                 rotary_base)
+    return _bwd_dq(q, k, v, dout, lse, delta, scale, causal, rotary_base)
+
+
+def _bwd_dq(q, k, v, dout, lse, delta, scale, causal, rotary_base, qk=None):
+    """K2 on CUDA tensors; ``qk``: q and k as the kernel reads them
+    (``_rope_qk``), made here when not given."""
     B, H, G, L, D = _check("flash_bwd_dq", q, k,
                            {"q": q, "k": k, "v": v, "dout": dout},
                            (("lse", lse), ("delta", delta)))
     dq = _empty_like_heads(q, H)
-    qkvd = _bf16(q, k, v, dout)
+    if qk is None:
+        qk = _rope_qk(q, k, (0,), (0,), rotary_base)
+    qkvd = (*qk, *_bf16(v, dout))
     _launch("hvd_flash_bwd_dq", q,
             [t.data_ptr() for t in (*qkvd, lse, delta, dq)] +
             _rope_ptrs(L, D, rotary_base, q.device) +
@@ -594,16 +650,25 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal, rotary_base=None):
 def flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
                   rotary_base=None):
     """K3: (dk, dv) [B, G, L, D] in k's dtype, the GQA group summed in the
-    kernel."""
+    kernel. Rotary on the card: q and k are rotated first
+    (``rope_rotate``), and K3_rot counter-rotates dK."""
     if _on_cpu("flash_bwd_dkv", q):
         return flash_bwd_dkv_ref(q, k, v, dout, lse, delta, scale, causal,
                                  rotary_base)
+    return _bwd_dkv(q, k, v, dout, lse, delta, scale, causal, rotary_base)
+
+
+def _bwd_dkv(q, k, v, dout, lse, delta, scale, causal, rotary_base,
+             qk=None):
+    """K3 on CUDA tensors; ``qk`` as in ``_bwd_dq``."""
     B, H, G, L, D = _check("flash_bwd_dkv", q, k,
                            {"q": q, "k": k, "v": v, "dout": dout},
                            (("lse", lse), ("delta", delta)))
     dk = _empty_like_heads(k, G)
     dv = _empty_like_heads(k, G)
-    qkvd = _bf16(q, k, v, dout)
+    if qk is None:
+        qk = _rope_qk(q, k, (0,), (0,), rotary_base)
+    qkvd = (*qk, *_bf16(v, dout))
     _launch("hvd_flash_bwd_dkv", q,
             [t.data_ptr() for t in (*qkvd, lse, delta, dk, dv)] +
             _rope_ptrs(L, D, rotary_base, q.device) +
@@ -646,18 +711,21 @@ def _check_ring(what, q, k, tensors, rows=(), q_state=(), kv_state=()):
     return B, H, G, Lq, Lk, D
 
 
+def _positions_end(offset, L):
+    """One past the last global position of a shard of length ``L``
+    (``shard_chunks`` offsets): the rows its rotary tables need."""
+    off0, off1, n = shard_chunks(offset, L)
+    return off1 + L - n
+
+
 def _ring_call(name, q, tensors, maps, dims, q_offset, kv_offset, scale,
-               causal, rotary_base):
+               causal, rope=()):
     """Launches ring step ``name`` on ``tensors`` (bf16 inputs, f32 rows
-    and state) through ``maps``, with the shards' chunk offsets and, for
-    rotary, tables up to their last global position."""
-    qc, kc = shard_chunks(q_offset, dims[3]), shard_chunks(kv_offset, dims[4])
-    chunks = (ctypes.c_int * 6)(*qc, *kc)
-    # tables for positions 0..n-1: a shard (off0, off1, len) of length L
-    # ends at position off1 + L - len - 1
-    n = max(c[1] + L - c[2] for c, L in ((qc, dims[3]), (kc, dims[4])))
-    _call(name, q, *[t.data_ptr() for t in tensors],
-          *_rope_ptrs(n, dims[5], rotary_base, q.device), maps, *dims,
+    and state) through ``maps``, with the shards' chunk offsets and (K4)
+    the two rotary table pointers ``rope``."""
+    chunks = (ctypes.c_int * 6)(*shard_chunks(q_offset, dims[3]),
+                                *shard_chunks(kv_offset, dims[4]))
+    _call(name, q, *[t.data_ptr() for t in tensors], *rope, maps, *dims,
           chunks, float(scale), int(bool(causal)))
 
 
@@ -677,8 +745,11 @@ def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal,
     dims = _check_ring("flash_ring_step", q, k, {"q": q, "k": k, "v": v},
                        rows=(("m", m), ("l", l)), q_state=(("o", o),))
     qkv = _bf16(q, k, v)
+    n = max(_positions_end(q_offset, dims[3]),
+            _positions_end(kv_offset, dims[4]))
     _ring_call("hvd_flash_ring_fwd", q, (*qkv, o, m, l), _fwd_maps(*qkv),
-               dims, q_offset, kv_offset, scale, causal, rotary_base)
+               dims, q_offset, kv_offset, scale, causal,
+               _rope_ptrs(n, dims[5], rotary_base, q.device))
     _count(flash_ring_step, rotary_base)
     return o, m, l
 
@@ -688,7 +759,9 @@ def flash_ring_bwd_dq(q, k, v, dout, lse, delta, dq, q_offset, kv_offset,
     """K5: adds this step's dQ contribution to the f32 accumulator dq
     [B, H, Lq, D] IN PLACE and returns it (in rotated space under rotary).
     lse (the whole ring's, natural log) and delta = rowsum(dO * O) are f32
-    [B, H, Lq]."""
+    [B, H, Lq]. Rotary on the card: q and k are rotated first
+    (``rope_rotate``) and K5 runs on the copies; a ring that runs many
+    steps rotates once and calls this without ``rotary_base``."""
     if _on_cpu("flash_ring_bwd_dq", q):
         return dq.copy_(flash_ring_bwd_dq_ref(q, k, v, dout, lse, delta, dq,
                                               q_offset, kv_offset, scale,
@@ -697,10 +770,11 @@ def flash_ring_bwd_dq(q, k, v, dout, lse, delta, dq, q_offset, kv_offset,
                        {"q": q, "k": k, "v": v, "dout": dout},
                        rows=(("lse", lse), ("delta", delta)),
                        q_state=(("dq", dq),))
-    qkvd = _bf16(q, k, v, dout)
+    qkvd = (*_rope_qk(q, k, q_offset, kv_offset, rotary_base),
+            *_bf16(v, dout))
     maps = _bwd_maps(*qkvd, dkv=False)
     _ring_call("hvd_flash_ring_bwd_dq", q, (*qkvd, lse, delta, dq), maps,
-               dims, q_offset, kv_offset, scale, causal, rotary_base)
+               dims, q_offset, kv_offset, scale, causal)
     _count(flash_ring_bwd_dq, rotary_base)
     return dq
 
@@ -709,7 +783,8 @@ def flash_ring_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, q_offset,
                        kv_offset, scale, causal, rotary_base=None):
     """K6: adds this step's dK, dV contribution (the GQA group summed in
     the kernel) to the f32 accumulators dk, dv [B, G, Lk, D] IN PLACE and
-    returns them (dk in rotated space under rotary)."""
+    returns them (dk in rotated space under rotary; q and k rotated first,
+    as in K5)."""
     if _on_cpu("flash_ring_bwd_dkv", q):
         new = flash_ring_bwd_dkv_ref(q, k, v, dout, lse, delta, dk, dv,
                                      q_offset, kv_offset, scale, causal,
@@ -719,10 +794,11 @@ def flash_ring_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, q_offset,
                        {"q": q, "k": k, "v": v, "dout": dout},
                        rows=(("lse", lse), ("delta", delta)),
                        kv_state=(("dk", dk), ("dv", dv)))
-    qkvd = _bf16(q, k, v, dout)
+    qkvd = (*_rope_qk(q, k, q_offset, kv_offset, rotary_base),
+            *_bf16(v, dout))
     maps = _bwd_maps(*qkvd, dkv=True)
     _ring_call("hvd_flash_ring_bwd_dkv", q, (*qkvd, lse, delta, dk, dv),
-               maps, dims, q_offset, kv_offset, scale, causal, rotary_base)
+               maps, dims, q_offset, kv_offset, scale, causal)
     _count(flash_ring_bwd_dkv, rotary_base)
     return dk, dv
 
@@ -732,29 +808,34 @@ KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_ring_step,
 
 
 def launch_counts():
-    """{wrapper: launches} and {wrapper + "_rot": launches of its rotary
-    instantiation}."""
+    """{wrapper: launches}, {wrapper + "_rot": its launches with
+    ``rotary_base``} and {"rope_rotate": launches of the rotary pass}."""
     counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
     counts.update({fn.__name__ + "_rot": fn.rot_launches
                    for fn in KERNEL_WRAPPERS})
+    counts["rope_rotate"] = rope_rotate.launches
     return counts
 
 
 def reset_launch_counts():
     for fn in KERNEL_WRAPPERS:
         fn.launches = fn.rot_launches = 0
+    rope_rotate.launches = 0
 
 
 reset_launch_counts()
 
 
 def flash_backward(q, k, v, out, lse, dout, scale, causal, rotary_base=None):
-    """delta, then K2 and K3: (dq, dk, dv)."""
-    delta = _delta(out, dout)
-    dq = flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal, rotary_base)
-    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
-                           rotary_base)
-    return dq, dk, dv
+    """delta, then K2 and K3: (dq, dk, dv). Rotary on the card: q and k are
+    rotated once (``rope_rotate``, one pass each) and both kernels read
+    the copies."""
+    args = (q, k, v, dout, lse, _delta(out, dout), scale, causal,
+            rotary_base)
+    if not q.is_cuda:
+        return (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+    qk = _rope_qk(q, k, (0,), (0,), rotary_base)
+    return (_bwd_dq(*args, qk), *_bwd_dkv(*args, qk))
 
 
 class _FlashFn(torch.autograd.Function):

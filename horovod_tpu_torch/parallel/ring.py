@@ -14,11 +14,14 @@ one kernel on the rank's q shard and the k/v shard it holds:
   K6 adds dK and dV to f32 accumulators that travel with their k/v shard,
   so after n steps each shard's gradient is back on its home rank.
 
-Fused rotary (``rotary_base=``): K4-K6 rotate q and k at the shards'
-global positions. K5 and K6 keep dq and dk in rotated space, since their
-sums carry across steps; ``_counter_rotate`` turns them back once after the
-last step, dq by the rank's q positions and dk by its home shard's
-positions (it has travelled the whole ring).
+Fused rotary (``rotary_base=``): K4 rotates q and k at the shards'
+global positions as it loads them. The backward ring rotates its q shard
+and its home k shard once, before the loop (``rope_rotate``: one pass
+each), and the rotated k travels the ring with v, so K5 and K6 run
+without rotary on rotated operands. They keep dq and dk in rotated space,
+since their sums carry across steps; ``_counter_rotate`` turns them back
+once after the last step, dq by the rank's q positions and dk by its home
+shard's positions (it has travelled the whole ring).
 
 On CPU tensors the same loop calls the steps' plain versions (the JAX
 package's separate jnp ring is not needed: the kernels take any length and
@@ -48,6 +51,7 @@ from horovod_tpu_torch.ops.flash_attention import (_delta, _kernel_layout,
                                                    flash_ring_bwd_dkv,
                                                    flash_ring_bwd_dq,
                                                    flash_ring_step,
+                                                   rope_rotate,
                                                    shard_positions)
 from horovod_tpu_torch.parallel.mesh import axis_group
 
@@ -142,7 +146,11 @@ def _ring_backward(q, k, v, out, lse, dout, group, causal, scale, schedule,
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
     q_off = _schedule_offsets(schedule, idx, n, Lq)
-    k_dtype, v_dtype = k.dtype, v.dtype
+    home = _schedule_offsets(schedule, idx, n, Lk)
+    q_dtype, k_dtype, v_dtype = q.dtype, k.dtype, v.dtype
+    if rotary_base is not None:  # once: every step reads the same rotation
+        q = rope_rotate(q, q_off, rotary_base)
+        k = rope_rotate(k, home, rotary_base)
     if n > 1:
         k, v = k.contiguous(), v.contiguous()
     grads = None  # the dk/dv hop in flight
@@ -153,12 +161,12 @@ def _ring_backward(q, k, v, out, lse, dout, group, causal, scale, schedule,
         kv_off = _schedule_offsets(schedule, src, n, Lk)
         if runs:
             flash_ring_bwd_dq(q, k, v, dout, lse, delta, dq, q_off, kv_off,
-                              scale, causal, rotary_base)
+                              scale, causal)
         if grads is not None:
             dk, dv = grads.wait()
         if runs:
             flash_ring_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, q_off,
-                               kv_off, scale, causal, rotary_base)
+                               kv_off, scale, causal)
         # dk/dv ride the ring with their k/v shard; the n-th hop takes them
         # home.
         grads = _Exchange((dk, dv), group, n, idx) if n > 1 else None
@@ -167,10 +175,8 @@ def _ring_backward(q, k, v, out, lse, dout, group, causal, scale, schedule,
     if grads is not None:
         dk, dv = grads.wait()
     if rotary_base is not None:
-        dq, dk = _counter_rotate(dq, dk, q_off,
-                                 _schedule_offsets(schedule, idx, n, Lk),
-                                 rotary_base)
-    return dq.to(q.dtype), dk.to(k_dtype), dv.to(v_dtype)
+        dq, dk = _counter_rotate(dq, dk, q_off, home, rotary_base)
+    return dq.to(q_dtype), dk.to(k_dtype), dv.to(v_dtype)
 
 
 class _RingFn(torch.autograd.Function):

@@ -10,7 +10,9 @@ kernels, the other head dims, float32 inputs, GQA, MQA, ragged lengths
 (one short of and one past the forward's 128-row tiles and the backward's
 32-, 64- and 192-row tiles), a strided dout view, zigzag chunks that a
 tile straddles, grids of many blocks at small sizes, and fused rotary in
-K1-K6 (every head dim, ragged lengths, GQA, zigzag chunks), and for the BN
+K1-K6 (every head dim, ragged lengths, GQA, zigzag chunks) with the rotary
+pass that the backward kernels read (bit for bit its plain version), and
+for the BN
 statistics kernels ragged M and C, both dtypes, mixed dy and x, layouts
 they refuse, and run-to-run determinism.
 """
@@ -258,6 +260,91 @@ def test_rotary_kernels_match_plain_versions(cuda, B, H, G, L, D, causal,
     assert all(after[n + "_rot"] == before[n + "_rot"] +
                (1 if n == "flash_fwd" else 2) and after[n] == before[n]
                for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((2, 6, 8192, 128), (0,)),             # the lc launch's q
+    ((2, 6, 8192, 128), (4096, 12288)),    # a 2-rank zigzag shard of it
+    ((2, 2, 8192, 128), (0,)),             # the lc launch's k
+    ((1, 6, 333, 128), (0,)),              # ragged L
+    ((1, 6, 333, 128), (5000,)),           # ragged L, one chunk past 0
+    ((1, 6, 334, 128), (167, 501)),        # ragged zigzag chunks
+    ((3, 4, 100, 64), (40, 200)),
+    ((2, 1, 72, 32), (0,)),
+])
+@pytest.mark.parametrize("layout", ["model", "contiguous"])
+def test_rope_rotate_equals_plain_bit_for_bit(cuda, shape, offset, layout):
+    """The rotary pass against ``apply_rotary`` at the shard's positions on
+    the same bf16 values: every element equal (both round each product and
+    the sum apart and the result once). ``model``: a [B, heads, L, D] view
+    of [B, L, heads, D] activations; ``contiguous``: [B, heads, L, D]."""
+    B, heads, L, D = shape
+    g = torch.Generator(device=cuda).manual_seed(31)
+    if layout == "model":
+        x = torch.randn(B, L, heads, D, generator=g, device=cuda).to(
+            torch.bfloat16).transpose(1, 2)
+    else:
+        x = torch.randn(B, heads, L, D, generator=g, device=cuda).to(
+            torch.bfloat16)
+    before = fa.launch_counts()["rope_rotate"]
+    got = fa.rope_rotate(x, offset, ROPE)
+    want = fa.apply_rotary(x, fa.shard_positions(offset, L, cuda), ROPE)
+    torch.cuda.synchronize()
+    assert fa.launch_counts()["rope_rotate"] == before + 1
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    assert not torch.equal(got, x)
+
+
+def test_rope_rotate_takes_float32_and_refuses_what_it_cannot(cuda):
+    """float32 in: rotated as its bf16 rounding, returned as float32;
+    float16, a head dim of 48 and a strided last dim raise."""
+    x = torch.randn(1, 2, 40, 64, device=cuda)
+    got = fa.rope_rotate(x, (0,), ROPE)
+    bf = x.to(torch.bfloat16)
+    want = fa.apply_rotary(bf, torch.arange(40, device=cuda), ROPE)
+    assert got.dtype == torch.float32 and torch.equal(got, want.float())
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.rope_rotate(x.half(), (0,), ROPE)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.rope_rotate(x[..., :48].contiguous(), (0,), ROPE)
+    with pytest.raises(ValueError, match="strides"):
+        fa.rope_rotate(bf[..., ::2], (0,), ROPE)
+
+
+@pytest.mark.parametrize("B,H,G,L,D", [
+    (2, 6, 2, 1000, 128),    # GQA 3, L not a multiple of any tile
+    (1, 4, 4, 256, 64),
+    (2, 4, 1, 130, 32),      # MQA
+])
+def test_rotary_backward_rotates_once(cuda, B, H, G, L, D):
+    """flash_backward with rotary (the model's backward): one rotary pass
+    over q and one over k, then K2_rot and K3_rot on the copies, against
+    the rotary plain versions on the same bf16 values, on K1_rot's own
+    out and lse."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+
+    def rnd(heads):
+        return torch.randn(B, L, heads, D, generator=g, device=cuda
+                           ).to(torch.bfloat16).transpose(1, 2)
+    q, k, v, dout = rnd(H), rnd(G), rnd(G), rnd(H)
+    scale = D ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, scale, True, ROPE)
+    delta = fa._delta(out, dout)
+    refs = (fa.flash_bwd_dq_ref(q, k, v, dout, lse, delta, scale, True,
+                                ROPE),
+            *fa.flash_bwd_dkv_ref(q, k, v, dout, lse, delta, scale, True,
+                                  ROPE))
+    before = fa.launch_counts()
+    grads = fa.flash_backward(q, k, v, out, lse, dout, scale, True, ROPE)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]
+            } == {"rope_rotate": 2, "flash_bwd_dq_rot": 1,
+                  "flash_bwd_dkv_rot": 1}
+    for name, a, b in zip(("dq", "dk", "dv"), grads, refs):
+        assert a.dtype == torch.bfloat16 and _rel(a, b) <= REL_TOL, (
+            name, _rel(a, b))
 
 
 def test_rotary_flash_attention_autograd_on_the_gpu(cuda):

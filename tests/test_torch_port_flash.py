@@ -207,6 +207,83 @@ def test_rotary_flash_attention_and_grads_match_jax(B, L, H, G, D):
                                    rtol=BWD_TOL, atol=BWD_TOL, err_msg=name)
 
 
+# (label, shard offsets, L): one chunk at 0; one rank holding the whole
+# sequence as its two zigzag chunks, the (0, 4096) of the long-context ring
+# at a small L; rank 0 of a 2-rank zigzag over 192 positions; one ragged
+# chunk past 0; ragged zigzag chunks of 45
+ROPE_SHARDS = [("contiguous", (0,), 96), ("one-rank-zigzag", (0, 48), 96),
+               ("zigzag", (0, 144), 96), ("ragged", (300,), 77),
+               ("ragged-zigzag", (45, 135), 90)]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("shard", ROPE_SHARDS, ids=lambda s: s[0])
+def test_rope_rotate_matches_jax_apply_rotary(shard, D):
+    """The rotary pass's plain version (its wrapper on CPU tensors) against
+    JAX ``apply_rotary`` at JAX ``shard_positions``, on [B, heads, L, D]
+    views of the model's [B, L, heads, D] activations."""
+    from horovod_tpu.ops.flash_attention import \
+        shard_positions as jax_shard_positions
+    _, offset, L = shard
+    rng = np.random.RandomState(21)
+    x = rng.randn(2, L, 3, D).astype(np.float32)
+    off = offset[0] if len(offset) == 1 else np.asarray(offset, np.int32)
+    pos = np.asarray(jax_shard_positions(off, L))
+    np.testing.assert_array_equal(fa.shard_positions(offset, L).numpy(), pos)
+    xt = np.transpose(x, (0, 2, 1, 3))
+    ref = jax_apply_rotary(jnp.asarray(xt), jnp.asarray(pos)[None, None],
+                           ROPE)
+    got = fa.rope_rotate(torch.from_numpy(x).transpose(1, 2), offset, ROPE)
+    assert got.shape == xt.shape
+    # cos/sin of the same f32 angles from two libraries (as in
+    # test_apply_rotary_matches_jax)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("L,causal", [(200, True), (136, False)])
+def test_backward_on_rotated_operands_is_the_rotary_backward(L, causal):
+    """What the card's rotary backward does: q and k rotated once by the
+    rotary pass, K2 and K3 without rotary on them, dQ and dK counter-rotated
+    (the epilogue of K2_rot and K3_rot). In plain versions, on the CPU, it
+    equals the rotary plain versions of K2 and K3 (the same f32 operations:
+    1e-6) and JAX's Pallas K2 and K3 with ``rotary_base`` in interpret mode
+    (BWD_TOL). GQA 3, D = 128, L not a multiple of 64 (JAX takes the whole
+    sequence as one block)."""
+    B, H, G, D = 1, 6, 2, 128
+    q, k, v, g = _inputs(B, H, G, L, D, seed=22)
+    scale = D ** -0.5
+    tq, tk, tv, tg = _t(q, k, v, g)
+    out, lse = fa.flash_forward_ref(tq, tk, tv, scale, causal, ROPE)
+    delta = fa._delta(out, tg)
+    qr, kr = fa.rope_rotate(tq, (0,), ROPE), fa.rope_rotate(tk, (0,), ROPE)
+    pos = torch.arange(L)
+    dq = fa.apply_rotary(fa.flash_bwd_dq_ref(qr, kr, tv, tg, lse, delta,
+                                             scale, causal), pos, ROPE,
+                         neg=True)
+    dk, dv = fa.flash_bwd_dkv_ref(qr, kr, tv, tg, lse, delta, scale, causal)
+    dk = fa.apply_rotary(dk, pos, ROPE, neg=True)
+    want = (fa.flash_bwd_dq_ref(tq, tk, tv, tg, lse, delta, scale, causal,
+                                ROPE),
+            *fa.flash_bwd_dkv_ref(tq, tk, tv, tg, lse, delta, scale, causal,
+                                  ROPE))
+    with jax.default_matmul_precision("highest"):
+        qj, kj, vj = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+        blocks = dict(block_q=L * H // G, block_k=L)
+        out_j, lse_j = _pallas_forward_lse(qj, kj, vj, scale, causal,
+                                           interpret=True, rotary_base=ROPE,
+                                           **blocks)
+        grads_j = _pallas_backward(qj, kj, vj, out_j, lse_j, jnp.asarray(g),
+                                   scale, causal, interpret=True,
+                                   rotary_base=ROPE, **blocks)
+    for name, a, b, c in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
+                             grads_j):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=BWD_TOL,
+                                   atol=BWD_TOL, err_msg=name)
+
+
 def test_rope_tables_match_jax():
     """The kernels' half-width tables against the JAX kernels' full-width
     ones (C = [cos | cos], S = [-sin | sin]), and the cache: one table per
@@ -284,10 +361,13 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     rk, rv = fa.flash_bwd_dkv_ref(q, k, v, g, lse, delta, 0.25, True)
     assert torch.equal(dk, rk) and torch.equal(dv, rv)
     fa.flash_fwd(q, k, v, 0.25, True, rotary_base=10000.0)
+    fa.flash_backward(q, k, v, out, lse, g, 0.25, True, rotary_base=10000.0)
+    assert torch.equal(fa.rope_rotate(q, (0,), 10000.0),
+                       fa.apply_rotary(q, torch.arange(64), 10000.0))
     names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_ring_step",
              "flash_ring_bwd_dq", "flash_ring_bwd_dkv")
-    assert fa.launch_counts() == {n + rot: 0 for n in names
-                                  for rot in ("", "_rot")}
+    assert fa.launch_counts() == dict(
+        {n + rot: 0 for n in names for rot in ("", "_rot")}, rope_rotate=0)
 
 
 def test_other_devices_raise():

@@ -48,6 +48,7 @@ from horovod_tpu_torch.models import Transformer, TransformerConfig
 from horovod_tpu_torch.parallel import (axis_group, hybrid_mesh,
                                         ring_attention, zigzag_shard,
                                         zigzag_unshard)
+from horovod_tpu_torch.parallel.ring import _schedule_offsets
 
 fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
 
@@ -312,6 +313,29 @@ def test_ring_attention_matches_jax(ranks, case, monkeypatch):
         got = torch.cat([r[case][key] for r in ranks[n]], dim=1).numpy()
         np.testing.assert_allclose(got, ref, rtol=tol, atol=tol,
                                    err_msg=key)
+
+
+def test_rotary_ring_backward_rotates_q_and_k_once(ranks):
+    """Under rotary the backward ring rotates its q shard and its home k
+    shard once each, at the rank's own offsets (``rope_rotate``, before the
+    loop), and runs every K5 and K6 step without rotary on those copies (the
+    rotated k travels with v); K4 still rotates inside at every step. The
+    values and gradients of the same runs are held against JAX in
+    ``test_ring_attention_matches_jax``."""
+    for case in worker.ROTARY_CASES:
+        n, B, L, H, G, D, _, schedule, _ = worker.ring_case(case)
+        Ls = L // n
+        for r, got in enumerate(ranks[n]):
+            off = _schedule_offsets(schedule, r, n, Ls)
+            assert got[case]["rope_rotate"] == [((B, H, Ls, D), off),
+                                                ((B, G, Ls, D), off)], (
+                case, r)
+            calls, rot = got[case]["calls"], got[case]["rotary_calls"]
+            assert calls["flash_ring_bwd_dq_ref"] > 0, (case, r)
+            assert rot == {"flash_ring_step_ref":
+                           calls["flash_ring_step_ref"],
+                           "flash_ring_bwd_dq_ref": 0,
+                           "flash_ring_bwd_dkv_ref": 0}, (case, r)
 
 
 def test_contiguous_causal_ring_skips_future_shards(ranks):

@@ -21,9 +21,17 @@ K6 and K5 + K6 on the lse of the tree's own K4 and delta from its state:
   k/v at 0 (every tile visible), beside SDPA's backward without the mask.
 
 The timed repeats add into the same f32 sums: the same tiles run. Last,
-K2 and K3 at the lc phase's launch, [2, 6, 8192, 128] with 2 kv heads,
-causal, and, where the tree has fused rotary, K2_rot and K3_rot there and
-K5_rot and K6_rot at the sp launch.
+at the lc phase's launch, [2, 6, 8192, 128] with 2 kv heads, causal: K2
+and K3, and, where the tree has fused rotary, K2_rot and K3_rot through
+their wrappers (``k2_rot_lc_ms``, ``k3_rot_lc_ms``: a tree with the rotary
+pass rotates q and k in each call) and the model's whole backward
+``flash_backward`` with and without rotary (``bwd_rot_lc_ms``,
+``bwd_lc_ms``: delta, any rotation, K2 and K3); K5_rot and K6_rot at the sp
+launch; and K5 and K6 at the lc_sp phase's launch (the lc widths, zigzag
+chunks (0, 4096) on one rank) without rotary and with it through their
+wrappers, and the rotary ring's backward there (``ring_rot_lcsp_ms``: a
+tree with the rotary pass rotates q and k once and runs K5 and K6 on them,
+as parallel/ring.py does; an older tree runs K5_rot and K6_rot).
 
 Prints one ``AB {...}`` JSON line a run and the card's name and power limit.
 """
@@ -98,7 +106,50 @@ def one(root, label):
             lambda: fa.flash_bwd_dq(*args, **rb))
         res["k3%s_lc_ms" % tag] = cs.time_ms(
             lambda: fa.flash_bwd_dkv(*args, **rb))
+        res["bwd%s_lc_ms" % tag] = cs.time_ms(lambda: fa.flash_backward(
+            q, k, v, out, lse, dout, scale, True, **rb))
+        del out, lse, delta, args
+    if ab.rotary(fa):
+        res.update(lc_sp(cs, fa, q, k, v, dout, scale))
     print("AB " + json.dumps(res), flush=True)
+
+
+def lc_sp(cs, fa, q, k, v, dout, scale):
+    """K5 and K6 at the lc_sp launch, without and with rotary, and the
+    rotary ring's backward there, on the lse of the tree's own K4_rot."""
+    import torch
+    rb, offs = 10000.0, (0, q.shape[2] // 2)
+    o = torch.zeros(q.shape, device="cuda")
+    m = torch.full(q.shape[:3], float("-inf"), device="cuda")
+    l = torch.zeros(q.shape[:3], device="cuda")
+    fa.flash_ring_step(q, k, v, o, m, l, offs, offs, scale, True, rb)
+    lse = m + torch.log(l)
+    delta = fa._delta((o / l[..., None]).to(q.dtype), dout)
+    dq = torch.zeros(q.shape, device="cuda")
+    dk, dv = (torch.zeros(k.shape, device="cuda") for _ in range(2))
+    ring = (offs, offs, scale, True)
+
+    def k5(qq, kk, *rot):
+        fa.flash_ring_bwd_dq(qq, kk, v, dout, lse, delta, dq, *ring, *rot)
+
+    def k6(qq, kk, *rot):
+        fa.flash_ring_bwd_dkv(qq, kk, v, dout, lse, delta, dk, dv, *ring,
+                              *rot)
+
+    def ring_rot():
+        if hasattr(fa, "rope_rotate"):  # rotated once, K5 and K6 on them
+            qr, kr = fa.rope_rotate(q, offs, rb), fa.rope_rotate(k, offs, rb)
+            k5(qr, kr)
+            k6(qr, kr)
+        else:
+            k5(q, k, rb)
+            k6(q, k, rb)
+    return {"k5_lcsp_ms": cs.time_ms(lambda: k5(q, k)),
+            "k6_lcsp_ms": cs.time_ms(lambda: k6(q, k)),
+            "k5_rot_lcsp_ms": cs.time_ms(lambda: k5(q, k, rb)),
+            "k6_rot_lcsp_ms": cs.time_ms(lambda: k6(q, k, rb)),
+            "ring_lcsp_ms": cs.time_ms(lambda: (k5(q, k), k6(q, k))),
+            "ring_rot_lcsp_ms": cs.time_ms(ring_rot)}
 
 
 if __name__ == "__main__":

@@ -11,7 +11,8 @@ ring's counter-rotation, its Python source), and runs
 phase that the faulty kernel is on (kernels and train for the flash
 kernels, bn_kernels and resnet for the BN kernels), or for the ring kernels
 the ring_kernels phase, whose 4-rank ring carries state and offsets that
-the one-rank sp phase does not. Every run must fail.
+the one-rank sp phase does not; for the rotary faults the kernels phase
+(or ring_kernels, for the ring's counter-rotation). Every run must fail.
 Prints the readings each run logged (errors against the plain versions,
 the gradient gaps, the first losses) and exits 1 if a planted fault passed
 a check.
@@ -113,6 +114,12 @@ FAULTS = {
         "p.rope, tc);\n",
         "    if (kRot && live && !kDkv) unrotate_rows<D>(acc1, row0, n_own, "
         "own_c, p.rope, tc);\n", ROT_PHASES),
+    # the rotary pass gives the rows of a zigzag shard's second chunk the
+    # positions that follow its first chunk (off0 + r): one chunk's are
+    # right, and so is a one-rank shard (0, L/2), whose chunks adjoin
+    "rope_zigzag_chunk0": (
+        "ops/csrc/rope.cu", "  int pos = pos_of(c, l);\n",
+        "  if (l >= c.len) pos = c.off0 + l;\n", ROT_PHASES),
     # the rotary ring counter-rotates dk as if its home shard were one chunk
     # at its first offset (zigzag shards go wrong; at one rank the sp
     # phase's (0, 4096) is the same as (0,), so the 4-rank ring must catch

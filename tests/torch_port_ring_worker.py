@@ -17,6 +17,7 @@ import torch.distributed as dist
 
 import horovod_tpu_torch as hvd
 import horovod_tpu_torch.ops.flash_attention  # noqa: F401
+import horovod_tpu_torch.parallel.ring  # noqa: F401
 import torch_port_bn_worker
 from horovod_tpu_torch.models import Transformer, TransformerConfig
 from horovod_tpu_torch.parallel import (hybrid_mesh, make_train_step,
@@ -24,6 +25,7 @@ from horovod_tpu_torch.parallel import (hybrid_mesh, make_train_step,
                                         zigzag_shard)
 
 fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
+ring_mod = sys.modules["horovod_tpu_torch.parallel.ring"]
 
 # name -> (ranks, B, global L, H, G, D, causal, schedule); the shapes of
 # tests/test_parallel.py's ring tests
@@ -41,6 +43,10 @@ ROTARY_CASES = {
     "n2-zigzag-rope": (2, 1, 512, 4, 2, 16, True, "zigzag"),
     "n4-contiguous-rope": (4, 1, 512, 2, 2, 16, True, "contiguous"),
     "n4-zigzag-rope": (4, 1, 1024, 2, 2, 16, True, "zigzag"),
+    # GQA 3 at a head dim of 32: the rotated k shards of 2 kv heads travel
+    # the ring under 6 query heads
+    "n2-zigzag-gqa3-rope": (2, 1, 512, 6, 2, 32, True, "zigzag"),
+    "n4-zigzag-gqa3-rope": (4, 1, 1024, 6, 2, 32, True, "zigzag"),
 }
 ROPE = 10000.0
 # name -> (ranks, B, global L, schedule): the ring Transformer
@@ -90,15 +96,22 @@ def shard(x, n, rank, schedule, axis=1):
 
 
 class _Counting:
-    """Counts the calls of a plain step version in its module."""
+    """Counts the calls of a function in its module (by default the plain
+    step versions in flash_attention) and keeps their positional
+    arguments."""
 
-    def __init__(self, name):
-        self.name, self.fn, self.calls = name, getattr(fa, name), 0
-        setattr(fa, name, self)
+    def __init__(self, name, module=fa):
+        self.name, self.module = name, module
+        self.fn, self.calls, self.args = getattr(module, name), 0, []
+        setattr(module, name, self)
 
     def __call__(self, *args):
         self.calls += 1
+        self.args.append(args)
         return self.fn(*args)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
 
 
 def run_ring(rank, size, store_path, out_dir):
@@ -114,17 +127,24 @@ def run_ring(rank, size, store_path, out_dir):
             if n != size:
                 continue
             counters = [_Counting(name) for name in COUNTED]
+            # the backward ring's rotary pass (one call per rotated shard)
+            rotations = _Counting("rope_rotate", ring_mod)
             q, k, v, w = (shard(torch.from_numpy(a), n, rank, schedule)
                           for a in ring_inputs(case))
             q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
             out = ring_attention(q, k, v, "sp", causal=causal,
                                  schedule=schedule, rotary_base=rope)
             (out * w).sum().backward()
-            got[case] = dict(out=out.detach(), dq=q.grad, dk=k.grad,
-                             dv=v.grad,
-                             calls={c.name: c.calls for c in counters})
-            for c in counters:
-                setattr(fa, c.name, c.fn)
+            got[case] = dict(
+                out=out.detach(), dq=q.grad, dk=k.grad, dv=v.grad,
+                calls={c.name: c.calls for c in counters},
+                # calls with a rotary base (the steps' last argument)
+                rotary_calls={c.name: sum(a[-1] is not None for a in c.args)
+                              for c in counters},
+                rope_rotate=[(tuple(a[0].shape), a[1])
+                             for a in rotations.args])
+            for c in counters + [rotations]:
+                c.restore()
         for case, (n, _, L, schedule) in LM_CASES.items():
             if n == size:
                 got[case] = run_lm(case, rank, size, out_dir)
