@@ -20,19 +20,23 @@ Phases, in order; any failure exits non-zero:
    version's lse and delta, and chained on K1's own lse and O. Times
    kernel, plain version and PyTorch's scaled_dot_product_attention
    forward and backward (a yardstick the port never calls) with CUDA
-   events. Then the rotary instantiations K1_rot-K3_rot the same way
-   (chained too) at the lc phase's launch (B=2, H=6, G=2, L=8192, D=128,
-   causal) and at an odd shape (B=1, H=6, G=2, L=333, D=128, full)
-   against the rotary plain versions on the same bf16 inputs, timed
-   beside the same launch without rotary and beside SDPA (enable_gqa) on
-   q and k rotated beforehand, the rotation's time apart. K2_rot and K3_rot
-   read q and k rotated by the rotary pass (``rope_rotate``, rope.cu):
-   checked through their wrappers (which rotate) and through
-   ``flash_backward`` (one rotation for both), timed alone on the rotated
-   copies, and together with the pass beside K2 and K3 without rotary.
-   The pass itself must equal its plain version (``apply_rotary`` at the
-   shard's positions) bit for bit on q and k at the lc launch, a 4-rank
-   zigzag shard and ragged lengths, and is timed at the lc launch.
+   events. Then K1-K3 with rotary the same way (chained too) at the lc
+   phase's launch (B=2, H=6, G=2, L=8192, D=128, causal) and at an odd
+   shape (B=1, H=6, G=2, L=333, D=128, full) against the rotary plain
+   versions on the same bf16 inputs, timed beside the same launch without
+   rotary and beside SDPA (enable_gqa) on q and k rotated beforehand, the
+   rotation's time apart. No mainloop rotates: the rotary pass
+   (``rope_rotate``, rope.cu) rotates q and k and the kernels read the
+   copies. K1_rot is checked and timed through its wrapper (the pass, then
+   K1); K2_rot and K3_rot (which counter-rotate dQ, dK) through their
+   wrappers and ``flash_backward`` (each with its own pass), timed alone
+   on the rotated copies; and ``flash_attention`` with rotary forward and
+   backward, whose forward must launch the pass twice and whose backward
+   (on the copies autograd kept) none. One layer's pass, K1, K2_rot and
+   K3_rot are timed beside K1-K3 without rotary. The pass itself must
+   equal its plain version (``apply_rotary`` at the shard's positions) bit
+   for bit on q and k at the lc launch, a 4-rank zigzag shard and ragged
+   lengths, and is timed at the lc launch.
 4. train: ``hvd.init()`` (a one-rank NCCL group), the GPT-2-small flash LM
    (vocab 32000, 12 layers, 12 x 64 heads, embed 768, MLP 3072, bf16 over
    f32 params) from a seeded generator, Adam(1e-4) in
@@ -79,15 +83,16 @@ Phases, in order; any failure exits non-zero:
    same block (the nearest yardstick, not the same function: it carries
    no state); and each kernel at the sp phase's own launch, [2, 12, 8192,
    64] causal with zigzag chunks (0, 4096), beside SDPA's causal forward
-   and backward at that shape. The zigzag ring at [2, 12, 8192, 64] and
-   the sp launch run again through the rotary instantiations K4_rot-K6_rot
-   (dQ and dK counter-rotated after the ring by ``ring._counter_rotate``,
-   the references rotary too), and so do a 4-rank zigzag ring and the
+   and backward at that shape. The sp launch, a 4-rank zigzag ring and the
    lc_sp phase's own launch at the lc model's widths (B=2, H=6, G=2,
-   L=8192, D=128; one rank: chunks (0, 4096)). K4-K6 with rotary are timed
-   at that launch as K1_rot-K3_rot, beside the same launches without
-   rotary, and the rotary ring's backward (the pass, then K5 and K6 on the
-   rotated q and k) beside K5 and K6 without rotary.
+   L=8192, D=128; one rank: chunks (0, 4096)) run again with rotary,
+   assembled as ``parallel.ring`` runs it: each rank's q shard and home k
+   shard rotated once by ``ring.rotate_shards``, K4-K6 without rotary on
+   the copies, dQ and dK counter-rotated after the ring by
+   ``ring._counter_rotate``, the whole-sequence references rotary. K4-K6
+   called through their wrappers with rotary (the pass, then the kernel)
+   are held against the rotary plain versions at the lc_sp launch, and
+   timed there as K1_rot-K3_rot, beside the same launches without rotary.
 8. sp: ``hvd.init()``, ``hybrid_mesh((1,), ("sp",))``, the GPT-2-small LM
    of the train phase with ``attention="ring"``, ``sp_axis="sp"``,
    ``sp_schedule="zigzag"``; a dict batch {tokens, positions, labels} of
@@ -110,12 +115,12 @@ Phases, in order; any failure exits non-zero:
    of 3 more (device busy and idle); then the same step on the same
    weights with ``rope_fused=False``, timed and profiled the same way.
    Checks finite, falling losses and 12 launches of each of K1_rot-K3_rot
-   and 24 of the rotary pass a step (K1-K3 and no pass in the unfused
-   run).
+   and 24 of the rotary pass a step, all 24 in the loss's forward and none
+   in its backward (K1-K3 and no pass in the unfused run).
 10. lc_sp: the lc model with ``attention="ring"`` (zigzag, one-rank "sp"
-   axis, ``shard_lm_loss``): 12 launches of K4_rot, 24 of the rotary pass
-   and 12 each of K5 and K6 (on the rotated q and k) a step, the first
-   loss and gradients at 1 x 8192 against the lc flash model.
+   axis, ``shard_lm_loss``): 24 launches of the rotary pass a step, all in
+   the forward, and 12 each of K4, K5 and K6 (on the rotated q and k), the
+   first loss and gradients at 1 x 8192 against the lc flash model.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -186,7 +191,7 @@ LC_MODEL = dict(vocab_size=32000, num_layers=12, num_heads=6, num_kv_heads=2,
 LC_BATCH, LC_GRAD_LEN = (2, 8192), 2048
 
 # wrapper name -> (source, TPU kernel it replaces, products per (q,k) pair);
-# "<name>_rot" is the wrapper's rotary instantiation (its own counter)
+# "<name>_rot" counts the wrapper's calls under rotary (its own counter)
 KERNELS = {
     "flash_fwd": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
                   "horovod_tpu/ops/flash_attention.py:170", 2),
@@ -206,7 +211,8 @@ KERNELS = {
                           "horovod_tpu/ops/flash_attention.py:620", 3),
     "flash_ring_bwd_dkv": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
                            "horovod_tpu/ops/flash_attention.py:673", 4),
-    # the rotary branches of the same TPU kernels
+    # the rotary branches of the same TPU kernels (K1_rot and K4_rot: the
+    # rotary pass, then K1 or K4 on the copies, RUNS)
     "flash_fwd_rot": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
                       "horovod_tpu/ops/flash_attention.py:201", 2),
     "flash_bwd_dq_rot": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -216,12 +222,16 @@ KERNELS = {
     "flash_ring_step_rot": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
                             "horovod_tpu/ops/flash_attention.py:470", 2),
     # the rotation those branches apply to q and k (_rot_apply), done once
-    # a layer for the backward: K2_rot and K3_rot, and K5 and K6 in the
-    # rotary ring (which have no rotary instantiation), read its output;
+    # a layer in the forward: K1, or the ring's K4 steps, read its output,
+    # and autograd keeps it for K2_rot and K3_rot, or the ring's K5 and K6;
     # f32 operations an element: two products and a sum
     "rope_rotate": ("horovod_tpu_torch/ops/csrc/rope.cu",
                     "horovod_tpu/ops/flash_attention.py:93", 3),
 }
+# what the rotary forward wrappers launch: the pass over q and k, then the
+# kernel without rotary on the copies (on the lc_sp path the ring rotates
+# once a layer and its steps count as flash_ring_step)
+RUNS = {"flash_fwd_rot": "pass + K1", "flash_ring_step_rot": "pass + K4"}
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 BN = ("batch_norm_stats", "batch_norm_grad_stats")
 RING = ("flash_ring_step", "flash_ring_bwd_dq", "flash_ring_bwd_dkv")
@@ -427,6 +437,31 @@ def check_kernels(shape, seed, timed, rotary=None):
             for key, val in r.items():
                 rows[kname]["backward_" + key] = val
         del dq, dk, dv
+        # the model's path: flash_attention rotates q and k once in its
+        # forward (the pass, then K1 on the copies), its autograd keeps the
+        # copies, and its backward launches K2_rot and K3_rot on them and no
+        # pass
+        leaves = [t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v)]
+        passes = fa.launch_counts()[ROPE]
+        out_a = fa.flash_attention(*leaves, causal=causal, scale=scale,
+                                   rotary_base=rb)
+        torch.cuda.synchronize()
+        mid = fa.launch_counts()[ROPE]
+        grads = [t.transpose(1, 2) for t in torch.autograd.grad(
+            out_a, leaves, dout.transpose(1, 2))]
+        torch.cuda.synchronize()
+        rows[ROPE + "_autograd"] = dict(
+            forward_passes=mid - passes,
+            backward_passes=fa.launch_counts()[ROPE] - mid)
+        for kname, r in (("flash_fwd" + sfx,
+                          row([(out_a.transpose(1, 2), out_ref)])),
+                         ("flash_bwd_dq" + sfx, row([(grads[0], dq_ref)])),
+                         ("flash_bwd_dkv" + sfx, row([(grads[1], dk_ref),
+                                                      (grads[2], dv_ref)]))):
+            for key, val in r.items():
+                rows[kname]["autograd_" + key] = val
+        del leaves, out_a, grads
     del dq_ref, dk_ref, dv_ref
 
     if timed:
@@ -517,11 +552,11 @@ def check_rope(seed):
 
 def rope_timings(q, k, v, dout, lse, delta, scale, causal, rb):
     """The rotary pass at the lc launch: q and k (its two launches a
-    layer's backward), its plain version on the same tensors, its bound
+    layer's forward), its plain version on the same tensors, its bound
     (bytes: q and k read and written once, the tables of their positions
-    read once); and the backward's rotary pair with the pass
-    (``pass_pair_ms``: the pass, K2_rot and K3_rot, as flash_backward
-    runs them) beside K2 and K3 without rotary (``norot_pair_ms``)."""
+    read once); and one layer's attention kernels as the model launches
+    them (``layer_ms``: the pass, then K1, K2_rot and K3_rot on the
+    copies) beside K1, K2 and K3 without rotary (``norot_layer_ms``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
@@ -558,15 +593,15 @@ def rope_timings(q, k, v, dout, lse, delta, scale, causal, rb):
                                     else (t_bytes, "bytes"))
     r["library"] = ("none: no one PyTorch call computes the rotation "
                     "(ms covers q and k, the pass's two launches)")
-    args = (q, k, v, dout, lse, delta, scale, causal)
-
-    def pair():
-        qk = fa._rope_qk(q, k, (0,), (0,), rb)
-        fa._bwd_dq(*args, rb, qk)
-        fa._bwd_dkv(*args, rb, qk)
-    r["pass_pair_ms"] = time_ms(pair)
-    r["norot_pair_ms"] = time_ms(lambda: (fa.flash_bwd_dq(*args),
-                                          fa.flash_bwd_dkv(*args)))
+    def layer(base):
+        qr, kr = fa._rotated(q, k, base)
+        qk = fa._bf16(qr, kr)
+        args = (qr, kr, v, dout, lse, delta, scale, causal, base, qk)
+        fa._fwd(qr, kr, v, scale, causal, base, qk)
+        fa._bwd_dq(*args)
+        fa._bwd_dkv(*args)
+    r["layer_ms"] = time_ms(lambda: layer(rb))
+    r["norot_layer_ms"] = time_ms(lambda: layer(None))
     return r
 
 
@@ -635,6 +670,17 @@ def phase_kernels():
     library = slice_rows.pop("library")
     rope_row, bad = check_rope(seed=5)
     slice_rows[ROPE].update(rope_row)
+    for label, rows in (("slice", slice_rows), ("odd", odd_rows)):
+        passes = rows.pop(ROPE + "_autograd")
+        log("flash_attention with rotary at the %s shape: %d launches of the "
+            "pass in the forward, %d in the backward" % (
+                label, passes["forward_passes"], passes["backward_passes"]))
+        if passes != dict(forward_passes=2, backward_passes=0):
+            bad.append("flash_attention with rotary at the %s shape launched "
+                       "the pass %d times in its forward and %d in its "
+                       "backward, not 2 and 0" % (
+                           label, passes["forward_passes"],
+                           passes["backward_passes"]))
     torch.cuda.empty_cache()
     for name in FLASH + FLASH_ROT:
         for label, rows in (("slice", slice_rows), ("odd", odd_rows)):
@@ -662,11 +708,11 @@ def phase_kernels():
                 r["plain_ms"], r["library_ms"], r["rotate_ms"]))
     r = slice_rows[ROPE]
     log("%s of q and k at %s: %.4f ms on the device, %.4f between events "
-        "(bound %.4f by %s, plain %.3f); the pass with K2_rot and K3_rot "
-        "%.4f ms, K2 and K3 without rotary %.4f (%.3fx)" % (
+        "(bound %.4f by %s, plain %.3f); a layer's pass, K1, K2_rot and "
+        "K3_rot %.4f ms, K1-K3 without rotary %.4f (%.3fx)" % (
             ROPE, shape, r["ms"], r["event_ms"], r["bound_ms"],
-            r["bound_by"], r["plain_ms"], r["pass_pair_ms"],
-            r["norot_pair_ms"], r["pass_pair_ms"] / r["norot_pair_ms"]))
+            r["bound_by"], r["plain_ms"], r["layer_ms"],
+            r["norot_layer_ms"], r["layer_ms"] / r["norot_layer_ms"]))
     return slice_rows, library
 
 
@@ -989,15 +1035,19 @@ def run_ring(shape, schedule, causal, seed, rotary=None):
     against its plain version on the same inputs, the assembled out, lse,
     dQ, dK, dV (natural order) against plain full attention in f32 and
     against K1-K3 over the whole sequence. With ``rotary`` (a base) the
-    rotary instantiations run (K4_rot-K6_rot, errors under ``<name>_rot``),
-    dQ and dK are counter-rotated after the last step by the ring's own
-    ``_counter_rotate``, and the references rotate too (on the bf16 inputs,
-    rounding the rotation as the kernels do)."""
+    ring is assembled as ``parallel.ring`` runs it: each rank rotates its q
+    shard and home k shard once with the ring's own ``rotate_shards`` (the
+    pass), K4-K6 run without rotary on the copies (each launch against its
+    plain version on the same copies), dQ and dK are counter-rotated after
+    the last step by the ring's ``_counter_rotate``, and the whole-sequence
+    references rotate (on the bf16 inputs, rounding the rotation as the
+    pass does)."""
     import torch
     import horovod_tpu_torch.ops.flash_attention  # noqa: F401
     from horovod_tpu_torch.parallel.ring import (_counter_rotate,
                                                  _schedule_offsets,
-                                                 _step_runs, zigzag_shard,
+                                                 _step_runs, rotate_shards,
+                                                 zigzag_shard,
                                                  zigzag_unshard)
     fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
     n, L, D = shape["n"], shape["L"], shape["D"]
@@ -1018,12 +1068,15 @@ def run_ring(shape, schedule, causal, seed, rotary=None):
     def runs(src, r):
         return _step_runs(causal, schedule, src, r, Ls, Ls)
 
-    rb, sfx = rotary, "" if rotary is None else "_rot"
-    errs = {name + sfx: {} for name in RING}
+    rb = rotary
+    if rb is not None:  # the shards every step reads, rotated once
+        qs, ks = zip(*(rotate_shards(qs[r], ks[r], off(r), off(r), rb)
+                       for r in range(n)))
+    errs = {name: {} for name in RING}
 
     def note(name, key, pair):
         mx, rel = _err(*pair)
-        got = errs[name + sfx]
+        got = errs[name]
         got["max_abs_err"] = max(got.get("max_abs_err", 0.0), mx)
         got[key] = max(got.get(key, 0.0), rel)
 
@@ -1038,13 +1091,13 @@ def run_ring(shape, schedule, causal, seed, rotary=None):
                 continue
             args = (qs[r], ks[src], vs[src])
             ref = _by_row(fa.flash_ring_step_ref, (*args, o, m, l), off(r),
-                          off(src), scale, causal, rb)
+                          off(src), scale, causal)
             fa.flash_ring_step(*args, o, m, l, off(r), off(src), scale,
-                               causal, rb)
+                               causal)
             torch.cuda.synchronize()
             note("flash_ring_step", "o_rel_l2_err", (o, ref[0]))
             note("flash_ring_step", "l_rel_l2_err", (l, ref[2]))
-            e = errs["flash_ring_step" + sfx]
+            e = errs["flash_ring_step"]
             e["m_abs_err"] = max(e.get("m_abs_err", 0.0), _m_err(m, ref[1]))
             del ref
         l1 = torch.where(l == 0.0, 1.0, l)
@@ -1062,7 +1115,7 @@ def run_ring(shape, schedule, causal, seed, rotary=None):
             if not runs(src, r):
                 continue
             args = (qs[r], ks[src], vs[src], dos[r], lses[r], deltas[r])
-            offs = (off(r), off(src), scale, causal, rb)
+            offs = (off(r), off(src), scale, causal)
             before = [t.clone() for t in (dq[r], dk[src], dv[src])]
             ref_dq = _by_row(fa.flash_ring_bwd_dq_ref, (*args, dq[r]), *offs)
             ref_dk, ref_dv = _by_row(fa.flash_ring_bwd_dkv_ref,
@@ -1233,16 +1286,16 @@ def ring_timings(seed):
     return rows
 
 
-def ring_rot_timings(seed):
-    """K4-K6 with ``rotary_base`` at the lc_sp phase's launch (LC_SP: one
-    rank, 6 heads of 128 on 2 kv heads, zigzag chunks (0, 4096), the
-    positions 0..8191): each call beside the same launch without rotary
-    (``norot_ms``), its bound, its plain version (one batch row at a time)
-    and SDPA's causal forward and backward (enable_gqa) on q and k rotated
-    beforehand, the rotation apart. K5 and K6 called with ``rotary_base``
-    rotate q and k first (the pass, twice a call); the ring rotates once a
-    layer and runs both on the copies, timed as ``ring_pass_pair_ms`` (the
-    pass, K5, K6) beside ``norot_pair_ms`` (K5, K6 without rotary)."""
+def ring_rot_wrappers(seed):
+    """K4-K6 through their wrappers with ``rotary_base`` at the lc_sp
+    phase's launch (LC_SP: one rank, 6 heads of 128 on 2 kv heads, zigzag
+    chunks (0, 4096), the positions 0..8191): each call (the pass over q and
+    k, then the kernel without rotary on the copies) against the rotary
+    plain version (one batch row at a time) from a fresh state or zero
+    sums, and timed beside the same launch without rotary (``norot_ms``),
+    its bound, its plain version and SDPA's causal forward and backward
+    (enable_gqa) on q and k rotated beforehand, the rotation apart.
+    Returns ({name_rot: errors}, {name_rot: times})."""
     import torch
     fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
     rb, sp = ROPE_BASE, dict(LC_SP, causal=True)
@@ -1251,12 +1304,40 @@ def ring_rot_timings(seed):
     o = torch.zeros(q.shape, device=q.device)
     m = torch.full(q.shape[:3], float("-inf"), device=q.device)
     l = torch.zeros(q.shape[:3], device=q.device)
+    errs = {name + "_rot": {} for name in RING}
+    ref = _by_row(fa.flash_ring_step_ref, (q, k, v, o, m, l), offs, offs,
+                  scale, True, rb)
     fa.flash_ring_step(q, k, v, o, m, l, offs, offs, scale, True, rb)
+    torch.cuda.synchronize()
+    e = errs["flash_ring_step_rot"]
+    for key, a, b in (("o", o, ref[0]), ("l", l, ref[2])):
+        mx, e[key + "_rel_l2_err"] = _err(a, b)
+        e["max_abs_err"] = max(e.get("max_abs_err", 0.0), mx)
+    e["m_abs_err"] = _m_err(m, ref[1])
+    del ref
     lse = m + torch.log(l)
     delta = fa._delta((o / l[..., None]).to(q.dtype), dout)
     dq = torch.zeros(q.shape, device=q.device)
     dk, dv = (torch.zeros(k.shape, device=q.device) for _ in range(2))
     args = (q, k, v, dout, lse, delta)
+    ref_dq = _by_row(fa.flash_ring_bwd_dq_ref, (*args, dq), offs, offs,
+                     scale, True, rb)
+    ref_dk, ref_dv = _by_row(fa.flash_ring_bwd_dkv_ref, (*args, dk, dv),
+                             offs, offs, scale, True, rb)
+    got_dq = fa.flash_ring_bwd_dq(*args, dq.clone(), offs, offs, scale, True,
+                                  rb)
+    got_dk, got_dv = fa.flash_ring_bwd_dkv(*args, dk.clone(), dv.clone(),
+                                           offs, offs, scale, True, rb)
+    torch.cuda.synchronize()
+    for name, pairs in (("flash_ring_bwd_dq", (("dq", got_dq, ref_dq),)),
+                        ("flash_ring_bwd_dkv", (("dk", got_dk, ref_dk),
+                                                ("dv", got_dv, ref_dv)))):
+        e = errs[name + "_rot"]
+        for key, a, b in pairs:
+            mx, e[key + "_rel_l2_err"] = _err(a, b)
+            e["max_abs_err"] = max(e.get("max_abs_err", 0.0), mx)
+    del ref_dq, ref_dk, ref_dv, got_dq, got_dk, got_dv
+    torch.cuda.empty_cache()
     # (the kernel, given a rotary base or None; the rotary plain version)
     runs = {
         "flash_ring_step": (
@@ -1289,32 +1370,18 @@ def ring_rot_timings(seed):
         r["rotate_ms"] = lib["rotate_ms"]
         r["library"] = lib["note"] + " (causal; the nearest yardstick: no "
         r["library"] += "carried state)"
-
-    def ring_pair():
-        qr = fa.rope_rotate(q, offs, rb)
-        kr = fa.rope_rotate(k, offs, rb)
-        fa.flash_ring_bwd_dq(qr, kr, v, dout, lse, delta, dq, offs, offs,
-                             scale, True)
-        fa.flash_ring_bwd_dkv(qr, kr, v, dout, lse, delta, dk, dv, offs,
-                              offs, scale, True)
-    pair = {"ring_pass_pair_ms": time_ms(ring_pair),
-            "norot_pair_ms": time_ms(lambda: (runs["flash_ring_bwd_dq"][0](
-                None), runs["flash_ring_bwd_dkv"][0](None)))}
-    for name in RING[1:]:
-        rows[name + "_rot"].update(pair)
-    return rows
+    return errs, rows
 
 
 def phase_ring_kernels():
     """K4-K6 through whole rings (RING_RUNS) against their plain versions,
-    plain full attention and K1-K3; then their times. Returns {name: row}."""
+    plain full attention and K1-K3, and K4-K6 through their wrappers with
+    rotary at the lc_sp launch; then their times. Returns {name: row}."""
     import torch
     rows = {name: {} for name in RING + RING_ROT}
     assembled, bad = {}, []
-    for seed, (tag, shape, schedule, causal, rb) in enumerate(RING_RUNS):
-        label = "%s_%s_%s" % (tag, schedule, "causal" if causal else "full")
-        per_launch, whole = run_ring(shape, schedule, causal, seed + 10, rb)
-        torch.cuda.empty_cache()
+
+    def check(label, per_launch):
         for name, errs in per_launch.items():
             log("%s %s: %s" % (name, label, ", ".join(
                 "%s %.3g" % kv for kv in sorted(errs.items()))))
@@ -1323,8 +1390,14 @@ def phase_ring_kernels():
                 limit = (LSE_TOL if key == "m_abs_err" else
                          REL_TOL if key.endswith("rel_l2_err") else None)
                 if limit is not None and not val <= limit:
-                    bad.append("%s, %s ring: %s %.3g > %g"
+                    bad.append("%s, %s: %s %.3g > %g"
                                % (name, label, key, val, limit))
+
+    for seed, (tag, shape, schedule, causal, rb) in enumerate(RING_RUNS):
+        label = "%s_%s_%s" % (tag, schedule, "causal" if causal else "full")
+        per_launch, whole = run_ring(shape, schedule, causal, seed + 10, rb)
+        torch.cuda.empty_cache()
+        check(label, per_launch)
         log("ring %s assembled: %s" % (label, ", ".join(
             "%s %.3g" % kv for kv in sorted(whole.items()))))
         for key, val in whole.items():
@@ -1333,6 +1406,9 @@ def phase_ring_kernels():
             if not val <= limit:
                 bad.append("%s ring assembled: %s %.3g > %g"
                            % (label, key, val, limit))
+    per_launch, rot_rows = ring_rot_wrappers(seed=21)
+    torch.cuda.empty_cache()
+    check("lc_sp_wrappers", per_launch)
     if bad:
         fail("ring kernels disagree: " + "; ".join(bad))
     for name in RING:
@@ -1342,8 +1418,7 @@ def phase_ring_kernels():
     for name in ("flash_ring_step", "flash_ring_step_rot"):
         rows[name]["lse_abs_err"] = max(v for k, v in rows[name].items()
                                         if k.endswith("m_abs_err"))
-    for name, timing in {**ring_timings(seed=20),
-                         **ring_rot_timings(seed=21)}.items():
+    for name, timing in {**ring_timings(seed=20), **rot_rows}.items():
         rows[name].update(timing)
         if name in RING_ROT:
             log("%s at the lc_sp launch: %.4f ms (without rotary %.4f, bound "
@@ -1352,11 +1427,6 @@ def phase_ring_kernels():
                                     timing["bound_ms"], timing["plain_ms"],
                                     timing["library_ms"],
                                     timing["rotate_ms"]))
-            if "ring_pass_pair_ms" in timing and name == RING_ROT[2]:
-                log("the rotary ring's backward at the lc_sp launch: the "
-                    "pass, K5 and K6 %.4f ms, K5 and K6 without rotary %.4f"
-                    % (timing["ring_pass_pair_ms"],
-                       timing["norot_pair_ms"]))
             continue
         log("%s: off-diagonal %.4f ms (bound %.4f, plain %.3f, SDPA %.4f), "
             "diagonal %.4f ms (bound %.4f); sp launch %.4f ms (bound %.4f, "
@@ -1377,7 +1447,8 @@ def phase_sp(profile_dir=None, lc=False):
     """The sequence-parallel LM step (ring attention, zigzag) at full width
     on a one-rank "sp" axis; returns K4-K6's launch counts of its 7 steps.
     ``lc``: the long-context GQA LM (LC_MODEL) with fused rotary instead
-    (phase lc_sp), through K4_rot-K6_rot, 2 warm-up and 3 timed steps."""
+    (phase lc_sp): the rotary pass over the q shard and the k shard in the
+    forward, K4-K6 on the copies; 2 warm-up and 3 timed steps."""
     import dataclasses
     import torch
     import horovod_tpu_torch as hvd
@@ -1397,10 +1468,9 @@ def phase_sp(profile_dir=None, lc=False):
                             max_seq_len=8192, rope_fused=lc,
                             **(LC_MODEL if lc else MODEL))
     # launches a step: one ring step a layer of each kernel; with rotary,
-    # K4_rot, the backward's pass over the q shard and the k shard, and K5
-    # and K6 on the rotated copies
-    per_layer = ({RING_ROT[0]: 1, RING[1]: 1, RING[2]: 1, ROPE: 2} if lc
-                 else {name: 1 for name in RING})
+    # also the forward's pass over the q shard and the k shard, whose copies
+    # K4, K5 and K6 read
+    per_layer = dict({name: 1 for name in RING}, **({ROPE: 2} if lc else {}))
     kernels = {name: n * cfg.num_layers for name, n in per_layer.items()}
     B, L = SP_BATCH
     model = Transformer(cfg, device=dev,
@@ -1441,6 +1511,8 @@ def phase_sp(profile_dir=None, lc=False):
         fail("gradients through the ring kernels disagree with the flash "
              "model: %s %.3g > %g" % (worst, grad_gaps[worst], GRAD_TOL))
 
+    passes = pass_launches(model, batch, shard_lm_loss, kernels.get(ROPE, 0),
+                           tag) if lc else None
     opt = hvd.DistributedOptimizer(torch.optim.Adam(model.parameters(),
                                                     lr=1e-4),
                                    model.named_parameters())
@@ -1484,11 +1556,36 @@ def phase_sp(profile_dir=None, lc=False):
                   loss_first=losses[0], loss_last=losses[-1],
                   loss_flash=loss_flash, grad_gap_worst=grad_gaps[worst],
                   launches=counts, steps=steps, ranks=n)
+    if passes:
+        result["pass_launches_forward_backward"] = passes
     print("%s: %s" % (tag, json.dumps(result)), flush=True)
     if profile_dir:
         profile_steps(step, batch, profile_dir, tag)
     hvd.shutdown()
     return {name: counts[name] for name in kernels}
+
+
+def pass_launches(model, batch, loss_fn, want, label):
+    """(launches of the rotary pass in one loss's forward, in its backward)
+    on ``batch``, the .grad fields left alone. The forward must launch
+    ``want`` (two a layer) and the backward none: autograd keeps the
+    forward's rotated q and k."""
+    import torch
+    fa = sys.modules["horovod_tpu_torch.ops.flash_attention"]
+    before = fa.launch_counts()[ROPE]
+    loss = loss_fn(model, batch)
+    mid = fa.launch_counts()[ROPE]
+    torch.autograd.grad(loss, [p for p in model.parameters()
+                               if p.requires_grad])
+    torch.cuda.synchronize()
+    passes = (mid - before, fa.launch_counts()[ROPE] - mid)
+    log("%s: %d launches of the rotary pass in the loss's forward, %d in "
+        "its backward" % ((label,) + passes))
+    if passes != (want, 0):
+        fail("%s launched the rotary pass %d times in the forward and %d in "
+             "the backward of one loss, expected %d and 0" % (
+                 (label,) + passes + (want,)))
+    return passes
 
 
 def lm_step_flops(cfg, B, L):
@@ -1580,6 +1677,8 @@ def phase_lc(profile_dir=None):
              % (B, L, full_worst, full_gaps[full_worst], GRAD_TOL))
     del init
     torch.cuda.empty_cache()
+    passes = pass_launches(model, tokens, lm_loss_streaming,
+                           2 * cfg.num_layers, "lc")
 
     def run(m, kernels, label):
         opt = hvd.DistributedOptimizer(torch.optim.Adam(m.parameters(),
@@ -1621,7 +1720,7 @@ def phase_lc(profile_dir=None):
         result.update(profile_steps(step, tokens, profile_dir, label))
         return result, counts
 
-    # K1_rot-K3_rot once a layer, and the backward's pass over q and k
+    # K1_rot-K3_rot once a layer, and the forward's pass over q and k
     fused, counts = run(model, dict({n: cfg.num_layers for n in FLASH_ROT},
                                     **{ROPE: 2 * cfg.num_layers}), "lc")
     rel = abs(fused["loss_first"] - loss_plain) / abs(loss_plain)
@@ -1631,7 +1730,8 @@ def phase_lc(profile_dir=None):
         fail("lc first loss %.6f vs dense attention %.6f (rel %.3g)"
              % (fused["loss_first"], loss_plain, rel))
     fused.update(loss_plain=loss_plain, grad_gap_worst=grad_gaps[worst],
-                 grad_gap_worst_unfused_full=full_gaps[full_worst])
+                 grad_gap_worst_unfused_full=full_gaps[full_worst],
+                 pass_launches_forward_backward=passes)
     # the same weights and step with rotary outside the kernels
     del model
     torch.cuda.empty_cache()
@@ -1799,11 +1899,13 @@ def main():
             "library_ms": lib_ms, "library_note": row.get("library"),
             # the rotary kernels: the same launch without rotary, and the
             # rotation of q and k that library_ms leaves out; the rotary
-            # pass: K2_rot and K3_rot with it, and K2 and K3 without rotary
+            # pass: one layer's pass, K1, K2_rot and K3_rot, and K1-K3
+            # without rotary
             **{key: row[key] for key in ("norot_ms", "rotate_ms",
-                                         "pass_pair_ms", "norot_pair_ms",
+                                         "layer_ms", "norot_layer_ms",
                                          "event_ms")
                if key in row},
+            **({"runs": RUNS[name]} if name in RUNS else {}),
             "rel_l2_err": max(rel_errs) if rel_errs else None,
             "odd_rel_l2_err": row.get("odd_rel_l2_err"),
             "lse_abs_err": row.get("lse_abs_err"),

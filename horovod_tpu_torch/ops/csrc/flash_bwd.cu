@@ -22,14 +22,14 @@
 //       keep their value bit for bit.
 //   K2 and K3 with rotary (the kRot instantiations; the TPU kernels'
 //   `rotary` flag): S, dS and the sums run in rotated space, on q and k that
-//   rope.cu rotated once a layer (flash_attention.flash_backward); the
-//   kernels counter-rotate their finished dQ and dK (the transpose
-//   rotation, on the f32 accumulators in registers, before the cast); dV is
-//   rotation-free. K5 and K6 have no rotary instantiation: the ring rotates
-//   its q shard and its home k shard once (rope.cu) and they read those, and
-//   their dq and dk stay in rotated space, since their sums carry across
-//   ring steps; the ring counter-rotates them once after its last step
-//   (parallel/ring.py).
+//   rope.cu rotated once a layer in the forward (autograd keeps the copies:
+//   flash_attention._FlashFn); the kernels counter-rotate their finished dQ
+//   and dK (the transpose rotation, on the f32 accumulators in registers,
+//   before the cast); dV is rotation-free. K5 and K6 have no rotary
+//   instantiation: the ring rotates its q shard and its home k shard once in
+//   its forward (rope.cu) and they read those, and their dq and dk stay in
+//   rotated space, since their sums carry across ring steps; the ring
+//   counter-rotates them once after its last step (parallel/ring.py).
 // Precision follows the TPU kernels: the products take bf16 inputs and sum
 // in f32; P is rounded to bf16 (dO's type) before the dV product, and dS
 // before the dK and dQ products.

@@ -1,7 +1,7 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu)
 // and the rotary pass (rope.cu): strides, chunk positions, bf16 packing and
-// stores, quad reductions, and the fused rotary embedding of tiles (the
-// forward mainloop) and accumulator rows (the backward's counter-rotation).
+// stores, quad reductions, the rotary tables, and the counter-rotation of
+// accumulator rows (the backward's dQ and dK).
 //
 // Layout. Every tensor is addressed as [B, heads, L, D] through three element
 // strides (batch, head, row); the last dim is contiguous. The Python wrapper
@@ -12,8 +12,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "hopper.cuh"
 
 namespace hvdflash {
 
@@ -89,66 +87,6 @@ struct Rope {
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
-}
-
-// Rotates the kRows rows of a bf16 tile in shared memory in place, row r
-// at position pos_of(c, r0 + r); rows at or past n (TMA's zero fill) stay
-// as they are. The tile is as TMA wrote it: D / kCols boxes (kCols = min(D,
-// 64) columns, rows of 2 * kCols bytes, swizzled), `box` bytes apart, so a
-// pair's two elements lie in one row of one box (D <= 64) or in the same
-// place of boxes 0 and 1 (D = 128); both addresses go through the swizzle.
-// Thread t of kThreads takes the 16-byte chunks t, t + kThreads, ... of the
-// rows' first halves, each with its partner chunk. The products and the
-// sum round one at a time (no fused multiply-add), as the plain version's
-// separate PyTorch operations do, so both round the same f32 values to
-// bf16.
-template <int D, int kRows, int kThreads>
-__device__ __forceinline__ void rotate_tile(uint32_t tile, uint32_t box,
-                                            int r0, int n, const Chunks& c,
-                                            const Rope& rope, int t) {
-  constexpr int kCols = D < 64 ? D : 64;
-  constexpr int kRow = kCols * 2;
-  constexpr int kHalf = D / 2;
-  constexpr int kChunks = kHalf / 8;  // 16-byte chunks in half a row
-  constexpr int kItems = kRows * kChunks;
-#pragma unroll
-  for (int w0 = 0; w0 < kItems; w0 += kThreads) {
-    const int w = w0 + t;
-    const int r = w / kChunks, col = (w % kChunks) * 8, col2 = col + kHalf;
-    if ((kItems % kThreads != 0 && w >= kItems) || r0 + r >= n) continue;
-    const long long at =
-        static_cast<long long>(pos_of(c, r0 + r)) * kHalf + col;
-    float cs[8], sn[8];
-    *reinterpret_cast<float4*>(cs) =
-        __ldg(reinterpret_cast<const float4*>(rope.cos + at));
-    *reinterpret_cast<float4*>(cs + 4) =
-        __ldg(reinterpret_cast<const float4*>(rope.cos + at + 4));
-    *reinterpret_cast<float4*>(sn) =
-        __ldg(reinterpret_cast<const float4*>(rope.sin + at));
-    *reinterpret_cast<float4*>(sn + 4) =
-        __ldg(reinterpret_cast<const float4*>(rope.sin + at + 4));
-    const uint32_t a1 =
-        tile + (col / kCols) * box +
-        hvdhopper::swizzled<kRow>(r * kRow + (col % kCols) * 2);
-    const uint32_t a2 =
-        tile + (col2 / kCols) * box +
-        hvdhopper::swizzled<kRow>(r * kRow + (col2 % kCols) * 2);
-    uint4 x = hvdhopper::lds128(a1), y = hvdhopper::lds128(a2);
-    uint32_t* xs = reinterpret_cast<uint32_t*>(&x);
-    uint32_t* ys = reinterpret_cast<uint32_t*>(&y);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 a = unpack_bf16(xs[i]), b = unpack_bf16(ys[i]);
-      const float c0 = cs[2 * i], c1 = cs[2 * i + 1];
-      const float s0 = sn[2 * i], s1 = sn[2 * i + 1];
-      xs[i] = pack_bf16(__fsub_rn(__fmul_rn(a.x, c0), __fmul_rn(b.x, s0)),
-                        __fsub_rn(__fmul_rn(a.y, c1), __fmul_rn(b.y, s1)));
-      ys[i] = pack_bf16(__fadd_rn(__fmul_rn(a.x, s0), __fmul_rn(b.x, c0)),
-                        __fadd_rn(__fmul_rn(a.y, s1), __fmul_rn(b.y, c1)));
-    }
-    hvdhopper::sts128(a1, x);
-    hvdhopper::sts128(a2, y);
-  }
 }
 
 // Counter-rotates this lane's rows (row0 and row0 + 8; rows at or past n

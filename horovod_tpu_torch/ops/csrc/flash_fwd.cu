@@ -9,10 +9,10 @@
 //       un-normalised, m in natural-log units) += this k/v shard, in place.
 //       Causal masks run on the shards' GLOBAL positions (Chunks, one or two
 //       chunks; a q or key tile may straddle the zigzag chunk boundary).
-//   Both with fused rotary (the kRot instantiations; the TPU kernels'
-//   `rotary` flag): q and k rotated at their positions (K4: the shards'
-//   global ones) in shared memory, between the TMA landing and the first
-//   wgmma that reads them.
+//   Rotary (the TPU kernels' `rotary` flag) happens before the launch: the
+//   rotary pass (rope.cu) rotates q and k once a layer at their positions
+//   (K4: the shards' global ones), and K1 and K4 run on the copies, which
+//   the backward reads again (flash_attention._FlashFn, parallel/ring.py).
 //
 // Bounds on the H100 at the main-path shapes, bf16, causal (B*H*L(L+1)/2
 // visible (q, k) pairs, 2 products of 2 * D FLOP each and one exp2 a pair):
@@ -47,20 +47,12 @@
 //   block sees, a warpgroup skips a tile that none of its rows sees, and
 //   only tiles that straddle the diagonal or a ragged end are masked, with
 //   one compare a score where the tile's keys lie in one chunk.
-// - Fused rotary (kRot): each consumer warpgroup rotates its own 64 q rows
-//   once (flash_common.cuh's rotate_tile: both halves of a pair through the
-//   swizzle), fences them for the async proxy and waits for its own 128
-//   threads on a named barrier. A key tile is rotated in place once a stage
-//   by all the consumer threads together, each a share, whether or not its
-//   warpgroup sees the tile; each fences its writes and arrives on the
-//   stage's `rot` mbarrier (the consumers' count), and only the warpgroups
-//   that see the tile wait on it. (A named barrier across the consumers
-//   would deadlock when one of them skips the tile.) The tile stays in
-//   place, so no shared memory is added; V is never rotated. Every q block
-//   rotates each key tile it reads again, with 64 KB of f32 tables from L2
-//   a 128 x 128 tile: K1_rot takes about twice K1 (PERF.md). Rotating tile
-//   j + 1 under tile j's S product measured 5-12 % faster here and 5-14 %
-//   slower in flash_bwd.cu; one order is kept for both.
+// - No rotary here. Rotating q and k in shared memory after the TMA landing
+//   (each q block re-rotating every key tile it reads, at L = 8192 about 32
+//   times a tile, with 64 KB of f32 tables from L2 a 128 x 128 tile, then a
+//   proxy fence and an mbarrier a stage) took about twice the kernel without
+//   rotary; the pass of rope.cu rotates each row once, bit for bit as that
+//   in-kernel rotation did (PERF.md).
 // Left: nothing overlaps one block's prologue and epilogue with the next
 // block's loads (a persistent, longest-first tile loop would), and O is
 // stored from registers.
@@ -77,7 +69,7 @@ constexpr int kWgRows = 64;       // q rows a consumer warpgroup owns (and
 
 // The shape of a block and its shared memory, in bytes from a 1024-byte
 // aligned base: Q (per box of columns, one 64-row box a consumer), the K
-// stages, the V stages, then the mbarriers (Q's, full[s], empty[s], rot[s]).
+// stages, the V stages, then the mbarriers (Q's, full[s], empty[s]).
 // D <= 64 runs three consumer warpgroups (192 q rows), D = 128 two, whose
 // O takes twice the registers.
 template <int D>
@@ -100,7 +92,7 @@ struct FwdTile {
   static constexpr uint32_t kSwizzle = kRow == 128 ? 1 : 2;  // 128 B, 64 B
   static constexpr int kSbo = 8 * kRow;          // 8 rows of a swizzle atom
   static constexpr int kBars = kQ + 2 * kStages * kTile;
-  static constexpr int kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;
+  static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
 
 struct FwdParams {
@@ -113,7 +105,6 @@ struct FwdParams {
   float* l;                // K4: [B, H, Lq], in place
   int H, G, Lq, Lk;
   Chunks qc, kc;           // K1: one chunk at 0
-  Rope rope;               // kRot: the rotary tables
   float scale;
   int causal;
 };
@@ -247,7 +238,7 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
-template <int D, bool kRing, bool kRot, typename TO>
+template <int D, bool kRing, typename TO>
 __global__ void __launch_bounds__(FwdTile<D>::kThreads, 1)
     flash_fwd_kernel(__grid_constant__ const FwdParams p) {
   using Tile = FwdTile<D>;
@@ -270,13 +261,11 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads, 1)
   const uint32_t bar_q = base + Tile::kBars;
   const uint32_t bar_full = bar_q + 8;
   const uint32_t bar_empty = bar_full + 8 * kStages;
-  const uint32_t bar_rot = bar_empty + 8 * kStages;  // kRot: tile rotated
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, Tile::kConsumers);
-      if (kRot) mbar_init(bar_rot + 8 * s, Tile::kConsumers);
     }
     fence_barrier_init();
   }
@@ -360,13 +349,6 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads, 1)
       make_desc(sQ + wg * Tile::kQBox, 16, Tile::kSbo, Tile::kSwizzle);
 
   mbar_wait(bar_q, 0);
-  if constexpr (kRot) {
-    // This warpgroup's own 64 q rows (its box of each half of D), once.
-    rotate_tile<D, kWgRows, 128>(sQ + wg * Tile::kQBox, kWgs * Tile::kQBox,
-                                 wrow, p.Lq, p.qc, p.rope, threadIdx.x % 128);
-    fence_proxy_async();
-    named_barrier_sync(1 + wg, 128);
-  }
 
   float s[kFwdN / 2];             // S, then P, of one tile (64 x 128)
   uint32_t pa[kFwdN / 16][4];     // P in bf16: the A fragments of P V
@@ -384,16 +366,6 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads, 1)
         (!p.causal || fwd_tile_visible(p, wrow, wrow + kWgRows - 1, n0));
     mbar_wait(bar_full + 8 * stage, (it / kStages) & 1);
     const uint32_t cK = sK + stage * Tile::kTile;
-    if constexpr (kRot) {
-      // Every consumer thread rotates its share of the key tile and
-      // arrives; the warpgroups that read the tile wait for all of them.
-      rotate_tile<D, kFwdN, Tile::kConsumers>(cK, Tile::kBox, n0, p.Lk, p.kc,
-                                              p.rope, threadIdx.x);
-      fence_proxy_async();
-      mbar_arrive(bar_rot + 8 * stage);
-      if (sees) mbar_wait(bar_rot + 8 * stage, (it / kStages) & 1);
-    }
-
     if (sees) {
       fence_operands(s);
       wgmma_fence();
@@ -458,7 +430,7 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads, 1)
 // Encodes q's, k's and v's maps from `maps` (3 x 11: dims, byte strides,
 // box, as flash_attention.tensor_map returns them) after checking that the
 // boxes are the tiles this kernel takes, and launches.
-template <int D, bool kRing, bool kRot, typename TO>
+template <int D, bool kRing, typename TO>
 cudaError_t run_fwd(FwdParams& p, const void* const* qkv,
                     const long long* maps, int B, cudaStream_t stream) {
   using Tile = FwdTile<D>;
@@ -474,7 +446,7 @@ cudaError_t run_fwd(FwdParams& p, const void* const* qkv,
                                      : CU_TENSOR_MAP_SWIZZLE_64B);
     if (err != cudaSuccess) return err;
   }
-  auto kernel = flash_fwd_kernel<D, kRing, kRot, TO>;
+  auto kernel = flash_fwd_kernel<D, kRing, TO>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmem);
   if (err != cudaSuccess) return err;
@@ -483,38 +455,26 @@ cudaError_t run_fwd(FwdParams& p, const void* const* qkv,
   return cudaGetLastError();
 }
 
-template <bool kRing, bool kRot, typename TO>
+template <bool kRing, typename TO>
 cudaError_t run_fwd_d(FwdParams& p, const void* const* qkv,
                       const long long* maps, int B, int D,
                       cudaStream_t stream) {
   switch (D) {
-    case 32: return run_fwd<32, kRing, kRot, TO>(p, qkv, maps, B, stream);
-    case 64: return run_fwd<64, kRing, kRot, TO>(p, qkv, maps, B, stream);
-    case 128: return run_fwd<128, kRing, kRot, TO>(p, qkv, maps, B, stream);
+    case 32: return run_fwd<32, kRing, TO>(p, qkv, maps, B, stream);
+    case 64: return run_fwd<64, kRing, TO>(p, qkv, maps, B, stream);
+    case 128: return run_fwd<128, kRing, TO>(p, qkv, maps, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// With fused rotary where the tables are given, else without.
-template <bool kRing, typename TO>
-cudaError_t run_fwd_r(FwdParams& p, const void* const* qkv,
-                      const long long* maps, int B, int D,
-                      cudaStream_t stream) {
-  if (p.rope.cos != nullptr)
-    return run_fwd_d<kRing, true, TO>(p, qkv, maps, B, D, stream);
-  return run_fwd_d<kRing, false, TO>(p, qkv, maps, B, D, stream);
-}
-
 }  // namespace hvdflash
 
-// K1. q, k, v: bf16 [B, H or G, L, D] views, through `maps` (3 x 11 values,
-// flash_attention.tensor_map); rope_cos, rope_sin: f32 [positions, D / 2]
-// rotary tables, or null for no rotary; out_strides: out's (batch, head,
-// row) element strides; out_dtype: 0 = bfloat16, 1 = float32. Returns the
-// cudaError_t of the launch.
+// K1. q, k, v: bf16 [B, H or G, L, D] views (rotated already under rotary),
+// through `maps` (3 x 11 values, flash_attention.tensor_map); out_strides:
+// out's (batch, head, row) element strides; out_dtype: 0 = bfloat16, 1 =
+// float32. Returns the cudaError_t of the launch.
 extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
-                             void* out, void* lse, const void* rope_cos,
-                             const void* rope_sin, const long long* maps,
+                             void* out, void* lse, const long long* maps,
                              const long long* out_strides, int B, int H,
                              int G, int L, int D, int out_dtype, float scale,
                              int causal, void* stream) {
@@ -528,24 +488,21 @@ extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
   p.Lq = L;
   p.Lk = L;
   p.qc = p.kc = Chunks{0, L, L};
-  p.rope = Rope{static_cast<const float*>(rope_cos),
-                static_cast<const float*>(rope_sin)};
   p.scale = scale;
   p.causal = causal;
   const void* qkv[3] = {q, k, v};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_dtype == 0) return run_fwd_r<false, bf16>(p, qkv, maps, B, D, st);
-  if (out_dtype == 1) return run_fwd_r<false, float>(p, qkv, maps, B, D, st);
+  if (out_dtype == 0) return run_fwd_d<false, bf16>(p, qkv, maps, B, D, st);
+  if (out_dtype == 1) return run_fwd_d<false, float>(p, qkv, maps, B, D, st);
   return cudaErrorInvalidValue;
 }
 
-// K4. q [B, H, Lq, D], k, v [B, G, Lk, D]: bf16 views through `maps`; o, m,
-// l: the carried f32 state, updated in place; rope_cos, rope_sin: as K1's,
-// over the global positions; chunks: (off0, off1, len) of the q shard, then
-// of the k/v shard.
+// K4. q [B, H, Lq, D], k, v [B, G, Lk, D]: bf16 views through `maps` (q and
+// k rotated already at their global positions under rotary); o, m, l: the
+// carried f32 state, updated in place; chunks: (off0, off1, len) of the q
+// shard, then of the k/v shard.
 extern "C" int hvd_flash_ring_fwd(const void* q, const void* k, const void* v,
                                   void* o, void* m, void* l,
-                                  const void* rope_cos, const void* rope_sin,
                                   const long long* maps, int B, int H, int G,
                                   int Lq, int Lk, int D, const int* chunks,
                                   float scale, int causal, void* stream) {
@@ -560,11 +517,9 @@ extern "C" int hvd_flash_ring_fwd(const void* q, const void* k, const void* v,
   p.Lk = Lk;
   p.qc = Chunks{chunks[0], chunks[1], chunks[2]};
   p.kc = Chunks{chunks[3], chunks[4], chunks[5]};
-  p.rope = Rope{static_cast<const float*>(rope_cos),
-                static_cast<const float*>(rope_sin)};
   p.scale = scale;
   p.causal = causal;
   const void* qkv[3] = {q, k, v};
-  return run_fwd_r<true, float>(p, qkv, maps, B, D,
+  return run_fwd_d<true, float>(p, qkv, maps, B, D,
                                 static_cast<cudaStream_t>(stream));
 }

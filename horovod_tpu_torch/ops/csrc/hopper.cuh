@@ -1,10 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels, in PTX: the
 // Tensor Memory Accelerator (TMA) with its tensor maps, mbarriers, wgmma
-// with its shared-memory matrix descriptors, the fences between them
-// (including the async-proxy fence after ordinary stores that a wgmma will
-// read), named barriers, 16-byte shared-memory loads and stores, the TMA
-// swizzle and setmaxnreg. The flash forward (flash_fwd.cu) and backward
-// (flash_bwd.cu) are built on them.
+// with its shared-memory matrix descriptors, the fences around them and
+// setmaxnreg. The flash forward (flash_fwd.cu) and backward (flash_bwd.cu)
+// are built on them.
 //
 // Tensor maps are encoded on the host with the driver's
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
@@ -149,48 +147,6 @@ template <int N>
 __device__ __forceinline__ void fence_operands(uint32_t (&x)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) fence_operand(x[i]);
-}
-
-// Orders this thread's earlier shared-memory writes through the generic
-// proxy (ordinary stores) before later accesses through the async proxy
-// (wgmma, TMA). A tile rewritten in place must pass this fence, and then a
-// barrier among its writers and readers, before a wgmma reads it.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// ---------------------------------------------------- shared memory
-
-// Barrier `id` (1-15; 0 is __syncthreads) among `count` threads, a multiple
-// of 32; every one of them must reach it.
-__device__ __forceinline__ void named_barrier_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-// 16 bytes of shared memory. (A volatile asm: it stays in order with the
-// other volatile asm, the barriers, fences and stores, while global loads
-// may still be moved ahead of it.)
-__device__ __forceinline__ uint4 lds128(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr));
-  return v;
-}
-
-__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
-}
-
-// Where TMA put byte `off` of a box of kRow-byte rows (from a base aligned
-// to 1024 bytes): the 16-byte chunk bits [4, 7) XOR bits [7, 10) under the
-// 128-byte swizzle (kRow 128), bits [4, 6) XOR bits [7, 9) under the 64-byte
-// swizzle (kRow 64).
-template <int kRow>
-__device__ __forceinline__ uint32_t swizzled(uint32_t off) {
-  return off ^ (((off >> 7) & (kRow == 128 ? 7u : 3u)) << 4);
 }
 
 // ------------------------------------------------ warp specialisation

@@ -1,17 +1,18 @@
-// The rotary embedding of q or k, one pass over the tensor, for the flash
-// backward.
+// The rotary embedding of q or k, one pass over the tensor, once a layer in
+// the flash forward; the backward reads the same rotated copies.
 //
 // Replaces: the rotation that the rotary branches of
-// horovod_tpu/ops/flash_attention.py:_bwd_dq_kernel (:869) and
-// _bwd_dkv_kernel (:928), and of the ring's _ring_bwd_dq_kernel (:651) and
-// _ring_bwd_dkv_kernel (:705), apply to q and k (_rot_apply, :93). On the
-// TPU each grid step rotates the q or k block it holds in VMEM, from tables
-// streamed beside it. On this card the backward mainloop (flash_bwd.cu)
-// would do that in every block that reads a tile: at L = 8192 causal each
-// 128-row tile about 32 times, on the consumer warpgroups that should issue
-// wgmma, with 64 KB of f32 tables a tile from L2. So the backward rotates q
-// and k once a layer here, and K2, K3, K5 and K6 read the rotated copies
-// through their tensor maps.
+// horovod_tpu/ops/flash_attention.py:_fwd_kernel (:190, :201), the ring's
+// _ring_step_kernel (:462, :470), _bwd_dq_kernel (:869), _bwd_dkv_kernel
+// (:928), _ring_bwd_dq_kernel (:651) and _ring_bwd_dkv_kernel (:705) apply
+// to q and k (_rot_apply, :93). On the TPU each grid step rotates the q or
+// k block it holds in VMEM, from tables streamed beside it. On this card a
+// mainloop (flash_fwd.cu, flash_bwd.cu) would do that in every block that
+// reads a tile: at L = 8192 causal each 128-row tile about 32 times, on the
+// consumer warpgroups that should issue wgmma, with 64 KB of f32 tables a
+// tile from L2. So q and k are rotated once a layer here, before K1 (or the
+// ring's K4 steps); autograd keeps the rotated copies, and K2, K3, K5 and
+// K6 read them through their tensor maps.
 //
 // Function: y = x rotated at the rows' global positions (Chunks: one chunk,
 // or the two of a zigzag shard), element j < D/2 of a row at position p and
@@ -21,10 +22,9 @@
 // flash_attention.rope_tables. Each product and the sum round apart
 // (__fmul_rn, __fsub_rn, __fadd_rn: no fused multiply-add) and the result
 // rounds to bf16 once, as the plain version's separate PyTorch operations
-// (flash_attention.apply_rotary) and rotate_tile in flash_common.cuh do: the
-// output equals both bit for bit.
+// (flash_attention.apply_rotary) do: the output equals it bit for bit.
 //
-// Bound: bytes. At the long-context LM's backward ([2, 6, 8192, 128] q and
+// Bound: bytes. At the long-context LM's launch ([2, 6, 8192, 128] q and
 // [2, 2, 8192, 128] k, bf16) q and k are read and written once, 67 MB, and
 // the tables of 8192 positions are 4 MB: 0.021 ms at 3.35 TB/s; the 3 f32
 // operations an element take 1.5 us at 67 TFLOP/s.

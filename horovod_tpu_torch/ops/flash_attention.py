@@ -26,8 +26,9 @@ tiles by TMA, which copies bytes and cannot round: the wrappers round
 float32 q, k, v and dout to bf16 (``.to(torch.bfloat16)``) before the
 launch, and K1-K3 still write O, dQ, dK and dV in q's dtype.
 
-Each wrapper counts its launches in ``.launches``, and those of its rotary
-instantiation (a kernel of its own) in ``.rot_launches``.
+Each wrapper counts its launches in ``.launches``, and those of its calls
+under rotary in ``.rot_launches`` (K1, K4: the kernel on rotated copies; K2,
+K3: the instantiation that counter-rotates dQ or dK).
 
 The ring-attention steps (K4 in ``csrc/flash_fwd.cu`` on K1's mainloop,
 K5 and K6 in ``csrc/flash_bwd.cu`` on K2's and K3's) run one step of
@@ -54,18 +55,21 @@ values are rounded to the inputs' dtype, as the TPU kernels round them. K2
 and K3 counter-rotate their finished dQ and dK (the transpose rotation), so
 the gradients are those of the unrotated q and k. K5 and K6 leave dq and dk
 in rotated space: their sums carry across ring steps, and the ring
-counter-rotates them once after the last step. On a CUDA tensor the kernels
-read cos and sin from one f32 table per (head dim, base, device), built at
-first use and grown to the longest positions asked for (``rope_tables``).
+counter-rotates them once after the last step. On a CUDA tensor the rotary
+pass and the counter-rotation read cos and sin from one f32 table per
+(head dim, base, device), built at first use and grown to the longest
+positions asked for (``rope_tables``).
 
-Where the rotation happens on the card: K1 and K4 rotate q and k in shared
-memory as they load them. The backward kernels read q and k rotated by
-the seventh kernel, ``rope_rotate`` (``rope.cu``: one pass over a tensor,
-bit for bit ``apply_rotary``): ``flash_backward`` rotates q and k once and
-K2 and K3 both read the copies; ``flash_bwd_dq`` and ``flash_bwd_dkv``
-called alone, and K5 and K6 called with ``rotary_base``, rotate their own.
-The ring (``parallel.ring``) rotates its q shard and its home k shard once
-and runs K5 and K6 without rotary.
+Where the rotation happens on the card: no mainloop rotates. The seventh
+kernel, ``rope_rotate`` (``rope.cu``: one pass over a tensor, bit for bit
+``apply_rotary``), rotates q and k once a layer, in the forward:
+``flash_attention`` (``_FlashFn``) rotates them, runs K1 on the copies and
+keeps the copies for the backward, whose K2 and K3 read them as they are
+and only counter-rotate dQ and dK. The ring (``parallel.ring``) rotates
+its q shard and its home k shard once in its forward and runs K4, K5 and K6
+without rotary on the copies. A wrapper called alone with ``rotary_base``
+(``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``, the ring steps) and
+``flash_backward`` rotate their own q and k first.
 """
 
 import ctypes
@@ -80,21 +84,21 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_Y = 65535
 
-# The arguments after the tensor pointers, the two rotary tables (null
-# without rotary; K5 and K6 take none), the tensor maps and (K1-K3) the
-# outputs' strides: K1-K3
-# take B, H, G, L, D and the dtype of their outputs; the ring steps B, H, G,
-# Lq, Lk, D and the chunk offsets; then scale, causal and the stream.
+# The arguments after the tensor pointers, (K2, K3) the two rotary tables of
+# the counter-rotation (null without rotary), the tensor maps and (K1-K3) the
+# outputs' strides: K1-K3 take B, H, G, L, D and the dtype of their outputs;
+# the ring steps B, H, G, Lq, Lk, D and the chunk offsets; then scale,
+# causal and the stream.
 _P = ctypes.c_void_p
 _TAIL = [ctypes.c_float, ctypes.c_int, _P]
 _FLASH_ARGS = [ctypes.c_int] * 6 + _TAIL
 _RING_ARGS = [ctypes.c_int] * 6 + [_P] + _TAIL
 # C entry point -> (source, argument types)
 _ENTRIES = {
-    "hvd_flash_fwd": ("flash_fwd", [_P] * 9 + _FLASH_ARGS),
+    "hvd_flash_fwd": ("flash_fwd", [_P] * 7 + _FLASH_ARGS),
     "hvd_flash_bwd_dq": ("flash_bwd", [_P] * 11 + _FLASH_ARGS),
     "hvd_flash_bwd_dkv": ("flash_bwd", [_P] * 12 + _FLASH_ARGS),
-    "hvd_flash_ring_fwd": ("flash_fwd", [_P] * 9 + _RING_ARGS),
+    "hvd_flash_ring_fwd": ("flash_fwd", [_P] * 7 + _RING_ARGS),
     "hvd_flash_ring_bwd_dq": ("flash_bwd", [_P] * 8 + _RING_ARGS),
     "hvd_flash_ring_bwd_dkv": ("flash_bwd", [_P] * 9 + _RING_ARGS),
     # x, y, the two tables, strides; B, heads, L, D, off0, off1, len; stream
@@ -231,9 +235,15 @@ def flash_bwd_dq_ref(q, k, v, dout, lse, delta, scale, causal,
                      rotary_base=None):
     """Plain version of K2 in f32: dQ = dS.K with P from lse (rotary: on the
     rotated q and k, dQ counter-rotated)."""
-    qr, kr = _rotate(q, k, (0,), (0,), rotary_base)
+    return _dq_ref(*_rotate(q, k, (0,), (0,), rotary_base), v, dout, lse,
+                   delta, scale, causal, rotary_base)
+
+
+def _dq_ref(qr, kr, v, dout, lse, delta, scale, causal, rotary_base):
+    """K2's plain version on q and k rotated already (``rotary_base``: dQ
+    counter-rotated)."""
     _, ds, kf = _probs_and_ds(qr, kr, v, dout, lse, delta, scale, causal)
-    return _unrotate(torch.matmul(ds, kf), rotary_base).to(q.dtype)
+    return _unrotate(torch.matmul(ds, kf), rotary_base).to(qr.dtype)
 
 
 def flash_bwd_dkv_ref(q, k, v, dout, lse, delta, scale, causal,
@@ -241,15 +251,21 @@ def flash_bwd_dkv_ref(q, k, v, dout, lse, delta, scale, causal,
     """Plain version of K3 in f32: dV = P^T.dO and dK = dS^T.Q, summed over
     the query heads of each kv head (rotary: on the rotated q and k, dK
     counter-rotated)."""
-    B, H, L, D = q.shape
-    G = k.shape[1]
-    qr, kr = _rotate(q, k, (0,), (0,), rotary_base)
+    return _dkv_ref(*_rotate(q, k, (0,), (0,), rotary_base), v, dout, lse,
+                    delta, scale, causal, rotary_base)
+
+
+def _dkv_ref(qr, kr, v, dout, lse, delta, scale, causal, rotary_base):
+    """K3's plain version on q and k rotated already (``rotary_base``: dK
+    counter-rotated)."""
+    B, H, L, D = qr.shape
+    G = kr.shape[1]
     p, ds, _ = _probs_and_ds(qr, kr, v, dout, lse, delta, scale, causal)
     dv = torch.matmul(p.transpose(-1, -2), dout.float())
     dk = torch.matmul(ds.transpose(-1, -2), qr.float())
     dk = dk.view(B, G, H // G, L, D).sum(2)
     dv = dv.view(B, G, H // G, L, D).sum(2)
-    return _unrotate(dk, rotary_base).to(k.dtype), dv.to(v.dtype)
+    return _unrotate(dk, rotary_base).to(kr.dtype), dv.to(v.dtype)
 
 
 def _delta(out, dout):
@@ -544,7 +560,7 @@ def _launch(name, q, ptrs, strides, dims, scale, causal):
 
 
 def _count(wrapper, rotary_base):
-    """One launch of ``wrapper``'s kernel, or of its rotary instantiation."""
+    """One launch of ``wrapper``'s kernel, without rotary or under it."""
     if rotary_base is None:
         wrapper.launches += 1
     else:
@@ -595,8 +611,8 @@ def _rope_launch(x, offset, rotary_base):
 
 
 def _rope_qk(q, k, q_offset, kv_offset, rotary_base):
-    """q and k as the backward kernels read them (CUDA tensors): bf16,
-    rotated at their shards' positions by the rotary pass under rotary."""
+    """q and k as the kernels read them (CUDA tensors): bf16, rotated at
+    their shards' positions by the rotary pass under rotary."""
     if rotary_base is None:
         return _bf16(q, k)
     return (_rope_launch(q, q_offset, rotary_base),
@@ -604,16 +620,26 @@ def _rope_qk(q, k, q_offset, kv_offset, rotary_base):
 
 
 def flash_fwd(q, k, v, scale, causal, rotary_base=None):
-    """K1: (out [B, H, L, D] in q's dtype, lse f32 [B, H, L])."""
+    """K1: (out [B, H, L, D] in q's dtype, lse f32 [B, H, L]). Rotary on the
+    card: q and k are rotated first (``rope_rotate``) and K1 runs on the
+    copies."""
     if _on_cpu("flash_fwd", q):
         return flash_forward_ref(q, k, v, scale, causal, rotary_base)
+    return _fwd(q, k, v, scale, causal, rotary_base)
+
+
+def _fwd(q, k, v, scale, causal, rotary_base, qk=None):
+    """K1 on CUDA tensors; ``qk``: q and k as the kernel reads them
+    (``_rope_qk``), made here when not given. A call under ``rotary_base``
+    counts as K1_rot."""
     B, H, G, L, D = _check("flash_fwd", q, k, {"q": q, "k": k, "v": v})
     out = _empty_like_heads(q, H)
     lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
-    qkv = _bf16(q, k, v)
+    if qk is None:
+        qk = _rope_qk(q, k, (0,), (0,), rotary_base)
+    qkv = (*qk, *_bf16(v))
     _launch("hvd_flash_fwd", q,
-            [t.data_ptr() for t in (*qkv, out, lse)] +
-            _rope_ptrs(L, D, rotary_base, q.device) + [_fwd_maps(*qkv)],
+            [t.data_ptr() for t in (*qkv, out, lse)] + [_fwd_maps(*qkv)],
             _strides(out), (B, H, G, L, D), scale, causal)
     _count(flash_fwd, rotary_base)
     return out, lse
@@ -719,14 +745,13 @@ def _positions_end(offset, L):
 
 
 def _ring_call(name, q, tensors, maps, dims, q_offset, kv_offset, scale,
-               causal, rope=()):
+               causal):
     """Launches ring step ``name`` on ``tensors`` (bf16 inputs, f32 rows
-    and state) through ``maps``, with the shards' chunk offsets and (K4)
-    the two rotary table pointers ``rope``."""
+    and state) through ``maps``, with the shards' chunk offsets."""
     chunks = (ctypes.c_int * 6)(*shard_chunks(q_offset, dims[3]),
                                 *shard_chunks(kv_offset, dims[4]))
-    _call(name, q, *[t.data_ptr() for t in tensors], *rope, maps, *dims,
-          chunks, float(scale), int(bool(causal)))
+    _call(name, q, *[t.data_ptr() for t in tensors], maps, *dims, chunks,
+          float(scale), int(bool(causal)))
 
 
 def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal,
@@ -735,7 +760,9 @@ def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal,
     [B, G, Lk, D] (bf16 or f32); the carried state o f32 [B, H, Lq, D]
     (un-normalised), m and l f32 [B, H, Lq] is updated IN PLACE and
     returned as (o, m, l). ``q_offset``/``kv_offset``: the shards' global
-    chunk offsets (``shard_chunks``)."""
+    chunk offsets (``shard_chunks``). Rotary on the card: q and k are
+    rotated first (``rope_rotate``) and K4 runs on the copies; a ring that
+    runs many steps rotates once and calls this without ``rotary_base``."""
     if _on_cpu("flash_ring_step", q):
         new = flash_ring_step_ref(q, k, v, o, m, l, q_offset, kv_offset,
                                   scale, causal, rotary_base)
@@ -744,12 +771,9 @@ def flash_ring_step(q, k, v, o, m, l, q_offset, kv_offset, scale, causal,
         return o, m, l
     dims = _check_ring("flash_ring_step", q, k, {"q": q, "k": k, "v": v},
                        rows=(("m", m), ("l", l)), q_state=(("o", o),))
-    qkv = _bf16(q, k, v)
-    n = max(_positions_end(q_offset, dims[3]),
-            _positions_end(kv_offset, dims[4]))
+    qkv = (*_rope_qk(q, k, q_offset, kv_offset, rotary_base), *_bf16(v))
     _ring_call("hvd_flash_ring_fwd", q, (*qkv, o, m, l), _fwd_maps(*qkv),
-               dims, q_offset, kv_offset, scale, causal,
-               _rope_ptrs(n, dims[5], rotary_base, q.device))
+               dims, q_offset, kv_offset, scale, causal)
     _count(flash_ring_step, rotary_base)
     return o, m, l
 
@@ -826,35 +850,62 @@ def reset_launch_counts():
 reset_launch_counts()
 
 
-def flash_backward(q, k, v, out, lse, dout, scale, causal, rotary_base=None):
-    """delta, then K2 and K3: (dq, dk, dv). Rotary on the card: q and k are
-    rotated once (``rope_rotate``, one pass each) and both kernels read
-    the copies."""
-    args = (q, k, v, dout, lse, _delta(out, dout), scale, causal,
+def _rotated(q, k, rotary_base):
+    """q and k rotated once at 0..L-1 (``rope_rotate``: the pass on the
+    card), or as they are without rotary."""
+    if rotary_base is None:
+        return q, k
+    return (rope_rotate(q, (0,), rotary_base),
+            rope_rotate(k, (0,), rotary_base))
+
+
+def _forward(qr, kr, v, scale, causal, rotary_base):
+    """K1 on q and k rotated already (``_rotated``): (out, lse). Under
+    ``rotary_base`` the launch counts as K1_rot."""
+    if _on_cpu("flash_fwd", qr):
+        return flash_forward_ref(qr, kr, v, scale, causal)
+    return _fwd(qr, kr, v, scale, causal, rotary_base, _bf16(qr, kr))
+
+
+def _backward(qr, kr, v, out, lse, dout, scale, causal, rotary_base):
+    """delta, then K2 and K3 on q and k rotated already (``_rotated``):
+    (dq, dk, dv), dQ and dK counter-rotated under ``rotary_base``."""
+    args = (qr, kr, v, dout, lse, _delta(out, dout), scale, causal,
             rotary_base)
-    if not q.is_cuda:
-        return (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
-    qk = _rope_qk(q, k, (0,), (0,), rotary_base)
+    if _on_cpu("flash_backward", qr):
+        return (_dq_ref(*args), *_dkv_ref(*args))
+    qk = _bf16(qr, kr)
     return (_bwd_dq(*args, qk), *_bwd_dkv(*args, qk))
 
 
+def flash_backward(q, k, v, out, lse, dout, scale, causal, rotary_base=None):
+    """delta, then K2 and K3: (dq, dk, dv). Rotary: q and k are rotated once
+    (``rope_rotate``, one pass each on the card) and both kernels read the
+    copies."""
+    return _backward(*_rotated(q, k, rotary_base), v, out, lse, dout, scale,
+                     causal, rotary_base)
+
+
 class _FlashFn(torch.autograd.Function):
-    """Attention over [B, H, L, D] with the flash backward: saves
-    (q, k, v, out, lse) and recomputes P from lse."""
+    """Attention over [B, H, L, D] with the flash backward, which recomputes
+    P from lse. Under rotary the forward rotates q and k once and saves the
+    rotated copies in their place, (q_rot, k_rot, v, out, lse): the
+    backward rotates nothing."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, rotary_base):
-        out, lse = flash_fwd(q, k, v, scale, causal, rotary_base)
-        ctx.save_for_backward(q, k, v, out, lse)
+        qr, kr = _rotated(q, k, rotary_base)
+        out, lse = _forward(qr, kr, v, scale, causal, rotary_base)
+        ctx.save_for_backward(qr, kr, v, out, lse)
         ctx.args = (scale, causal, rotary_base)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
+        qr, kr, v, out, lse = ctx.saved_tensors
         if g.is_cuda:
             g = _kernel_layout(g)
-        dq, dk, dv = flash_backward(q, k, v, out, lse, g, *ctx.args)
+        dq, dk, dv = _backward(qr, kr, v, out, lse, g, *ctx.args)
         return dq, dk, dv, None, None, None
 
 

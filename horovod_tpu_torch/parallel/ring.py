@@ -14,14 +14,16 @@ one kernel on the rank's q shard and the k/v shard it holds:
   K6 adds dK and dV to f32 accumulators that travel with their k/v shard,
   so after n steps each shard's gradient is back on its home rank.
 
-Fused rotary (``rotary_base=``): K4 rotates q and k at the shards'
-global positions as it loads them. The backward ring rotates its q shard
-and its home k shard once, before the loop (``rope_rotate``: one pass
-each), and the rotated k travels the ring with v, so K5 and K6 run
-without rotary on rotated operands. They keep dq and dk in rotated space,
-since their sums carry across steps; ``_counter_rotate`` turns them back
-once after the last step, dq by the rank's q positions and dk by its home
-shard's positions (it has travelled the whole ring).
+Fused rotary (``rotary_base=``): the forward ring rotates its q shard and
+its home k shard once, before the loop, at their global positions
+(``rotate_shards``: ``rope_rotate``, one pass each), and the rotated k
+travels the ring with v, so every K4 step runs without rotary on rotated
+operands. Autograd keeps the rotated q shard and home k shard in place of
+q and k, and the backward ring reads them as they are: K5 and K6 run
+without rotary too, and nothing is rotated again. K5 and K6 keep dq and dk
+in rotated space, since their sums carry across steps; ``_counter_rotate``
+turns them back once after the last step, dq by the rank's q positions and
+dk by its home shard's positions (it has travelled the whole ring).
 
 On CPU tensors the same loop calls the steps' plain versions (the JAX
 package's separate jnp ring is not needed: the kernels take any length and
@@ -98,6 +100,14 @@ class _Exchange:
         return self.recv
 
 
+def rotate_shards(q, k, q_offset, kv_offset, rotary_base):
+    """A rotary ring's q shard and home k shard, each rotated once at its
+    global positions (``shard_chunks`` offsets; ``rope_rotate``: the pass on
+    the card): the operands every K4, K5 and K6 step of the ring reads."""
+    return (rope_rotate(q, q_offset, rotary_base),
+            rope_rotate(k, kv_offset, rotary_base))
+
+
 def _counter_rotate(dq, dk, q_offset, kv_offset, rotary_base):
     """The rotary ring's f32 dq and dk back from rotated space, after the
     last step: dq by the positions of the rank's q shard, dk by those of
@@ -112,7 +122,8 @@ def _counter_rotate(dq, dk, q_offset, kv_offset, rotary_base):
 def _ring_forward(q, k, v, group, causal, scale, schedule,
                   rotary_base=None):
     """q [B, H, Lq, D], k/v [B, G, Lk, D]: (out [B, H, Lq, D] in q's dtype,
-    lse f32 [B, H, Lq])."""
+    lse f32 [B, H, Lq], the q shard and the home k shard that the steps
+    read: rotated once under rotary, k as it was sent)."""
     n, idx = dist.get_world_size(group), dist.get_rank(group)
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
@@ -120,25 +131,32 @@ def _ring_forward(q, k, v, group, causal, scale, schedule,
     m = torch.full((B, H, Lq), float("-inf"), device=q.device)
     l = torch.zeros(B, H, Lq, device=q.device)
     q_off = _schedule_offsets(schedule, idx, n, Lq)
+    if rotary_base is not None:  # once: every step reads the same rotation
+        q, k = rotate_shards(q, k, q_off,
+                             _schedule_offsets(schedule, idx, n, Lk),
+                             rotary_base)
     if n > 1:  # what is sent goes as a contiguous buffer
         k, v = k.contiguous(), v.contiguous()
+    home_k = k
     for i in range(n):
         src = (idx - i) % n
         hop = _Exchange((k, v), group, n, idx) if i + 1 < n else None
         if _step_runs(causal, schedule, src, idx, Lq, Lk):
             flash_ring_step(q, k, v, o, m, l, q_off,
                             _schedule_offsets(schedule, src, n, Lk), scale,
-                            causal, rotary_base)
+                            causal)
         if hop is not None:
             k, v = hop.wait()
     l1 = torch.where(l == 0.0, 1.0, l)  # rows that saw no key: out 0
     out = (o / l1[..., None]).to(q.dtype)
-    return out, m + torch.log(l1)  # such rows keep lse = -inf
+    return out, m + torch.log(l1), q, home_k  # such rows keep lse = -inf
 
 
 def _ring_backward(q, k, v, out, lse, dout, group, causal, scale, schedule,
                    rotary_base=None):
-    """The second ring: (dq, dk, dv) in q's, k's and v's dtypes."""
+    """The second ring, over the q shard and home k shard the forward
+    read (rotated under rotary: nothing is rotated here): (dq, dk, dv) in
+    q's, k's and v's dtypes."""
     n, idx = dist.get_world_size(group), dist.get_rank(group)
     Lq, Lk = q.shape[2], k.shape[2]
     delta = _delta(out, dout)  # once per shard, read by every step
@@ -148,9 +166,6 @@ def _ring_backward(q, k, v, out, lse, dout, group, causal, scale, schedule,
     q_off = _schedule_offsets(schedule, idx, n, Lq)
     home = _schedule_offsets(schedule, idx, n, Lk)
     q_dtype, k_dtype, v_dtype = q.dtype, k.dtype, v.dtype
-    if rotary_base is not None:  # once: every step reads the same rotation
-        q = rope_rotate(q, q_off, rotary_base)
-        k = rope_rotate(k, home, rotary_base)
     if n > 1:
         k, v = k.contiguous(), v.contiguous()
     grads = None  # the dk/dv hop in flight
@@ -181,12 +196,13 @@ def _ring_backward(q, k, v, out, lse, dout, group, causal, scale, schedule,
 
 class _RingFn(torch.autograd.Function):
     """Ring attention over [B, H, L, D] shards; saves (q, k, v, out, lse)
-    for the backward ring."""
+    for the backward ring, q and k as the forward's steps read them (under
+    rotary the rotated q shard and home k shard)."""
 
     @staticmethod
     def forward(ctx, q, k, v, group, causal, scale, schedule, rotary_base):
-        out, lse = _ring_forward(q, k, v, group, causal, scale, schedule,
-                                 rotary_base)
+        out, lse, q, k = _ring_forward(q, k, v, group, causal, scale,
+                                       schedule, rotary_base)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (group, causal, scale, schedule, rotary_base)
         return out

@@ -260,6 +260,9 @@ def test_rotary_kernels_match_plain_versions(cuda, B, H, G, L, D, causal,
     assert all(after[n + "_rot"] == before[n + "_rot"] +
                (1 if n == "flash_fwd" else 2) and after[n] == before[n]
                for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    # called alone, each wrapper rotates its own q and k: K1_rot once, K2_rot
+    # and K3_rot twice each
+    assert after["rope_rotate"] == before["rope_rotate"] + 2 * 5
 
 
 @pytest.mark.parametrize("shape,offset", [
@@ -345,6 +348,63 @@ def test_rotary_backward_rotates_once(cuda, B, H, G, L, D):
     for name, a, b in zip(("dq", "dk", "dv"), grads, refs):
         assert a.dtype == torch.bfloat16 and _rel(a, b) <= REL_TOL, (
             name, _rel(a, b))
+
+
+@pytest.mark.parametrize("B,L,H,G,D,causal,dtype", [
+    (2, 300, 6, 2, 128, True, torch.bfloat16),    # GQA 3, ragged L
+    (1, 130, 4, 4, 64, False, torch.bfloat16),
+    (2, 97, 4, 1, 32, True, torch.float32),       # MQA, float32
+])
+def test_rotary_flash_attention_rotates_once_in_the_forward_on_the_gpu(
+        cuda, B, L, H, G, D, causal, dtype):
+    """flash_attention(rotary_base=) forward and backward against the
+    rotary plain versions on the same bf16 values. The forward launches the
+    pass over q and over k and then K1 on the copies (out bit for bit
+    ``flash_fwd`` with the base); autograd keeps the copies (five saved
+    tensors, as many bytes as without rotary), and the backward launches
+    K2_rot and K3_rot on them and no pass."""
+    g = torch.Generator(device=cuda).manual_seed(33)
+
+    def rnd(heads):
+        return torch.randn(B, L, heads, D, generator=g, device=cuda
+                           ).to(dtype)
+    q, k, v, dout = rnd(H), rnd(G), rnd(G), rnd(H)
+    scale = D ** -0.5
+    bf = [t.transpose(1, 2).to(torch.bfloat16) for t in (q, k, v, dout)]
+    out_ref, lse_ref = fa.flash_forward_ref(*bf[:3], scale, causal, ROPE)
+    refs = fa.flash_backward_ref(*bf[:3], out_ref, lse_ref, bf[3], scale,
+                                 causal, ROPE)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    saved = []
+
+    def pack(t):
+        saved.append((t.shape, t.dtype, t.numel() * t.element_size()))
+        return t
+    before = fa.launch_counts()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fa.flash_attention(*leaves, causal=causal, rotary_base=ROPE)
+    torch.cuda.synchronize()
+    mid = fa.launch_counts()
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    assert {n: mid[n] - before[n] for n in mid if mid[n] != before[n]} == {
+        "rope_rotate": 2, "flash_fwd_rot": 1}
+    assert {n: after[n] - mid[n] for n in after if after[n] != mid[n]} == {
+        "flash_bwd_dq_rot": 1, "flash_bwd_dkv_rot": 1}
+    alone, _ = fa.flash_fwd(*(t.transpose(1, 2) for t in (q, k, v)), scale,
+                            causal, ROPE)
+    assert torch.equal(out.transpose(1, 2), alone)
+    assert _rel(out.transpose(1, 2), out_ref) <= REL_TOL
+    for name, a, b in zip(("dq", "dk", "dv"), grads, refs):
+        err = _rel(a.transpose(1, 2), b)
+        assert a.dtype == dtype and err <= REL_TOL, (name, err)
+    plain = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: plain.append((t.shape, t.dtype, t.numel() *
+                                    t.element_size())) or t, lambda t: t):
+        fa.flash_attention(*leaves, causal=causal)
+    assert len(saved) == 5 and saved == plain
 
 
 def test_rotary_flash_attention_autograd_on_the_gpu(cuda):
@@ -534,7 +594,10 @@ def test_rotary_ring_kernels_match_plain_versions(cuda, B, H, G, Lq, Lk, D,
     assert after["flash_ring_step_rot"] == before["flash_ring_step_rot"] + 2
     for n in ("flash_ring_bwd_dq", "flash_ring_bwd_dkv"):
         assert after[n + "_rot"] == before[n + "_rot"] + 1
+    for n in ("flash_ring_step", "flash_ring_bwd_dq", "flash_ring_bwd_dkv"):
         assert after[n] == before[n]
+    # each call rotates its own q and k first (the pass, twice a call)
+    assert after["rope_rotate"] == before["rope_rotate"] + 2 * 4
 
 
 def test_ring_step_with_nothing_visible_leaves_the_state(cuda):

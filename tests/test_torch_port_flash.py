@@ -207,6 +207,99 @@ def test_rotary_flash_attention_and_grads_match_jax(B, L, H, G, D):
                                    rtol=BWD_TOL, atol=BWD_TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("H,G", [(4, 4), (4, 2), (4, 1)])
+def test_rotary_flash_attention_rotates_once_in_the_forward(H, G,
+                                                            monkeypatch):
+    """flash_attention(rotary_base=) rotates q and k once per call, in the
+    forward (``rope_rotate``, the pass on the card; on the CPU its plain
+    version, ``apply_rotary``), and its backward rotates nothing: no pass,
+    and no ``apply_rotary`` but the counter-rotation of dQ and dK."""
+    B, L, D = 1, 96, 32
+    calls = []
+    rope_rotate, apply_rotary = fa.rope_rotate, fa.apply_rotary
+
+    def counting_rope(x, offset, base):
+        calls.append(("rope_rotate", tuple(x.shape), offset))
+        return rope_rotate(x, offset, base)
+
+    def counting_apply(x, positions, base=10000.0, neg=False):
+        calls.append(("apply_rotary", neg))
+        return apply_rotary(x, positions, base, neg)
+    monkeypatch.setattr(fa, "rope_rotate", counting_rope)
+    monkeypatch.setattr(fa, "apply_rotary", counting_apply)
+    rng = np.random.RandomState(13)
+    q, w = (rng.randn(B, L, H, D).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(B, L, G, D).astype(np.float32) for _ in range(2))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = fa.flash_attention(tq, tk, tv, causal=True, rotary_base=ROPE)
+    forward = list(calls)
+    calls.clear()
+    (out * torch.from_numpy(w)).sum().backward()
+    assert forward == [("rope_rotate", (B, H, L, D), (0,)),
+                       ("apply_rotary", False),
+                       ("rope_rotate", (B, G, L, D), (0,)),
+                       ("apply_rotary", False)]
+    assert calls == [("apply_rotary", True)] * 2  # dQ's and dK's
+    assert all(t.grad is not None for t in (tq, tk, tv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rotary_flash_attention_saves_the_rotated_copies(dtype):
+    """Under rotary, flash_attention's autograd saves five tensors of the
+    same shapes and bytes as without rotary, q and k replaced by their
+    rotated copies (``apply_rotary`` at 0..L-1, in the inputs' dtype): the
+    backward reads those and rotates nothing again."""
+    B, L, H, G, D = 2, 80, 6, 2, 32
+    rng = np.random.RandomState(14)
+    q = torch.from_numpy(rng.randn(B, L, H, D).astype(np.float32)).to(dtype)
+    k, v = (torch.from_numpy(rng.randn(B, L, G, D).astype(np.float32)
+                             ).to(dtype) for _ in range(2))
+
+    def saved(rotary_base):
+        packed = []
+
+        def pack(t):
+            packed.append(t.detach().clone())
+            return t
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            fa.flash_attention(*leaves, causal=True, rotary_base=rotary_base)
+        return packed
+
+    plain, rotated = saved(None), saved(ROPE)
+    assert len(plain) == len(rotated) == 5
+    for a, b in zip(plain, rotated):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert a.numel() * a.element_size() == b.numel() * b.element_size()
+    pos = torch.arange(L)
+    for x, got, unrotated in ((q, rotated[0], plain[0]),
+                              (k, rotated[1], plain[1])):
+        assert torch.equal(unrotated, x.transpose(1, 2))
+        assert torch.equal(got, fa.apply_rotary(x.transpose(1, 2), pos,
+                                                ROPE))
+    assert torch.equal(rotated[2], v.transpose(1, 2))
+
+
+@pytest.mark.parametrize("L,causal,dtype", [(96, True, torch.float32),
+                                            (77, False, torch.float32),
+                                            (130, True, torch.bfloat16)])
+def test_rotary_flash_fwd_is_flash_fwd_on_rotated_operands(L, causal,
+                                                           dtype):
+    """``flash_fwd`` with a rotary base equals ``flash_fwd`` without one on
+    q and k rotated by ``rope_rotate``, bit for bit: the card's K1_rot is
+    the pass, then K1 on the copies."""
+    q, k, v, _ = _inputs(1, 4, 2, L, 64, seed=15)
+    tq, tk, tv = (t.to(dtype) for t in _t(q, k, v))
+    scale = 64 ** -0.5
+    out_r, lse_r = fa.flash_fwd(tq, tk, tv, scale, causal, ROPE)
+    out, lse = fa.flash_fwd(fa.rope_rotate(tq, (0,), ROPE),
+                            fa.rope_rotate(tk, (0,), ROPE), tv, scale,
+                            causal)
+    assert torch.equal(out_r, out) and torch.equal(lse_r, lse)
+    plain, _ = fa.flash_fwd(tq, tk, tv, scale, causal)
+    assert not torch.equal(plain, out_r)
+
+
 # (label, shard offsets, L): one chunk at 0; one rank holding the whole
 # sequence as its two zigzag chunks, the (0, 4096) of the long-context ring
 # at a small L; rank 0 of a 2-rank zigzag over 192 positions; one ragged

@@ -137,6 +137,17 @@ def test_every_planted_fault_anchors_once_in_its_source(fault):
     assert line.endswith("\n") and phases
 
 
+@pytest.mark.parametrize("fault", sorted(
+    f for f, spec in _planted_faults().items() if spec[0].endswith(".py")))
+def test_python_planted_faults_still_parse(fault):
+    """A fault planted in a Python source must leave it valid Python, so
+    that chip_smoke.py fails on the fault's numbers, not on a SyntaxError
+    that any planted line would cause."""
+    source, anchor, line, _ = _planted_faults()[fault]
+    text = (ROOT / "horovod_tpu_torch" / source).read_text()
+    ast.parse(text.replace(anchor, anchor + line))
+
+
 def test_entry_points_without_a_gpu_raise_the_named_error():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU")

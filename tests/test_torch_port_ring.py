@@ -316,12 +316,12 @@ def test_ring_attention_matches_jax(ranks, case, monkeypatch):
 
 
 def test_rotary_ring_backward_rotates_q_and_k_once(ranks):
-    """Under rotary the backward ring rotates its q shard and its home k
-    shard once each, at the rank's own offsets (``rope_rotate``, before the
-    loop), and runs every K5 and K6 step without rotary on those copies (the
-    rotated k travels with v); K4 still rotates inside at every step. The
-    values and gradients of the same runs are held against JAX in
-    ``test_ring_attention_matches_jax``."""
+    """Under rotary the ring rotates its q shard and its home k shard once
+    each, in the forward, at the rank's own offsets (``rotate_shards``,
+    before the loop); its backward rotates nothing (autograd kept the
+    copies), and no K4, K5 or K6 step gets a rotary base (the rotated k
+    travels with v). The values and gradients of the same runs are held
+    against JAX in ``test_ring_attention_matches_jax``."""
     for case in worker.ROTARY_CASES:
         n, B, L, H, G, D, _, schedule, _ = worker.ring_case(case)
         Ls = L // n
@@ -330,10 +330,11 @@ def test_rotary_ring_backward_rotates_q_and_k_once(ranks):
             assert got[case]["rope_rotate"] == [((B, H, Ls, D), off),
                                                 ((B, G, Ls, D), off)], (
                 case, r)
+            assert got[case]["rope_rotate_in_backward"] == 0, (case, r)
             calls, rot = got[case]["calls"], got[case]["rotary_calls"]
+            assert calls["flash_ring_step_ref"] > 0, (case, r)
             assert calls["flash_ring_bwd_dq_ref"] > 0, (case, r)
-            assert rot == {"flash_ring_step_ref":
-                           calls["flash_ring_step_ref"],
+            assert rot == {"flash_ring_step_ref": 0,
                            "flash_ring_bwd_dq_ref": 0,
                            "flash_ring_bwd_dkv_ref": 0}, (case, r)
 
@@ -444,6 +445,73 @@ def test_one_rank_ring_is_plain_attention():
             hybrid_mesh((2,), ("sp",))
         with pytest.raises(ValueError, match="no mesh axis named 'tp'"):
             axis_group("tp")
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.parametrize("schedule", ["contiguous", "zigzag"])
+def test_one_rank_rotary_ring_saves_the_rotated_shards(schedule,
+                                                       monkeypatch):
+    """A one-rank rotary ring: its forward rotates the q shard and the home
+    k shard once (at (0,), or the zigzag chunks (0, L/2), the same
+    positions), its backward rotates nothing, and autograd saves the
+    rotated copies in place of q and k, five tensors of the same shapes and
+    bytes as without rotary. Values and gradients equal flash_attention's
+    with the same rotary (the one step over the whole sequence)."""
+    ring_mod = sys.modules["horovod_tpu_torch.parallel.ring"]
+    calls = []
+    rope_rotate = ring_mod.rope_rotate
+
+    def counting(x, offset, base):
+        calls.append((tuple(x.shape), offset))
+        return rope_rotate(x, offset, base)
+    monkeypatch.setattr(ring_mod, "rope_rotate", counting)
+    B, L, H, G, D = 1, 256, 4, 2, 16
+    rng = np.random.RandomState(10)
+    q, w = (torch.from_numpy(rng.randn(B, L, H, D).astype(np.float32))
+            for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(B, L, G, D).astype(np.float32))
+            for _ in range(2))
+    hvd.init(device="cpu")
+    try:
+        hybrid_mesh((-1,), ("sp",))
+
+        def run(fn, rotary_base):
+            packed = []
+
+            def pack(t):
+                packed.append(t.detach().clone())
+                return t
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                out = fn(*leaves, rotary_base=rotary_base)
+            in_forward = len(calls)
+            (out * w).sum().backward()
+            assert len(calls) == in_forward
+            return out, [t.grad for t in leaves], packed
+
+        ring = functools.partial(ring_attention, axis_name="sp",
+                                 causal=True, schedule=schedule)
+        _, _, plain = run(ring, None)
+        assert calls == []
+        out, grads, saved = run(ring, worker.ROPE)
+        off = (0,) if schedule == "contiguous" else (0, L // 2)
+        assert calls == [((B, H, L, D), off), ((B, G, L, D), off)]
+        assert len(saved) == len(plain) == 5
+        for a, b in zip(plain, saved):
+            assert a.shape == b.shape and a.dtype == b.dtype
+        pos = torch.arange(L)
+        for x, got in ((q, saved[0]), (k, saved[1])):
+            assert torch.equal(got, fa.apply_rotary(x.transpose(1, 2), pos,
+                                                    worker.ROPE))
+        flash = functools.partial(fa.flash_attention, causal=True)
+        out_f, grads_f, _ = run(flash, worker.ROPE)
+        np.testing.assert_allclose(out.detach().numpy(),
+                                   out_f.detach().numpy(), rtol=FWD_TOL,
+                                   atol=FWD_TOL)
+        for name, a, b in zip(("dq", "dk", "dv"), grads, grads_f):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=BWD_TOL,
+                                       atol=BWD_TOL, err_msg=name)
     finally:
         hvd.shutdown()
 

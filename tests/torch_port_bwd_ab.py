@@ -24,14 +24,18 @@ The timed repeats add into the same f32 sums: the same tiles run. Last,
 at the lc phase's launch, [2, 6, 8192, 128] with 2 kv heads, causal: K2
 and K3, and, where the tree has fused rotary, K2_rot and K3_rot through
 their wrappers (``k2_rot_lc_ms``, ``k3_rot_lc_ms``: a tree with the rotary
-pass rotates q and k in each call) and the model's whole backward
-``flash_backward`` with and without rotary (``bwd_rot_lc_ms``,
-``bwd_lc_ms``: delta, any rotation, K2 and K3); K5_rot and K6_rot at the sp
-launch; and K5 and K6 at the lc_sp phase's launch (the lc widths, zigzag
-chunks (0, 4096) on one rank) without rotary and with it through their
-wrappers, and the rotary ring's backward there (``ring_rot_lcsp_ms``: a
-tree with the rotary pass rotates q and k once and runs K5 and K6 on them,
-as parallel/ring.py does; an older tree runs K5_rot and K6_rot).
+pass rotates q and k in each call), ``flash_backward`` with and without
+rotary (``bwd_rot_lc_ms``, ``bwd_lc_ms``: delta, any rotation, K2 and K3),
+and the model's rotary backward (``bwd_rot_model_lc_ms``: a tree whose
+forward keeps the rotated q and k runs delta, K2_rot and K3_rot on them; an
+older tree runs ``flash_backward`` with rotary, which rotates); K5_rot and
+K6_rot at the sp launch; and K5 and K6 at the lc_sp phase's launch (the lc
+widths, zigzag chunks (0, 4096) on one rank) without rotary and with it
+through their wrappers, and the rotary ring's backward there
+(``ring_rot_lcsp_ms``: a tree whose ring forward keeps the rotated shards
+runs K5 and K6 on copies rotated beforehand, outside the timing; a tree
+with the backward's rotary pass rotates q and k once and runs K5 and K6 on
+them; an older tree runs K5_rot and K6_rot).
 
 Prints one ``AB {...}`` JSON line a run and the card's name and power limit.
 """
@@ -108,6 +112,13 @@ def one(root, label):
             lambda: fa.flash_bwd_dkv(*args, **rb))
         res["bwd%s_lc_ms" % tag] = cs.time_ms(lambda: fa.flash_backward(
             q, k, v, out, lse, dout, scale, True, **rb))
+        if rb and hasattr(fa, "_backward"):  # on the forward's copies
+            qr, kr = fa._rotated(q, k, rb["rotary_base"])
+            res["bwd_rot_model_lc_ms"] = cs.time_ms(lambda: fa._backward(
+                qr, kr, v, out, lse, dout, scale, True, rb["rotary_base"]))
+            del qr, kr
+        elif rb:
+            res["bwd_rot_model_lc_ms"] = res["bwd_rot_lc_ms"]
         del out, lse, delta, args
     if ab.rotary(fa):
         res.update(lc_sp(cs, fa, q, k, v, dout, scale))
@@ -136,11 +147,20 @@ def lc_sp(cs, fa, q, k, v, dout, scale):
         fa.flash_ring_bwd_dkv(qq, kk, v, dout, lse, delta, dk, dv, *ring,
                               *rot)
 
+    import horovod_tpu_torch.parallel.ring  # noqa: F401
+    ring_mod = sys.modules["horovod_tpu_torch.parallel.ring"]
+    if hasattr(ring_mod, "rotate_shards"):  # the forward rotated them
+        qr, kr = ring_mod.rotate_shards(q, k, offs, offs, rb)
+
     def ring_rot():
-        if hasattr(fa, "rope_rotate"):  # rotated once, K5 and K6 on them
-            qr, kr = fa.rope_rotate(q, offs, rb), fa.rope_rotate(k, offs, rb)
+        if hasattr(ring_mod, "rotate_shards"):
             k5(qr, kr)
             k6(qr, kr)
+        elif hasattr(fa, "rope_rotate"):  # rotated once, K5 and K6 on them
+            qr2, kr2 = (fa.rope_rotate(q, offs, rb),
+                        fa.rope_rotate(k, offs, rb))
+            k5(qr2, kr2)
+            k6(qr2, kr2)
         else:
             k5(q, k, rb)
             k6(q, k, rb)
@@ -153,4 +173,4 @@ def lc_sp(cs, fa, q, k, v, dout, scale):
 
 
 if __name__ == "__main__":
-    ab.main(one, __file__, __doc__)
+    ab.main(one, __file__, __doc__, compare=False)

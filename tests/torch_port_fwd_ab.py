@@ -18,10 +18,17 @@ its own tree's kernels and ``chip_smoke.time_ms``:
   run), beside SDPA's causal forward at that shape; and K4 at one
   off-diagonal ring step, [2, 12, 2048, 64];
 - K1 at the lc phase's launch, [2, 6, 8192, 128] with 2 kv heads, causal,
-  and, where the tree has fused rotary, K1_rot there and K4_rot at the sp
-  launch.
+  and K4 at the lc_sp phase's launch (the same widths, zigzag chunks
+  (0, 4096) on one rank, from a fresh state each call); where the tree has
+  fused rotary, K1_rot and K4_rot there and K4_rot at the sp launch, each
+  through its wrapper (a tree with the forward's rotary pass rotates q and
+  k, then runs K1 or K4 on the copies).
 
-Prints one ``AB {...}`` JSON line a run and the card's name and power limit.
+Each run also saves K1_rot's out and lse at the lc launch and K4_rot's o,
+m and l at the lc_sp launch, and the runner reports whether every run's
+equal the first run's bit for bit (``bitwise``; with the largest
+difference where not). Prints one ``AB {...}`` JSON line a run and the
+card's name and power limit.
 ``tests/torch_port_bwd_ab.py`` runs the backward kernels on the same runner.
 """
 
@@ -45,7 +52,7 @@ def load(root):
     return cs, sys.modules["horovod_tpu_torch.ops.flash_attention"]
 
 
-def one(root, label):
+def one(root, label, save=None):
     import torch
     import torch.nn.functional as F
     cs, fa = load(root)
@@ -79,11 +86,39 @@ def one(root, label):
     del q, k, v, o, m, l
     q, k, v, _ = cs._inputs(dict(B=2, H=6, G=2, L=8192, D=128), 3)
     scale = 128 ** -0.5
+    offs, rb = (0, 4096), 10000.0
+
+    def k4(*rot):
+        o = torch.zeros(q.shape, device="cuda")
+        m = torch.full(q.shape[:3], float("-inf"), device="cuda")
+        l = torch.zeros(q.shape[:3], device="cuda")
+        return fa.flash_ring_step(q, k, v, o, m, l, offs, offs, scale, True,
+                                  *rot)
     res["k1_lc_ms"] = cs.time_ms(lambda: fa.flash_fwd(q, k, v, scale, True))
+    res["k4_lcsp_ms"] = cs.time_ms(k4)
     if rotary(fa):
         res["k1_rot_lc_ms"] = cs.time_ms(lambda: fa.flash_fwd(
-            q, k, v, scale, True, rotary_base=10000.0))
+            q, k, v, scale, True, rotary_base=rb))
+        res["k4_rot_lcsp_ms"] = cs.time_ms(lambda: k4(rb))
+        if save:
+            torch.save(dict(zip(("out", "lse", "o", "m", "l"),
+                                (*fa.flash_fwd(q, k, v, scale, True, rb),
+                                 *k4(rb)))), save)
     print("AB " + json.dumps(res), flush=True)
+
+
+def bitwise(paths):
+    """Whether each saved run's tensors equal the first run's bit for bit:
+    {name: True, or the largest |difference|}."""
+    import torch
+    runs = [torch.load(p) for p in paths]
+    report = {}
+    for name, first in runs[0].items():
+        diffs = [(r[name].float() - first.float()).abs().nan_to_num(0.0)
+                 .max().item() for r in runs[1:]
+                 if not torch.equal(r[name], first)]
+        report[name] = max(diffs) if diffs else True
+    return report
 
 
 def rotary(fa):
@@ -92,15 +127,19 @@ def rotary(fa):
     return "rotary_base" in inspect.signature(fa.flash_fwd).parameters
 
 
-def main(one=one, script=__file__, doc=__doc__):
-    """Runs ``one`` of ``script`` in turns, other/this/this/other."""
+def main(one=one, script=__file__, doc=__doc__, compare=True):
+    """Runs ``one`` of ``script`` in turns, other/this/this/other;
+    ``compare``: each run saves its outputs, and the runner holds them
+    against the first run's (``bitwise``)."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("other", help="root of the other tree")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--one", metavar="LABEL", help=argparse.SUPPRESS)
+    ap.add_argument("--save", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        one(Path(args.other).resolve(), args.one)
+        one(Path(args.other).resolve(), args.one,
+            *([args.save] if args.save else []))
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -111,15 +150,23 @@ def main(one=one, script=__file__, doc=__doc__):
     for _ in range(args.rounds):
         order += [(other, "other"), (ROOT, "this"), (ROOT, "this"),
                   (other, "other")]
-    for root, label in order:
-        run = subprocess.run([sys.executable, script, str(root), "--one",
-                              label], capture_output=True, text=True,
+    saved = []
+    for i, (root, label) in enumerate(order):
+        cmd = [sys.executable, script, str(root), "--one", label]
+        if compare:
+            saved.append(ROOT / "horovod_tpu_torch" / "ops" / "_build" /
+                         ("ab_run%d.pt" % i))
+            cmd += ["--save", str(saved[-1])]
+        run = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=600)
         lines = [x for x in run.stdout.splitlines() if x.startswith("AB ")]
         if run.returncode != 0 or not lines:
             sys.exit("%s run failed (%d):\n%s" % (label, run.returncode,
                                                   run.stderr[-3000:]))
         print(lines[0], flush=True)
+    saved = [p for p in saved if p.exists()]
+    if len(saved) > 1:
+        print("AB bitwise " + json.dumps(bitwise(saved)), flush=True)
 
 
 if __name__ == "__main__":

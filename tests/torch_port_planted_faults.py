@@ -6,13 +6,14 @@
 For each planted fault below, copies ``chip_smoke.py`` and
 ``horovod_tpu_torch/`` into ``horovod_tpu_torch/ops/_build/planted_<fault>/``
 (git-ignored), plants the fault in the copy's CUDA source (or, for the
-ring's counter-rotation, its Python source), and runs
-``chip_smoke.py --only <phase>`` there for the kernel phase and the model
-phase that the faulty kernel is on (kernels and train for the flash
-kernels, bn_kernels and resnet for the BN kernels), or for the ring kernels
-the ring_kernels phase, whose 4-rank ring carries state and offsets that
-the one-rank sp phase does not; for the rotary faults the kernels phase
-(or ring_kernels, for the ring's counter-rotation). Every run must fail.
+rotary faults of autograd and of the ring's rotation, its Python source),
+and runs ``chip_smoke.py --only <phase>`` there for the kernel phase and
+the model phase that the faulty kernel is on (kernels and train for the
+flash kernels, bn_kernels and resnet for the BN kernels), or for the ring
+kernels the ring_kernels phase, whose 4-rank ring carries state and
+offsets that the one-rank sp phase does not; for the rotary faults the
+kernels phase (or ring_kernels, for the ring's rotation and
+counter-rotation). Every run must fail.
 Prints the readings each run logged (errors against the plain versions,
 the gradient gaps, the first losses) and exits 1 if a planted fault passed
 a check.
@@ -99,14 +100,12 @@ FAULTS = {
         "    row_pos[r] = pos_of(kDkv ? p.kc : p.qc, row0 + 8 * r);\n",
         "  for (int r = 0; kDkv && r < 2; ++r) row_pos[r] = p.kc.off0 + row0 "
         "+ 8 * r;\n", RING_PHASES),
-    # K1_rot rotates each key tile twice (by twice its angles)
-    "rot_fwd_k_twice": (
-        "ops/csrc/flash_fwd.cu",
-        "      rotate_tile<D, kFwdN, Tile::kConsumers>(cK, Tile::kBox, n0, "
-        "p.Lk, p.kc,\n                                              p.rope, "
-        "threadIdx.x);\n",
-        "      if (!kRing) rotate_tile<D, kFwdN, Tile::kConsumers>(cK, "
-        "Tile::kBox, n0, p.Lk, p.kc, p.rope, threadIdx.x);\n", ROT_PHASES),
+    # flash_attention's autograd saves the unrotated k for the backward,
+    # whose K2_rot and K3_rot then read q rotated and k not
+    "rot_saves_unrotated_k": (
+        "ops/flash_attention.py",
+        "        out, lse = _forward(qr, kr, v, scale, causal, rotary_base)\n",
+        "        kr = k\n", ROT_PHASES),
     # K2_rot counter-rotates its dQ twice
     "rot_dq_unrotate_twice": (
         "ops/csrc/flash_bwd.cu",
@@ -124,6 +123,13 @@ FAULTS = {
     # at its first offset (zigzag shards go wrong; at one rank the sp
     # phase's (0, 4096) is the same as (0,), so the 4-rank ring must catch
     # it)
+    # the rotary ring's forward rotates its home k shard as one chunk at
+    # its first offset (zigzag shards go wrong; at one rank (0, 4096) is
+    # the same as (0,), so the 4-rank ring must catch it)
+    "rot_ring_fwd_k_one_chunk": (
+        "parallel/ring.py",
+        "def rotate_shards(q, k, q_offset, kv_offset, rotary_base):\n",
+        "    kv_offset = kv_offset[:1]\n", RING_PHASES),
     "rot_ring_dk_one_chunk": (
         "parallel/ring.py",
         "    k_pos = shard_positions(kv_offset, dk.shape[2], dk.device)\n",

@@ -127,13 +127,14 @@ def run_ring(rank, size, store_path, out_dir):
             if n != size:
                 continue
             counters = [_Counting(name) for name in COUNTED]
-            # the backward ring's rotary pass (one call per rotated shard)
+            # the ring's rotary pass (one call per rotated shard)
             rotations = _Counting("rope_rotate", ring_mod)
             q, k, v, w = (shard(torch.from_numpy(a), n, rank, schedule)
                           for a in ring_inputs(case))
             q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
             out = ring_attention(q, k, v, "sp", causal=causal,
                                  schedule=schedule, rotary_base=rope)
+            in_forward = rotations.calls
             (out * w).sum().backward()
             got[case] = dict(
                 out=out.detach(), dq=q.grad, dk=k.grad, dv=v.grad,
@@ -142,7 +143,8 @@ def run_ring(rank, size, store_path, out_dir):
                 rotary_calls={c.name: sum(a[-1] is not None for a in c.args)
                               for c in counters},
                 rope_rotate=[(tuple(a[0].shape), a[1])
-                             for a in rotations.args])
+                             for a in rotations.args],
+                rope_rotate_in_backward=rotations.calls - in_forward)
             for c in counters + [rotations]:
                 c.restore()
         for case, (n, _, L, schedule) in LM_CASES.items():
