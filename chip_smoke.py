@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py              # every phase, one card
     python3 chip_smoke.py --only kernels   # or train, bn_kernels, resnet,
-                                           # ring_kernels, sp, lc, lc_sp
+                                           # resnet_lean, ring_kernels, sp,
+                                           # lc, lc_sp
 
 Phases, in order; any failure exits non-zero:
 
@@ -51,9 +52,17 @@ Phases, in order; any failure exits non-zero:
    112, C = 64; a stage-3 layer, 50176 x 1024; the last stage, 12544 x
    2048; and an odd 1000003 x 72 with f32 dy over bf16 x) on bf16 inputs,
    and holds each output row to ||kernel - plain||_2 / ||plain||_2 <= 1e-4
-   against the f32 plain version. Times kernel, plain version and
-   PyTorch's own ``torch.batch_norm_stats`` and
-   ``torch.batch_norm_backward_reduce`` (yardsticks the port never calls).
+   against the f32 plain version; at the stem also K7 over 8 ghost groups
+   (batches of 32) and K8 over them under the ReLU mask, in both arithmetic
+   modes. The normalize pass (``bn_apply``) and the dx pass (``bn_dx``),
+   in both modes (f32 "pallas", bf16 "lean"), with and without the ReLU, at
+   every shape and with 8 ghost groups where they divide M (at the odd
+   shape also with the mean and var cotangents), must equal their plain
+   versions bit for bit (``torch.equal``). Times kernel, plain version and
+   PyTorch's own ``torch.batch_norm_stats``,
+   ``torch.batch_norm_backward_reduce``, ``torch.batch_norm_elemt`` and
+   ``torch.batch_norm_backward_elemt`` (yardsticks the port never calls)
+   at the stem.
 6. resnet: ``hvd.init()``, ResNet-50 with ``norm="pallas"`` (bf16 over f32
    params) from a seeded generator, its block-final BN scales set nonzero
    from the seed, SGD(0.01, momentum 0.9) in ``DistributedOptimizer`` and
@@ -63,8 +72,15 @@ Phases, in order; any failure exits non-zero:
    first loss at batch 256 (relative gap <= 2e-2), and every parameter's
    gradient at batch 32 in float32 (worst ||g_pallas - g_stock||_2 /
    ||g_stock||_2 <= 5e-2).
-   Checks finite and falling losses and 53 launches of K7 and of K8 per
-   step.
+   Checks finite and falling losses and 53 launches of each of K7, K8,
+   ``bn_apply`` and ``bn_dx`` per step, none with the ReLU.
+6b. resnet_lean: the same with ``ResNet50Lean`` (``norm="lean"``: the same
+   kernels in bf16 arithmetic, the ReLU fused into the stem's norm and the
+   first two of each block, 33 of 53), and one more gradient check in
+   float32: ghost BN (``bn_virtual_batch_size=16``, 2 groups at batch 32)
+   against the stock BN run on each group alone. 53 launches of each
+   kernel per step, 33 of K8, ``bn_apply`` and ``bn_dx`` with the ReLU or
+   mask.
 7. ring_kernels: the ring-attention step kernels K4 (forward step with
    carried state), K5 (ring dQ) and K6 (ring dK/dV) through a whole 4-rank
    ring inside this process, every virtual rank with its own offsets and
@@ -173,6 +189,13 @@ BATCH = (8, 2048)
 # bench.py --model resnet50pbn --batch-size 256, 224 x 224 images
 RESNET_BATCH, IMAGE, RESNET_GRAD_BATCH = 256, 224, 32
 RESNET_BN_LAYERS = 53  # bn_init + 3 per block (16) + 4 projections
+# ResNet50Lean's norms with the ReLU fused: bn_init + the first 2 of each
+# block; the ghost-BN gradient check's virtual batch (2 groups of 16)
+RESNET_RELU_LAYERS = 33
+RESNET_GHOST_BATCH = 16
+# the ghost groups of the bn_kernels phase's grouped checks: ghost batches of
+# 32 at the stem (the batch of 256 in 8 groups)
+BN_GROUPS = 8
 # name -> (M, C, dy dtype): M = batch * H * W rows of C channels
 BN_SHAPES = {
     "stem": (256 * 112 * 112, 64, "bfloat16"),
@@ -205,6 +228,14 @@ KERNELS = {
                          "horovod_tpu/ops/batch_norm.py:100", 3),
     "batch_norm_grad_stats": ("horovod_tpu_torch/ops/csrc/batch_norm.cu",
                               "horovod_tpu/ops/batch_norm.py:133", 5),
+    # the passes the JAX package leaves to XLA (port-only kernels): the
+    # normalize of _bn_train_fwd (and _lean_fwd :363), y = x * a + b; the dx
+    # of _bn_train_bwd (and _lean_bwd :399), x - mean, * rstd, dy - c1,
+    # x_hat * c2, the difference, * k
+    "bn_apply": ("horovod_tpu_torch/ops/csrc/batch_norm.cu",
+                 "horovod_tpu/ops/batch_norm.py:211", 2),
+    "bn_dx": ("horovod_tpu_torch/ops/csrc/batch_norm.cu",
+              "horovod_tpu/ops/batch_norm.py:237", 6),
     "flash_ring_step": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
                         "horovod_tpu/ops/flash_attention.py:431", 2),
     "flash_ring_bwd_dq": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -233,7 +264,9 @@ KERNELS = {
 # once a layer and its steps count as flash_ring_step)
 RUNS = {"flash_fwd_rot": "pass + K1", "flash_ring_step_rot": "pass + K4"}
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-BN = ("batch_norm_stats", "batch_norm_grad_stats")
+BN = ("batch_norm_stats", "batch_norm_grad_stats", "bn_apply", "bn_dx")
+# the launches of K8 and the passes with the ReLU (mask), counted apart too
+BN_RELU = ("batch_norm_grad_stats_relu", "bn_apply_relu", "bn_dx_relu")
 RING = ("flash_ring_step", "flash_ring_bwd_dq", "flash_ring_bwd_dkv")
 FLASH_ROT = tuple(n + "_rot" for n in FLASH)
 RING_ROT = tuple(n + "_rot" for n in RING)
@@ -738,8 +771,49 @@ def _bn_bound_ms(name, M, C, n_bytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _bn_pass_checks(bn, x, dy, gamma, beta, groups, extra):
+    """The normalize and dx passes at one shape, both modes, with and
+    without the ReLU (and, with ``extra``, the mean and var cotangents),
+    against their plain versions: the cases that are not equal bit for bit,
+    and the largest |kernel - plain| of each pass."""
+    import torch
+    M, C = x.shape
+    s, ss = bn.batch_norm_stats_ref(x, groups)
+    mean = s / (M // groups)
+    rstd = torch.rsqrt(torch.clamp(ss / (M // groups) - mean * mean, min=0.0)
+                       + 1e-5)
+    a = gamma * rstd
+    b = beta - mean * a
+    dbeta, dgamma = bn.batch_norm_grad_stats_ref(dy, x, mean, rstd, groups)
+    cot = [dict()]
+    if extra:
+        g = torch.Generator(device=x.device).manual_seed(groups)
+        cot.append({k: torch.randn(mean.shape, generator=g, device=x.device)
+                    for k in ("gmean", "gvar")})
+    bad, worst = [], {"bn_apply": 0.0, "bn_dx": 0.0}
+    for mode in bn.MODES:
+        for relu in (False, True):
+            runs = [("bn_apply", bn.bn_apply, bn.bn_apply_ref,
+                     (x, a, b, groups, relu, mode), {})]
+            for kw in cot:
+                runs.append(("bn_dx", bn.bn_dx, bn.bn_dx_ref,
+                             (dy, x, mean, rstd, gamma, beta, dbeta, dgamma,
+                              M // groups, groups, relu, mode), kw))
+            for name, kern, plain, args, kw in runs:
+                got, ref = kern(*args, **kw), plain(*args, **kw)
+                worst[name] = max(worst[name], _err(got, ref)[0])
+                if not torch.equal(got, ref):
+                    bad.append("%s %s relu=%s groups=%d%s" % (
+                        name, mode, relu, groups, " +cotangents" if kw else ""))
+                del got, ref
+    return bad, worst
+
+
 def phase_bn_kernels():
-    """K7 and K8 against their plain versions at BN_SHAPES; times at the
+    """K7 and K8 against their plain versions at BN_SHAPES (and, at the
+    stem, with BN_GROUPS ghost groups and K8 with the ReLU mask), the
+    normalize and dx passes bit for bit against theirs (both modes, with and
+    without the ReLU, with ghost groups where they divide M); times at the
     stem, the widest activation of the main path. Returns {name: row}."""
     import torch
     from horovod_tpu_torch.ops import batch_norm as bn
@@ -747,28 +821,62 @@ def phase_bn_kernels():
     bad = []
     for seed, (label, (M, C, dy_dtype)) in enumerate(BN_SHAPES.items()):
         x, dy, mean, rstd = _bn_inputs(M, C, dy_dtype, seed)
+        g = torch.Generator(device="cuda").manual_seed(100 + seed)
+        gamma = torch.rand(C, generator=g, device="cuda") + 0.5
+        beta = torch.randn(C, generator=g, device="cuda")
         outs = {"batch_norm_stats": (bn.batch_norm_stats(x),
                                      bn.batch_norm_stats_ref(x)),
                 "batch_norm_grad_stats": (
                     bn.batch_norm_grad_stats(dy, x, mean, rstd),
                     bn.batch_norm_grad_stats_ref(dy, x, mean, rstd))}
+        if label == "stem":
+            # ghost batches of 32, K8 also under the mask in both modes
+            gm = bn.batch_norm_stats_ref(x, BN_GROUPS)[0] / (M // BN_GROUPS)
+            gr = torch.full_like(gm, 0.5)
+            outs["batch_norm_stats@g8"] = (
+                bn.batch_norm_stats(x, BN_GROUPS),
+                bn.batch_norm_stats_ref(x, BN_GROUPS))
+            for mode in bn.MODES:
+                args = (dy, x, gm, gr, BN_GROUPS, gamma, beta, mode)
+                outs["batch_norm_grad_stats@g8_mask_" + mode] = (
+                    bn.batch_norm_grad_stats(*args),
+                    bn.batch_norm_grad_stats_ref(*args))
         torch.cuda.synchronize()
-        for name, (got, ref) in outs.items():
+        for key, (got, ref) in outs.items():
+            name, _, case = key.partition("@")
+            tag = label + ("_" + case if case else "")
             errs = [_err(a, b) for a, b in zip(got, ref)]
             r = rows[name]
-            r[label + "_max_abs_err"] = max(e[0] for e in errs)
-            r[label + "_rel_l2_err"] = max(e[1] for e in errs)
+            r[tag + "_max_abs_err"] = max(e[0] for e in errs)
+            r[tag + "_rel_l2_err"] = max(e[1] for e in errs)
             log("%s %s (%d x %d): max_abs_err %.3g, rel_l2_err %.3g"
-                % (name, label, M, C, r[label + "_max_abs_err"],
-                   r[label + "_rel_l2_err"]))
-            if not r[label + "_rel_l2_err"] <= BN_TOL:
+                % (name, tag, M, C, r[tag + "_max_abs_err"],
+                   r[tag + "_rel_l2_err"]))
+            if not r[tag + "_rel_l2_err"] <= BN_TOL:
                 bad.append("%s at the %s shape: rel_l2_err %.3g > %g"
-                           % (name, label, r[label + "_rel_l2_err"], BN_TOL))
+                           % (name, tag, r[tag + "_rel_l2_err"], BN_TOL))
         del outs
+        for groups in (1, BN_GROUPS) if M % BN_GROUPS == 0 else (1,):
+            miss, worst = _bn_pass_checks(bn, x, dy, gamma, beta, groups,
+                                          extra=label == "odd")
+            bad += ["%s at the %s shape" % (m, label) for m in miss]
+            for name, err in worst.items():
+                key = "%s_%s_max_abs_err" % (label, "g%d" % groups
+                                             if groups > 1 else "plain")
+                rows[name][key] = err
+            log("bn_apply, bn_dx %s (%d x %d) groups=%d: %d of %d cases "
+                "equal their plain versions" % (
+                    label, M, C, groups, 8 + 4 * (label == "odd") - len(miss),
+                    8 + 4 * (label == "odd")))
         if label == "stem":
             # the same memory as [N, C, H, W] channels_last tensors
             x4, dy4 = (t.view(-1, 112, 112, C).permute(0, 3, 1, 2)
                        for t in (x, dy))
+            a = gamma * rstd
+            b = beta - mean * a
+            dbeta, dgamma = bn.batch_norm_grad_stats_ref(dy, x, mean, rstd)
+            count = torch.tensor([M], dtype=torch.int32, device="cuda")
+            dx_args = (dy, x, mean, rstd, gamma, beta, dbeta, dgamma, M)
             runs = {
                 "batch_norm_stats": (
                     lambda: bn.batch_norm_stats(x),
@@ -782,6 +890,23 @@ def phase_bn_kernels():
                         dy4, x4, mean, rstd, None, True, False, False),
                     (x.numel() * x.element_size() + dy.numel()
                      * dy.element_size() + 2 * C * 4 + 2 * C * 4)),
+                # the resnet phase's calls (f32 arithmetic, no ReLU); the
+                # yardsticks take the same statistics (sum dy * (x - mean)
+                # = dgamma / rstd)
+                "bn_apply": (
+                    lambda: bn.bn_apply(x, a, b),
+                    lambda: bn.bn_apply_ref(x, a, b),
+                    lambda: torch.batch_norm_elemt(x4, gamma, beta, mean,
+                                                   rstd, 1e-5),
+                    2 * x.numel() * x.element_size() + 2 * C * 4),
+                "bn_dx": (
+                    lambda: bn.bn_dx(*dx_args),
+                    lambda: bn.bn_dx_ref(*dx_args),
+                    lambda: torch.batch_norm_backward_elemt(
+                        dy4, x4, mean, rstd, gamma, dbeta, dgamma / rstd,
+                        count),
+                    (2 * x.numel() * x.element_size() + dy.numel()
+                     * dy.element_size() + 5 * C * 4)),
             }
             for name, (kern, plain, library, n_bytes) in runs.items():
                 r = rows[name]
@@ -793,6 +918,14 @@ def phase_bn_kernels():
                 log("%s stem: %.4f ms (bound %.4f, plain %.3f, library %.4f)"
                     % (name, r["ms"], r["bound_ms"], r["plain_ms"],
                        r["library_ms"]))
+            # the resnet_lean phase's calls: bf16 arithmetic, the ReLU
+            rows["bn_apply"]["lean_relu_ms"] = time_ms(
+                lambda: bn.bn_apply(x, a, b, 1, True, "lean"))
+            rows["bn_dx"]["lean_relu_ms"] = time_ms(
+                lambda: bn.bn_dx(*dx_args, 1, True, "lean"))
+            log("stem, lean mode with the ReLU: bn_apply %.4f ms, bn_dx %.4f"
+                % (rows["bn_apply"]["lean_relu_ms"],
+                   rows["bn_dx"]["lean_relu_ms"]))
         del x, dy
         torch.cuda.empty_cache()
     if bad:
@@ -893,26 +1026,53 @@ def phase_train(profile_dir=None):
     return {name: counts[name] for name in FLASH}
 
 
-def phase_resnet(profile_dir=None):
-    """The ResNet-50 train step with norm="pallas" (K7 and K8) at batch
-    256; returns the kernels' launch counts of its 7 steps."""
+def _ghost_gradient_gaps(model, stock, batch, vbs):
+    """{parameter: gap} between ``model`` with ghost BN (virtual batch
+    ``vbs``) on ``batch`` and the stock model run on each virtual batch
+    alone: the mean loss of the whole is the mean of the groups' mean
+    losses, so its gradient is the mean of theirs."""
+    import torch
+    from horovod_tpu_torch.parallel import classification_loss
+    n = batch["y"].shape[0] // vbs
+    g_model = torch.autograd.grad(classification_loss(model, batch),
+                                  list(model.parameters()))
+    g_ref = None
+    for i in range(n):
+        part = {k: v[i * vbs:(i + 1) * vbs] for k, v in batch.items()}
+        g = torch.autograd.grad(classification_loss(stock, part),
+                                list(stock.parameters()))
+        g_ref = g if g_ref is None else [a + b for a, b in zip(g_ref, g)]
+    return {name: ((a - b / n).norm() / (b / n).norm().clamp_min(1e-30)
+                   ).item()
+            for (name, _), a, b in zip(model.named_parameters(), g_model,
+                                       g_ref)}
+
+
+def phase_resnet(profile_dir=None, lean=False):
+    """The ResNet-50 train step at batch 256: norm="pallas" (K7, K8 and the
+    normalize and dx passes in f32) or, with ``lean``, ResNet50Lean (the same
+    kernels in bf16, the ReLU fused into 33 of the 53 norms); returns the
+    kernels' launch counts of its 7 steps."""
     import torch
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.models import ResNet50, ResNet50PBN
+    from horovod_tpu_torch.models import ResNet50, ResNet50Lean, ResNet50PBN
     from horovod_tpu_torch.ops import batch_norm as bn
     from horovod_tpu_torch.ops.flash_attention import (launch_counts,
                                                        reset_launch_counts)
     from horovod_tpu_torch.parallel import (classification_loss,
                                             make_train_step)
 
+    name = "resnet_lean" if lean else "resnet"
+    model_cls, norm = ((ResNet50Lean, "lean") if lean
+                       else (ResNet50PBN, "pallas"))
     hvd.init()
     dev = hvd.device()
     gen = torch.Generator(device=dev).manual_seed(0)
-    model = ResNet50PBN(num_classes=1000, dtype=torch.bfloat16, device=dev,
-                        generator=gen)
+    model = model_cls(num_classes=1000, dtype=torch.bfloat16, device=dev,
+                      generator=gen)
     # flax starts each block-final BN scale at 0, which zeroes every
     # gradient upstream of it inside the block; nonzero scales let the
-    # gradient check below see every layer's K8.
+    # gradient check below see every layer's K8 and dx pass.
     with torch.no_grad():
         for block in model.blocks:
             block.norms[-1].weight.uniform_(0.1, 0.5, generator=gen)
@@ -936,23 +1096,35 @@ def phase_resnet(profile_dir=None):
     gaps_bf16 = gradient_gaps(model, stock, small, classification_loss)
     del stock
     f32 = []
-    for cls in (ResNet50PBN, ResNet50):
+    for cls in (model_cls, ResNet50):
         f32.append(cls(num_classes=1000, dtype=torch.float32, device=dev))
         f32[-1].load_state_dict(model.state_dict())
     grad_gaps = gradient_gaps(*f32, small, classification_loss)
+    checks = [("float32", grad_gaps)]
+    if lean:
+        # ghost BN: 2 virtual batches of 16 against the stock BN on each
+        ghost = ResNet50Lean(num_classes=1000, dtype=torch.float32,
+                             device=dev, bn_virtual_batch_size=
+                             RESNET_GHOST_BATCH)
+        ghost.load_state_dict(model.state_dict())
+        checks.append(("float32, ghost BN %d x %d" % (
+            RESNET_GRAD_BATCH // RESNET_GHOST_BATCH, RESNET_GHOST_BATCH),
+            _ghost_gradient_gaps(ghost, f32[1], small, RESNET_GHOST_BATCH)))
+        del ghost
     del f32
     torch.cuda.empty_cache()
-    for label, gaps in (("bf16, not checked", gaps_bf16),
-                        ("float32", grad_gaps)):
+    for label, gaps in [("bf16, not checked", gaps_bf16)] + checks:
         leaf = max(gaps, key=gaps.get)
-        log("resnet gradient gap pallas vs stock BN at batch %d (%s): worst "
-            "%s %.3g, median %.3g" % (RESNET_GRAD_BATCH, label, leaf,
-                                      gaps[leaf],
-                                      statistics.median(gaps.values())))
-    worst = max(grad_gaps, key=grad_gaps.get)
-    if not grad_gaps[worst] <= RESNET_GRAD_TOL:
-        fail("ResNet gradients through K7/K8 disagree with the stock BN: "
-             "%s %.3g > %g" % (worst, grad_gaps[worst], RESNET_GRAD_TOL))
+        log("%s gradient gap %s vs stock BN at batch %d (%s): worst %s %.3g, "
+            "median %.3g" % (name, norm, RESNET_GRAD_BATCH, label, leaf,
+                             gaps[leaf], statistics.median(gaps.values())))
+    worst = {label: max(gaps.values()) for label, gaps in checks}
+    for label, gaps in checks:
+        leaf = max(gaps, key=gaps.get)
+        if not gaps[leaf] <= RESNET_GRAD_TOL:
+            fail("ResNet gradients (norm=%r, %s) disagree with the stock BN: "
+                 "%s %.3g > %g" % (norm, label, leaf, gaps[leaf],
+                                   RESNET_GRAD_TOL))
 
     opt = hvd.DistributedOptimizer(
         torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
@@ -969,39 +1141,43 @@ def phase_resnet(profile_dir=None):
         loss = step(batch).item()
         times.append(time.perf_counter() - t0)
         losses.append(loss)
-        log("resnet step %d: loss %.5f, %.1f ms" % (i, loss, times[-1] * 1e3))
+        log("%s step %d: loss %.5f, %.1f ms" % (name, i, loss,
+                                                times[-1] * 1e3))
     counts = dict(launch_counts(), **bn.launch_counts())
     peak = torch.cuda.max_memory_allocated()
     steps = warmup + timed
 
     if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
-        fail("non-finite ResNet loss: %s" % losses)
+        fail("non-finite %s loss: %s" % (name, losses))
     if not losses[-1] < losses[0]:
-        fail("ResNet loss did not fall: %s" % losses)
-    for name, n in counts.items():
-        per_step = RESNET_BN_LAYERS if name in BN else 0
+        fail("%s loss did not fall: %s" % (name, losses))
+    for kernel, n in counts.items():
+        per_step = (RESNET_BN_LAYERS if kernel in BN else
+                    RESNET_RELU_LAYERS if kernel in BN_RELU and lean else 0)
         if n != per_step * steps:
-            fail("%s launched %d times in %d ResNet steps, expected %d per "
-                 "step" % (name, n, steps, per_step))
+            fail("%s launched %d times in %d %s steps, expected %d per step"
+                 % (kernel, n, steps, name, per_step))
     rel = abs(losses[0] - loss_plain) / abs(loss_plain)
-    log("resnet first loss %.6f, stock BN %.6f, rel %.3g"
-        % (losses[0], loss_plain, rel))
+    log("%s first loss %.6f, stock BN %.6f, rel %.3g"
+        % (name, losses[0], loss_plain, rel))
     if not rel <= RESNET_LOSS_TOL:
-        fail("ResNet first loss %.6f vs stock BN %.6f (rel %.3g)"
-             % (losses[0], loss_plain, rel))
+        fail("%s first loss %.6f vs stock BN %.6f (rel %.3g)"
+             % (name, losses[0], loss_plain, rel))
 
     step_s = statistics.median(times[warmup:])
     result = dict(step_ms=step_s * 1e3, images_per_s=RESNET_BATCH / step_s,
                   peak_mem_gb=peak / 1e9, loss_first=losses[0],
                   loss_last=losses[-1], loss_plain=loss_plain,
-                  grad_gap_worst=grad_gaps[worst],
+                  grad_gap_worst=worst["float32"],
                   grad_gap_worst_bf16=max(gaps_bf16.values()),
+                  **({"grad_gap_worst_ghost": worst[checks[1][0]]}
+                     if lean else {}),
                   launches=counts, steps=steps)
-    print("resnet: " + json.dumps(result), flush=True)
+    print("%s: %s" % (name, json.dumps(result)), flush=True)
     if profile_dir:
-        profile_steps(step, batch, profile_dir, "resnet")
+        profile_steps(step, batch, profile_dir, name)
     hvd.shutdown()
-    return {name: counts[name] for name in BN}
+    return {kernel: counts[kernel] for kernel in BN}
 
 
 def _m_err(a, b):
@@ -1768,13 +1944,14 @@ def _category(name, model):
         return "ring kernels"
     if "flash" in low:
         return "flash kernels"
-    if "hvdbn" in low:
-        return "batch-norm kernels"
+    if "hvdbn" in low:  # K7, K8 (bn_partial, bn_finalize) and the passes
+        return ("batch-norm passes" if "apply" in low or "dx_kernel" in low
+                else "batch-norm statistics")
     # cuDNN's and CUTLASS's kernels: convolutions in the ResNet, the
     # matmuls in the LM
     if any(s in low for s in ("gemm", "xmma", "nvjet", "cutlass", "sm90_",
                               "conv", "dgrad", "wgrad", "fprop")):
-        return "convolutions" if model == "resnet" else "matmuls"
+        return "convolutions" if model.startswith("resnet") else "matmuls"
     if "multi_tensor_apply" in low:
         return "optimizer"
     if "nccl" in low:
@@ -1835,14 +2012,15 @@ def profile_steps(step, tokens, out_dir, model, n=3):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "train", "bn_kernels",
-                                       "resnet", "ring_kernels", "sp", "lc",
-                                       "lc_sp"),
+                                       "resnet", "resnet_lean",
+                                       "ring_kernels", "sp", "lc", "lc_sp"),
                     help="run the device and build phases and this one")
     ap.add_argument("--profile", metavar="DIR",
-                    help="after the train, resnet, sp and lc_sp phases, "
-                    "profile 3 more steps each (lc always profiles) and write "
-                    "the kernel tables to DIR/chip_smoke_{lm,resnet,sp,lc,"
-                    "lc_unfused,lc_sp}_profile.txt")
+                    help="after the train, resnet, resnet_lean, sp and "
+                    "lc_sp phases, profile 3 more steps each (lc always "
+                    "profiles) and write the kernel tables to "
+                    "DIR/chip_smoke_{lm,resnet,resnet_lean,sp,lc,lc_unfused,"
+                    "lc_sp}_profile.txt")
     args = ap.parse_args()
     phase_device()
     if not (ROOT / "horovod_tpu_torch").is_dir():
@@ -1870,6 +2048,8 @@ def main():
         rows.update(phase_bn_kernels())
     if run("resnet"):
         add(phase_resnet(profile_dir=args.profile))
+    if run("resnet_lean"):
+        add(phase_resnet(profile_dir=args.profile, lean=True))
     if run("ring_kernels"):
         rows.update(phase_ring_kernels())
     if run("sp"):

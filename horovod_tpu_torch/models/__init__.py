@@ -6,6 +6,7 @@ from horovod_tpu_torch.models.resnet import (  # noqa: F401
     ResNet18,
     ResNet34,
     ResNet50,
+    ResNet50Lean,
     ResNet50PBN,
     ResNet101,
     ResNet152,

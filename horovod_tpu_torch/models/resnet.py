@@ -13,10 +13,16 @@ and weight to ``dtype`` explicitly (no autocast), and the logits come out
 float32. The convolutions are cuDNN's ``F.conv2d``, as the JAX package
 leaves them to XLA.
 
-``norm``: ``"pallas"`` is ``FusedBatchNorm`` (kernels K7 and K8),
-``"batch"`` the stock BN (``F.batch_norm``), the counterpart of flax's
-``nn.BatchNorm``. Both keep flax's running statistics. ``bn_group`` is sync
-BN over a process group (the counterpart of ``bn_axis_name``).
+``norm``: ``"pallas"`` is ``FusedBatchNorm`` (K7, K8 and the normalize and
+dx passes in f32), ``"lean"`` is ``LeanBatchNorm`` (the same kernels in the
+compute dtype, the backward recomputing x_hat; the norm that a ReLU follows
+inside a block, and the stem's, applies that ReLU itself, while block-final
+norms, projections and the ReLU after the residual add stay apart, as in
+the reference), ``"batch"`` the stock BN (``F.batch_norm``), the
+counterpart of flax's ``nn.BatchNorm``. All keep flax's running statistics
+and state-dict keys. ``bn_group`` is sync BN over a process group (the
+counterpart of ``bn_axis_name``), ``bn_virtual_batch_size`` ghost BN
+(``"lean"`` and ``"pallas"``).
 
 Padding follows flax's ``"SAME"``: a stride-2 3x3 convolution of an even
 input pads 0 before and 1 after, where ``nn.Conv2d(padding=1)`` would pad
@@ -30,9 +36,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from horovod_tpu_torch.common.basics import resolve_device
-from horovod_tpu_torch.ops.batch_norm import FusedBatchNorm, StockBatchNorm
+from horovod_tpu_torch.ops.batch_norm import (FusedBatchNorm, LeanBatchNorm,
+                                               StockBatchNorm)
 
-_LATER = ("group", "none", "lean")
+_NORMS = {"batch": StockBatchNorm, "pallas": FusedBatchNorm,
+          "lean": LeanBatchNorm}
+_LATER = ("group", "none")  # ROADMAP A6
 
 
 def _same_padding(size, k, stride):
@@ -82,12 +91,17 @@ class ResNetBlock(nn.Module):
         return [(cin, filters, 3, stride), (filters, filters, 3, 1)]
 
     def __init__(self, cin, filters, norm, stride=1, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, norm_act=None):
         super().__init__()
         specs = self.layers(cin, filters, stride)
         self.convs = nn.ModuleList(Conv(*s, dtype=dtype, device=device)
                                    for s in specs)
-        self.norms = nn.ModuleList(norm(s[1]) for s in specs)
+        # norm_act: the norm that applies the ReLU after it itself, for
+        # every norm but the block-final one (norm="lean")
+        inner = norm_act or norm
+        self.norms = nn.ModuleList(
+            (inner if i < len(specs) - 1 else norm)(s[1])
+            for i, s in enumerate(specs))
         cout = specs[-1][1]
         self.conv_proj = self.norm_proj = None
         if cin != cout or stride != 1:
@@ -100,7 +114,7 @@ class ResNetBlock(nn.Module):
         last = len(self.convs) - 1
         for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
             y = norm(conv(y))
-            if i < last:
+            if i < last and not norm.fuse_relu:
                 y = F.relu(y)
         residual = x
         if self.conv_proj is not None:
@@ -129,38 +143,41 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes, block_cls, num_classes=1000,
                  num_filters=64, dtype=torch.bfloat16, norm="batch",
-                 bn_group=None, bn_virtual_batch_size=None, device=None,
-                 generator=None):
+                 bn_group=None, bn_virtual_batch_size=None, bn_remat=False,
+                 device=None, generator=None):
         super().__init__()
         if norm in _LATER:
             raise NotImplementedError(
-                "norm=%r is a later slice of the port (ROADMAP A3)" % norm)
-        if norm not in ("batch", "pallas"):
-            raise ValueError("norm=%r is not batch|pallas|group|none|lean"
+                "norm=%r is a later slice of the port (ROADMAP A6)" % norm)
+        if norm not in _NORMS:
+            raise ValueError("norm=%r is not batch|pallas|lean|group|none"
                              % norm)
+        if bn_remat:
+            raise NotImplementedError(
+                "bn_remat is the rest of ROADMAP A1: a selective checkpoint "
+                "needs the BN passes registered as torch.library ops")
         device = resolve_device(device)
         self.dtype = dtype
-        if norm == "pallas":
-            norm_cls = functools.partial(
-                FusedBatchNorm, group=bn_group, device=device,
-                virtual_batch_size=bn_virtual_batch_size)
-        else:
-            if bn_virtual_batch_size:
-                raise NotImplementedError(
-                    "ghost BN (bn_virtual_batch_size) is a later slice of "
-                    "the port (ROADMAP A3)")
-            norm_cls = functools.partial(StockBatchNorm, group=bn_group,
-                                         device=device)
+        opts = dict(group=bn_group, device=device)
+        if bn_virtual_batch_size:
+            if norm == "batch":
+                raise ValueError("bn_virtual_batch_size (ghost BN) needs "
+                                 "norm='lean' or norm='pallas'")
+            opts["virtual_batch_size"] = bn_virtual_batch_size
+        norm_cls = functools.partial(_NORMS[norm], **opts)
+        norm_act = (functools.partial(norm_cls, fuse_relu=True)
+                    if norm == "lean" else None)
         self.conv_init = Conv(3, num_filters, 7, 2, ((3, 3), (3, 3)),
                               dtype=dtype, device=device)
-        self.bn_init = norm_cls(num_filters)
+        self.bn_init = (norm_act or norm_cls)(num_filters)
         blocks, cin = [], num_filters
         for i, n in enumerate(stage_sizes):
             for j in range(n):
                 stride = 2 if i > 0 and j == 0 else 1
                 filters = num_filters * 2 ** i
                 blocks.append(block_cls(cin, filters, norm_cls, stride,
-                                        dtype=dtype, device=device))
+                                        dtype=dtype, device=device,
+                                        norm_act=norm_act))
                 cin = filters * block_cls.expansion
         self.blocks = nn.ModuleList(blocks)
         self.head = nn.Linear(cin, num_classes, device=device)
@@ -177,7 +194,7 @@ class ResNet(nn.Module):
                 std = fan_in ** -0.5 / 0.87962566103423978
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
-            elif isinstance(m, (FusedBatchNorm, StockBatchNorm)):
+            elif isinstance(m, tuple(_NORMS.values())):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
         self.head.bias.zero_()
@@ -186,7 +203,9 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = x.to(self.dtype, memory_format=torch.channels_last)
-        x = F.relu(self.bn_init(self.conv_init(x)))
+        x = self.bn_init(self.conv_init(x))
+        if not self.bn_init.fuse_relu:
+            x = F.relu(x)
         x = F.max_pool2d(x, 3, 2, padding=1)
         for block in self.blocks:
             x = block(x)
@@ -207,3 +226,5 @@ ResNet152 = functools.partial(ResNet, stage_sizes=[3, 8, 36, 3],
                               block_cls=BottleneckBlock)
 ResNet50PBN = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3],
                                 block_cls=BottleneckBlock, norm="pallas")
+ResNet50Lean = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3],
+                                 block_cls=BottleneckBlock, norm="lean")

@@ -4,9 +4,13 @@ import."""
 
 from horovod_tpu_torch.ops.batch_norm import (  # noqa: F401
     FusedBatchNorm,
+    LeanBatchNorm,
     batch_norm_grad_stats,
     batch_norm_stats,
+    bn_apply,
+    bn_dx,
     fused_batch_norm_train,
+    lean_batch_norm_train,
 )
 from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
     analytic_attention_flops,

@@ -1,27 +1,42 @@
-"""BatchNorm with hand-written statistics kernels for Hopper, and their
-plain PyTorch versions.
+"""BatchNorm on hand-written Hopper kernels, and their plain PyTorch
+versions.
 
-Counterpart of ``horovod_tpu/ops/batch_norm.py`` (the Pallas path:
-``batch_norm_stats``, ``batch_norm_grad_stats``, ``fused_batch_norm_train``
-and ``PallasBatchNorm``). Two kernels, in ``csrc/batch_norm.cu``:
+Counterpart of ``horovod_tpu/ops/batch_norm.py``: the Pallas path
+(``batch_norm_stats``, ``batch_norm_grad_stats``, ``fused_batch_norm_train``
+and ``PallasBatchNorm``) and the traffic-lean path (``lean_batch_norm_train``
+and ``LeanBatchNorm``, with ghost BN). Four kernels, in
+``csrc/batch_norm.cu``:
 
-- K7 ``batch_norm_stats``: per-channel (sum x, sum x^2) of a (M, C)
-  activation;
-- K8 ``batch_norm_grad_stats``: per-channel (sum dy, sum dy * x_hat), i.e.
-  (dbeta, dgamma).
+- K7 ``batch_norm_stats``: per (group, channel) (sum x, sum x^2) of a
+  (M, C) activation;
+- K8 ``batch_norm_grad_stats``: per (group, channel) (sum dy, sum dy *
+  x_hat), i.e. (dbeta, dgamma), optionally under the ReLU mask;
+- ``bn_apply``: the normalize pass, y = x * a + b, optionally max(y, 0);
+- ``bn_dx``: the dx pass of the BN backward, optionally under the ReLU mask.
 
-Each reads its operands once (bf16 or f32), accumulates in f32 and returns
-two (C,) f32 tensors. Each wrapper dispatches on where its input lies: a
-CPU tensor goes to the plain version, a CUDA tensor launches the kernel or
-raises. The kernels mask both ragged tails, so every M >= 1 and C >= 1 is
-taken, and reduce across blocks in a fixed order (no float atomics), so
-the same input gives bit-identical statistics. The (M, C) input must be
-contiguous: a ``channels_last`` [N, C, H, W] activation is physically
-NHWC, and ``x.movedim(1, -1).view(-1, C)`` is then a view the kernels
-read in place. Nothing is copied to make an input contiguous.
+The statistics read their operands once (bf16 or f32), accumulate in f32
+and return f32 sums, reduced across blocks in a fixed order (no float
+atomics), so the same input gives bit-identical statistics. The two passes
+are elementwise, in one of two arithmetic modes: ``"pallas"`` computes in
+f32 and rounds once to x's dtype (``_FusedBatchNormFn``), ``"lean"`` rounds
+every operation to x's dtype (the lean path's bf16 ops). Each pass equals
+its plain version bit for bit, because the wrapper computes the
+per-channel terms with the plain version's own torch expressions, and the
+kernel rounds them to x's dtype in lean mode as ``.to(dtype)`` does and
+each product and sum apart (no FMA). Rows split into
+``groups`` ghost groups of M / groups contiguous rows: a channels-last
+activation keeps its batch axis outermost, so a ghost batch is a block of
+rows. Every kernel masks both ragged tails, so every M >= 1 and C >= 1 is
+taken.
 
-The normalize and dx passes stay elementwise PyTorch, as the JAX package
-leaves them to XLA. Each wrapper counts its launches in ``.launches``.
+Each wrapper dispatches on where its input lies: a CPU tensor goes to the
+plain version, a CUDA tensor launches the kernel or raises. The (M, C)
+inputs must be contiguous: a ``channels_last`` [N, C, H, W] activation is
+physically NHWC, and ``x.movedim(1, -1).view(-1, C)`` is then a view the
+kernels read in place. Nothing is copied to make an input contiguous. Each
+wrapper counts its launches in ``.launches``, and those with the ReLU or
+mask also in ``.relu_launches``.
+
 ``StockBatchNorm`` is the same module on ``F.batch_norm`` (cuDNN on the
 GPU), the counterpart of flax's ``nn.BatchNorm``: no kernel of the port.
 """
@@ -37,13 +52,20 @@ from horovod_tpu_torch.common.basics import resolve_device
 from horovod_tpu_torch.ops import _build
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_THREADS = 256          # threads of a pass-1 block (csrc/batch_norm.cu)
-# Row splits: enough pass-1 blocks to fill the card (about 4 of 256
-# threads per SM of an H100), each thread taking at least _MIN_ROWS rows.
-# A fixed number, not read from the device, so every card and every rank
-# splits (and so rounds) alike.
+MODES = ("pallas", "lean")
+_THREADS = 256          # threads of a block (csrc/batch_norm.cu)
+# Row splits of the statistics: enough pass-1 blocks to fill the card
+# (about 4 of 256 threads per SM of an H100), each thread taking at least
+# _MIN_ROWS rows. A fixed number, not read from the device, so every card
+# and every rank splits (and so rounds) alike.
 _TARGET_BLOCKS = 528
 _MIN_ROWS = 32
+# The passes: about 8 blocks of 256 threads per SM, each thread taking at
+# least _PASS_UNROLL rows (csrc/batch_norm.cu's kApplyUnroll).
+_PASS_BLOCKS = 1056
+_PASS_UNROLL = 4
+# The terms of the dx pass, in the order of csrc/batch_norm.cu's Term.
+_DX_TERMS = ("mean", "rstd", "k", "c1", "c2", "gamma", "beta", "c3", "c4")
 
 _bound = {}
 
@@ -51,30 +73,137 @@ _bound = {}
 # ---------------------------------------------------------------- plain
 
 
-def batch_norm_stats_ref(x2d):
-    """Plain version of K7 in f32: (sum x, sum x^2) over the rows."""
-    xf = x2d.float()
-    return xf.sum(0), (xf * xf).sum(0)
+def _split(t, groups):
+    """(M, C) -> the (G, M / G, C) view of its ghost groups; the tensor
+    itself for groups == 1."""
+    return t if groups == 1 else t.view(groups, -1, t.shape[-1])
 
 
-def batch_norm_grad_stats_ref(dy2d, x2d, mean, rstd):
-    """Plain version of K8 in f32: (sum dy, sum dy * (x - mean) * rstd)."""
-    dyf = dy2d.float()
-    xhat = (x2d.float() - mean) * rstd
-    return dyf.sum(0), (dyf * xhat).sum(0)
+def _per_group(t, groups):
+    """A per-(group, channel) term, (C,) or (G, C), shaped to broadcast
+    over _split's view."""
+    return t if groups == 1 or t.dim() == 1 else t.unsqueeze(1)
+
+
+def _masked(dy, x, mean, rstd, gamma, beta, mode):
+    """x_hat = (x - mean) * rstd and the dy that counts (0 where the
+    pre-activation x_hat * gamma + beta is not > 0, with gamma given), in
+    the mode's arithmetic: f32 (``_bn_train_bwd``) or x's dtype
+    (``_lean_bwd:381-386``). Also returns x - mean."""
+    if mode == "pallas":
+        xm = x.float() - mean
+        xhat = xm * rstd
+        g = dy.float()
+        if gamma is not None:
+            g = torch.where(xhat * gamma + beta > 0, g, 0.0)
+    else:
+        dt = x.dtype
+        xm = x - mean.to(dt)
+        xhat = xm * rstd.to(dt)
+        g = dy.to(dt)
+        if gamma is not None:
+            pre = xhat * gamma.to(dt) + beta.to(dt)
+            g = torch.where(pre > 0, g, torch.zeros((), dtype=dt))
+    return xm, xhat, g
+
+
+def batch_norm_stats_ref(x2d, groups=1):
+    """Plain version of K7 in f32: (sum x, sum x^2) over the rows, (C,)
+    each, or (G, C) over each of ``groups`` row blocks."""
+    xf = _split(x2d, groups).float()
+    axis = 0 if groups == 1 else 1
+    return xf.sum(axis), (xf * xf).sum(axis)
+
+
+def batch_norm_grad_stats_ref(dy2d, x2d, mean, rstd, groups=1, gamma=None,
+                              beta=None, mode="pallas"):
+    """Plain version of K8 in f32: (sum dy, sum dy * (x - mean) * rstd) over
+    the rows of each group, dy 0 where the ReLU mask (``gamma``, ``beta``
+    given) is off; x_hat and the mask in the mode's arithmetic, the sums
+    f32."""
+    _, xhat, g = _masked(_split(dy2d, groups), _split(x2d, groups),
+                         _per_group(mean, groups), _per_group(rstd, groups),
+                         gamma, beta, mode)
+    gf = g.float()
+    axis = 0 if groups == 1 else 1
+    return gf.sum(axis), (gf * xhat.float()).sum(axis)
+
+
+def bn_apply_ref(x2d, a, b, groups=1, relu=False, mode="pallas"):
+    """Plain version of the normalize pass: y = x * a + b per (group,
+    channel), max(y, 0) with ``relu``, in x's dtype. ``"pallas"``:
+    ``_bn_train_fwd:211``, f32 then one rounding; ``"lean"``:
+    ``_lean_fwd:363-365``, a and b rounded to x's dtype and each operation
+    in it."""
+    x = _split(x2d, groups)
+    a, b = _per_group(a, groups), _per_group(b, groups)
+    if mode == "pallas":
+        y = x.float() * a + b
+        if relu:
+            y = torch.relu(y)
+        y = y.to(x2d.dtype)
+    else:
+        dt = x2d.dtype
+        y = x * a.to(dt) + b.to(dt)
+        if relu:
+            y = torch.relu(y)
+    return y.view(x2d.shape)
+
+
+def _dx_terms(mean, rstd, gamma, beta, dbeta, dgamma, count, gmean, gvar):
+    """The per-(group, channel) terms of the dx pass in f32 ({name: tensor
+    or None}): k = gamma * rstd, c1 = dbeta / count, c2 = dgamma / count, c3
+    = gmean / count, c4 = gvar * 2 / count, with mean, rstd, gamma, beta. The
+    kernel reads these values, the plain version broadcasts them (in lean
+    mode both round them to x's dtype first, as ``_lean_bwd:399-409``)."""
+    return dict(mean=mean, rstd=rstd, k=gamma * rstd, c1=dbeta / count,
+                c2=dgamma / count, gamma=gamma, beta=beta,
+                c3=None if gmean is None else gmean / count,
+                c4=None if gvar is None else gvar * (2.0 / count))
+
+
+def bn_dx_ref(dy2d, x2d, mean, rstd, gamma, beta, dbeta, dgamma, count,
+              groups=1, relu=False, mode="pallas", gmean=None, gvar=None):
+    """Plain version of the dx pass: dx = gamma * rstd * (dy - dbeta / count
+    - x_hat * dgamma / count), plus gmean / count + gvar * 2 / count * (x -
+    mean) for the mean and var cotangents that are given, dy masked as K8's
+    with ``relu`` (then ``beta`` is needed). ``dbeta`` and ``dgamma`` are
+    the sums over the ``count`` rows of each group (over the sync group
+    too). ``"pallas"``: ``_bn_train_bwd:237-242`` in f32, one rounding;
+    ``"lean"``: ``_lean_bwd:381-409``, each operation in x's dtype."""
+    t = _dx_terms(mean, rstd, gamma, beta, dbeta, dgamma, count, gmean, gvar)
+    dt = x2d.dtype if mode == "lean" else torch.float32
+    t = {k: None if v is None else _per_group(v.to(dt), groups)
+         for k, v in t.items()}
+    xm, xhat, g = _masked(_split(dy2d, groups), _split(x2d, groups),
+                          t["mean"], t["rstd"],
+                          t["gamma"] if relu else None, t["beta"], mode)
+    dx = t["k"] * (g - t["c1"] - xhat * t["c2"])
+    if gmean is not None:
+        dx = dx + t["c3"]
+    if gvar is not None:
+        dx = dx + t["c4"] * xm
+    return dx.to(x2d.dtype).view(x2d.shape)
 
 
 # --------------------------------------------------------------- kernels
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry point -> its argument types (csrc/batch_norm.cu): the input
-# pointers with their dtypes, (mean, rstd), ws, out, M, C, vec, splits,
-# stream.
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry point -> its argument types (csrc/batch_norm.cu)
 _ARGTYPES = {
-    "hvd_bn_stats": [_P, _I, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
-    "hvd_bn_grad_stats": [_P, _I, _P, _I, _P, _P, _P, _P, ctypes.c_longlong,
-                          _I, _I, _I, _P],
+    # x, dtype, ws, out, M, C, groups, vec, splits, stream
+    "hvd_bn_stats": [_P, _I, _P, _P, _L, _I, _I, _I, _I, _P],
+    # dy, dtype, x, dtype, mean, rstd, gamma, beta, lean, ws, out, M, C,
+    # groups, vec, splits, stream
+    "hvd_bn_grad_stats": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _L,
+                          _I, _I, _I, _I, _P],
+    # y, x, dtype, a, b, lean, relu, M, C, groups, vec, splits, stream
+    "hvd_bn_apply": [_P, _P, _I, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P],
+    # dx, dy, dtype, x, dtype, terms, lean, relu, extra, M, C, groups, vec,
+    # splits, stream
+    "hvd_bn_dx": [_P, _P, _I, _P, _I, ctypes.POINTER(_P), _I, _I, _I, _L,
+                  _I, _I, _I, _I, _P],
 }
 
 
@@ -120,82 +249,230 @@ def _check_rows(what, name, t, device, shape=None):
             % (what, name, tuple(t.stride())))
 
 
-def _plan(M, C, vec):
-    """Row splits of pass 1 for a (M, C) input read ``vec`` channels at a
-    time: the workspace is f32 [splits, 2, C]."""
+def _check_args(what, x2d, groups, mode):
+    if mode not in MODES:
+        raise ValueError("%s: mode %r is not one of %s" % (what, mode, MODES))
+    if groups < 1 or x2d.shape[0] % groups:
+        raise ValueError("%s: groups=%d does not divide the %d rows"
+                         % (what, groups, x2d.shape[0]))
+
+
+def _terms(what, x2d, groups, **terms):
+    """The per-(group, channel) terms as contiguous f32 (G, C) tensors on
+    x's device (a (C,) term is the same for every group); None stays None.
+    Raises on a wrong shape or device."""
+    C = x2d.shape[1]
+    out = {}
+    for name, t in terms.items():
+        if t is None:
+            out[name] = None
+            continue
+        if t.device != x2d.device or t.shape not in ((C,), (groups, C)):
+            raise ValueError("%s: %s must be (%d,) or (%d, %d) on %s, got %s "
+                             "on %s" % (what, name, C, groups, C, x2d.device,
+                                        tuple(t.shape), t.device))
+        if t.dtype != torch.float32 or not t.is_contiguous() or (
+                groups > 1 and t.dim() == 1):
+            t = t.float().expand(groups, C).contiguous()
+        out[name] = t
+    return out
+
+
+def _vec(C, tensors):
+    """8 channels a thread (16-byte loads) when C % 8 == 0 and every base
+    is 16-byte aligned, else 1."""
+    return 8 if C % 8 == 0 and all(t.data_ptr() % 16 == 0
+                                   for t in tensors) else 1
+
+
+def _columns(C, vec):
+    """(column tiles, rows a block covers in one step) of csrc's
+    block_shape."""
     tc = -(-C // vec)
     tx = min(tc, _THREADS)
-    col_tiles = -(-tc // tx)
-    rows_per_pass = _THREADS // tx
-    return max(1, min(-(-M // (rows_per_pass * _MIN_ROWS)),
-                      -(-_TARGET_BLOCKS // col_tiles)))
+    return -(-tc // tx), _THREADS // tx
 
 
-def _launch(name, args, tensors, M, C):
-    """Launches ``name`` over (M, C) and returns its (2, C) f32 output."""
+def _plan(Mg, C, vec, groups):
+    """Row splits of each group for the statistics' pass 1: the workspace
+    is f32 [groups * splits, 2, C]."""
+    col_tiles, rows_per_pass = _columns(C, vec)
+    return max(1, min(-(-Mg // (rows_per_pass * _MIN_ROWS)),
+                      -(-_TARGET_BLOCKS // (col_tiles * groups))))
+
+
+def _pass_plan(Mg, C, vec, groups):
+    """Row splits of each group for the passes."""
+    col_tiles, rows_per_pass = _columns(C, vec)
+    return max(1, min(-(-Mg // (rows_per_pass * _PASS_UNROLL)),
+                      -(-_PASS_BLOCKS // (col_tiles * groups))))
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_stats(name, args, tensors, M, C, groups):
+    """Launches K7 or K8 over (M, C) and returns its (G, 2, C) f32 output."""
     dev = tensors[0].device
-    vec = 8 if C % 8 == 0 and all(t.data_ptr() % 16 == 0
-                                  for t in tensors) else 1
-    splits = _plan(M, C, vec)
-    ws = torch.empty(splits, 2, C, dtype=torch.float32, device=dev)
-    out = torch.empty(2, C, dtype=torch.float32, device=dev)
+    vec = _vec(C, tensors)
+    splits = _plan(M // groups, C, vec, groups)
+    ws = torch.empty(groups * splits, 2, C, dtype=torch.float32, device=dev)
+    out = torch.empty(groups, 2, C, dtype=torch.float32, device=dev)
     lib, fn = _entry(name)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*args, ws.data_ptr(), out.data_ptr(), M, C, vec, splits,
-                 stream)
+        err = fn(*args, ws.data_ptr(), out.data_ptr(), M, C, groups, vec,
+                 splits, _stream(dev))
     _build.check(lib, err, name)
     return out
 
 
-def batch_norm_stats(x2d):
-    """K7: (sum x, sum x^2) over the rows of a (M, C) tensor, two (C,) f32
-    tensors."""
-    if _on_cpu("batch_norm_stats", x2d):
-        return batch_norm_stats_ref(x2d)
-    _check_rows("batch_norm_stats", "x", x2d, x2d.device)
+def _launch_pass(name, x2d, reads, args, groups):
+    """Launches the pass ``name`` over (M, C) into a new (M, C) tensor in
+    x's dtype, which it returns: the entry's arguments are that output,
+    ``args``, then M, C, groups, vec, splits and the stream."""
+    out = torch.empty_like(x2d)
     M, C = x2d.shape
-    out = _launch("hvd_bn_stats", [x2d.data_ptr(), _DTYPES[x2d.dtype]],
-                  [x2d], M, C)
+    vec = _vec(C, reads + [out])
+    splits = _pass_plan(M // groups, C, vec, groups)
+    lib, fn = _entry(name)
+    dev = x2d.device
+    with torch.cuda.device(dev):
+        err = fn(out.data_ptr(), *args, M, C, groups, vec, splits,
+                 _stream(dev))
+    _build.check(lib, err, name)
+    return out
+
+
+def _pair(out, groups):
+    """(G, 2, C) -> two (C,) tensors, or two (G, C) for groups > 1."""
+    if groups == 1:
+        return out[0, 0], out[0, 1]
+    return out[:, 0], out[:, 1]
+
+
+def batch_norm_stats(x2d, groups=1):
+    """K7: (sum x, sum x^2) over the rows of a (M, C) tensor, two (C,) f32
+    tensors; with ``groups`` > 1 over each of that many blocks of M /
+    groups rows, two (G, C) tensors."""
+    what = "batch_norm_stats"
+    if _on_cpu(what, x2d):
+        return batch_norm_stats_ref(x2d, groups)
+    _check_rows(what, "x", x2d, x2d.device)
+    _check_args(what, x2d, groups, "pallas")
+    M, C = x2d.shape
+    out = _launch_stats("hvd_bn_stats", [x2d.data_ptr(), _DTYPES[x2d.dtype]],
+                        [x2d], M, C, groups)
     batch_norm_stats.launches += 1
-    return out[0], out[1]
+    return _pair(out, groups)
 
 
-def batch_norm_grad_stats(dy2d, x2d, mean, rstd):
+def batch_norm_grad_stats(dy2d, x2d, mean, rstd, groups=1, gamma=None,
+                          beta=None, mode="pallas"):
     """K8: (sum dy, sum dy * (x - mean) * rstd) over the rows, i.e. (dbeta,
-    dgamma), two (C,) f32 tensors. dy and x are (M, C), bf16 or f32 each
-    (f32 dy with bf16 x is allowed); mean and rstd are (C,) f32."""
-    if _on_cpu("batch_norm_grad_stats", x2d):
-        return batch_norm_grad_stats_ref(dy2d, x2d, mean, rstd)
+    dgamma), two (C,) f32 tensors, or (G, C) over ``groups`` row blocks.
+    dy and x are (M, C), bf16 or f32 each (f32 dy with bf16 x is allowed);
+    mean and rstd are f32 (C,) or (G, C). With ``gamma`` and ``beta`` dy
+    counts only where x_hat * gamma + beta > 0 (the fused ReLU's mask).
+    ``mode`` is the arithmetic of x_hat and the mask, as in ``bn_dx``."""
     what = "batch_norm_grad_stats"
+    if (gamma is None) != (beta is None):
+        raise ValueError("%s: the ReLU mask needs gamma and beta" % what)
+    if _on_cpu(what, x2d):
+        return batch_norm_grad_stats_ref(dy2d, x2d, mean, rstd, groups,
+                                         gamma, beta, mode)
     _check_rows(what, "x", x2d, x2d.device)
     _check_rows(what, "dy", dy2d, x2d.device, x2d.shape)
+    _check_args(what, x2d, groups, mode)
     M, C = x2d.shape
-    for name, t in (("mean", mean), ("rstd", rstd)):
-        if (t.shape != (C,) or t.dtype != torch.float32
-                or t.device != x2d.device or not t.is_contiguous()):
-            raise ValueError("%s: %s must be contiguous float32 (%d,) on %s"
-                             % (what, name, C, x2d.device))
-    out = _launch("hvd_bn_grad_stats",
-                  [dy2d.data_ptr(), _DTYPES[dy2d.dtype], x2d.data_ptr(),
-                   _DTYPES[x2d.dtype], mean.data_ptr(), rstd.data_ptr()],
-                  [dy2d, x2d], M, C)
+    t = _terms(what, x2d, groups, mean=mean, rstd=rstd, gamma=gamma,
+               beta=beta)
+    ptr = {k: None if v is None else v.data_ptr() for k, v in t.items()}
+    out = _launch_stats(
+        "hvd_bn_grad_stats",
+        [dy2d.data_ptr(), _DTYPES[dy2d.dtype], x2d.data_ptr(),
+         _DTYPES[x2d.dtype],
+         ptr["mean"], ptr["rstd"], ptr["gamma"], ptr["beta"],
+         int(mode == "lean")], [dy2d, x2d], M, C, groups)
     batch_norm_grad_stats.launches += 1
-    return out[0], out[1]
+    batch_norm_grad_stats.relu_launches += gamma is not None
+    return _pair(out, groups)
 
 
-batch_norm_stats.launches = 0
-batch_norm_grad_stats.launches = 0
-KERNEL_WRAPPERS = (batch_norm_stats, batch_norm_grad_stats)
+def bn_apply(x2d, a, b, groups=1, relu=False, mode="pallas"):
+    """The normalize pass: y = x * a + b per (group, channel), max(y, 0)
+    with ``relu``, a new (M, C) tensor in x's dtype. a and b are f32 (C,) or
+    (G, C) with ``groups`` row blocks; ``mode`` is ``bn_apply_ref``'s."""
+    what = "bn_apply"
+    if _on_cpu(what, x2d):
+        return bn_apply_ref(x2d, a, b, groups, relu, mode)
+    _check_rows(what, "x", x2d, x2d.device)
+    _check_args(what, x2d, groups, mode)
+    t = _terms(what, x2d, groups, a=a, b=b)
+    y = _launch_pass("hvd_bn_apply", x2d, [x2d], [
+        x2d.data_ptr(), _DTYPES[x2d.dtype], t["a"].data_ptr(),
+        t["b"].data_ptr(), int(mode == "lean"), int(relu)], groups)
+    bn_apply.launches += 1
+    bn_apply.relu_launches += bool(relu)
+    return y
+
+
+def bn_dx(dy2d, x2d, mean, rstd, gamma, beta, dbeta, dgamma, count,
+          groups=1, relu=False, mode="pallas", gmean=None, gvar=None):
+    """The dx pass of the BN backward: ``bn_dx_ref``'s dx, a new (M, C)
+    tensor in x's dtype. dy and x are (M, C) (f32 dy with bf16 x is
+    allowed); mean, rstd, dbeta, dgamma (and gmean, gvar) f32 (C,) or (G, C);
+    gamma (and beta, needed with ``relu``) f32 (C,)."""
+    what = "bn_dx"
+    if relu and beta is None:
+        raise ValueError("%s: the ReLU mask needs beta" % what)
+    if _on_cpu(what, x2d):
+        return bn_dx_ref(dy2d, x2d, mean, rstd, gamma, beta, dbeta, dgamma,
+                         count, groups, relu, mode, gmean, gvar)
+    _check_rows(what, "x", x2d, x2d.device)
+    _check_rows(what, "dy", dy2d, x2d.device, x2d.shape)
+    _check_args(what, x2d, groups, mode)
+    terms = _dx_terms(mean, rstd, gamma, beta if relu else None, dbeta,
+                      dgamma, count, gmean, gvar)
+    extra = gmean is not None or gvar is not None
+    if extra:  # one flag in the kernel: a missing cotangent adds zero
+        zero = torch.zeros_like(terms["mean"])
+        for k in ("c3", "c4"):
+            terms[k] = zero if terms[k] is None else terms[k]
+    t = _terms(what, x2d, groups, **terms)
+    ptrs = (_P * len(_DX_TERMS))(*(None if t[k] is None else t[k].data_ptr()
+                                   for k in _DX_TERMS))
+    dx = _launch_pass("hvd_bn_dx", x2d, [dy2d, x2d], [
+        dy2d.data_ptr(), _DTYPES[dy2d.dtype], x2d.data_ptr(),
+        _DTYPES[x2d.dtype], ptrs, int(mode == "lean"), int(relu),
+        int(extra)], groups)
+    bn_dx.launches += 1
+    bn_dx.relu_launches += bool(relu)
+    return dx
+
+
+KERNEL_WRAPPERS = (batch_norm_stats, batch_norm_grad_stats, bn_apply, bn_dx)
+# the wrappers whose ReLU (or mask) launches are also counted apart
+_RELU_WRAPPERS = (batch_norm_grad_stats, bn_apply, bn_dx)
 
 
 def launch_counts():
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    """{wrapper: launches}, and {wrapper_relu: launches with the ReLU or
+    mask} (a part of the wrapper's own count)."""
+    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    counts.update((fn.__name__ + "_relu", fn.relu_launches)
+                  for fn in _RELU_WRAPPERS)
+    return counts
 
 
 def reset_launch_counts():
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    for fn in _RELU_WRAPPERS:
+        fn.relu_launches = 0
+
+
+reset_launch_counts()
 
 
 # ----------------------------------------------------- training-mode BN
@@ -211,21 +488,26 @@ def _group_sum(pair, group):
     return (stacked[0], stacked[1]), dist.get_world_size(group)
 
 
+def _batch_stats(x2d, eps, groups, group):
+    """K7 and the statistics of ``_bn_train_fwd``/``_lean_fwd``: (mean,
+    var, rstd, the rows each statistic covers), f32 (C,) or (G, C)."""
+    (s, ss), n = _group_sum(batch_norm_stats(x2d, groups), group)
+    count = x2d.shape[0] // groups * n  # equal shards, as psum(1)
+    mean = s / count
+    var = torch.clamp(ss / count - mean * mean, min=0.0)
+    return mean, var, torch.rsqrt(var + eps), count
+
+
 class _FusedBatchNormFn(torch.autograd.Function):
-    """Training-mode BN over (M, C): K7 in the forward, K8 in the backward,
-    the normalize and dx passes elementwise in f32."""
+    """Training-mode BN over (M, C): K7 and the normalize pass in the
+    forward, K8 and the dx pass in the backward, both passes in f32."""
 
     @staticmethod
     def forward(ctx, x2d, gamma, beta, eps, group):
-        M = x2d.shape[0]
-        (s, ss), n = _group_sum(batch_norm_stats(x2d), group)
-        M = M * n  # equal shards, as the JAX package's psum(1)
-        mean = s / M
-        var = torch.clamp(ss / M - mean * mean, min=0.0)
-        rstd = torch.rsqrt(var + eps)
+        mean, var, rstd, _ = _batch_stats(x2d, eps, 1, group)
         a = gamma * rstd
         b = beta - mean * a
-        y = (x2d.float() * a + b).to(x2d.dtype)
+        y = bn_apply(x2d, a, b)
         ctx.save_for_backward(x2d, gamma, mean, rstd)
         ctx.group = group
         ctx.set_materialize_grads(False)
@@ -234,44 +516,102 @@ class _FusedBatchNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gmean, gvar):
         x2d, gamma, mean, rstd = ctx.saved_tensors
-        M = x2d.shape[0]
         if gy is None:
             gy = torch.zeros_like(x2d)
         dbeta, dgamma = batch_norm_grad_stats(gy, x2d, mean, rstd)
         # dx needs the sums over the whole sync group; the returned dgamma
         # and dbeta stay local, and the gradient allreduce completes them.
         (dbeta_g, dgamma_g), n = _group_sum((dbeta, dgamma), ctx.group)
-        Mg = M * n
-        xf = x2d.float()
-        xhat = (xf - mean) * rstd
-        dx = (gamma * rstd) * (gy.float() - dbeta_g / Mg
-                               - xhat * (dgamma_g / Mg))
-        # The mean and var cotangents: None in training use (the running
-        # statistics are not differentiated), kept exact otherwise.
-        if gmean is not None:
-            dx = dx + gmean / Mg
-        if gvar is not None:
-            dx = dx + gvar * (2.0 / Mg) * (xf - mean)
-        return dx.to(x2d.dtype), dgamma, dbeta, None, None
+        dx = bn_dx(gy, x2d, mean, rstd, gamma, None, dbeta_g, dgamma_g,
+                   x2d.shape[0] * n, gmean=gmean, gvar=gvar)
+        return dx, dgamma, dbeta, None, None
 
 
 def fused_batch_norm_train(x2d, gamma, beta, eps=1e-5, group=None):
     """Training-mode BN over a (M, C) activation: returns (y in x's dtype,
-    mean, var), the batch statistics f32 with the biased variance. K7 runs
-    in the forward and K8 in the backward. ``group`` (a ``torch.distributed``
-    process group, the counterpart of ``axis_name``) is sync BN: the
-    statistics are summed over the group's ranks, each holding an equal
-    shard."""
+    mean, var), the batch statistics f32 with the biased variance. K7 and
+    the normalize pass run in the forward, K8 and the dx pass in the
+    backward. ``group`` (a ``torch.distributed`` process group, the
+    counterpart of ``axis_name``) is sync BN: the statistics are summed
+    over the group's ranks, each holding an equal shard."""
     return _FusedBatchNormFn.apply(x2d, gamma, beta, eps, group)
 
 
+class _LeanBatchNormFn(torch.autograd.Function):
+    """``_lean_fwd``/``_lean_bwd``: K7, then the normalize pass in lean mode
+    with the ReLU folded in; saves (x, mean, rstd) and the parameters;
+    the backward recomputes x_hat and the ReLU mask in K8 and the dx pass,
+    both in lean mode."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, relu, groups, group):
+        C = x.shape[-1]
+        x2d = x.view(-1, C)
+        mean, var, rstd, count = _batch_stats(x2d, eps, groups, group)
+        a = gamma * rstd
+        b = beta - mean * a
+        y = bn_apply(x2d, a, b, groups, relu, "lean")
+        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        ctx.relu, ctx.groups, ctx.group, ctx.count = relu, groups, group, count
+        ctx.set_materialize_grads(False)
+        return y.view(x.shape), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, gmean, gvar):
+        x, gamma, beta, mean, rstd = ctx.saved_tensors
+        relu, groups = ctx.relu, ctx.groups
+        x2d = x.view(-1, x.shape[-1])
+        gy = torch.zeros_like(x2d) if gy is None else gy.reshape(x2d.shape)
+        mask = (gamma, beta) if relu else (None, None)
+        dbeta, dgamma = batch_norm_grad_stats(gy, x2d, mean, rstd, groups,
+                                              *mask, mode="lean")
+        # dx needs the sums over the whole sync group; the returned dgamma
+        # and dbeta stay local (_lean_bwd:392-397).
+        (dbeta_g, dgamma_g), _ = _group_sum((dbeta, dgamma), ctx.group)
+        dx = bn_dx(gy, x2d, mean, rstd, gamma, beta, dbeta_g, dgamma_g,
+                   ctx.count, groups, relu, "lean", gmean, gvar)
+        if groups > 1:
+            dgamma, dbeta = dgamma.sum(0), dbeta.sum(0)
+        return dx.view(x.shape), dgamma, dbeta, None, None, None, None
+
+
+def lean_batch_norm_train(x, gamma, beta, eps=1e-5, relu=False, groups=1,
+                          group=None):
+    """Training-mode traffic-lean BN (``horovod_tpu``'s
+    ``lean_batch_norm_train``) over a channels-last activation [..., C],
+    contiguous, of any rank: statistics over every leading axis. Returns
+    (y in x's dtype and shape, mean, var), the statistics f32, (C,) or
+    (G, C).
+
+    Forward: K7, then the normalize pass in x's dtype (``"lean"`` mode),
+    max(y, 0) with ``relu``. Saves only (x, mean, rstd) and gamma, beta;
+    the backward recomputes x_hat and the ReLU mask (from the
+    pre-activation x_hat * gamma + beta, as the reference does) in K8 and
+    the dx pass. ``groups`` > 1 is ghost BN: the leading axis splits into
+    that many virtual batches, each normalized on its own. ``group`` (a
+    process group) is sync BN: the statistics are summed over its ranks,
+    each holding an equal shard; the returned dgamma and dbeta stay local
+    (summed over the ghost groups)."""
+    if x.dim() < 2 or x.shape[0] % groups:
+        raise ValueError("lean_batch_norm_train: groups=%d does not divide "
+                         "the leading axis of %s" % (groups, tuple(x.shape)))
+    return _LeanBatchNormFn.apply(x, gamma, beta, eps, bool(relu), groups,
+                                  group)
+
+
+# --------------------------------------------------------------- modules
+
+
 class _BatchNorm(nn.Module):
-    """Parameters, buffers and the eval path shared by the port's two
+    """Parameters, buffers and the eval path shared by the port's
     BatchNorms. flax conventions: ``momentum`` is the weight of the old
     running value, ``ra = momentum * ra + (1 - momentum) * batch``, and the
     running variance takes the biased batch variance (torch's
     ``nn.BatchNorm2d`` writes the same update with momentum 0.1 the other
-    way round and takes the unbiased variance)."""
+    way round and takes the unbiased variance). ``fuse_relu``: the module
+    applies the ReLU that follows it (only ``LeanBatchNorm`` does)."""
+
+    fuse_relu = False
 
     def __init__(self, num_features, eps=1e-5, momentum=0.9, group=None,
                  device=None):
@@ -291,46 +631,101 @@ class _BatchNorm(nn.Module):
         a = self.weight * torch.rsqrt(self.running_var + self.eps)
         b = self.bias - self.running_mean * a
         shape = (-1,) + (1,) * (x.dim() - 2)
-        return (x.float() * a.view(shape) + b.view(shape)).to(x.dtype)
+        y = x.float() * a.view(shape) + b.view(shape)
+        if self.fuse_relu:
+            y = torch.relu(y)
+        return y.to(x.dtype)
 
     @torch.no_grad()
     def _update_running(self, mean, var):
+        if mean.dim() == 2:  # ghost groups: the mean of their statistics
+            mean, var = mean.mean(0), var.mean(0)
         m = self.momentum
         self.running_mean.mul_(m).add_(mean, alpha=1 - m)
         self.running_var.mul_(m).add_(var, alpha=1 - m)
 
 
+def _channels_last(what, x):
+    """[N, C, ...] -> the [N, ..., C] view that the kernels read in place;
+    raises unless x is channels-last in memory."""
+    xl = x.movedim(1, -1)
+    if not xl.is_contiguous():
+        raise ValueError(
+            "%s: the activation must be channels-last in memory "
+            "(x.to(memory_format=torch.channels_last)); strides %s"
+            % (what, tuple(x.stride())))
+    return xl
+
+
+def _ghost_groups(virtual_batch_size, n):
+    """Ghost groups of a batch of ``n`` (``:576-582``): 1 without a virtual
+    batch size."""
+    if not virtual_batch_size:
+        return 1
+    if n % virtual_batch_size:
+        raise ValueError("virtual_batch_size=%d does not divide the batch %d"
+                         % (virtual_batch_size, n))
+    return n // virtual_batch_size
+
+
 class FusedBatchNorm(_BatchNorm):
     """Counterpart of ``PallasBatchNorm``: BN over dim 1 of [N, C, ...]
-    with K7 and K8 in training mode; eval mode is elementwise and launches
-    no kernel. The activation must be channels-last in memory
-    (``torch.channels_last`` for 4-D) so the kernels read it in place.
-    ``group`` is sync BN over a process group. Built on ``device``
-    (default: the GPU; ``"cpu"`` for tests)."""
+    with K7, K8 and the two passes in training mode; eval mode is
+    elementwise and launches no kernel. The activation must be
+    channels-last in memory (``torch.channels_last`` for 4-D) so the
+    kernels read it in place. ``group`` is sync BN over a process group.
+    ``virtual_batch_size`` is ghost BN, routed through
+    ``lean_batch_norm_train`` (without the ReLU) as the reference routes
+    it. Built on ``device`` (default: the GPU; ``"cpu"`` for tests)."""
 
     def __init__(self, num_features, eps=1e-5, momentum=0.9, group=None,
                  virtual_batch_size=None, device=None):
-        if virtual_batch_size:
-            raise NotImplementedError(
-                "ghost BN (virtual_batch_size) is a later slice of the port "
-                "(ROADMAP A3, the lean BN path)")
         super().__init__(num_features, eps, momentum, group, device)
+        self.virtual_batch_size = virtual_batch_size
 
     def forward(self, x):
         if not self.training:
             return self._eval(x)
-        # [N, ..., C], a view; contiguous when x is channels-last
-        xl = x.movedim(1, -1)
-        if not xl.is_contiguous():
-            raise ValueError(
-                "FusedBatchNorm: the activation must be channels-last in "
-                "memory (x.to(memory_format=torch.channels_last)); strides "
-                "%s" % (tuple(x.stride()),))
-        y, mean, var = fused_batch_norm_train(
-            xl.view(-1, xl.shape[-1]), self.weight, self.bias, self.eps,
-            self.group)
+        xl = _channels_last("FusedBatchNorm", x)
+        if self.virtual_batch_size:
+            y, mean, var = lean_batch_norm_train(
+                xl.reshape(-1, xl.shape[-1]), self.weight, self.bias,
+                self.eps, False, _ghost_groups(self.virtual_batch_size,
+                                               x.shape[0]), self.group)
+        else:
+            y, mean, var = fused_batch_norm_train(
+                xl.view(-1, xl.shape[-1]), self.weight, self.bias, self.eps,
+                self.group)
         self._update_running(mean, var)
         return y.view(xl.shape).movedim(-1, 1)
+
+
+class LeanBatchNorm(_BatchNorm):
+    """Counterpart of ``horovod_tpu``'s ``LeanBatchNorm``: BN over dim 1 of
+    a channels-last [N, C, ...] activation through
+    ``lean_batch_norm_train`` in training mode (K7, K8 and the two passes
+    in x's dtype, the backward recomputing x_hat). ``fuse_relu`` applies the
+    ReLU that follows the norm inside it, in training and eval mode.
+    ``virtual_batch_size`` is ghost BN (it must divide the batch; the
+    running statistics take the mean of the group statistics); ``group``
+    (a process group) is sync BN."""
+
+    def __init__(self, num_features, eps=1e-5, momentum=0.9, group=None,
+                 virtual_batch_size=None, fuse_relu=False, device=None):
+        super().__init__(num_features, eps, momentum, group, device)
+        self.virtual_batch_size = virtual_batch_size
+        self.fuse_relu = fuse_relu
+
+    def forward(self, x):
+        if not self.training:
+            return self._eval(x)
+        groups = _ghost_groups(self.virtual_batch_size, x.shape[0])
+        xl = _channels_last("LeanBatchNorm", x)
+        y, mean, var = lean_batch_norm_train(xl, self.weight, self.bias,
+                                             self.eps, self.fuse_relu,
+                                             groups, self.group)
+        self._update_running(mean, var)
+        return y.movedim(-1, 1)
 
 
 class StockBatchNorm(_BatchNorm):
@@ -343,8 +738,8 @@ class StockBatchNorm(_BatchNorm):
             return self._eval(x)
         if self.group is not None:
             raise NotImplementedError(
-                "sync BN on the stock path is a later slice of the port "
-                "(ROADMAP A3); norm='pallas' takes bn_group")
+                "sync BN on the stock path is the rest of ROADMAP A1; "
+                "norm='pallas' and norm='lean' take bn_group")
         y = F.batch_norm(x, None, None, self.weight, self.bias,
                          training=True, eps=self.eps)
         with torch.no_grad():

@@ -160,11 +160,20 @@ def test_fused_batch_norm_module_matches_pallas_batch_norm():
 
 
 def test_module_refuses_what_it_does_not_take():
+    """NCHW activations, a virtual batch that does not divide the batch,
+    and sync BN on the stock path (the rest of ROADMAP A1); ghost BN
+    constructs and runs."""
     bn = tbn.FusedBatchNorm(4, device="cpu")
     with pytest.raises(ValueError, match="channels-last"):
         bn(torch.zeros(2, 4, 3, 3))  # contiguous NCHW, not channels_last
-    with pytest.raises(NotImplementedError, match="A3"):
-        tbn.FusedBatchNorm(4, virtual_batch_size=2, device="cpu")
+    x = torch.randn(4, 4, 3, 3).to(memory_format=torch.channels_last)
+    ghost = tbn.FusedBatchNorm(4, virtual_batch_size=2, device="cpu")
+    assert ghost(x).shape == x.shape
+    with pytest.raises(ValueError, match="does not divide"):
+        tbn.FusedBatchNorm(4, virtual_batch_size=3, device="cpu")(x)
+    stock = tbn.StockBatchNorm(4, group=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A1"):
+        stock(x)
 
 
 def test_sync_bn_on_two_gloo_ranks_equals_global_batch_bn(tmp_path):

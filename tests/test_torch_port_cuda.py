@@ -13,8 +13,11 @@ tile straddles, grids of many blocks at small sizes, and fused rotary in
 K1-K6 (every head dim, ragged lengths, GQA, zigzag chunks) with the rotary
 pass that the backward kernels read (bit for bit its plain version), and
 for the BN
-statistics kernels ragged M and C, both dtypes, mixed dy and x, layouts
-they refuse, and run-to-run determinism.
+statistics kernels ragged M and C, both dtypes, mixed dy and x, ghost
+groups and the ReLU mask, layouts they refuse, and run-to-run determinism,
+and for the normalize and dx passes the same shapes in both arithmetic
+modes, with and without the ReLU and ghost groups, bit for bit their plain
+versions, and the lean BN's autograd on the card.
 """
 
 import sys
@@ -700,7 +703,9 @@ def test_bn_kernels_match_plain_versions(cuda, M, C, x_dtype, dy_dtype):
     stats = bn.batch_norm_stats(x)
     grads = bn.batch_norm_grad_stats(dy, x, mean, rstd)
     torch.cuda.synchronize()
-    assert bn.launch_counts() == {k: v + 1 for k, v in before.items()}
+    after = bn.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == dict(
+        {k: 0 for k in after}, batch_norm_stats=1, batch_norm_grad_stats=1)
     for out in stats + grads:
         assert out.shape == (C,) and out.dtype == torch.float32
     assert _rows_rel(stats, bn.batch_norm_stats_ref(x)) <= BN_TOL
@@ -757,3 +762,151 @@ def test_fused_batch_norm_on_the_gpu(cuda):
     for name, a, b in zip(("y", "dx", "dgamma", "dbeta", "running_mean",
                            "running_var"), *outs):
         assert _rel(a, b) <= REL_TOL, (name, _rel(a, b))
+
+
+# (M, C, ghost groups, x dtype, dy dtype) of the passes and the grouped
+# statistics: ragged M and C, one and two column tiles, both dtypes, f32 dy
+# over bf16 x, the ResNet stem's channels with ghost groups.
+BN_PASS_SHAPES = [
+    (1, 1, 1, torch.float32, torch.float32),
+    (7, 3, 1, torch.bfloat16, torch.bfloat16),
+    (7, 72, 7, torch.float32, torch.float32),
+    (7, 2048, 1, torch.bfloat16, torch.float32),
+    (4096, 64, 8, torch.bfloat16, torch.bfloat16),
+    (4099, 2056, 1, torch.float32, torch.bfloat16),
+    (6144, 24, 3, torch.bfloat16, torch.float32),
+    (1_000_003, 72, 1, torch.bfloat16, torch.float32),
+]
+
+
+def _bn_terms(cuda, x, C, groups, seed):
+    """The statistics of x per ghost group, and gamma, beta from a seed."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xg = x.float().view(groups, -1, C)
+    mean = xg.mean(1).squeeze(0)
+    rstd = torch.rsqrt(xg.var(1, unbiased=False) + 1e-5).squeeze(0)
+    gamma = torch.rand(C, generator=g, device=cuda) + 0.5
+    beta = torch.randn(C, generator=g, device=cuda)
+    return mean, rstd, gamma, beta
+
+
+@pytest.mark.parametrize("mode", bn.MODES)
+@pytest.mark.parametrize("M,C,groups,x_dtype,dy_dtype", BN_PASS_SHAPES)
+def test_bn_passes_equal_plain_versions(cuda, M, C, groups, x_dtype,
+                                        dy_dtype, mode):
+    """bn_apply and bn_dx, with and without the ReLU, equal their plain
+    versions on the same inputs bit for bit (each operation rounded apart,
+    the per-channel terms from the same torch expressions)."""
+    x, dy, _, _ = _bn_inputs(cuda, M, C, x_dtype, dy_dtype, seed=3)
+    mean, rstd, gamma, beta = _bn_terms(cuda, x, C, groups, seed=4)
+    a = gamma * rstd
+    b = beta - mean * a
+    dbeta, dgamma = bn.batch_norm_grad_stats_ref(dy, x, mean, rstd, groups)
+    for relu in (False, True):
+        before = bn.launch_counts()
+        y = bn.bn_apply(x, a, b, groups, relu, mode)
+        dx = bn.bn_dx(dy, x, mean, rstd, gamma, beta, dbeta, dgamma,
+                      M // groups, groups, relu, mode)
+        torch.cuda.synchronize()
+        after = bn.launch_counts()
+        for name in ("bn_apply", "bn_dx"):
+            assert after[name] == before[name] + 1
+            assert after[name + "_relu"] == before[name + "_relu"] + relu
+        assert y.dtype == dx.dtype == x_dtype and y.shape == x.shape
+        assert torch.equal(y, bn.bn_apply_ref(x, a, b, groups, relu, mode))
+        assert torch.equal(dx, bn.bn_dx_ref(dy, x, mean, rstd, gamma, beta,
+                                            dbeta, dgamma, M // groups,
+                                            groups, relu, mode))
+
+
+@pytest.mark.parametrize("mode", bn.MODES)
+@pytest.mark.parametrize("terms", ["gmean", "gvar", "both"])
+def test_bn_dx_cotangent_terms_equal_plain_versions(cuda, terms, mode):
+    """The mean and var cotangent terms (None in training), one or both."""
+    M, C, groups = 4096, 64, 2
+    x, dy, _, _ = _bn_inputs(cuda, M, C, torch.bfloat16, torch.bfloat16,
+                             seed=5)
+    mean, rstd, gamma, beta = _bn_terms(cuda, x, C, groups, seed=6)
+    dbeta, dgamma = bn.batch_norm_grad_stats_ref(dy, x, mean, rstd, groups)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    cot = {k: torch.randn(groups, C, generator=g, device=cuda)
+           if terms in (k, "both") else None for k in ("gmean", "gvar")}
+    args = (dy, x, mean, rstd, gamma, beta, dbeta, dgamma, M // groups,
+            groups, True, mode)
+    assert torch.equal(bn.bn_dx(*args, **cot), bn.bn_dx_ref(*args, **cot))
+
+
+@pytest.mark.parametrize("mode", bn.MODES)
+@pytest.mark.parametrize("M,C,groups,x_dtype,dy_dtype", BN_PASS_SHAPES)
+def test_bn_stats_with_groups_and_mask_match_plain_versions(
+        cuda, M, C, groups, x_dtype, dy_dtype, mode):
+    """K7 and K8 per ghost group, K8 with and without the ReLU mask."""
+    x, dy, _, _ = _bn_inputs(cuda, M, C, x_dtype, dy_dtype, seed=8)
+    mean, rstd, gamma, beta = _bn_terms(cuda, x, C, groups, seed=9)
+    stats = bn.batch_norm_stats(x, groups)
+    assert _rows_rel(stats, bn.batch_norm_stats_ref(x, groups)) <= BN_TOL
+    for mask in ((None, None), (gamma, beta)):
+        before = bn.launch_counts()
+        grads = bn.batch_norm_grad_stats(dy, x, mean, rstd, groups, *mask,
+                                         mode=mode)
+        after = bn.launch_counts()
+        assert (after["batch_norm_grad_stats_relu"]
+                == before["batch_norm_grad_stats_relu"] + (mask[0] is not None))
+        ref = bn.batch_norm_grad_stats_ref(dy, x, mean, rstd, groups, *mask,
+                                           mode=mode)
+        for out in grads:
+            assert out.shape == ((C,) if groups == 1 else (groups, C))
+        assert _rows_rel(grads, ref) <= BN_TOL
+
+
+def test_bn_passes_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(64, 16, device=cuda)
+    c = torch.ones(16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        bn.bn_apply(x[:, :8], c[:8], c[:8])
+    with pytest.raises(ValueError, match="does not divide"):
+        bn.bn_apply(x, c, c, groups=3)
+    with pytest.raises(ValueError, match="mode"):
+        bn.bn_apply(x, c, c, mode="fast")
+    with pytest.raises(ValueError, match=r"\(16,\)"):
+        bn.bn_apply(x, c[:8], c[:8])
+    with pytest.raises(ValueError, match="contiguous"):
+        bn.bn_dx(x.t(), x.t(), c[:8].repeat(8), c.repeat(4), c.repeat(4),
+                 None, c.repeat(4), c.repeat(4), 16)
+    with pytest.raises(ValueError, match="mask needs"):
+        bn.batch_norm_grad_stats(x, x, c, c, gamma=c)
+
+
+@pytest.mark.parametrize("relu,groups", [(False, 1), (True, 1), (True, 4)])
+def test_lean_batch_norm_on_the_gpu(cuda, relu, groups):
+    """lean_batch_norm_train forward and backward through K7, K8 and the
+    two passes on a bf16 channels-last activation, against the plain path
+    on the CPU on the same values: the statistics differ in their order of
+    summation only, so y and dx within a few bf16 roundings. One launch of
+    each kernel a layer, the ReLU ones counted apart."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = (torch.randn(8, 9, 7, 72, generator=g, device=cuda) * 2 + 0.5).to(
+        torch.bfloat16)
+    gy = torch.randn(x.shape, generator=g, device=cuda).to(torch.bfloat16)
+    gamma = torch.linspace(0.5, 1.5, 72, device=cuda)
+    beta = torch.linspace(-1, 1, 72, device=cuda)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).requires_grad_() for t in (x, gamma, beta)]
+        before = bn.launch_counts()
+        y, mean, var = bn.lean_batch_norm_train(*leaves, 1e-5, relu, groups)
+        grads = torch.autograd.grad(y, leaves, gy.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            after = bn.launch_counts()
+            for name in ("batch_norm_stats", "batch_norm_grad_stats",
+                         "bn_apply", "bn_dx"):
+                assert after[name] == before[name] + 1, name
+            for name in ("batch_norm_grad_stats", "bn_apply", "bn_dx"):
+                assert (after[name + "_relu"]
+                        == before[name + "_relu"] + relu), name
+        outs.append([t.float().cpu() for t in (y, mean, var, *grads)])
+    for name, a, b in zip(("y", "mean", "var", "dx", "dgamma", "dbeta"),
+                          *outs):
+        assert _rel(a, b) <= REL_TOL, (name, _rel(a, b))
+

@@ -151,15 +151,25 @@ def test_python_planted_faults_still_parse(fault):
 def test_entry_points_without_a_gpu_raise_the_named_error():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU")
-    from horovod_tpu_torch.models import ResNet50PBN
-    from horovod_tpu_torch.ops import FusedBatchNorm
+    from horovod_tpu_torch.models import ResNet50Lean, ResNet50PBN
+    from horovod_tpu_torch.ops import (FusedBatchNorm, LeanBatchNorm,
+                                       lean_batch_norm_train)
+    from horovod_tpu_torch.ops import batch_norm as bn
     from horovod_tpu_torch.parallel import lm_loss, make_train_step
     with pytest.raises(hvd.CudaUnavailableError):
         hvd.init()
-    with pytest.raises(hvd.CudaUnavailableError):
-        ResNet50PBN(num_classes=1000)
-    with pytest.raises(hvd.CudaUnavailableError):
-        FusedBatchNorm(64)
+    for entry in (ResNet50PBN, ResNet50Lean):
+        with pytest.raises(hvd.CudaUnavailableError):
+            entry(num_classes=1000)
+    for entry in (FusedBatchNorm, LeanBatchNorm):
+        with pytest.raises(hvd.CudaUnavailableError):
+            entry(64)
+    # a function of the caller's tensors: on CPU tensors the plain
+    # versions, no kernel
+    before = bn.launch_counts()
+    y, _, _ = lean_batch_norm_train(torch.ones(4, 3), torch.ones(3),
+                                    torch.zeros(3), relu=True)
+    assert y.device.type == "cpu" and bn.launch_counts() == before
     assert not hvd.is_initialized()
     model = torch.nn.Linear(2, 2)
     with pytest.raises(hvd.CudaUnavailableError):

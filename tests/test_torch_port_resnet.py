@@ -248,12 +248,25 @@ def test_sync_bn_on_two_gloo_ranks_gives_the_full_batch_gradient(tmp_path):
 
 
 def test_later_norms_and_ghost_bn_name_their_slice():
-    for norm in ("group", "none", "lean"):
-        with pytest.raises(NotImplementedError, match="A3"):
+    """GroupNorm and no norm name ROADMAP A6, bn_remat and sync BN on the
+    stock path A1; norm="lean" and ghost BN construct."""
+    for norm in ("group", "none"):
+        with pytest.raises(NotImplementedError, match="A6"):
             ResNet50PBN(norm=norm, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        ResNet(block_cls=BottleneckBlock, norm="pallas",
+    with pytest.raises(NotImplementedError, match="A1"):
+        ResNet(block_cls=BottleneckBlock, norm="lean", bn_remat=True,
+               device="cpu", **SMALL)
+    stock = ResNet(block_cls=BottleneckBlock, norm="batch", bn_group=object(),
+                   device="cpu", **SMALL)
+    with pytest.raises(NotImplementedError, match="A1"):
+        stock(torch.zeros(2, 3, 32, 32))
+    with pytest.raises(ValueError, match="ghost"):
+        ResNet(block_cls=BottleneckBlock, norm="batch",
                bn_virtual_batch_size=2, device="cpu", **SMALL)
+    for norm in ("lean", "pallas"):
+        model = ResNet(block_cls=BottleneckBlock, norm=norm,
+                       bn_virtual_batch_size=2, device="cpu", **SMALL)
+        assert model(torch.zeros(4, 3, 32, 32)).shape == (4, 10)
 
 
 def test_resnet50_shape_and_bn_layer_count():

@@ -230,3 +230,9 @@ def test_default_device_is_the_gpu():
         pytest.skip("this machine has a GPU; the model would build on it")
     with pytest.raises(CudaUnavailableError):
         Transformer(TransformerConfig(**SMALL))
+    from horovod_tpu_torch.models import ResNet50Lean
+    from horovod_tpu_torch.ops import LeanBatchNorm
+    with pytest.raises(CudaUnavailableError):
+        ResNet50Lean(num_classes=1000)
+    with pytest.raises(CudaUnavailableError):
+        LeanBatchNorm(64)

@@ -1,7 +1,8 @@
 """One rank of the port's 2-rank sync-BN checks (gloo, CPU).
 
 Run through torch.multiprocessing by tests/test_torch_port_batch_norm.py
-(``run_bn``) and tests/test_torch_port_resnet.py (``run_resnet``): every
+(``run_bn``), tests/test_torch_port_resnet.py (``run_resnet``) and
+tests/test_torch_port_lean_bn.py (``run_lean``, plain and ghost): every
 rank builds the same seeded inputs, takes its half of the batch, runs
 training-mode BN synchronized over the world group, and writes what it got
 to ``<out_dir>/rank<r>.pt``. Imports torch and the port only.
@@ -15,7 +16,8 @@ import torch.multiprocessing as mp
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import BottleneckBlock, ResNet
-from horovod_tpu_torch.ops.batch_norm import fused_batch_norm_train
+from horovod_tpu_torch.ops.batch_norm import (fused_batch_norm_train,
+                                               lean_batch_norm_train)
 from horovod_tpu_torch.parallel import classification_loss
 
 M, C = 64, 24
@@ -61,6 +63,25 @@ def run_bn(rank, size, store_path, out_dir):
         xs = x[rows].clone().requires_grad_()
         gs, bs = (t.clone().requires_grad_() for t in (gamma, beta))
         y, mean, var = fused_batch_norm_train(xs, gs, bs, 1e-5, group)
+        dx, dgamma, dbeta = torch.autograd.grad(y, (xs, gs, bs), gy[rows])
+        torch.save(dict(y=y.detach(), mean=mean, var=var, dx=dx,
+                        dgamma=dgamma, dbeta=dbeta),
+                   "%s/rank%d.pt" % (out_dir, rank))
+    finally:
+        hvd.shutdown()
+
+
+def run_lean(rank, size, store_path, out_dir, groups=1):
+    """Lean BN with the fused ReLU on this rank's half of the rows, sync
+    over the world group, ``groups`` ghost groups on each rank."""
+    group = _start(rank, size, store_path)
+    try:
+        x, gamma, beta, gy = bn_inputs()
+        rows = slice(rank * M // size, (rank + 1) * M // size)
+        xs = x[rows].clone().requires_grad_()
+        gs, bs = (t.clone().requires_grad_() for t in (gamma, beta))
+        y, mean, var = lean_batch_norm_train(xs, gs, bs, 1e-5, True, groups,
+                                             group)
         dx, dgamma, dbeta = torch.autograd.grad(y, (xs, gs, bs), gy[rows])
         torch.save(dict(y=y.detach(), mean=mean, var=var, dx=dx,
                         dgamma=dgamma, dbeta=dbeta),

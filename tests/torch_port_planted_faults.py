@@ -28,10 +28,16 @@ ROOT = Path(__file__).resolve().parent.parent
 
 FLASH_PHASES = ("kernels", "train")
 BN_PHASES = ("bn_kernels", "resnet")
+LEAN_PHASES = ("bn_kernels", "resnet_lean")
 RING_PHASES = ("ring_kernels",)
 ROT_PHASES = ("kernels",)
-BN_ROW_LOOP = ("    for (long long r = r_begin + ty; r < r_end; "
+BN_ROW_LOOP = ("    for (long long r = rows.begin + ty; r < rows.end; "
                "r += sh.ty) {\n")
+# the normalize pass's y = x * a + b, and its ReLU
+BN_APPLY_Y = ("        float t = rnd<RT>(__fadd_rn(rnd<RT>(__fmul_rn(v[u][j], "
+              "a[j])), b[j]));\n")
+BN_APPLY_RELU = ("        if (RELU) t = t < 0.f ? 0.f : t;  // NaN stays NaN, "
+                 "as torch.relu\n")
 # K2's and K3's scores, masked and before the exponentials
 BWD_SCORES = "        const float* st = stats + stage * Tile::kStats;\n"
 # The ring's epilogue in flash_bwd.cu (K5, K6): the carried sums' rows,
@@ -73,6 +79,52 @@ FAULTS = {
     "bn_stats_drop_channels": (
         "ops/csrc/batch_norm.cu", BN_ROW_LOOP,
         "      if (!GRAD && c0 + VEC >= C) break;\n", BN_PHASES),
+    # K8's ReLU mask inverted: dy counts where the pre-activation is <= 0
+    "bn_grad_mask_inverted": (
+        "ops/csrc/batch_norm.cu",
+        "          if (mask && !(pre_of<RT>(xh, ga[j], be[j]) > 0.f)) dm = 0.f;"
+        "\n",
+        "          if (mask) dm = pre_of<RT>(xh, ga[j], be[j]) > 0.f ? 0.f : "
+        "rnd<RT>(d[j]);\n", LEAN_PHASES),
+    # the normalize pass drops the shift b on the last tile of channels
+    "bn_apply_shift_last_tile": (
+        "ops/csrc/batch_norm.cu", BN_APPLY_Y,
+        "        if (c0 + VEC >= C) t = rnd<RT>(__fmul_rn(v[u][j], a[j]));\n",
+        BN_PHASES),
+    # the normalize pass leaves the fused ReLU out on the last tile of
+    # channels
+    "bn_apply_relu_last_tile": (
+        "ops/csrc/batch_norm.cu", BN_APPLY_RELU,
+        "        if (RELU && c0 + VEC >= C) t = rnd<RT>(__fadd_rn(rnd<RT>("
+        "__fmul_rn(v[u][j], a[j])), b[j]));\n", LEAN_PHASES),
+    # the normalize pass takes the next ghost group's a and b (the
+    # resnet_lean phase's ghost-BN gradient check must see it)
+    "bn_apply_next_group": (
+        "ops/csrc/batch_norm.cu",
+        "    b[j] = rnd<RT>(shift[rows.g * C + c0 + j]);\n",
+        "    a[j] = rnd<RT>(scale[(rows.g + 1) % (gridDim.x / splits) * C + c0 "
+        "+ j]);\n    b[j] = rnd<RT>(shift[(rows.g + 1) % (gridDim.x / "
+        "splits) * C + c0 + j]);\n",
+        LEAN_PHASES),
+    # the dx pass drops the dgamma term on the last tile of channels; only
+    # bn_kernels sees it: the resnet phase's float32 gradient gap read
+    # 0.0446 against its 0.05 (a term of dgamma / M on 8 of 64 or more
+    # channels)
+    "bn_dx_drop_dgamma_last_tile": (
+        "ops/csrc/batch_norm.cu",
+        "    c2[j] = rnd<RT>(terms.p[kC2][at + j]);\n",
+        "    if (c0 + VEC >= C) c2[j] = 0.f;\n", ("bn_kernels",)),
+    # the dx pass scales the last tile of channels by rstd, not gamma * rstd
+    "bn_dx_scale_last_tile": (
+        "ops/csrc/batch_norm.cu",
+        "    k[j] = rnd<RT>(terms.p[kScale][at + j]);\n",
+        "    if (c0 + VEC >= C) k[j] = rs[j];\n", BN_PHASES),
+    # the dx pass ignores the ReLU mask on the last tile of channels
+    "bn_dx_mask_last_tile": (
+        "ops/csrc/batch_norm.cu",
+        "    be[j] = RELU ? rnd<RT>(terms.p[kBeta][at + j]) : 0.f;\n",
+        "    if (RELU && c0 + VEC >= C) {\n      ga[j] = 0.f;\n      be[j] = "
+        "1.f;\n    }\n", LEAN_PHASES),
     # K4 ignores the carried running max, starting it from -inf
     "ring_fwd_drop_carried_m": (
         "ops/csrc/flash_fwd.cu",
