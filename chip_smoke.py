@@ -2,9 +2,9 @@
 """Smoke test of the PyTorch/CUDA port (horovod_tpu_torch) on one GPU.
 
     python3 chip_smoke.py              # every phase, one card
-    python3 chip_smoke.py --only kernels   # or train, bn_kernels, resnet,
-                                           # resnet_lean, ring_kernels, sp,
-                                           # lc, lc_sp
+    python3 chip_smoke.py --only kernels   # or api, train, bn_kernels,
+                                           # resnet, resnet_lean,
+                                           # ring_kernels, sp, lc, lc_sp
 
 Phases, in order; any failure exits non-zero:
 
@@ -12,6 +12,19 @@ Phases, in order; any failure exits non-zero:
    (``nvidia-smi --query-gpu=name,power.limit``).
 2. build: compiles ``horovod_tpu_torch/ops/csrc/*.cu`` with nvcc for
    sm_90a, one process per source, and prints the seconds.
+2b. api: the data-parallel API on a one-rank NCCL group
+   (``init(model_parallel=1)``): ``new_group([0])``; ``allreduce`` and
+   ``reduce_scatter`` (an odd count, 1,000,003) without a group, with
+   ``WORLD`` and with the new group, averaged or summed, with and without
+   pre- and postscale, and ``allreduce`` under the fp16 and bf16 codecs,
+   each equal (``torch.equal``) to what one rank implies, computed in the
+   same order; ``allgather``; the broadcast of a dict of tensors;
+   ``metric_average``; the digest advancing once a collective and equal to
+   this script's own FoldCall over the calls' (op, dtype, ndim, name);
+   ``assert_synchronized``; ``sync_batch_norm_stats`` against
+   ``torch.var_mean`` (norm-relative <= 1e-4) and the stock sync BN against
+   the stock BN without sync on a (32, 64, 56, 56) f32 activation (y, dx,
+   dgamma, dbeta, running statistics, each <= 1e-4).
 3. kernels: runs the flash forward (K1), dQ (K2) and dK/dV (K3) kernels at
    the training shape (B=8, H=12, L=2048, D=64, bf16, causal) and at an odd
    shape (B=1, H=4, G=2, L=160, non-causal) and holds each against its
@@ -41,8 +54,13 @@ Phases, in order; any failure exits non-zero:
 4. train: ``hvd.init()`` (a one-rank NCCL group), the GPT-2-small flash LM
    (vocab 32000, 12 layers, 12 x 64 heads, embed 768, MLP 3072, bf16 over
    f32 params) from a seeded generator, Adam(1e-4) in
-   ``DistributedOptimizer`` and ``make_train_step`` with ``lm_loss``; 2
-   warm-up and 5 timed steps on one batch of 8 x 2048 tokens. Before the
+   ``DistributedOptimizer`` (overlapped: its buckets go out during the
+   backward) and ``make_train_step`` with ``lm_loss``; 2 warm-up and 5
+   timed steps on one batch of 8 x 2048 tokens. Before the steps, one
+   backward through the optimizer's hooks: every bucket sent during it,
+   in bucket order, and its gradients equal to ``allreduce_gradients`` on
+   a copy of the same local gradients bit for bit; after an accumulating
+   backward (``_no_sync``) ``synchronize()`` sends every bucket in order. Before the
    steps, the same weights through plain (dense) attention: the first
    loss at 8 x 2048, and every parameter's gradient at 2 x 2048 (worst
    ||g_flash - g_plain||_2 / ||g_plain||_2 <= 5e-2). Checks finite and
@@ -80,7 +98,15 @@ Phases, in order; any failure exits non-zero:
    float32: ghost BN (``bn_virtual_batch_size=16``, 2 groups at batch 32)
    against the stock BN run on each group alone. 53 launches of each
    kernel per step, 33 of K8, ``bn_apply`` and ``bn_dx`` with the ReLU or
-   mask.
+   mask. Then ``ResNet50Lean(bn_remat=True)`` on the same initial weights
+   and batch: one gradient against ``bn_remat=False`` with cuDNN
+   deterministic, every parameter's bit for bit, and the running
+   statistics after it equal; 53 launches of K7 and 85 of ``bn_apply``
+   (65 with the ReLU) in that forward and backward, the 32 norms inside
+   the blocks that a convolution reads recomputed; then 2 warm-up and 5
+   timed steps (the same launch counts a step, the first loss that of
+   bn_remat=False), peak memory and step time printed beside
+   bn_remat=False's.
 7. ring_kernels: the ring-attention step kernels K4 (forward step with
    carried state), K5 (ring dQ) and K6 (ring dK/dV) through a whole 4-rank
    ring inside this process, every virtual rank with its own offsets and
@@ -174,6 +200,17 @@ BN_TOL = 1e-4
 RESNET_LOSS_TOL = 2e-2
 RESNET_GRAD_TOL = 5e-2
 
+# The api phase: an odd count for the collectives (reduce_scatter's shard
+# is the whole at one rank), stage 2's widest BN activation for the
+# statistics (256 x 28 x 28 rows), and a stem-like activation for the
+# stock sync BN. The statistics from partial sums (E[x^2] - E[x]^2 in f32)
+# stand apart from torch.var_mean's by f32 rounding of 2e5-term sums; the
+# sync BN's statistics and gradients from cuDNN's the same way.
+API_COUNT = 1_000_003
+API_BN_ROWS = 256 * 28 * 28
+API_BN_SHAPE = (32, 64, 56, 56)
+API_STATS_TOL = 1e-4
+API_SYNC_BN_TOL = 1e-4
 SLICE = dict(B=8, H=12, G=12, L=2048, D=64, causal=True)
 ODD = dict(B=1, H=4, G=2, L=160, D=64, causal=False)
 # Fused rotary (the kernels' rotary instantiations, K1_rot-K6_rot): the base
@@ -193,6 +230,10 @@ RESNET_BN_LAYERS = 53  # bn_init + 3 per block (16) + 4 projections
 # block; the ghost-BN gradient check's virtual batch (2 groups of 16)
 RESNET_RELU_LAYERS = 33
 RESNET_GHOST_BATCH = 16
+# bn_remat recomputes the output of each norm inside a block that a
+# convolution reads: the first two of each of the 16 blocks, all with the
+# ReLU fused
+RESNET_REMAT_LAYERS = 32
 # the ghost groups of the bn_kernels phase's grouped checks: ghost batches of
 # 32 at the stem (the batch of 256 in 8 groups)
 BN_GROUPS = 8
@@ -801,11 +842,18 @@ def _bn_pass_checks(bn, x, dy, gamma, beta, groups, extra):
                               M // groups, groups, relu, mode), kw))
             for name, kern, plain, args, kw in runs:
                 got, ref = kern(*args, **kw), plain(*args, **kw)
+                # the registered custom op (bn_remat's route) on the same
+                # arguments: the wrapper's launch, bit for bit
+                op_args = args + ((kw.get("gmean"), kw.get("gvar"))
+                                  if name == "bn_dx" else ())
+                via_op = getattr(torch.ops.horovod_tpu_torch, name)(*op_args)
                 worst[name] = max(worst[name], _err(got, ref)[0])
-                if not torch.equal(got, ref):
-                    bad.append("%s %s relu=%s groups=%d%s" % (
-                        name, mode, relu, groups, " +cotangents" if kw else ""))
-                del got, ref
+                for label, out in (("", got), (" (custom op)", via_op)):
+                    if not torch.equal(out, ref):
+                        bad.append("%s%s %s relu=%s groups=%d%s" % (
+                            name, label, mode, relu, groups,
+                            " +cotangents" if kw else ""))
+                del got, ref, via_op
     return bad, worst
 
 
@@ -935,6 +983,183 @@ def phase_bn_kernels():
     return rows
 
 
+def _fold_call(digest, op, dtype, ndim, name):
+    """native/divergence.cc FoldCall, written here apart from the port's:
+    FNV-1a over (op, dtype, ndim, the name's bytes, 0xFF)."""
+    for b in [op, dtype, ndim] + list(name.encode()) + [0xFF]:
+        digest = ((digest ^ b) * 1099511628211) % (1 << 64)
+    return digest
+
+
+def phase_api():
+    """The data-parallel API on a one-rank NCCL group: checks that fail
+    the phase are exact unless a tolerance is stated."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import batch_norm as bn
+
+    hvd.init(model_parallel=1)
+    dev = hvd.device()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bad = []
+
+    def check(what, ok):
+        if not ok:
+            bad.append(what)
+
+    g = hvd.new_group([0])
+    check("new_group", (g.id, g.ranks, g.rank(), g.size()) == (1, (0,), 0, 1))
+    check("mesh", (hvd.model_parallel_size(), hvd.mesh_groups())
+          == (1, (None, None)))
+    # message.h's codes: allreduce 0, allgather 1, broadcast 2,
+    # reduce_scatter 3; f16 6, f32 7, int64 5, bf16 10
+    codes = {torch.float32: 7, torch.float16: 6, torch.bfloat16: 10,
+             torch.int64: 5, torch.float64: 8}
+    seq0, digest = hvd.collective_digest()
+    calls = []
+
+    def called(op, t, name):
+        calls.append((op, codes[t.dtype], t.dim(), name))
+
+    x = torch.randn(API_COUNT, generator=gen, device=dev)
+    for gname, group in (("none", None), ("world", hvd.WORLD), ("new", g)):
+        for avg, pre, post in ((True, 1.0, 1.0), (False, 0.5, 3.0),
+                               (True, 2.0, 0.25)):
+            tag = "%s/%s/%g/%g" % (gname, avg, pre, post)
+            want = (x.clone() if pre == 1.0 else x * pre).div_(1) \
+                if avg else (x.clone() if pre == 1.0 else x * pre)
+            if post != 1.0:
+                want.mul_(post)
+            got = hvd.allreduce(x, average=avg, prescale_factor=pre,
+                                postscale_factor=post, group=group,
+                                name="ar/" + tag)
+            called(0, x, "ar/" + tag)
+            check("allreduce " + tag, torch.equal(got, want))
+            got = hvd.reduce_scatter(x, average=avg, prescale_factor=pre,
+                                     postscale_factor=post, group=group,
+                                     name="rs/" + tag)
+            called(3, x, "rs/" + tag)
+            check("reduce_scatter of %d %s" % (API_COUNT, tag),
+                  got.shape == x.shape and torch.equal(got, want))
+        got = hvd.allgather(x.view(-1, 1)[:7], group=group,
+                            name="ag/" + gname)
+        called(1, x.view(-1, 1), "ag/" + gname)
+        check("allgather " + gname, torch.equal(got, x.view(-1, 1)[:7]))
+    for codec, dt in ((hvd.Compression.fp16, torch.float16),
+                      (hvd.Compression.bf16, torch.bfloat16)):
+        got = hvd.allreduce(x, compression=codec, prescale_factor=0.5,
+                            postscale_factor=3.0, name="codec/%s" % dt)
+        called(0, x.to(dt), "codec/%s" % dt)
+        want = (x.to(dt) * 0.5).div_(1).mul_(3.0).float()
+        check("allreduce with the %s codec" % dt,
+              got.dtype == torch.float32 and torch.equal(got, want))
+    tree = {"w": x[:700].view(-1, 7), "b": (x[:3], x[3:5].double())}
+    got = hvd.broadcast(tree, root_rank=0, name="tree")
+    for i, leaf in enumerate((x[:3], x[3:5].double(), tree["w"])):
+        called(2, leaf, "tree.%d" % i)  # the leaves in sorted key order
+    check("broadcast of a dict", list(got) == ["w", "b"] and all(
+        torch.equal(a, b) for a, b in ((got["w"], tree["w"]),
+                                       (got["b"][0], tree["b"][0]),
+                                       (got["b"][1], tree["b"][1]))))
+    check("metric_average", hvd.metric_average(2.5, name="m") == 2.5)
+    called(0, torch.zeros((), dtype=torch.float64), "m")
+    seq, got_digest = hvd.collective_digest()
+    for call in calls:
+        digest = _fold_call(digest, *call)
+    check("digest advancing once a collective (%d calls, seq %d -> %d)"
+          % (len(calls), seq0, seq), seq == seq0 + len(calls))
+    check("digest %016x, FoldCall gives %016x" % (got_digest, digest),
+          got_digest == digest)
+    hvd.assert_synchronized()
+    check("assert_synchronized's own allgather",
+          hvd.collective_digest()[0] == seq + 1)
+
+    # sync_batch_norm_stats against torch.var_mean, stage 2's widest BN
+    # activation (E[x^2] - E[x]^2 in f32 against var_mean's two-pass)
+    xb = (torch.randn(API_BN_ROWS, 128, generator=gen, device=dev) * 2
+          + 0.5).to(torch.bfloat16).float()
+    mean, var, n = hvd.sync_batch_norm_stats(xb.sum(0), (xb * xb).sum(0),
+                                             API_BN_ROWS, group=g)
+    var_ref, mean_ref = torch.var_mean(xb, dim=0, correction=0)
+    stats_err = max(_err(mean, mean_ref)[1], _err(var, var_ref)[1])
+    check("sync_batch_norm_stats vs torch.var_mean: rel %.3g > %g"
+          % (stats_err, API_STATS_TOL), n == API_BN_ROWS
+          and stats_err <= API_STATS_TOL)
+
+    # the stock sync BN against the stock BN without sync (cuDNN), f32
+    xs = torch.randn(API_BN_SHAPE, generator=gen, device=dev).to(
+        memory_format=torch.channels_last)
+    w = torch.randn(API_BN_SHAPE, generator=gen, device=dev)
+    C = API_BN_SHAPE[1]
+    scale = torch.rand(C, generator=gen, device=dev) + 0.5
+    shift = torch.randn(C, generator=gen, device=dev)
+    outs = []
+    for group in (g, None):
+        m = bn.StockBatchNorm(C, group=group)
+        with torch.no_grad():
+            m.weight.copy_(scale)
+            m.bias.copy_(shift)
+        leaf = xs.clone().requires_grad_()
+        y = m(leaf)
+        grads = torch.autograd.grad((y * w).sum(), (leaf, m.weight, m.bias))
+        outs.append([y.detach(), *grads, m.running_mean, m.running_var])
+    sync_err = {k: _err(a, b)[1] for k, a, b in zip(
+        ("y", "dx", "dgamma", "dbeta", "running_mean", "running_var"),
+        *outs)}
+    worst = max(sync_err, key=sync_err.get)
+    check("stock sync BN vs stock BN: %s rel %.3g > %g"
+          % (worst, sync_err[worst], API_SYNC_BN_TOL),
+          sync_err[worst] <= API_SYNC_BN_TOL)
+    hvd.shutdown()
+    result = dict(calls=len(calls) + 1, digest="%016x" % got_digest,
+                  sync_bn_stats_rel_err=stats_err,
+                  stock_sync_bn_rel_err=sync_err)
+    if bad:
+        fail("api: " + "; ".join(bad))
+    print("api: " + json.dumps(result), flush=True)
+
+
+def check_overlap(hvd, opt, params, backward):
+    """The overlapped reduction of ``opt`` (a DistributedOptimizer over
+    ``params``) on one ``backward()``: every bucket must go out while the
+    backward runs, in bucket order, and the reduced gradients must equal
+    ``allreduce_gradients`` on a copy of the same local gradients bit for
+    bit; after a backward that sent nothing (as an accumulating
+    microbatch's), ``synchronize()`` must send every bucket in order.
+    Leaves the gradients cleared."""
+    import torch
+    opt.zero_grad()
+    backward()
+    in_backward = list(opt._order)
+    local = [None if p.grad is None else p.grad.clone() for p in params]
+    opt.synchronize()
+    got = [p.grad for p in params]
+    for p, g in zip(params, local):
+        p.grad = g
+    hvd.allreduce_gradients(params)
+    equal = all((a is None and p.grad is None) or torch.equal(a, p.grad)
+                for a, p in zip(got, params))
+    opt.zero_grad()
+    with opt._no_sync():
+        backward()
+    sent_early = list(opt._order)
+    opt.synchronize()
+    at_sync = list(opt.launch_order)
+    opt.zero_grad()
+    del got, local
+    n = len(opt.buckets)
+    log("overlapped reduction: %d buckets; sent in the backward %s; at "
+        "synchronize after an accumulating backward %s; equal to "
+        "allreduce_gradients bit for bit: %s" % (n, in_backward, at_sync,
+                                                  equal))
+    if not (equal and in_backward == list(range(n)) and sent_early == []
+            and at_sync == list(range(n))):
+        fail("the overlapped reduction: buckets sent in the backward %s, at "
+             "synchronize %s (expected %s each); equal to the fused "
+             "reduction: %s" % (in_backward, at_sync, list(range(n)), equal))
+    return dict(buckets=n, overlap_bitwise=equal)
+
+
 def phase_train(profile_dir=None):
     import torch
     import horovod_tpu_torch as hvd
@@ -980,6 +1205,8 @@ def phase_train(profile_dir=None):
     opt = hvd.DistributedOptimizer(torch.optim.Adam(model.parameters(),
                                                     lr=1e-4),
                                    model.named_parameters())
+    overlap = check_overlap(hvd, opt, list(model.parameters()),
+                            lambda: lm_loss(model, tokens).backward())
     step = make_train_step(model, lm_loss, opt)
     warmup, timed = 2, 5
     torch.cuda.synchronize()
@@ -1018,7 +1245,7 @@ def phase_train(profile_dir=None):
                   tflops=lm_step_flops(cfg, B, L) / step_s / 1e12,
                   loss_first=losses[0], loss_last=losses[-1],
                   loss_plain=loss_plain, grad_gap_worst=grad_gaps[worst],
-                  launches=counts, steps=steps)
+                  launches=counts, steps=steps, **overlap)
     print("train: " + json.dumps(result), flush=True)
     if profile_dir:
         profile_steps(step, tokens, profile_dir, "lm")
@@ -1077,6 +1304,8 @@ def phase_resnet(profile_dir=None, lean=False):
         for block in model.blocks:
             block.norms[-1].weight.uniform_(0.1, 0.5, generator=gen)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    # the weights before any step, for the bn_remat run
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
     batch = {"x": torch.randn(RESNET_BATCH, 3, IMAGE, IMAGE, generator=gen,
                               device=dev),
              "y": torch.randint(0, 1000, (RESNET_BATCH,), generator=gen,
@@ -1173,11 +1402,125 @@ def phase_resnet(profile_dir=None, lean=False):
                   **({"grad_gap_worst_ghost": worst[checks[1][0]]}
                      if lean else {}),
                   launches=counts, steps=steps)
-    print("%s: %s" % (name, json.dumps(result)), flush=True)
     if profile_dir:
         profile_steps(step, batch, profile_dir, name)
+    if lean:
+        del step, opt, model
+        torch.cuda.empty_cache()
+        result["bn_remat"], remat_counts = phase_bn_remat(
+            initial, batch, result, profile_dir)
+    print("%s: %s" % (name, json.dumps(result)), flush=True)
     hvd.shutdown()
-    return {kernel: counts[kernel] for kernel in BN}
+    return {kernel: counts[kernel] + (remat_counts[kernel] if lean else 0)
+            for kernel in BN}
+
+
+def phase_bn_remat(initial, batch, plain, profile_dir=None):
+    """ResNet50Lean with bn_remat on the weights ``initial`` and ``batch``
+    of the resnet_lean phase (whose result is ``plain``): one gradient
+    against bn_remat=False with cuDNN deterministic (bit for bit: the same
+    operations on the same values), and the running statistics after it;
+    then the step, its launches (one more normalize pass for each of the
+    32 recomputed norms, K7 once a norm) and its peak memory. Returns (its
+    result, the kernels' launches over its steps)."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import ResNet50Lean
+    from horovod_tpu_torch.ops import batch_norm as bn
+    from horovod_tpu_torch.parallel import (classification_loss,
+                                            make_train_step)
+    dev = hvd.device()
+    models = {}
+    for remat in (False, True):
+        m = ResNet50Lean(num_classes=1000, dtype=torch.bfloat16, device=dev,
+                         bn_remat=remat)
+        m.load_state_dict(initial)
+        models[remat] = m
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        grads, launches = {}, {}
+        for remat, m in models.items():
+            bn.reset_launch_counts()
+            grads[remat] = torch.autograd.grad(
+                classification_loss(m, batch), list(m.parameters()))
+            torch.cuda.synchronize()
+            launches[remat] = bn.launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    names = [n for n, _ in models[True].named_parameters()]
+    unequal = [n for n, a, b in zip(names, grads[True], grads[False])
+               if not torch.equal(a, b)]
+    stats = [n for (n, a), b in zip(models[True].named_buffers(),
+                                    models[False].buffers())
+             if not torch.equal(a, b)]
+    del grads, models[False]
+    want = {"batch_norm_stats": RESNET_BN_LAYERS,
+            "bn_apply": RESNET_BN_LAYERS + RESNET_REMAT_LAYERS,
+            "bn_apply_relu": RESNET_RELU_LAYERS + RESNET_REMAT_LAYERS}
+    log("bn_remat: gradients unequal to bn_remat=False: %s; running "
+        "statistics unequal: %s; launches of one forward and backward %s "
+        "(bn_remat=False: %s)" % (unequal or "none", stats or "none",
+                                  launches[True], launches[False]))
+    if unequal or stats:
+        fail("bn_remat differs from bn_remat=False: gradients %s, running "
+             "statistics %s" % (unequal, stats))
+    for kernel, n in want.items():
+        if launches[True][kernel] != n:
+            fail("bn_remat: %s launched %d times in one forward and "
+                 "backward, expected %d" % (kernel, launches[True][kernel], n))
+    model = models[True]
+    del models
+    torch.cuda.empty_cache()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        model.named_parameters())
+    step = make_train_step(model, classification_loss, opt)
+    warmup, timed = 2, 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bn.reset_launch_counts()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        loss = step(batch).item()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log("resnet_lean bn_remat step %d: loss %.5f, %.1f ms"
+            % (i, loss, times[-1] * 1e3))
+    counts = bn.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = warmup + timed
+    if not all(x == x and abs(x) != float("inf") for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail("bn_remat loss not finite or not falling: %s" % losses)
+    if abs(losses[0] - plain["loss_first"]) > 1e-6 * abs(plain["loss_first"]):
+        fail("bn_remat first loss %.6f vs bn_remat=False %.6f"
+             % (losses[0], plain["loss_first"]))
+    per_step = dict(
+        {k: RESNET_BN_LAYERS for k in BN},
+        batch_norm_grad_stats_relu=RESNET_RELU_LAYERS,
+        bn_dx_relu=RESNET_RELU_LAYERS, **want)
+    for kernel, n in counts.items():
+        if n != per_step[kernel] * steps:
+            fail("bn_remat: %s launched %d times in %d steps, expected %d "
+                 "per step" % (kernel, n, steps, per_step[kernel]))
+    step_s = statistics.median(times[warmup:])
+    result = dict(step_ms=step_s * 1e3, images_per_s=RESNET_BATCH / step_s,
+                  peak_mem_gb=peak / 1e9,
+                  peak_mem_gb_without=plain["peak_mem_gb"],
+                  step_ms_without=plain["step_ms"], loss_first=losses[0],
+                  loss_last=losses[-1], gradients_bitwise=True,
+                  launches=counts, steps=steps)
+    log("bn_remat: peak %.2f GB (bn_remat=False %.2f), step %.1f ms "
+        "(bn_remat=False %.1f)" % (result["peak_mem_gb"],
+                                    plain["peak_mem_gb"], result["step_ms"],
+                                    plain["step_ms"]))
+    if profile_dir:
+        profile_steps(step, batch, profile_dir, "resnet_lean_remat")
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return result, counts
 
 
 def _m_err(a, b):
@@ -2011,16 +2354,16 @@ def profile_steps(step, tokens, out_dir, model, n=3):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernels", "train", "bn_kernels",
-                                       "resnet", "resnet_lean",
+    ap.add_argument("--only", choices=("api", "kernels", "train",
+                                       "bn_kernels", "resnet", "resnet_lean",
                                        "ring_kernels", "sp", "lc", "lc_sp"),
                     help="run the device and build phases and this one")
     ap.add_argument("--profile", metavar="DIR",
-                    help="after the train, resnet, resnet_lean, sp and "
-                    "lc_sp phases, profile 3 more steps each (lc always "
-                    "profiles) and write the kernel tables to "
-                    "DIR/chip_smoke_{lm,resnet,resnet_lean,sp,lc,lc_unfused,"
-                    "lc_sp}_profile.txt")
+                    help="after the train, resnet, resnet_lean (and its "
+                    "bn_remat steps), sp and lc_sp phases, profile 3 more "
+                    "steps each (lc always profiles) and write the kernel "
+                    "tables to DIR/chip_smoke_{lm,resnet,resnet_lean,"
+                    "resnet_lean_remat,sp,lc,lc_unfused,lc_sp}_profile.txt")
     args = ap.parse_args()
     phase_device()
     if not (ROOT / "horovod_tpu_torch").is_dir():
@@ -2040,6 +2383,8 @@ def main():
     def add(launches):  # a kernel's launches over every main path
         for name, n in launches.items():
             counts[name] = counts.get(name, 0) + n
+    if run("api"):
+        phase_api()
     if run("kernels"):
         rows, library = phase_kernels()
     if run("train"):

@@ -1,8 +1,10 @@
 """horovod_tpu_torch — the PyTorch and CUDA port of horovod_tpu.
 
 Horovod's synchronous data-parallel training on NVIDIA GPUs: ``init()``
-starts an NCCL process group, ``DistributedOptimizer`` averages the
-gradients over it before every update, and the models' hot kernels are
+starts an NCCL process group (optionally laid out as a (batch, model)
+mesh), the collectives run over it or over groups of it,
+``DistributedOptimizer`` averages the gradients over it, overlapped with
+the backward pass, before every update, and the models' hot kernels are
 written by hand for Hopper (``ops/csrc``). It imports ``torch`` and
 numpy, never JAX or the ``horovod_tpu`` package.
 
@@ -12,11 +14,16 @@ without a GPU they raise ``CudaUnavailableError``.
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
     CudaUnavailableError,
+    batch_group,
     device,
     init,
+    init_distributed,
     is_initialized,
     local_rank,
     local_size,
+    mesh_groups,
+    model_group,
+    model_parallel_size,
     process_group,
     rank,
     shutdown,
@@ -26,6 +33,23 @@ from horovod_tpu_torch.common.ops import (  # noqa: F401
     allgather,
     allreduce,
     broadcast,
+    reduce_scatter,
+    shard_partition,
+    sync_batch_norm_stats,
+)
+from horovod_tpu_torch.compression import Compression  # noqa: F401
+from horovod_tpu_torch.divergence import (  # noqa: F401
+    DivergenceError,
+    assert_synchronized,
+    collective_digest,
+    metric_average,
+)
+from horovod_tpu_torch.groups import (  # noqa: F401
+    WORLD,
+    ProcessGroup,
+    group_rank,
+    group_size,
+    new_group,
 )
 from horovod_tpu_torch.optimizer import (  # noqa: F401
     DistributedOptimizer,

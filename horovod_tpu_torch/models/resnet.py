@@ -22,7 +22,11 @@ the reference), ``"batch"`` the stock BN (``F.batch_norm``), the
 counterpart of flax's ``nn.BatchNorm``. All keep flax's running statistics
 and state-dict keys. ``bn_group`` is sync BN over a process group (the
 counterpart of ``bn_axis_name``), ``bn_virtual_batch_size`` ghost BN
-(``"lean"`` and ``"pallas"``).
+(``"lean"`` and ``"pallas"``). ``bn_remat`` (the counterpart of
+``bn_remat_policy`` over each block) recomputes in the backward, instead
+of keeping, the output of every norm inside a block that a convolution
+reads (``LeanBatchNorm.forward_conv``); as in the reference it changes
+only ``"lean"``, whose normalize outputs are the ones tagged.
 
 Padding follows flax's ``"SAME"``: a stride-2 3x3 convolution of an even
 input pads 0 before and 1 after, where ``nn.Conv2d(padding=1)`` would pad
@@ -65,20 +69,27 @@ class Conv(nn.Module):
         self.padding = padding
         self.dtype = dtype
 
-    def forward(self, x):
+    def pads(self, shape):
+        """(``F.pad``'s pad or None, ``F.conv2d``'s padding) for an input of
+        ``shape``: symmetric padding goes to the convolution, asymmetric to
+        an explicit pad."""
         k = self.weight.shape[-1]
         if self.padding == "SAME":
             (t, b), (lf, r) = (_same_padding(n, k, self.stride)
-                               for n in x.shape[2:])
+                               for n in shape[2:])
         else:
             (t, b), (lf, r) = self.padding
         if t == b and lf == r:
-            pad = (t, lf)
-        else:
-            x = F.pad(x, (lf, r, t, b))
-            pad = 0
+            return None, (t, lf)
+        return (lf, r, t, b), 0
+
+    def forward(self, x):
+        pad, padding = self.pads(x.shape)
+        if pad:
+            x = F.pad(x, pad)
         w = self.weight.to(self.dtype, memory_format=torch.channels_last)
-        return F.conv2d(x.to(self.dtype), w, stride=self.stride, padding=pad)
+        return F.conv2d(x.to(self.dtype), w, stride=self.stride,
+                        padding=padding)
 
 
 class ResNetBlock(nn.Module):
@@ -91,8 +102,9 @@ class ResNetBlock(nn.Module):
         return [(cin, filters, 3, stride), (filters, filters, 3, 1)]
 
     def __init__(self, cin, filters, norm, stride=1, dtype=torch.bfloat16,
-                 device=None, norm_act=None):
+                 device=None, norm_act=None, bn_remat=False):
         super().__init__()
+        self.bn_remat = bn_remat
         specs = self.layers(cin, filters, stride)
         self.convs = nn.ModuleList(Conv(*s, dtype=dtype, device=device)
                                    for s in specs)
@@ -110,12 +122,16 @@ class ResNetBlock(nn.Module):
             self.norm_proj = norm(cout)
 
     def forward(self, x):
-        y = x
-        last = len(self.convs) - 1
-        for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
-            y = norm(conv(y))
-            if i < last and not norm.fuse_relu:
+        y = self.convs[0](x)
+        for norm, conv in zip(self.norms, self.convs[1:]):
+            if self.bn_remat:
+                y = norm.forward_conv(y, conv)
+                continue
+            y = norm(y)
+            if not norm.fuse_relu:
                 y = F.relu(y)
+            y = conv(y)
+        y = self.norms[-1](y)
         residual = x
         if self.conv_proj is not None:
             residual = self.norm_proj(self.conv_proj(x))
@@ -152,10 +168,6 @@ class ResNet(nn.Module):
         if norm not in _NORMS:
             raise ValueError("norm=%r is not batch|pallas|lean|group|none"
                              % norm)
-        if bn_remat:
-            raise NotImplementedError(
-                "bn_remat is the rest of ROADMAP A1: a selective checkpoint "
-                "needs the BN passes registered as torch.library ops")
         device = resolve_device(device)
         self.dtype = dtype
         opts = dict(group=bn_group, device=device)
@@ -177,7 +189,8 @@ class ResNet(nn.Module):
                 filters = num_filters * 2 ** i
                 blocks.append(block_cls(cin, filters, norm_cls, stride,
                                         dtype=dtype, device=device,
-                                        norm_act=norm_act))
+                                        norm_act=norm_act,
+                                        bn_remat=bn_remat and norm == "lean"))
                 cin = filters * block_cls.expansion
         self.blocks = nn.ModuleList(blocks)
         self.head = nn.Linear(cin, num_classes, device=device)

@@ -38,10 +38,18 @@ wrapper counts its launches in ``.launches``, and those with the ReLU or
 mask also in ``.relu_launches``.
 
 ``StockBatchNorm`` is the same module on ``F.batch_norm`` (cuDNN on the
-GPU), the counterpart of flax's ``nn.BatchNorm``: no kernel of the port.
+GPU), the counterpart of flax's ``nn.BatchNorm``: no kernel of the port;
+its sync BN (``group=``) is ``stock_sync_batch_norm_train``, plain torch
+math around one collective each way.
+
+``bn_apply`` and ``bn_dx`` are also registered as ``torch.library`` custom
+ops (``torch.ops.horovod_tpu_torch.bn_apply`` and ``.bn_dx``), so the
+dispatcher sees them; ``bn_remat`` recomputes normalize outputs through
+them (``lean_batch_norm_conv``).
 """
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -49,6 +57,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from horovod_tpu_torch.common.basics import resolve_device
+from horovod_tpu_torch.groups import resolve_group
 from horovod_tpu_torch.ops import _build
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -475,14 +484,45 @@ def reset_launch_counts():
 reset_launch_counts()
 
 
+@torch.library.custom_op("horovod_tpu_torch::bn_apply", mutates_args=())
+def bn_apply_op(x2d: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                groups: int, relu: bool, mode: str) -> torch.Tensor:
+    """``bn_apply`` as a custom op of the dispatcher."""
+    return bn_apply(x2d, a, b, groups, relu, mode)
+
+
+@bn_apply_op.register_fake
+def _(x2d, a, b, groups, relu, mode):
+    return torch.empty_like(x2d)
+
+
+@torch.library.custom_op("horovod_tpu_torch::bn_dx", mutates_args=())
+def bn_dx_op(dy2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+             rstd: torch.Tensor, gamma: torch.Tensor,
+             beta: Optional[torch.Tensor], dbeta: torch.Tensor,
+             dgamma: torch.Tensor, count: int, groups: int, relu: bool,
+             mode: str, gmean: Optional[torch.Tensor],
+             gvar: Optional[torch.Tensor]) -> torch.Tensor:
+    """``bn_dx`` as a custom op of the dispatcher."""
+    return bn_dx(dy2d, x2d, mean, rstd, gamma, beta, dbeta, dgamma, count,
+                 groups, relu, mode, gmean, gvar)
+
+
+@bn_dx_op.register_fake
+def _(dy2d, x2d, *args):
+    return torch.empty_like(x2d)
+
+
 # ----------------------------------------------------- training-mode BN
 
 
 def _group_sum(pair, group):
-    """(a, b) summed over ``group`` in one collective of the stacked pair,
-    and the group's size; (a, b) and 1 without a group."""
+    """(a, b) summed over ``group`` (a ``ProcessGroup``, WORLD or a
+    ``torch.distributed`` process group) in one collective of the stacked
+    pair, and the group's size; (a, b) and 1 without a group."""
     if group is None:
         return pair, 1
+    group = resolve_group(group)
     stacked = torch.stack(pair)
     dist.all_reduce(stacked, op=dist.ReduceOp.SUM, group=group)
     return (stacked[0], stacked[1]), dist.get_world_size(group)
@@ -559,20 +599,30 @@ class _LeanBatchNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gmean, gvar):
         x, gamma, beta, mean, rstd = ctx.saved_tensors
-        relu, groups = ctx.relu, ctx.groups
         x2d = x.view(-1, x.shape[-1])
-        gy = torch.zeros_like(x2d) if gy is None else gy.reshape(x2d.shape)
-        mask = (gamma, beta) if relu else (None, None)
-        dbeta, dgamma = batch_norm_grad_stats(gy, x2d, mean, rstd, groups,
-                                              *mask, mode="lean")
-        # dx needs the sums over the whole sync group; the returned dgamma
-        # and dbeta stay local (_lean_bwd:392-397).
-        (dbeta_g, dgamma_g), _ = _group_sum((dbeta, dgamma), ctx.group)
-        dx = bn_dx(gy, x2d, mean, rstd, gamma, beta, dbeta_g, dgamma_g,
-                   ctx.count, groups, relu, "lean", gmean, gvar)
-        if groups > 1:
-            dgamma, dbeta = dgamma.sum(0), dbeta.sum(0)
+        dx, dgamma, dbeta = _lean_backward(ctx, gy, x2d, gamma, beta, mean,
+                                           rstd, gmean, gvar, bn_dx)
         return dx.view(x.shape), dgamma, dbeta, None, None, None, None
+
+
+def _lean_backward(ctx, gy, x2d, gamma, beta, mean, rstd, gmean, gvar,
+                   dx_pass):
+    """``_lean_bwd``: K8 and the dx pass (``dx_pass``, ``bn_dx`` or its
+    custom op) in lean mode on the saved x; returns (dx (M, C), dgamma,
+    dbeta). ``ctx`` holds relu, groups, group and count."""
+    relu, groups = ctx.relu, ctx.groups
+    gy = torch.zeros_like(x2d) if gy is None else gy.reshape(x2d.shape)
+    mask = (gamma, beta) if relu else (None, None)
+    dbeta, dgamma = batch_norm_grad_stats(gy, x2d, mean, rstd, groups,
+                                          *mask, mode="lean")
+    # dx needs the sums over the whole sync group; the returned dgamma and
+    # dbeta stay local (_lean_bwd:392-397).
+    (dbeta_g, dgamma_g), _ = _group_sum((dbeta, dgamma), ctx.group)
+    dx = dx_pass(gy, x2d, mean, rstd, gamma, beta, dbeta_g, dgamma_g,
+                 ctx.count, groups, relu, "lean", gmean, gvar)
+    if groups > 1:
+        dgamma, dbeta = dgamma.sum(0), dbeta.sum(0)
+    return dx, dgamma, dbeta
 
 
 def lean_batch_norm_train(x, gamma, beta, eps=1e-5, relu=False, groups=1,
@@ -597,6 +647,130 @@ def lean_batch_norm_train(x, gamma, beta, eps=1e-5, relu=False, groups=1,
                          "the leading axis of %s" % (groups, tuple(x.shape)))
     return _LeanBatchNormFn.apply(x, gamma, beta, eps, bool(relu), groups,
                                   group)
+
+
+class _LeanNormConvFn(torch.autograd.Function):
+    """``bn_remat``: a lean BN and the convolution that reads its output,
+    with that output not kept for the backward. The forward runs K7, the
+    normalize pass and the convolution, and saves x, the statistics and the
+    convolution's weight; the backward recomputes the normalize output
+    with one launch of the normalize pass (through its custom op), runs the
+    convolution's backward on it, then K8 and the dx pass as
+    ``_LeanBatchNormFn`` does. The same operations on the same values as
+    the two modules apart, so the same results."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, weight, eps, relu, groups, group, conv):
+        xl = x.movedim(1, -1)
+        x2d = xl.view(-1, xl.shape[-1])
+        mean, var, rstd, count = _batch_stats(x2d, eps, groups, group)
+        a = gamma * rstd
+        b = beta - mean * a
+        y = bn_apply(x2d, a, b, groups, relu, "lean")
+        stride, pad, padding, dtype = conv
+        w = weight.to(dtype, memory_format=torch.channels_last)
+        out = F.conv2d(_padded(y.view(xl.shape).movedim(-1, 1), pad)
+                       .to(dtype), w, stride=stride, padding=padding)
+        ctx.save_for_backward(x, gamma, beta, mean, rstd, w)
+        ctx.relu, ctx.groups, ctx.group, ctx.count = relu, groups, group, count
+        ctx.conv, ctx.weight_dtype = conv, weight.dtype
+        ctx.set_materialize_grads(False)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, gout, gmean, gvar):
+        x, gamma, beta, mean, rstd, w = ctx.saved_tensors
+        stride, pad, padding, dtype = ctx.conv
+        xl = x.movedim(1, -1)
+        x2d = xl.view(-1, xl.shape[-1])
+        a = gamma * rstd
+        b = beta - mean * a
+        y = torch.ops.horovod_tpu_torch.bn_apply(x2d, a, b, ctx.groups,
+                                                 ctx.relu, "lean")
+        yp = _padded(y.view(xl.shape).movedim(-1, 1), pad).to(dtype)
+        padding = [padding] * 2 if isinstance(padding, int) else padding
+        gy, gw, _ = torch.ops.aten.convolution_backward(
+            gout, yp, w, None, [stride] * 2, list(padding), [1, 1], False,
+            [0, 0], 1, [True, True, False])
+        if pad:
+            lf, _, t, _ = pad
+            gy = gy[:, :, t:t + x.shape[2], lf:lf + x.shape[3]]
+        dx, dgamma, dbeta = _lean_backward(
+            ctx, gy.movedim(1, -1), x2d, gamma, beta, mean, rstd, gmean,
+            gvar, torch.ops.horovod_tpu_torch.bn_dx)
+        return (dx.view(xl.shape).movedim(-1, 1), dgamma, dbeta,
+                gw.to(ctx.weight_dtype), None, None, None, None, None)
+
+
+def _padded(y, pad):
+    return F.pad(y, pad) if pad else y
+
+
+def lean_batch_norm_conv(x, gamma, beta, weight, eps=1e-5, relu=False,
+                         groups=1, group=None, stride=1, pad=None, padding=0,
+                         dtype=torch.bfloat16):
+    """``F.conv2d(F.pad(lean_batch_norm_train(x)'s y, pad), weight in
+    dtype, stride, padding)`` on a channels-last [N, C, H, W] activation,
+    without keeping y for the backward: the backward recomputes it with
+    one launch of the normalize pass (``bn_remat``). Returns (the
+    convolution's output, mean, var)."""
+    return _LeanNormConvFn.apply(x, gamma, beta, weight, eps, bool(relu),
+                                 groups, group, (stride, pad, padding, dtype))
+
+
+class _StockSyncBatchNormFn(torch.autograd.Function):
+    """Sync BN on the stock path, the counterpart of flax's
+    ``nn.BatchNorm(axis_name=)``: the per-channel sum and sum of squares of
+    x in f32 are summed over the group, the variance is E[x^2] - E[x]^2 (as
+    flax's pmean of the two means gives), y = (x - mean) * (rstd * gamma)
+    + beta. The backward sums its two per-channel terms (sum dy, sum dy *
+    x_hat) over the group, the transpose of that sum, and returns the
+    local dgamma and dbeta."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, group):
+        dims, shape = _stock_dims(x)
+        xf = x.float()
+        (s, ss), n = _group_sum((xf.sum(dims), (xf * xf).sum(dims)), group)
+        count = x.numel() // x.shape[1] * n
+        mean = s / count
+        var = torch.clamp(ss / count - mean * mean, min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        y = ((xf - mean.view(shape)) * (rstd * gamma).view(shape)
+             + beta.view(shape)).to(x.dtype)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        ctx.group, ctx.count = group, count
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, gmean, gvar):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        dims, shape = _stock_dims(x)
+        xhat = (x.float() - mean.view(shape)) * rstd.view(shape)
+        g = gy.float()
+        dbeta, dgamma = g.sum(dims), (g * xhat).sum(dims)
+        (dbeta_g, dgamma_g), _ = _group_sum((dbeta, dgamma), ctx.group)
+        dx = (gamma * rstd).view(shape) * (
+            g - (dbeta_g / ctx.count).view(shape)
+            - xhat * (dgamma_g / ctx.count).view(shape))
+        return dx.to(x.dtype), dgamma, dbeta, None, None
+
+
+def _stock_dims(x):
+    """The reduced dims of [N, C, ...] and the shape a (C,) term takes to
+    broadcast over x."""
+    return ([0] + list(range(2, x.dim())),
+            (1, -1) + (1,) * (x.dim() - 2))
+
+
+def stock_sync_batch_norm_train(x, gamma, beta, eps=1e-5, group=None):
+    """Training-mode BN over dim 1 of [N, C, ...] with the statistics
+    summed over ``group`` (a ``ProcessGroup``, WORLD or a
+    ``torch.distributed`` process group; every rank an equal shard). Plain
+    torch math, no kernel of the port. Returns (y in x's dtype, mean,
+    var), the statistics f32 and global, the variance biased."""
+    return _StockSyncBatchNormFn.apply(x, gamma, beta, eps, group)
 
 
 # --------------------------------------------------------------- modules
@@ -727,19 +901,36 @@ class LeanBatchNorm(_BatchNorm):
         self._update_running(mean, var)
         return y.movedim(-1, 1)
 
+    def forward_conv(self, x, conv):
+        """``conv(self(x))`` for a ``models.resnet.Conv`` without keeping
+        ``self(x)`` for the backward, which recomputes it
+        (``lean_batch_norm_conv``, ``ResNet(bn_remat=True)``)."""
+        if not self.training:
+            return conv(self(x))
+        _channels_last("LeanBatchNorm", x)
+        pad, padding = conv.pads(x.shape)
+        out, mean, var = lean_batch_norm_conv(
+            x, self.weight, self.bias, conv.weight, self.eps, self.fuse_relu,
+            _ghost_groups(self.virtual_batch_size, x.shape[0]), self.group,
+            conv.stride, pad, padding, conv.dtype)
+        self._update_running(mean, var)
+        return out
+
 
 class StockBatchNorm(_BatchNorm):
     """flax ``nn.BatchNorm`` in PyTorch: ``F.batch_norm`` on the batch
     statistics in training mode, with flax's running-statistics update
-    (biased variance, ``momentum`` the weight of the old value)."""
+    (biased variance, ``momentum`` the weight of the old value); with
+    ``group``, ``stock_sync_batch_norm_train``."""
 
     def forward(self, x):
         if not self.training:
             return self._eval(x)
         if self.group is not None:
-            raise NotImplementedError(
-                "sync BN on the stock path is the rest of ROADMAP A1; "
-                "norm='pallas' and norm='lean' take bn_group")
+            y, mean, var = stock_sync_batch_norm_train(
+                x, self.weight, self.bias, self.eps, self.group)
+            self._update_running(mean, var)
+            return y
         y = F.batch_norm(x, None, None, self.weight, self.bias,
                          training=True, eps=self.eps)
         with torch.no_grad():

@@ -4,16 +4,18 @@ Counterpart of ``horovod_tpu/parallel/train.py::make_train_step`` (the
 plain, replicated path). There the whole step is one XLA program whose
 gradient ``psum`` rides the TPU interconnect; here the step runs
 eagerly, and ``DistributedOptimizer`` averages the gradients over the
-process group (NCCL on the GPU) before the inner optimizer's update.
-Each rank passes its own shard of the batch. Overlapping the reduction
-with the backward pass is later work.
+process group (NCCL on the GPU), bucket by bucket while the backward pass
+runs, before the inner optimizer's update. Each rank passes its own shard
+of the batch.
 """
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
 from horovod_tpu_torch.common.basics import resolve_device
-from horovod_tpu_torch.common.ops import allreduce
+from horovod_tpu_torch.common.ops import allreduce, tree_map
 from horovod_tpu_torch.ops.losses import chunked_softmax_cross_entropy
 from horovod_tpu_torch.optimizer import DistributedOptimizer
 
@@ -31,7 +33,8 @@ def make_train_step(model, loss_fn, optimizer, accum_steps=1, device=None):
         otherwise).
       accum_steps: gradient accumulation. Every leaf of the shard is split
         into ``accum_steps`` microbatches along dim 0 (which must divide
-        its rows); their mean gradient takes one reduction and one update.
+        its rows); their mean gradient takes one reduction, overlapped with
+        the last microbatch's backward, and one update.
       device: where the batch is moved; default the GPU (``"cpu"`` for
         tests).
 
@@ -43,7 +46,7 @@ def make_train_step(model, loss_fn, optimizer, accum_steps=1, device=None):
         optimizer = DistributedOptimizer(optimizer, model.named_parameters())
 
     def step(batch):
-        batch = _tree_map(lambda t: t.to(device, non_blocking=True), batch)
+        batch = tree_map(lambda t: t.to(device, non_blocking=True), batch)
         for leaf in _leaves(batch):
             if leaf.shape[0] % accum_steps:
                 raise ValueError(
@@ -52,9 +55,11 @@ def make_train_step(model, loss_fn, optimizer, accum_steps=1, device=None):
         optimizer.zero_grad(set_to_none=True)
         total = torch.zeros((), device=device)
         for i in range(accum_steps):
-            micro = _tree_map(lambda t: t.chunk(accum_steps)[i], batch)
-            loss = loss_fn(model, micro)
-            (loss / accum_steps).backward()
+            micro = tree_map(lambda t: t.chunk(accum_steps)[i], batch)
+            last = i == accum_steps - 1
+            with contextlib.nullcontext() if last else optimizer._no_sync():
+                loss = loss_fn(model, micro)
+                (loss / accum_steps).backward()
             total += loss.detach().float() / accum_steps
         optimizer.step()
         return allreduce(total, average=True)
@@ -63,18 +68,9 @@ def make_train_step(model, loss_fn, optimizer, accum_steps=1, device=None):
     return step
 
 
-def _tree_map(fn, tree):
-    """``fn`` over every tensor of a tensor, tuple, list or dict."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def _leaves(tree):
     out = []
-    _tree_map(out.append, tree)
+    tree_map(out.append, tree)
     return out
 
 

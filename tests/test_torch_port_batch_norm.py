@@ -10,6 +10,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import horovod_tpu_torch as hvd
 from horovod_tpu.ops import batch_norm as jbn
 from horovod_tpu_torch.ops import batch_norm as tbn
 
@@ -160,9 +161,8 @@ def test_fused_batch_norm_module_matches_pallas_batch_norm():
 
 
 def test_module_refuses_what_it_does_not_take():
-    """NCHW activations, a virtual batch that does not divide the batch,
-    and sync BN on the stock path (the rest of ROADMAP A1); ghost BN
-    constructs and runs."""
+    """NCHW activations and a virtual batch that does not divide the
+    batch; ghost BN, and sync BN on the stock path, construct and run."""
     bn = tbn.FusedBatchNorm(4, device="cpu")
     with pytest.raises(ValueError, match="channels-last"):
         bn(torch.zeros(2, 4, 3, 3))  # contiguous NCHW, not channels_last
@@ -171,9 +171,14 @@ def test_module_refuses_what_it_does_not_take():
     assert ghost(x).shape == x.shape
     with pytest.raises(ValueError, match="does not divide"):
         tbn.FusedBatchNorm(4, virtual_batch_size=3, device="cpu")(x)
-    stock = tbn.StockBatchNorm(4, group=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A1"):
-        stock(x)
+    hvd.init(device="cpu")
+    try:
+        stock = tbn.StockBatchNorm(4, group=hvd.WORLD, device="cpu")
+        torch.testing.assert_close(
+            stock(x), tbn.StockBatchNorm(4, device="cpu")(x), rtol=1e-5,
+            atol=1e-5)
+    finally:
+        hvd.shutdown()
 
 
 def test_sync_bn_on_two_gloo_ranks_equals_global_batch_bn(tmp_path):

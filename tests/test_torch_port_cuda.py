@@ -910,3 +910,121 @@ def test_lean_batch_norm_on_the_gpu(cuda, relu, groups):
                           *outs):
         assert _rel(a, b) <= REL_TOL, (name, _rel(a, b))
 
+
+
+@pytest.fixture
+def nccl_world_one(cuda):
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    yield hvd
+    hvd.shutdown()
+
+
+def test_collectives_at_world_one_on_the_gpu(nccl_world_one):
+    """A one-rank NCCL group: every collective with a group, the scales
+    and the codecs gives exactly what one rank implies; reduce_scatter of
+    an odd count keeps the whole; the digest counts each call."""
+    hvd = nccl_world_one
+    g = hvd.new_group([0])
+    x = torch.linspace(-3, 3, 7, device="cuda")
+    seq = hvd.collective_digest()[0]
+    for group in (None, hvd.WORLD, g):
+        assert torch.equal(hvd.allreduce(x, group=group, prescale_factor=2.0,
+                                         postscale_factor=0.25),
+                           x * 2.0 / 1 * 0.25)
+        assert torch.equal(hvd.reduce_scatter(x, average=False, group=group),
+                           x)
+        assert torch.equal(hvd.allgather(x, group=group), x)
+        assert torch.equal(hvd.broadcast(x, 0, group=group), x)
+    for codec, dt in ((hvd.Compression.fp16, torch.float16),
+                      (hvd.Compression.bf16, torch.bfloat16)):
+        got = hvd.allreduce(x, compression=codec, postscale_factor=3.0)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, (x.to(dt) / 1 * 3.0).float())
+    assert hvd.collective_digest()[0] == seq + 14
+    assert hvd.metric_average(1.5) == 1.5
+    hvd.assert_synchronized()
+
+
+def test_overlapped_reduction_equals_the_fused_one_on_the_gpu(
+        nccl_world_one, monkeypatch):
+    """Every bucket goes out during the backward, in order; the gradients
+    equal allreduce_gradients' on a copy of the same local gradients, bit
+    for bit."""
+    hvd = nccl_world_one
+    # a Linear's weight and bias (4096 + 128 bytes) to a bucket
+    monkeypatch.setenv("HVD_TPU_FUSION_THRESHOLD", "4224")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    model = torch.nn.Sequential(*[torch.nn.Linear(32, 32, device="cuda")
+                                  for _ in range(4)])
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.1),
+                                   model.named_parameters())
+    assert len(opt.buckets) == 4
+    model(torch.randn(8, 32, generator=g, device="cuda")).square().sum(
+        ).backward()
+    assert opt._order == [0, 1, 2, 3]
+    params = list(model.parameters())
+    local = [p.grad.clone() for p in params]
+    opt.synchronize()
+    assert opt.launch_order == [0, 1, 2, 3]
+    got = [p.grad.clone() for p in params]
+    for p, l in zip(params, local):
+        p.grad = l
+    hvd.allreduce_gradients(params)
+    for a, p in zip(got, params):
+        assert torch.equal(a, p.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_remat_on_the_gpu(cuda, dtype):
+    """A small lean ResNet with bn_remat: the gradients and running
+    statistics of bn_remat=False bit for bit (cuDNN deterministic), K7 once
+    a norm, and bn_apply once more for each recomputed norm."""
+    from horovod_tpu_torch.models import BottleneckBlock, ResNet
+    small = dict(stage_sizes=[1, 1], num_classes=10, num_filters=8,
+                 block_cls=BottleneckBlock, norm="lean", dtype=dtype)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    plain = ResNet(**small, generator=g)
+    remat = ResNet(**small, bn_remat=True)
+    with torch.no_grad():
+        for block in plain.blocks:
+            block.norms[-1].weight.uniform_(0.5, 1.5, generator=g)
+    remat.load_state_dict(plain.state_dict())
+    x = torch.randn(4, 3, 32, 32, generator=g, device=cuda)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        counts = []
+        for m in (plain, remat):
+            bn.reset_launch_counts()
+            m(x).float().square().mean().backward()
+            torch.cuda.synchronize()
+            counts.append(bn.launch_counts())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    norms = 1 + 4 * len(plain.blocks)
+    recomputed = 2 * len(plain.blocks)
+    assert counts[0]["batch_norm_stats"] == counts[1]["batch_norm_stats"] \
+        == norms
+    assert counts[0]["bn_apply"] == norms
+    assert counts[1]["bn_apply"] == norms + recomputed
+    assert counts[1]["bn_dx"] == counts[0]["bn_dx"] == norms
+    for (name, p), q in zip(remat.named_parameters(), plain.parameters()):
+        assert torch.equal(p.grad, q.grad), name
+    for (name, b), c in zip(remat.named_buffers(), plain.buffers()):
+        assert torch.equal(b, c), name
+
+
+@pytest.mark.parametrize("mode", bn.MODES)
+def test_bn_custom_ops_equal_the_wrappers_on_the_gpu(cuda, mode):
+    x, dy, mean, rstd = _bn_inputs(cuda, 4096, 72, torch.bfloat16,
+                                   torch.bfloat16)
+    gamma = torch.linspace(0.5, 1.5, 72, device=cuda)
+    beta = torch.linspace(-1, 1, 72, device=cuda)
+    y = torch.ops.horovod_tpu_torch.bn_apply(x, gamma, beta, 1, True, mode)
+    assert torch.equal(y, bn.bn_apply(x, gamma, beta, 1, True, mode))
+    args = (dy, x, mean, rstd, gamma, beta, beta, gamma, 4096, 1, True, mode,
+            None, None)
+    assert torch.equal(torch.ops.horovod_tpu_torch.bn_dx(*args),
+                       bn.bn_dx(*args))

@@ -26,6 +26,7 @@ PORT_FILES = PACKAGE_FILES + [
     ROOT / "tests" / "torch_port_dp_worker.py",
     ROOT / "tests" / "torch_port_bn_worker.py",
     ROOT / "tests" / "torch_port_ring_worker.py",
+    ROOT / "tests" / "torch_port_api_worker.py",
     ROOT / "tests" / "torch_port_planted_faults.py",
     ROOT / "tests" / "torch_port_fwd_ab.py",
     ROOT / "tests" / "torch_port_bwd_ab.py",
@@ -177,6 +178,21 @@ def test_entry_points_without_a_gpu_raise_the_named_error():
                                                         lr=0.1))
     with pytest.raises(hvd.CudaUnavailableError):
         hvd.init(device="cuda")
+    with pytest.raises(hvd.CudaUnavailableError):
+        hvd.init(model_parallel=1)
+    with pytest.raises(hvd.CudaUnavailableError):
+        ResNet50Lean(num_classes=1000, bn_remat=True)
+    with pytest.raises(hvd.CudaUnavailableError):
+        bn.StockBatchNorm(64, group=hvd.WORLD)
+    assert not hvd.is_initialized()
+    # the collectives run on the process group init() started, on the GPU
+    # unless it was asked for the CPU: before init() they raise, naming it
+    x = torch.ones(3)
+    for call in (lambda: hvd.new_group([0]), lambda: hvd.reduce_scatter(x),
+                 lambda: hvd.metric_average(1.0), hvd.assert_synchronized,
+                 lambda: hvd.allreduce(x, group=hvd.WORLD)):
+        with pytest.raises(RuntimeError, match="hvd.init"):
+            call()
 
 
 def test_queries_before_init_raise():
@@ -198,3 +214,81 @@ def test_one_rank_cpu_group():
     finally:
         hvd.shutdown()
     assert not hvd.is_initialized()
+
+
+def test_what_is_not_ported_names_its_roadmap_item(monkeypatch):
+    """The wire compression modes and the sharded update (A4), AGC (A6)
+    and the rank-subset init (A8) raise NotImplementedError naming their
+    item; the tensor codecs run."""
+    with pytest.raises(NotImplementedError, match="A8"):
+        hvd.init(device="cpu", ranks=[0])
+    assert not hvd.is_initialized()
+    hvd.init(device="cpu")
+    try:
+        x = torch.arange(4.0)
+        for mode in ("bf16", "int8", hvd.Compression.wire_bf16,
+                     hvd.Compression.wire_int8):
+            with pytest.raises(NotImplementedError, match="A4"):
+                hvd.allreduce(x, compression=mode)
+        monkeypatch.setenv("HVD_TPU_COMPRESSION", "int8")
+        with pytest.raises(NotImplementedError, match="A4"):
+            hvd.reduce_scatter(x)
+        monkeypatch.delenv("HVD_TPU_COMPRESSION")
+        with pytest.raises(ValueError, match="unknown compression"):
+            hvd.allreduce(x, compression="zstd")
+        for codec in (None, "none", hvd.Compression.none,
+                      hvd.Compression.fp16, hvd.Compression.bf16):
+            assert torch.equal(hvd.allreduce(x, compression=codec), x)
+        model = torch.nn.Linear(2, 2)
+        sgd = torch.optim.SGD(model.parameters(), lr=0.1)
+        with pytest.raises(NotImplementedError, match="A4"):
+            hvd.DistributedOptimizer(sgd, sharded_update=True)
+        monkeypatch.setenv("HVD_TPU_SHARDED_UPDATE", "1")
+        with pytest.raises(NotImplementedError, match="A4"):
+            hvd.DistributedOptimizer(sgd)
+        monkeypatch.setenv("HVD_TPU_SHARDED_UPDATE", "0")
+        with pytest.raises(NotImplementedError, match="A6"):
+            hvd.DistributedOptimizer(sgd, agc=0.01)
+        with pytest.raises(NotImplementedError, match="A4"):
+            hvd.DistributedOptimizer(sgd, compression="int8")
+        hvd.DistributedOptimizer(sgd, compression=hvd.Compression.fp16,
+                                 average=False, name_prefix="g")
+    finally:
+        hvd.shutdown()
+
+
+def test_mesh_and_groups_at_one_rank(monkeypatch):
+    """init(model_parallel=1) forms no mesh; k that does not divide the
+    world raises the reference's error, before the env is persisted; a
+    group over rank 0 runs every collective as world 1 implies."""
+    monkeypatch.delenv("HVD_TPU_MODEL_PARALLEL", raising=False)
+    hvd.init(device="cpu", model_parallel=1)
+    try:
+        assert hvd.model_parallel_size() == 1
+        assert hvd.mesh_groups() == (None, None)
+        g = hvd.new_group([0])
+        assert (g.id, g.ranks, g.rank(), g.size(), 0 in g, 1 in g) == (
+            1, (0,), 0, 1, True, False)
+        assert g == hvd.ProcessGroup(1) and g != hvd.WORLD
+        assert repr(hvd.WORLD) == "ProcessGroup(WORLD)"
+        with pytest.raises(ValueError, match="duplicate"):
+            hvd.new_group([0, 0])
+        with pytest.raises(ValueError, match="world ranks"):
+            hvd.new_group([1])
+        x = torch.arange(5.0)
+        assert torch.equal(hvd.allreduce(x, group=g, prescale_factor=2.0,
+                                         postscale_factor=0.5), x)
+        assert torch.equal(hvd.reduce_scatter(x.view(5, 1), group=g), x)
+        assert hvd.metric_average(2.5) == 2.5
+        seq, _ = hvd.collective_digest()
+        hvd.assert_synchronized()
+        assert hvd.collective_digest()[0] == seq + 1  # its own allgather
+        hvd.init_distributed()
+    finally:
+        hvd.shutdown()
+    with pytest.raises(RuntimeError, match="hvd.init"):
+        hvd.init_distributed()
+    with pytest.raises(ValueError, match="does not divide world size 1"):
+        hvd.init(device="cpu", model_parallel=2)
+    hvd.shutdown()
+    assert os.environ["HVD_TPU_MODEL_PARALLEL"] == "1"

@@ -247,19 +247,18 @@ def test_sync_bn_on_two_gloo_ranks_gives_the_full_batch_gradient(tmp_path):
                                        atol=1e-6)
 
 
-def test_later_norms_and_ghost_bn_name_their_slice():
-    """GroupNorm and no norm name ROADMAP A6, bn_remat and sync BN on the
-    stock path A1; norm="lean" and ghost BN construct."""
+def test_later_norms_and_ghost_bn_name_their_slice(one_rank):
+    """GroupNorm and no norm name ROADMAP A6; bn_remat, sync BN on the
+    stock path, norm="lean" and ghost BN construct and run."""
     for norm in ("group", "none"):
         with pytest.raises(NotImplementedError, match="A6"):
             ResNet50PBN(norm=norm, device="cpu")
-    with pytest.raises(NotImplementedError, match="A1"):
-        ResNet(block_cls=BottleneckBlock, norm="lean", bn_remat=True,
-               device="cpu", **SMALL)
-    stock = ResNet(block_cls=BottleneckBlock, norm="batch", bn_group=object(),
+    remat = ResNet(block_cls=BottleneckBlock, norm="lean", bn_remat=True,
                    device="cpu", **SMALL)
-    with pytest.raises(NotImplementedError, match="A1"):
-        stock(torch.zeros(2, 3, 32, 32))
+    assert remat(torch.zeros(2, 3, 32, 32)).shape == (2, 10)
+    stock = ResNet(block_cls=BottleneckBlock, norm="batch",
+                   bn_group=hvd.WORLD, device="cpu", **SMALL)
+    assert stock(torch.zeros(2, 3, 32, 32)).shape == (2, 10)
     with pytest.raises(ValueError, match="ghost"):
         ResNet(block_cls=BottleneckBlock, norm="batch",
                bn_virtual_batch_size=2, device="cpu", **SMALL)

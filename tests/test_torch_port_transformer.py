@@ -236,3 +236,5 @@ def test_default_device_is_the_gpu():
         ResNet50Lean(num_classes=1000)
     with pytest.raises(CudaUnavailableError):
         LeanBatchNorm(64)
+    with pytest.raises(CudaUnavailableError):
+        ResNet50Lean(num_classes=1000, bn_remat=True)

@@ -13,7 +13,9 @@ flash kernels, bn_kernels and resnet for the BN kernels), or for the ring
 kernels the ring_kernels phase, whose 4-rank ring carries state and
 offsets that the one-rank sp phase does not; for the rotary faults the
 kernels phase (or ring_kernels, for the ring's rotation and
-counter-rotation). Every run must fail.
+counter-rotation); for the faults of the data-parallel API the api phase,
+the train phase (the overlapped optimizer) or resnet_lean (bn_remat).
+Every run must fail.
 Prints the readings each run logged (errors against the plain versions,
 the gradient gaps, the first losses) and exits 1 if a planted fault passed
 a check.
@@ -187,6 +189,25 @@ FAULTS = {
         "    k_pos = shard_positions(kv_offset, dk.shape[2], dk.device)\n",
         "    k_pos = shard_positions(kv_offset[:1], dk.shape[2], dk.device)\n",
         RING_PHASES),
+    # the data-parallel API. synchronize() sends the buckets still to go in
+    # reverse order (and then the rest again): at one rank every sum is
+    # right, the recorded bucket order is not
+    "overlap_sync_reversed": (
+        "optimizer.py", '        the results into the gradients."""\n',
+        "        for i in reversed(range(self._next, len(self.buckets))):\n"
+        "            self._launch(i)\n", ("train",)),
+    # allreduce drops its postscale_factor
+    "allreduce_drops_postscale": (
+        "common/ops.py", "    out, ctx = comp.compress(tensor)\n",
+        "    postscale_factor = 1.0\n", ("api",)),
+    # the call tracker folds every call as if it had no name
+    "digest_skips_name": (
+        "divergence.py", "    h = digest\n", '    name = ""\n', ("api",)),
+    # bn_remat updates a norm's running statistics twice a forward
+    "bn_remat_updates_stats_twice": (
+        "ops/batch_norm.py",
+        "            conv.stride, pad, padding, conv.dtype)\n",
+        "        self._update_running(mean, var)\n", ("resnet_lean",)),
 }
 
 
