@@ -4,7 +4,8 @@
     python3 chip_smoke.py              # every phase, one card
     python3 chip_smoke.py --only kernels   # or api, train, bn_kernels,
                                            # resnet, resnet_lean,
-                                           # ring_kernels, sp, lc, lc_sp
+                                           # ring_kernels, sp, lc, lc_sp,
+                                           # wire_kernels, zero1
 
 Phases, in order; any failure exits non-zero:
 
@@ -164,12 +165,39 @@ Phases, in order; any failure exits non-zero:
    the forward, and 12 each of K4, K5 and K6 (on the rotated q and k), the
    first loss and gradients at 1 x 8192 against the lc flash model.
 
+11. wire_kernels: the wire codec kernels (``ops/csrc/wire_codec.cu``:
+   ``wire_encode``, ``wire_decode_add``) in bf16 and int8 against their
+   plain versions, equal (NaN where NaN), at one ring chunk of the LM's flat
+   f32 gradient over 4 ranks (33,526,528 elements), at 4 blocks and on
+   blocks holding NaN, +inf and -inf, zeros, ties (k + 0.5 at scale 1) and
+   a huge value; the
+   decode-add also into an empty destination. Times at the LM chunk beside
+   the bounds and, for bf16, ``x.to(torch.bfloat16)`` and ``acc.add_(p)``
+   (int8 has no PyTorch call). Then ``parallel.ring``'s three schedules
+   (allreduce, reduce-scatter, allgather) over 4 virtual ranks in this
+   process on the LM's flat gradient (134,105,856 f32 a rank), in bf16,
+   int8 and none, through the kernels and through the plain versions:
+   equal; the allreduce and the reduce-scatter within 2e-2 (bf16), 4e-2
+   (int8), 1e-5 (none) of the f32 sum, of max |sum|; every rank's
+   allreduce and allgather identical; the launches of each schedule as
+   counted (per rank: allreduce n encodes and 2n - 1 decodes,
+   reduce-scatter n - 1 of each, allgather 1 and n).
+12. zero1: the LM of the train phase (same weights, batch, Adam 1e-4): 3
+   replicated steps as the reference; ``make_train_step(zero1=True,
+   compression="int8")`` on the one-rank NCCL group, 7 steps, and
+   ``make_fsdp_train_step``, 5 steps, from the same weights: every
+   parameter after 3 steps within 1e-6 (norm-relative) of the replicated
+   step's, losses finite and falling, 12 launches of K1-K3 a step and no
+   codec launch (one rank: the ring applies no codec); step time,
+   optimizer-state bytes and peak memory of each.
+
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -299,6 +327,18 @@ KERNELS = {
     # f32 operations an element: two products and a sum
     "rope_rotate": ("horovod_tpu_torch/ops/csrc/rope.cu",
                     "horovod_tpu/ops/flash_attention.py:93", 3),
+    # the wire codec of the ring collectives (port-only kernels: on the TPU
+    # XLA fuses the encode and the decode-add into each hop of the ring's
+    # fori_loop, _ring_codec); f32 operations an element: int8 encode
+    # abs, max, product, rint, clip (2); decode-add product and sum
+    "wire_encode": ("horovod_tpu_torch/ops/csrc/wire_codec.cu",
+                    "none: XLA-fused per ring hop (horovod_tpu/parallel/"
+                    "ring.py:533 _ring_codec, compression/__init__.py:228)",
+                    6),
+    "wire_decode_add": ("horovod_tpu_torch/ops/csrc/wire_codec.cu",
+                        "none: XLA-fused per ring hop (horovod_tpu/parallel/"
+                        "ring.py:506 rs_body, compression/__init__.py:247)",
+                        2),
 }
 # what the rotary forward wrappers launch: the pass over q and k, then the
 # kernel without rotary on the copies (on the lc_sp path the ring rotates
@@ -345,6 +385,26 @@ RING_RUNS = (("main", RING_SHAPE, "zigzag", True, None),
 # The sequence-parallel LM: 2 sequences of 8192 tokens a step; the gradient
 # check against the flash model on the first of them.
 SP_BATCH, SP_GRAD_BATCH = (2, 8192), 1
+WIRE = ("wire_encode", "wire_decode_add")
+# The wire codec at the LM's flat f32 gradient (134,105,856 parameters, all
+# f32, MODEL's) over 4 ring ranks: one rank's chunk, chunk_length(P, 4);
+# the small shape (4 blocks) and a block each of NaN, +inf and zeros.
+LM_PARAMS = 134_105_856
+WIRE_RANKS = 4
+WIRE_SMALL = 1024
+# the ring's sum against the f32 sum, of max |sum|
+# (tests/test_compression.py:138); none adds the same f32 values in the
+# ring's order
+WIRE_SUM_TOL = {"none": 1e-5, "bf16": 2e-2, "int8": 4e-2}
+# the decode-add's library call against its plain version, of max |result|:
+# one f32 rounding apart where the call fuses the multiply and the add
+WIRE_LIBRARY_TOL = 1e-6
+# elements of an int8 block, one f32 scale each
+WIRE_BLOCK = 256
+# the zero1 and FSDP steps against the replicated one from the same
+# weights, norm-relative per parameter, after ZERO1_CHECK_STEP steps
+ZERO1_TOL = 1e-6
+ZERO1_CHECK_STEP = 3
 
 
 def log(*args):
@@ -2352,11 +2412,446 @@ def profile_steps(step, tokens, out_dir, model, n=3):
                 by_category_ms=cats)
 
 
+def _same(a, b):
+    """Equal tensors, NaN where NaN."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _abs_gap(a, b):
+    """max |a - b| over the elements that differ (NaN in both counts as
+    equal); inf where one is NaN or infinite and the other not."""
+    import torch
+    a, b = a.float(), b.float()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    d = torch.where(same, torch.zeros_like(a), (a - b).abs())
+    return torch.nan_to_num(d, nan=float("inf"),
+                            posinf=float("inf")).max().item()
+
+
+def _wire_inputs(n, seed):
+    """x f32 [n] (N(0, 1) times 1e-3, a gradient's scale) and an f32
+    accumulator, on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, generator=g, device="cuda") * 1e-3
+    acc = torch.randn(n, generator=g, device="cuda") * 1e-3
+    return x, acc
+
+
+def _special_blocks():
+    """5 blocks of 256: one holding a NaN, one +inf and -inf, one of
+    zeros, one of ties (k + 0.5 with max 127: scale 1, so x * inv is the
+    tie itself), one holding a huge value."""
+    import torch
+    x = torch.randn(5 * 256, generator=torch.Generator().manual_seed(5))
+    x[17] = float("nan")
+    x[256 + 3] = float("inf")
+    x[256 + 90] = float("-inf")
+    x[512:768] = 0.0
+    x[768:1024] = (torch.arange(256) % 9 - 4) + 0.5
+    x[1000] = 127.0
+    x[1100] = 3e38
+    return x.cuda()
+
+
+def _wire_bytes(name, mode, c):
+    """Bytes a codec call must move for a chunk of c f32 elements: each
+    input read once, each output written once."""
+    payload = 2 * c if mode == "bf16" else c + 4 * (c // 256)
+    if name == "wire_encode":
+        return 4 * c + payload
+    return payload + 8 * c  # decode-add reads acc and writes it
+
+
+def _wire_bound_ms(name, mode, c):
+    t_bytes = _wire_bytes(name, mode, c) / PEAK_BYTES * 1e3
+    t_ops = KERNELS[name][2] * c / PEAK_F32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def _plain_codec(ring, wc):
+    """The ring's codec on the plain versions: the same schedule, no
+    kernel."""
+    class Plain(ring.RingCodec):
+        def encode(self, chunk):
+            if self.mode.mode == 0:
+                return (chunk,)
+            return wc.wire_encode_ref(chunk, self.mode)
+
+        def decode_into(self, dst, payload, add):
+            if self.mode.mode == 0:
+                return super().decode_into(dst, payload, add)
+            return wc.wire_decode_add_ref(dst, payload, self.mode, add)
+
+    return Plain
+
+
+def _check_codec_calls(wc, label, x, rows, bad):
+    """Both kernels in both modes on x (and an accumulator) against their
+    plain versions: equal (NaN where NaN); the decode-add also with
+    add=False."""
+    acc = _wire_inputs(x.numel(), 7)[1]
+    first = len(bad)
+    for mode in ("bf16", "int8"):
+        got, ref = wc.wire_encode(x, mode), wc.wire_encode_ref(x, mode)
+        equal = all(_same(a, b) for a, b in zip(got, ref))
+        gap = max(_abs_gap(a, b) for a, b in zip(got, ref))
+        rows["wire_encode"]["%s_%s_max_abs_err" % (label, mode)] = gap
+        if not equal:
+            bad.append("wire_encode %s %s differs from its plain version "
+                       "(max gap %.3g)" % (mode, label, gap))
+        for add in (True, False):
+            got_acc = wc.wire_decode_add(acc.clone(), ref, mode, add)
+            ref_acc = wc.wire_decode_add_ref(acc.clone(), ref, mode, add)
+            gap = _abs_gap(got_acc, ref_acc)
+            key = "%s_%s%s_max_abs_err" % (label, mode, "" if add
+                                           else "_into")
+            rows["wire_decode_add"][key] = gap
+            if not _same(got_acc, ref_acc):
+                bad.append("wire_decode_add %s %s (add=%s) differs from its "
+                           "plain version (max gap %.3g)"
+                           % (mode, label, add, gap))
+        del got, ref
+    log("wire codec %s (%d elements): %s" % (label, x.numel(), "; ".join(
+        bad[first:]) or "equal"))
+
+
+def _run_rings(ring, wc, codec_cls, mode, xs, c, n):
+    """The three schedules over n virtual ranks on the flat vectors xs:
+    (allreduce chunks [n][n, c], reduce-scatter chunks [n][c], allgather of
+    those [n][n * c]), and the codec's launches in each schedule."""
+    import torch
+    launches = {}
+
+    def run(label, schedules):
+        wc.reset_launch_counts()
+        out = ring.drive_virtual(schedules)
+        torch.cuda.synchronize()
+        launches[label] = wc.launch_counts()
+        return out
+
+    chunks = [ring._padded(x, n, c) for x in xs]
+    run("allreduce", [ring.allreduce_schedule(chunks[r], r, n,
+                                              codec_cls(mode))
+                      for r in range(n)])
+    rs = [ring._padded(x, n, c) for x in xs]
+    shards = [s.clone() for s in run("reduce_scatter", [
+        ring.reduce_scatter_schedule(rs[r], r, n, codec_cls(mode))
+        for r in range(n)])]
+    del rs
+    gathered = [torch.zeros(n, c, device="cuda") for _ in range(n)]
+    run("allgather", [ring.allgather_schedule(shards[r], gathered[r], r, n,
+                                              codec_cls(mode))
+                      for r in range(n)])
+    return (chunks, shards, [g.view(-1) for g in gathered]), launches
+
+
+def _ring_launches(n):
+    """Codec launches of each schedule over n ranks (all ranks): the
+    allreduce encodes n - 1 hops and the owned chunk once and decodes n - 1
+    adds, the owner's copy and n - 1 forwarded payloads; the reduce-scatter
+    leg n - 1 of each; the allgather leg one encode and n decodes."""
+    return {"allreduce": {"wire_encode": n * n,
+                          "wire_decode_add": n * (2 * n - 1)},
+            "reduce_scatter": {"wire_encode": n * (n - 1),
+                               "wire_decode_add": n * (n - 1)},
+            "allgather": {"wire_encode": n, "wire_decode_add": n * n}}
+
+
+def _decode_add_library(acc, payload, mode):
+    """The one PyTorch call that computes the decode-add: ``acc.add_(p)``
+    for bf16 (p promoted to f32); for int8 ``addcmul_`` of q (promoted to
+    f32) by each block's scale, acc + q * s over [blocks, 256] views."""
+    if mode == "bf16":
+        return lambda: acc.add_(payload[0])
+    q, scales = payload
+    rows = acc.view(-1, WIRE_BLOCK)
+    return lambda: rows.addcmul_(q.view(-1, WIRE_BLOCK), scales.view(-1, 1))
+
+
+def _check_decode_add_library(wc, acc, payload, mode, bad):
+    """The library call computes the decode-add: on a copy of acc, within
+    WIRE_LIBRARY_TOL of max |result| of the plain version (it may fuse the
+    multiply and the add into one rounding)."""
+    import torch
+    want = wc.wire_decode_add_ref(acc.clone(), payload, mode)
+    got = acc.clone()
+    _decode_add_library(got, payload, mode)()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    log("wire_decode_add %s: the library call against the plain version, "
+        "%.3g of max |result|" % (mode, err))
+    if not err <= WIRE_LIBRARY_TOL:
+        bad.append("the %s decode-add's library call is %.3g of max |result| "
+                   "off the plain version (limit %g)"
+                   % (mode, err, WIRE_LIBRARY_TOL))
+    del want, got
+    torch.cuda.empty_cache()
+
+
+def phase_wire_kernels():
+    """The wire codec kernels (``wire_encode``, ``wire_decode_add``) in
+    both modes against their plain versions, equal (NaN where NaN), at one
+    ring chunk of the LM's flat gradient over 4 ranks, at 4 blocks and on
+    blocks holding NaN, +inf, zeros; timed at the LM chunk beside their
+    bounds and the PyTorch call that computes the same function, where one
+    does (all but the int8 encode).
+    Then the three ring schedules over 4 virtual ranks on the LM's flat
+    gradient size, in bf16, int8 and none, through the kernels and through
+    the plain versions: equal; the allreduce within WIRE_SUM_TOL of the f32
+    sum and the same on every rank; the launches counted. Returns ({name:
+    row}, {name: launches of the kernel run})."""
+    import torch
+    from horovod_tpu_torch.ops import wire_codec as wc
+    from horovod_tpu_torch.parallel import ring
+    rows = {name: {} for name in WIRE}
+    bad = []
+    n = WIRE_RANKS
+    c = ring.chunk_length(LM_PARAMS, n)
+    x, acc = _wire_inputs(c, 31)
+    _check_codec_calls(wc, "lm_chunk", x, rows, bad)
+    _check_codec_calls(wc, "small", _wire_inputs(WIRE_SMALL, 32)[0], rows,
+                       bad)
+    _check_codec_calls(wc, "special", _special_blocks(), rows, bad)
+    torch.cuda.synchronize()
+    # times at the LM chunk
+    for mode in ("int8", "bf16"):
+        payload = wc.wire_encode_ref(x, mode)
+        runs = {
+            "wire_encode": (lambda: wc.wire_encode(x, mode),
+                            lambda: wc.wire_encode_ref(x, mode),
+                            (lambda: x.to(torch.bfloat16)) if mode == "bf16"
+                            else None),
+            "wire_decode_add": (
+                lambda: wc.wire_decode_add(acc, payload, mode),
+                lambda: wc.wire_decode_add_ref(acc, payload, mode),
+                _decode_add_library(acc, payload, mode)),
+        }
+        _check_decode_add_library(wc, acc, payload, mode, bad)
+        for name, (kern, plain, library) in runs.items():
+            pre = "" if mode == "int8" else "bf16_"
+            r = rows[name]
+            r[pre + "ms"] = time_ms(kern)
+            r[pre + "plain_ms"] = time_ms(plain, n=5, reps=3, warmup=1)
+            r[pre + "library_ms"] = time_ms(library) if library else None
+            r[pre + "bound_ms"], r[pre + "bound_by"] = _wire_bound_ms(
+                name, mode, c)
+            log("%s %s at the LM chunk (%d): %.4f ms (bound %.4f, plain "
+                "%.4f, library %s)" % (name, mode, c, r[pre + "ms"],
+                                       r[pre + "bound_ms"],
+                                       r[pre + "plain_ms"],
+                                       r[pre + "library_ms"]))
+        del payload
+    for name in WIRE:
+        rows[name]["library"] = (
+            "encode: int8 none (no PyTorch call computes it), bf16 "
+            "x.to(torch.bfloat16); decode-add: int8 acc.view(-1, 256)"
+            ".addcmul_(q.view(-1, 256), scales.view(-1, 1)), bf16 "
+            "acc.add_(p)")
+    del x, acc
+    torch.cuda.empty_cache()
+    # the three schedules over 4 virtual ranks on the LM's flat gradient
+    plain_cls = _plain_codec(ring, wc)
+    launches = {name: 0 for name in WIRE}
+    ring_result = {}
+    for mode in ("bf16", "int8", "none"):
+        g = torch.Generator(device="cuda").manual_seed(40)
+        xs = [torch.randn(LM_PARAMS, generator=g, device="cuda") * 1e-3
+              for _ in range(n)]
+        total = xs[0] + xs[1] + xs[2] + xs[3]
+        got, counts = _run_rings(ring, wc, ring.RingCodec, mode, xs, c, n)
+        for sched in counts.values():
+            for name in WIRE:
+                launches[name] += sched[name]
+        ref, _ = _run_rings(ring, wc, plain_cls, mode, xs, c, n)
+        equal = all(torch.equal(a, b) for k, p in zip(got, ref)
+                    for a, b in zip(k, p))
+        ar = [ch.view(-1)[:LM_PARAMS] for ch in got[0]]
+        same = all(torch.equal(ar[0], a) for a in ar[1:])
+        err = ((ar[0] - total).abs().max() / total.abs().max()).item()
+        full = torch.cat([s for s in got[1]])[:LM_PARAMS]
+        rs_err = ((full - total).abs().max() / total.abs().max()).item()
+        same_ag = all(torch.equal(got[2][0], a) for a in got[2][1:])
+        want = _ring_launches(n)
+        if mode == "none":
+            want = {k: {name: 0 for name in WIRE} for k in want}
+        ring_result[mode] = dict(equal_plain=equal, ranks_identical=same,
+                                 allgather_identical=same_ag,
+                                 allreduce_err=err, reduce_scatter_err=rs_err,
+                                 launches=counts)
+        log("rings over %d virtual ranks, %s, %d elements a rank: kernels "
+            "equal the plain versions %s; allreduce err %.3g, identical on "
+            "every rank %s; reduce_scatter err %.3g; allgather identical %s; "
+            "launches %s" % (n, mode, LM_PARAMS, equal, err, same, rs_err,
+                             same_ag, counts))
+        if counts != want:
+            bad.append("the %s rings launched %s, expected %s"
+                       % (mode, counts, want))
+        if not (equal and same and same_ag and err <= WIRE_SUM_TOL[mode] and
+                rs_err <= WIRE_SUM_TOL[mode]):
+            bad.append("the %s rings: equal to the plain versions %s, "
+                       "identical on every rank %s / %s, allreduce err %.3g, "
+                       "reduce_scatter err %.3g (limit %g)"
+                       % (mode, equal, same, same_ag, err, rs_err,
+                          WIRE_SUM_TOL[mode]))
+        del xs, total, got, ref, ar, full
+        torch.cuda.empty_cache()
+    print("wire_kernels: " + json.dumps(dict(rows=rows, rings=ring_result)),
+          flush=True)
+    if bad:
+        fail("wire codec: " + "; ".join(bad))
+    return rows, launches
+
+
+def _param_gaps(params, ref):
+    """{name: ||p - ref||_2 / ||ref||_2}."""
+    return {k: ((params[k].float() - ref[k].float()).norm() /
+                ref[k].float().norm().clamp_min(1e-30)).item() for k in ref}
+
+
+def _lm_steps(step, tokens, steps, check=None):
+    """Runs ``steps`` steps; returns (losses, seconds a step, the result of
+    ``check()`` after ZERO1_CHECK_STEP steps)."""
+    import torch
+    losses, times, checked = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(tokens).item())
+        times.append(time.perf_counter() - t0)
+        if i + 1 == ZERO1_CHECK_STEP and check is not None:
+            checked = check()
+    return losses, times, checked
+
+
+def phase_zero1():
+    """The LM of the train phase (MODEL, BATCH, flash attention, Adam 1e-4,
+    the same seeded weights and batch) on the one-rank NCCL group: 3
+    replicated steps (``make_train_step``) for the reference; then the same
+    weights through ``make_train_step(zero1=True, compression="int8")``,
+    7 steps, every parameter after 3 within ZERO1_TOL of the replicated
+    one's, losses finite and falling, no codec launch (one rank: the ring
+    applies no codec); then the same weights through
+    ``make_fsdp_train_step``, 5 steps, held the same way. Step times,
+    optimizer-state bytes and peak memory of each."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.ops import wire_codec as wc
+    from horovod_tpu_torch.ops.flash_attention import (launch_counts,
+                                                       reset_launch_counts)
+    from horovod_tpu_torch.parallel import (lm_loss, make_fsdp_train_step,
+                                            make_train_step)
+
+    hvd.init()
+    dev = hvd.device()
+    cfg = TransformerConfig(attention="flash", dtype=torch.bfloat16,
+                            max_seq_len=8192, **MODEL)
+    B, L = BATCH
+    tokens = torch.randint(0, cfg.vocab_size, (B, L), device=dev,
+                           generator=torch.Generator(device=dev
+                                                     ).manual_seed(1))
+
+    def fresh(initial=None):
+        model = Transformer(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        if initial is not None:
+            model.load_state_dict(initial)
+        return model
+
+    def params_of(model):
+        return {k: v.detach().clone() for k, v in model.named_parameters()}
+
+    model = fresh()
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(model, lm_loss, torch.optim.Adam(
+        model.parameters(), lr=1e-4))
+    ref_losses, _, ref = _lm_steps(step, tokens, ZERO1_CHECK_STEP,
+                                   lambda: params_of(model))
+    ref_state = sum(v.numel() * v.element_size()
+                    for st in step.optimizer.optimizer.state.values()
+                    for v in st.values() if torch.is_tensor(v))
+    del step, model
+    torch.cuda.empty_cache()
+    result = dict(params=n_params, replicated_losses=ref_losses,
+                  replicated_opt_state_bytes=ref_state)
+    counts = {}
+    runs = (("zero1", 7, lambda m: make_train_step(
+                 m, lm_loss, torch.optim.Adam(m.parameters(), lr=1e-4),
+                 zero1=True, compression="int8")),
+            ("fsdp", 5, lambda m: make_fsdp_train_step(
+                m, lm_loss, torch.optim.Adam, dict(lr=1e-4))))
+    for label, steps, make in runs:
+        model = fresh(initial)
+        step = make(model)
+        if label == "zero1":
+            def check(model=model):
+                return params_of(model)
+            state_bytes = lambda s=step: s.optimizer.opt_state_bytes  # noqa
+        else:
+            def check(model=model, step=step):
+                full = step.full_parameters()
+                out = params_of(model)
+                return {k: full.get(k, out.get(k)) for k in ref}
+            state_bytes = step.opt_state_bytes
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        wc.reset_launch_counts()
+        losses, times, got = _lm_steps(step, tokens, steps, check)
+        run_counts = {**launch_counts(), **wc.launch_counts()}
+        peak = torch.cuda.max_memory_allocated()
+        gaps = _param_gaps(got, ref)
+        worst = max(gaps, key=gaps.get)
+        step_s = statistics.median(times[2:])
+        result[label] = dict(
+            step_ms=step_s * 1e3, tokens_per_s=B * L / step_s,
+            peak_mem_gb=peak / 1e9, opt_state_bytes=state_bytes(),
+            losses=losses, worst_param_gap=gaps[worst], worst_param=worst,
+            launches=run_counts, steps=steps)
+        log("%s: %d steps, %.1f ms a step, losses %s; after %d steps worst "
+            "parameter gap to the replicated step %s %.3g; optimizer state "
+            "%d bytes; peak %.2f GB; launches %s"
+            % (label, steps, step_s * 1e3, losses, ZERO1_CHECK_STEP, worst,
+               gaps[worst], state_bytes(), peak / 1e9, run_counts))
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            fail("%s: losses not finite and falling: %s" % (label, losses))
+        if not gaps[worst] <= ZERO1_TOL:
+            fail("%s: parameter %s after %d steps is %.3g from the "
+                 "replicated step's (limit %g)" % (label, worst,
+                                                    ZERO1_CHECK_STEP,
+                                                    gaps[worst], ZERO1_TOL))
+        if max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)) \
+                > ZERO1_TOL:
+            fail("%s: losses %s, replicated %s" % (label, losses,
+                                                    ref_losses))
+        for name, n in run_counts.items():
+            want = cfg.num_layers * steps if name in FLASH else 0
+            if n != want:
+                fail("%s: %s launched %d times in %d steps, expected %d "
+                     "(the wire codec: none, one rank applies no codec)"
+                     % (label, name, n, steps, want))
+        for name in FLASH:
+            counts[name] = counts.get(name, 0) + run_counts[name]
+        del step, model, got
+        torch.cuda.empty_cache()
+    print("zero1: " + json.dumps(result), flush=True)
+    hvd.shutdown()
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("api", "kernels", "train",
                                        "bn_kernels", "resnet", "resnet_lean",
-                                       "ring_kernels", "sp", "lc", "lc_sp"),
+                                       "ring_kernels", "sp", "lc", "lc_sp",
+                                       "wire_kernels", "zero1"),
                     help="run the device and build phases and this one")
     ap.add_argument("--profile", metavar="DIR",
                     help="after the train, resnet, resnet_lean (and its "
@@ -2403,6 +2898,12 @@ def main():
         add(phase_lc(profile_dir=args.profile))
     if run("lc_sp"):
         add(phase_sp(profile_dir=args.profile, lc=True))
+    if run("wire_kernels"):
+        wire_rows, wire_launches = phase_wire_kernels()
+        rows.update(wire_rows)
+        add(wire_launches)
+    if run("zero1"):
+        add(phase_zero1())
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         row = rows.get(name, {})
@@ -2437,6 +2938,11 @@ def main():
             # the ring kernels at the sp phase's own launch
             **{key: row[key] for key in ("sp_ms", "sp_bound_ms",
                                          "sp_bound_by", "sp_library_ms")
+               if key in row},
+            # the wire codec: the row is int8's, these bf16's
+            **{key: row[key] for key in ("bf16_ms", "bf16_plain_ms",
+                                         "bf16_bound_ms", "bf16_bound_by",
+                                         "bf16_library_ms")
                if key in row}})
     print(json.dumps({"kernels": kernels, "library": library}), flush=True)
     print(json.dumps({"ok": True, "device": {

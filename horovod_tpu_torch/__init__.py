@@ -4,8 +4,10 @@ Horovod's synchronous data-parallel training on NVIDIA GPUs: ``init()``
 starts an NCCL process group (optionally laid out as a (batch, model)
 mesh), the collectives run over it or over groups of it,
 ``DistributedOptimizer`` averages the gradients over it, overlapped with
-the backward pass, before every update, and the models' hot kernels are
-written by hand for Hopper (``ops/csrc``). It imports ``torch`` and
+the backward pass, before every update (or, with ``sharded_update=True``,
+runs the ZeRO-1 sharded update), wire compression re-encodes each hop of
+an explicit ring in bf16 or block-int8, and the models' hot kernels and the
+wire codec are written by hand for Hopper (``ops/csrc``). It imports ``torch`` and
 numpy, never JAX or the ``horovod_tpu`` package.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``;
@@ -53,9 +55,19 @@ from horovod_tpu_torch.groups import (  # noqa: F401
 )
 from horovod_tpu_torch.optimizer import (  # noqa: F401
     DistributedOptimizer,
+    ReplicatedDistributedOptimizer,
+    ShardedDistributedOptimizer,
     allreduce_gradients,
     broadcast_optimizer_state,
     broadcast_parameters,
+    sharded_state_full,
+    sharded_state_shard,
+)
+from horovod_tpu_torch.parallel import (  # noqa: F401
+    make_fsdp_train_step,
+    ring_allgather,
+    ring_allreduce,
+    ring_reduce_scatter,
 )
 
 __version__ = "0.1.0"

@@ -10,15 +10,20 @@ records itself in the call tracker (``divergence.py``).
 
 ``group=`` takes None or ``WORLD`` (the world), a ``ProcessGroup`` from
 ``new_group`` or the mesh, or a ``torch.distributed`` process group.
-``compression=`` takes a tensor codec (``Compression.fp16``, ``.bf16``);
-the wire modes are ROADMAP A4.
+``compression=`` takes a tensor codec (``Compression.fp16``, ``.bf16``),
+which casts the tensor around the collective, or a wire mode ('bf16',
+'int8', ``Compression.wire_bf16``, ``.wire_int8``, or None for
+``HVD_TPU_COMPRESSION``), under which ``allreduce`` and ``reduce_scatter``
+of a float32 tensor run the explicit ring of ``parallel.ring`` with the
+codec on each hop and an f32 accumulator (the reference's in-jit routing,
+``horovod_tpu/jax/__init__.py:185-208`` and ``:260-272``).
 """
 
 import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch import divergence
-from horovod_tpu_torch.compression import codec
+from horovod_tpu_torch.compression import NONE, codec, wire_mode
 from horovod_tpu_torch.groups import group_rank, group_size, resolve_group
 
 
@@ -58,18 +63,30 @@ def _average(t, n):
     return (t / n).to(t.dtype)
 
 
+def _ring():
+    # imported here: parallel/ imports this module
+    from horovod_tpu_torch.parallel import ring
+    return ring
+
+
 def allreduce(tensor, average=True, name=None, compression=None,
               prescale_factor=1.0, postscale_factor=1.0, group=None):
     """Sum (or mean, ``average=True``) of ``tensor`` over the group's
     ranks, in the reference's order: compress, scale by
     ``prescale_factor``, sum, divide by the group's size, scale by
-    ``postscale_factor``, decompress."""
-    comp = codec(compression)
+    ``postscale_factor``, decompress. Under a wire mode a float32 tensor is
+    summed by ``ring_allreduce`` with the codec on each hop; any other
+    dtype by the plain collective."""
+    comp, mode = codec(compression), wire_mode(compression)
     out, ctx = comp.compress(tensor)
     out = out.clone() if prescale_factor == 1.0 else out * prescale_factor
     divergence.record("allreduce", out,
                       name or divergence.auto_name("allreduce"))
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(group))
+    if mode.mode != NONE and out.dtype == torch.float32:
+        _group(group)
+        out = _ring().ring_allreduce(out, group=group, compression=mode)
+    else:
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(group))
     if average:
         out = _average(out, group_size(group))
     if postscale_factor != 1.0:
@@ -82,7 +99,29 @@ def reduce_scatter(tensor, average=True, name=None, compression=None,
     """The flattened ``tensor`` summed (or averaged) over the group's ranks,
     of which this rank keeps its 1-D shard under ``shard_partition`` (sizes
     need not divide: the first ``count % n`` ranks get one element more).
-    Scales and codec as in ``allreduce``."""
+    Scales and tensor codec as in ``allreduce``.
+
+    Under a wire mode ('bf16' or 'int8') the sum runs the ring's
+    reduce-scatter leg (``ring_reduce_scatter``) and this rank keeps the
+    ring's chunk instead: ``chunk_length(count, n)`` elements, block-aligned,
+    the vector zero-padded to n of them, chunk r to group rank r, as the
+    reference's in-jit ``reduce_scatter`` returns it. Mode none keeps the
+    ``shard_partition`` shards."""
+    mode = wire_mode(compression)
+    if mode.mode != NONE:
+        flat = tensor.reshape(-1)
+        if prescale_factor != 1.0:
+            flat = flat * prescale_factor
+        _group(group)
+        divergence.record("reduce_scatter", tensor,
+                          name or divergence.auto_name("reduce_scatter"))
+        out = _ring().ring_reduce_scatter(flat, group=group,
+                                          compression=mode)
+        if average:
+            out = _average(out, group_size(group))
+        if postscale_factor != 1.0:
+            out = _scale(out, postscale_factor)
+        return out.to(tensor.dtype)
     comp = codec(compression)
     flat, ctx = comp.compress(tensor.reshape(-1))
     if prescale_factor != 1.0:

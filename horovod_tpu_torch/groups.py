@@ -121,3 +121,18 @@ def group_rank(group):
     if group is None or isinstance(group, ProcessGroup):
         return (group or WORLD).rank()
     return dist.get_rank(group)
+
+
+def assert_sharded_update_world_scope(group=None):
+    """The guard of every sharded update (``horovod_tpu/groups.py:129``):
+    the sharded weight update shards its state over the WORLD, so it does
+    not compose with a group-scoped reduction, an explicit non-world
+    ``group=`` or an active mesh (``init(model_parallel=k)``). Called when
+    the optimizer is built and again on every update, so a mesh formed
+    after the optimizer fails the next step."""
+    world = (group is None or group == WORLD or group is dist.group.WORLD)
+    if not world or (group is None and basics.batch_group() is not None):
+        raise ValueError(
+            "sharded_update composes with the world group only; a "
+            "group-scoped (mesh) job must use the replicated update "
+            "per batch group (docs/GROUPS.md)")

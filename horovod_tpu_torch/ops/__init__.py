@@ -20,3 +20,7 @@ from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
 from horovod_tpu_torch.ops.losses import (  # noqa: F401
     chunked_softmax_cross_entropy,
 )
+from horovod_tpu_torch.ops.wire_codec import (  # noqa: F401
+    wire_decode_add,
+    wire_encode,
+)

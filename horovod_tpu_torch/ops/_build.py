@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_fwd", "flash_bwd", "rope", "batch_norm")
+SOURCES = ("flash_fwd", "flash_bwd", "rope", "batch_norm", "wire_codec")
 # Every library exports this (csrc/hvd_error.cuh): cudaGetErrorString.
 ERROR_SYMBOL = "hvd_error_string"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,5 +1,6 @@
-"""Parallel training of the port: the data-parallel step, mesh axes as
-process groups, and sequence-parallel ring attention."""
+"""Parallel training of the port: the data-parallel step (replicated,
+ZeRO-1 and FSDP), mesh axes as process groups, sequence-parallel ring
+attention and the ring collectives of the wire compression."""
 
 from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     ProcessMesh,
@@ -7,8 +8,15 @@ from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     data_parallel_group,
     hybrid_mesh,
 )
+from horovod_tpu_torch.optimizer import (  # noqa: F401
+    sharded_state_full,
+    sharded_state_shard,
+)
 from horovod_tpu_torch.parallel.ring import (  # noqa: F401
+    ring_allgather,
+    ring_allreduce,
     ring_attention,
+    ring_reduce_scatter,
     zigzag_shard,
     zigzag_unshard,
 )
@@ -17,6 +25,7 @@ from horovod_tpu_torch.parallel.train import (  # noqa: F401
     cross_entropy_loss,
     lm_loss,
     lm_loss_streaming,
+    make_fsdp_train_step,
     make_train_step,
     shard_lm_loss,
 )

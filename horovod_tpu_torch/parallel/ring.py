@@ -37,6 +37,16 @@ the compute; in the backward the dK/dV accumulators leave after K6 and are
 waited for only before the next step's K6, so their transfer overlaps K5.
 A buffer being sent is never written again. One rank sends nothing.
 
+The second half of the module holds the ring collectives of the wire
+compression (``ring_allreduce``, ``ring_reduce_scatter``, ``ring_allgather``:
+the reference's ``parallel/ring.py:447-650``): a flat vector in one chunk
+per rank, each hop one exchange with the ring's neighbours, each hop's
+chunk encoded by ``ops.wire_codec`` (bf16 or block-int8) and decoded and
+added in f32. The per-hop arithmetic lives in schedules (generators that
+yield each hop's payload and take the incoming one), apart from the
+exchange, so one process can drive n virtual ranks through the same
+schedule (``drive_virtual``).
+
 Schedules (``schedule=``): "contiguous" gives rank r the tokens
 [r * L, (r + 1) * L); a causal ring then launches nothing for a k/v shard
 entirely in the rank's future, so rank r launches r + 1 steps. "zigzag"
@@ -48,6 +58,8 @@ every step.
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.compression import NONE, chunk_length, resolve
+from horovod_tpu_torch.groups import group_rank, group_size, resolve_group
 from horovod_tpu_torch.ops.flash_attention import (_delta, _kernel_layout,
                                                    apply_rotary,
                                                    flash_ring_bwd_dkv,
@@ -55,6 +67,7 @@ from horovod_tpu_torch.ops.flash_attention import (_delta, _kernel_layout,
                                                    flash_ring_step,
                                                    rope_rotate,
                                                    shard_positions)
+from horovod_tpu_torch.ops.wire_codec import wire_decode_add, wire_encode
 from horovod_tpu_torch.parallel.mesh import axis_group
 
 
@@ -277,3 +290,181 @@ def zigzag_unshard(x, n, axis=1):
         out[r] = pairs[2 * r]
         out[2 * n - 1 - r] = pairs[2 * r + 1]
     return torch.cat(out, dim=axis)
+
+
+# ------------------------------------------------- the ring collectives
+
+
+class RingCodec:
+    """The per-hop arithmetic of a ring under one wire mode: ``encode`` a
+    chunk to its payload tuple (``(f32,)``, ``(bf16,)`` or ``(q int8,
+    scales f32)``), ``decode_into`` a payload onto a chunk, added
+    (``add=True``) or written over it. Mode none moves the chunk as it is
+    and adds it in the chunk's dtype; bf16 and int8 run the codec kernels
+    (``ops.wire_codec``)."""
+
+    def __init__(self, mode):
+        self.mode = resolve(mode)
+
+    def encode(self, chunk):
+        if self.mode.mode == NONE:
+            return (chunk,)
+        return wire_encode(chunk, self.mode)
+
+    def decode_into(self, dst, payload, add):
+        if self.mode.mode == NONE:
+            return dst.add_(payload[0]) if add else dst.copy_(payload[0])
+        return wire_decode_add(dst, payload, self.mode, add)
+
+
+def allreduce_schedule(chunks, idx, n, codec):
+    """One rank's ring allreduce over its ``chunks`` [n, c], updated in
+    place: a generator that yields each hop's outgoing payload and takes
+    the incoming one, 2 (n - 1) hops. Reduce-scatter: hop s encodes chunk
+    (idx - s) % n and adds the decoded incoming chunk into (idx - s - 1) %
+    n, so chunk (idx + 1) % n ends with the sum. Allgather: the owner
+    encodes that chunk once and decodes its own copy back; the payload
+    then travels the ring verbatim, so every rank ends with the same
+    values."""
+    for s in range(n - 1):
+        incoming = yield codec.encode(chunks[(idx - s) % n])
+        codec.decode_into(chunks[(idx - s - 1) % n], incoming, add=True)
+    owned = (idx + 1) % n
+    payload = codec.encode(chunks[owned])
+    codec.decode_into(chunks[owned], payload, add=False)
+    for s in range(n - 1):
+        payload = yield payload
+        codec.decode_into(chunks[(idx - s) % n], payload, add=False)
+    return chunks
+
+
+def reduce_scatter_schedule(chunks, idx, n, codec):
+    """The allreduce's reduce-scatter leg with every chunk index shifted by
+    -1 (n - 1 hops), so rank idx ends owning chunk idx: rank order is
+    chunk order. Returns that chunk (a view of ``chunks``)."""
+    for s in range(n - 1):
+        incoming = yield codec.encode(chunks[(idx - s - 1) % n])
+        codec.decode_into(chunks[(idx - s - 2) % n], incoming, add=True)
+    return chunks[idx]
+
+
+def allgather_schedule(shard, chunks, idx, n, codec):
+    """The allgather leg (n - 1 hops): the rank encodes its ``shard`` once
+    into chunk idx of ``chunks`` [n, c] (decoding its own copy back), and
+    every payload travels verbatim, so every rank ends with the same
+    values. Returns ``chunks``."""
+    payload = codec.encode(shard)
+    codec.decode_into(chunks[idx], payload, add=False)
+    for s in range(n - 1):
+        payload = yield payload
+        codec.decode_into(chunks[(idx - s - 1) % n], payload, add=False)
+    return chunks
+
+
+def drive(schedule, group, n, idx):
+    """Runs one rank's ``schedule`` over the torch process group ``group``:
+    each hop sends the payload to group rank (idx + 1) % n and receives
+    the same-shaped one from (idx - 1) % n. Returns the schedule's
+    result."""
+    try:
+        out = next(schedule)
+        while True:
+            out = schedule.send(_Exchange(out, group, n, idx).wait())
+    except StopIteration as stop:
+        return stop.value
+
+
+def drive_virtual(schedules):
+    """Runs the schedules of n virtual ranks in this process, hop by hop:
+    at each hop rank r receives what rank (r - 1) % n sent. Returns every
+    rank's result. The same arithmetic as ``drive`` over n processes."""
+    n = len(schedules)
+    results = [None] * n
+
+    def advance(r, incoming):
+        try:
+            return (next(schedules[r]) if incoming is None
+                    else schedules[r].send(incoming))
+        except StopIteration as stop:
+            results[r] = stop.value
+            return None
+
+    outs = [advance(r, None) for r in range(n)]
+    while any(o is not None for o in outs):
+        outs = [advance(r, outs[(r - 1) % n]) for r in range(n)]
+    return results
+
+
+def _ring_group(group):
+    """(torch process group, n, this rank's index) of ``group=``."""
+    idx = group_rank(group)
+    if idx < 0:
+        raise ValueError("this rank is not a member of %r: a non-member "
+                         "must not submit the group's collectives" % (group,))
+    return resolve_group(group), group_size(group), idx
+
+
+def _wire(x, compression):
+    """(mode, flat working copy): only float32 compresses, any other dtype
+    rides mode none in its own dtype (exact for integers)."""
+    mode = resolve(compression)
+    if mode.mode != NONE and x.dtype != torch.float32:
+        mode = resolve("none")
+    return mode, x.reshape(-1).to(torch.float32 if mode.mode != NONE
+                                  else x.dtype)
+
+
+def _padded(flat, n, c):
+    chunks = flat.new_zeros(n * c)
+    chunks[:flat.numel()] = flat
+    return chunks.view(n, c)
+
+
+def ring_allreduce(x, group=None, compression="none"):
+    """Sum of ``x`` over the ranks of ``group`` (the world for None) through
+    an explicit ring with the wire codec on each hop
+    (``horovod_tpu.parallel.ring.ring_allreduce``): the flat vector padded
+    into one ``chunk_length`` chunk per rank, n - 1 reduce-scatter hops that
+    encode the outgoing chunk and add the decoded incoming one in f32, then
+    n - 1 allgather hops that forward each owner's payload verbatim, so
+    every rank ends with the same values. ``compression``: 'none', 'bf16'
+    or 'int8' (or a wire mode; None is ``HVD_TPU_COMPRESSION``). Returns a
+    new tensor in x's shape and dtype. One rank: x, no codec."""
+    pg, n, idx = _ring_group(group)
+    mode, flat = _wire(x, compression)
+    if n == 1:
+        return flat.reshape(x.shape).to(x.dtype, copy=True)
+    chunks = _padded(flat, n, chunk_length(flat.numel(), n))
+    drive(allreduce_schedule(chunks, idx, n, RingCodec(mode)), pg, n, idx)
+    return chunks.view(-1)[:flat.numel()].reshape(x.shape).to(x.dtype)
+
+
+def ring_reduce_scatter(x, group=None, compression="none"):
+    """This rank's chunk of the sum of the flattened ``x`` over the ranks
+    of ``group``: chunk r of ``chunk_length(x.numel(), n)`` elements (the
+    vector zero-padded to n of them) to group rank r, after n - 1 hops of
+    the ring's reduce-scatter leg under the codec. 1-D, float32 under bf16
+    or int8, else x's dtype. One rank: the padded flat vector, no codec."""
+    pg, n, idx = _ring_group(group)
+    mode, flat = _wire(x, compression)
+    c = chunk_length(flat.numel(), n)
+    if n == 1:
+        return _padded(flat, 1, c).view(-1)
+    chunks = _padded(flat, n, c)
+    return drive(reduce_scatter_schedule(chunks, idx, n, RingCodec(mode)),
+                 pg, n, idx).clone()
+
+
+def ring_allgather(x, group=None, compression="none"):
+    """The concatenation of every group rank's equal-length 1-D shard ``x``
+    in rank order (the parameter leg of the sharded update). Under bf16 or
+    int8 each owner encodes its shard once (int8 needs a multiple of 256
+    elements: ``ring_reduce_scatter``'s chunks are) and every rank ends with
+    the same decoded values. One rank: x, flat."""
+    pg, n, idx = _ring_group(group)
+    mode, flat = _wire(x, compression)
+    if n == 1:
+        return x.reshape(-1).clone()
+    chunks = flat.new_zeros(n, flat.numel())
+    return drive(allgather_schedule(flat, chunks, idx, n, RingCodec(mode)),
+                 pg, n, idx).view(-1)

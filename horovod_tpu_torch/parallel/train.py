@@ -1,26 +1,37 @@
-"""Data-parallel train step: forward, backward, gradient average, update.
+"""Data-parallel train steps: forward, backward, gradient average, update.
 
-Counterpart of ``horovod_tpu/parallel/train.py::make_train_step`` (the
-plain, replicated path). There the whole step is one XLA program whose
-gradient ``psum`` rides the TPU interconnect; here the step runs
-eagerly, and ``DistributedOptimizer`` averages the gradients over the
-process group (NCCL on the GPU), bucket by bucket while the backward pass
-runs, before the inner optimizer's update. Each rank passes its own shard
-of the batch.
+Counterpart of ``horovod_tpu/parallel/train.py``: ``make_train_step``
+(the replicated path, ``zero1=True`` and wire ``compression=``) and
+``make_fsdp_train_step``. There the whole step is one XLA program whose
+collectives ride the TPU interconnect; here the step runs eagerly over
+the process group (NCCL on the GPU). In ``make_train_step``,
+``DistributedOptimizer`` averages the gradients bucket by bucket while
+the backward pass runs, or, under ``zero1``, the sharded update
+reduce-scatters them in ``step()``. Each rank passes its own shard of the
+batch.
 """
 
 import contextlib
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.nn.utils import parametrize
 
+from horovod_tpu_torch import divergence
+from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.basics import resolve_device
 from horovod_tpu_torch.common.ops import allreduce, tree_map
+from horovod_tpu_torch.compression import resolve_wire_arg
 from horovod_tpu_torch.ops.losses import chunked_softmax_cross_entropy
-from horovod_tpu_torch.optimizer import DistributedOptimizer
+from horovod_tpu_torch.optimizer import (DistributedOptimizer,
+                                         ReplicatedDistributedOptimizer,
+                                         ShardedDistributedOptimizer,
+                                         _state_bytes, allreduce_gradients)
 
 
-def make_train_step(model, loss_fn, optimizer, accum_steps=1, device=None):
+def make_train_step(model, loss_fn, optimizer, accum_steps=1, device=None,
+                    zero1=False, compression=None, agc=None):
     """Builds ``step(batch) -> loss`` for ``model``.
 
     Args:
@@ -37,13 +48,43 @@ def make_train_step(model, loss_fn, optimizer, accum_steps=1, device=None):
         the last microbatch's backward, and one update.
       device: where the batch is moved; default the GPU (``"cpu"`` for
         tests).
+      zero1: ZeRO-1 optimizer-state sharding: the optimizer is wrapped in
+        the sharded update (``DistributedOptimizer(sharded_update=True)``),
+        which reduce-scatters the flat gradients, updates this rank's 1/N
+        flat shard and allgathers the parameters back, so the optimizer
+        state per rank shrinks N-fold.
+      compression: a wire mode ('none', 'bf16', 'int8'; None is
+        ``HVD_TPU_COMPRESSION``) for the gradients, on both paths (under
+        ``zero1`` the gradient scatter runs the ring with the codec and the
+        parameter allgather stays exact), or, on the replicated path only,
+        a tensor codec (``Compression.fp16``; under ``zero1`` a codec other
+        than ``Compression.none`` raises ``ValueError``).
+      agc: adaptive gradient clipping, not ported (ROADMAP A6); with
+        ``zero1`` it raises the reference's ``ValueError``.
 
     ``step(batch)`` returns the loss averaged over the ranks, as a
     0-dim tensor on ``device``.
     """
     device = resolve_device(device)
-    if not isinstance(optimizer, DistributedOptimizer):
-        optimizer = DistributedOptimizer(optimizer, model.named_parameters())
+    if zero1:
+        resolve_wire_arg(compression)  # a legacy codec raises here
+        if agc is not None:
+            raise ValueError(
+                "agc= does not compose with zero1: the sharded update "
+                "applies the optimizer to 1/N flat shards, which destroys "
+                "the per-unit (output-row) norm structure AGC clips "
+                "against — every rank would clip a different slice of "
+                "each filter")
+    if isinstance(optimizer, (ReplicatedDistributedOptimizer,
+                              ShardedDistributedOptimizer)):
+        if zero1 and not isinstance(optimizer, ShardedDistributedOptimizer):
+            raise ValueError("zero1=True needs the sharded update: pass the "
+                             "torch optimizer, or one wrapped in "
+                             "DistributedOptimizer(sharded_update=True)")
+    else:
+        optimizer = DistributedOptimizer(
+            optimizer, model.named_parameters(), compression=compression,
+            sharded_update=True if zero1 else None, agc=agc)
 
     def step(batch):
         batch = tree_map(lambda t: t.to(device, non_blocking=True), batch)
@@ -65,6 +106,126 @@ def make_train_step(model, loss_fn, optimizer, accum_steps=1, device=None):
         return allreduce(total, average=True)
 
     step.optimizer = optimizer
+    return step
+
+
+class _Gather(torch.autograd.Function):
+    """A dim-0 shard to the whole tensor (allgather over the group); the
+    backward reduce-scatters the whole tensor's gradient and averages it."""
+
+    @staticmethod
+    def forward(ctx, shard, name, group, n):
+        ctx.name, ctx.group, ctx.n = name, group, n
+        parts = [torch.empty_like(shard) for _ in range(n)]
+        divergence.record("allgather", shard, name)
+        dist.all_gather(parts, shard.contiguous(), group=group)
+        return torch.cat(parts, 0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        chunks = [c.contiguous() for c in grad.chunk(ctx.n, 0)]
+        out = torch.empty_like(chunks[0])
+        divergence.record("reduce_scatter", grad, ctx.name + ".grad")
+        dist.reduce_scatter(out, chunks, op=dist.ReduceOp.SUM,
+                            group=ctx.group)
+        return out.div_(ctx.n), None, None, None
+
+
+class _DimZeroShard(torch.nn.Module):
+    """Parametrization that holds a parameter as its dim-0 shard and gives
+    the whole tensor (``_Gather``) where the module reads it."""
+
+    def __init__(self, name, group, n, r):
+        super().__init__()
+        self.name, self.group, self.n, self.r = name, group, n, r
+
+    def forward(self, shard):
+        return _Gather.apply(shard, self.name, self.group, self.n)
+
+    def right_inverse(self, full):
+        return full.detach().chunk(self.n, 0)[self.r].clone()
+
+
+def _fsdp_shards(p, n, min_size):
+    """The reference's FSDP rule (``parallel/train.py:295-299``): a
+    parameter of ndim >= 1, at least ``min_size`` elements and a dim 0 that
+    n divides is held as its dim-0 shard; any other is replicated."""
+    return p.dim() >= 1 and p.numel() >= min_size and p.shape[0] % n == 0
+
+
+def make_fsdp_train_step(model, loss_fn, optimizer_cls, optimizer_kwargs=None,
+                         min_size=1024, device=None):
+    """Fully sharded data parallelism (ZeRO-3) over the world:
+    ``horovod_tpu.parallel.make_fsdp_train_step`` written by hand over the
+    collectives, where the reference lets GSPMD insert them.
+
+    Each parameter that ``_fsdp_shards`` picks is replaced, in ``model``,
+    by its dim-0 shard (a ``torch.nn.utils.parametrize`` parametrization:
+    the parameter becomes ``<module>.parametrizations.<name>.original``,
+    1/N of it). Where the step's forward first reads it, it is allgathered
+    through an ``autograd.Function`` whose backward reduce-scatters its
+    gradient and averages it, so each rank gets its shard's gradient; once
+    a step (``parametrize.cached``). Every other parameter is replicated
+    and its gradient allreduce-averaged after the backward. The optimizer,
+    ``optimizer_cls(model.parameters(), **optimizer_kwargs)``, is built
+    over the shards and the replicated parameters, so its state is 1/N per
+    sharded parameter. A parameter registered in several modules (a tied
+    weight) stays replicated. Every rank must hold the same weights when
+    this is called (broadcast them first).
+
+    ``loss_fn(model, batch)`` sees this rank's equal shard of the batch
+    (the port's convention), where the reference's sees the global batch:
+    with a mean loss the averaged gradients are the same.
+
+    Returns ``step(batch) -> loss averaged over the ranks``, with
+    ``step.optimizer``, ``step.sharded`` (the qualified names of the
+    sharded parameters), ``step.full_parameters()`` ({name: whole tensor},
+    a collective) and ``step.opt_state_bytes()`` (this rank's optimizer
+    state). Reading a sharded parameter outside the step (``module.weight``)
+    allgathers it: do it on every rank."""
+    device = resolve_device(device)
+    n, r = basics.size(), basics.rank()
+    group = basics.process_group()
+    counts = {}
+    for _, p in model.named_parameters(remove_duplicate=False):
+        counts[p] = counts.get(p, 0) + 1
+    owners = {}
+    for mname, module in model.named_modules():
+        for pname, p in module.named_parameters(recurse=False):
+            owners.setdefault(p, (mname, module, pname))
+    sharded = []
+    for p, (mname, module, pname) in owners.items():
+        if counts[p] == 1 and p.requires_grad and _fsdp_shards(p, n,
+                                                              min_size):
+            name = "%s.%s" % (mname, pname) if mname else pname
+            parametrize.register_parametrization(
+                module, pname, _DimZeroShard("fsdp." + name, group, n, r),
+                unsafe=True)
+            sharded.append((name, module, pname))
+    shards = {module.parametrizations[pname].original
+              for _, module, pname in sharded}
+    replicated = [p for p in model.parameters() if p not in shards]
+    optimizer = optimizer_cls(model.parameters(), **(optimizer_kwargs or {}))
+
+    def step(batch):
+        batch = tree_map(lambda t: t.to(device, non_blocking=True), batch)
+        optimizer.zero_grad(set_to_none=True)
+        with parametrize.cached():
+            loss = loss_fn(model, batch)
+            loss.backward()
+        allreduce_gradients(replicated, name_prefix="fsdp_grad")
+        optimizer.step()
+        return allreduce(loss.detach().float(), average=True)
+
+    def full_parameters():
+        with torch.no_grad():
+            return {name: getattr(module, pname).detach().clone()
+                    for name, module, pname in sharded}
+
+    step.optimizer = optimizer
+    step.sharded = [name for name, _, _ in sharded]
+    step.full_parameters = full_parameters
+    step.opt_state_bytes = lambda: _state_bytes(optimizer)
     return step
 
 

@@ -17,7 +17,10 @@ statistics kernels ragged M and C, both dtypes, mixed dy and x, ghost
 groups and the ReLU mask, layouts they refuse, and run-to-run determinism,
 and for the normalize and dx passes the same shapes in both arithmetic
 modes, with and without the ReLU and ghost groups, bit for bit their plain
-versions, and the lean BN's autograd on the card.
+versions, and the lean BN's autograd on the card; and the wire codec
+kernels bit for bit their plain versions (ragged block counts, NaN,
+infinities, zeros, ties, denormals), with the ring schedules over 4
+virtual ranks.
 """
 
 import sys
@@ -1028,3 +1031,124 @@ def test_bn_custom_ops_equal_the_wrappers_on_the_gpu(cuda, mode):
             None, None)
     assert torch.equal(torch.ops.horovod_tpu_torch.bn_dx(*args),
                        bn.bn_dx(*args))
+
+
+# ------------------------------------------------------------ wire codec
+
+
+def _same(a, b):
+    """Equal tensors, NaN where NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _codec_input(n, seed, special):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=g) * 1e-2
+    if special:
+        x[5] = float("nan")             # block 0 holds a NaN
+        x[256 + 7] = float("inf")       # block 1 +inf and -inf
+        x[256 + 200] = float("-inf")
+        x[512:768] = 0.0                # block 2 zeros
+        # block 3 ties: k + 0.5 with max 127, so the scale is 1
+        x[768:1024] = (torch.arange(256) % 9 - 4) + 0.5
+        x[1000] = 127.0
+        x[1024:1280] = torch.randn(256, generator=g) * 1e-40  # denormals
+        x[1300] = 3e38                  # block 5 a huge value
+    return x.cuda()
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("n,special", [(256, False), (1536, True),
+                                       (256 * 1001, False),
+                                       (256 * 40000 + 512, True)])
+def test_wire_codec_kernels_equal_their_plain_versions(cuda, mode, n,
+                                                       special):
+    """Encode, decode-add and decode into an empty destination, bit for bit
+    (NaN where NaN), on ragged block counts (grids that end mid-block of
+    warps) and on blocks holding NaN, infinities, zeros, ties, a huge value
+    and denormals."""
+    from horovod_tpu_torch.ops import wire_codec as wc
+    x = _codec_input(n, n, special)
+    acc = torch.randn(n, generator=torch.Generator().manual_seed(1)).cuda()
+    before = wc.launch_counts()
+    got, ref = wc.wire_encode(x, mode), wc.wire_encode_ref(x, mode)
+    for a, b in zip(got, ref):
+        assert _same(a, b)
+    for add in (True, False):
+        k = wc.wire_decode_add(acc.clone(), ref, mode, add)
+        p = wc.wire_decode_add_ref(acc.clone(), ref, mode, add)
+        assert _same(k, p), add
+    after = wc.launch_counts()
+    assert after["wire_encode"] == before["wire_encode"] + 1
+    assert after["wire_decode_add"] == before["wire_decode_add"] + 2
+    if special and mode == "int8":
+        s = got[1]
+        assert torch.isnan(s[0]) and torch.isnan(s[1]) and s[2] == 0
+        assert int(got[0].abs().max()) == 127
+
+
+def test_wire_codec_refuses_what_it_does_not_take(cuda):
+    from horovod_tpu_torch.ops import wire_codec as wc
+    x = torch.zeros(512, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        wc.wire_encode(torch.zeros(300, device=cuda), "int8")
+    with pytest.raises(ValueError, match="16-byte"):
+        wc.wire_encode(torch.zeros(260, device=cuda)[1:257], "int8")
+    with pytest.raises(ValueError, match="contiguous"):
+        wc.wire_decode_add(torch.zeros(512, device=cuda)[::2],
+                           wc.wire_encode(x[:256], "bf16"), "bf16")
+    with pytest.raises(ValueError, match="int8"):
+        wc.wire_decode_add(x, (torch.zeros(512, device=cuda),
+                               torch.zeros(2, device=cuda)), "int8")
+
+
+@pytest.mark.parametrize("mode", ["none", "bf16", "int8"])
+def test_ring_schedules_over_four_virtual_ranks(cuda, mode):
+    """The three ring schedules over 4 virtual ranks on the card, through
+    the kernels and through the plain versions: equal; the allreduce the
+    same on every rank and within the reference's limit of the f32 sum."""
+    from horovod_tpu_torch.ops import wire_codec as wc
+    from horovod_tpu_torch.parallel import ring
+
+    class Plain(ring.RingCodec):
+        def encode(self, chunk):
+            if self.mode.mode == 0:
+                return (chunk,)
+            return wc.wire_encode_ref(chunk, self.mode)
+
+        def decode_into(self, dst, payload, add):
+            if self.mode.mode == 0:
+                return super().decode_into(dst, payload, add)
+            return wc.wire_decode_add_ref(dst, payload, self.mode, add)
+
+    n, size = 4, 100_003
+    g = torch.Generator(device=cuda).manual_seed(3)
+    xs = [torch.randn(size, generator=g, device=cuda) for _ in range(n)]
+    c = ring.chunk_length(size, n)
+    outs = []
+    for codec in (ring.RingCodec, Plain):
+        chunks = [ring._padded(x, n, c) for x in xs]
+        ring.drive_virtual([ring.allreduce_schedule(chunks[r], r, n,
+                                                    codec(mode))
+                            for r in range(n)])
+        rs = [ring._padded(x, n, c) for x in xs]
+        shards = [s.clone() for s in ring.drive_virtual(
+            [ring.reduce_scatter_schedule(rs[r], r, n, codec(mode))
+             for r in range(n)])]
+        gathered = [torch.zeros(n, c, device=cuda) for _ in range(n)]
+        ring.drive_virtual([ring.allgather_schedule(shards[r], gathered[r], r,
+                                                    n, codec(mode))
+                            for r in range(n)])
+        outs.append(chunks + shards + gathered)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    total = sum(xs)
+    tol = {"none": 1e-5, "bf16": 2e-2, "int8": 4e-2}[mode]
+    for chunks in outs[0][:n]:
+        got = chunks.view(-1)[:size]
+        assert torch.equal(got, outs[0][0].view(-1)[:size])
+        assert ((got - total).abs().max() / total.abs().max()) < tol

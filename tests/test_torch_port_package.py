@@ -27,6 +27,8 @@ PORT_FILES = PACKAGE_FILES + [
     ROOT / "tests" / "torch_port_bn_worker.py",
     ROOT / "tests" / "torch_port_ring_worker.py",
     ROOT / "tests" / "torch_port_api_worker.py",
+    ROOT / "tests" / "torch_port_wire_worker.py",
+    ROOT / "tests" / "torch_port_zero_worker.py",
     ROOT / "tests" / "torch_port_planted_faults.py",
     ROOT / "tests" / "torch_port_fwd_ab.py",
     ROOT / "tests" / "torch_port_bwd_ab.py",
@@ -184,13 +186,30 @@ def test_entry_points_without_a_gpu_raise_the_named_error():
         ResNet50Lean(num_classes=1000, bn_remat=True)
     with pytest.raises(hvd.CudaUnavailableError):
         bn.StockBatchNorm(64, group=hvd.WORLD)
+    with pytest.raises(hvd.CudaUnavailableError):
+        make_train_step(model, lm_loss, torch.optim.SGD(model.parameters(),
+                                                        lr=0.1), zero1=True,
+                        compression="int8")
+    with pytest.raises(hvd.CudaUnavailableError):
+        hvd.make_fsdp_train_step(model, lm_loss, torch.optim.Adam)
     assert not hvd.is_initialized()
+    # the codec wrappers: on CPU tensors their plain versions, no kernel
+    from horovod_tpu_torch.ops import wire_codec
+    before = wire_codec.launch_counts()
+    payload = wire_codec.wire_encode(torch.ones(256), "int8")
+    acc = wire_codec.wire_decode_add(torch.zeros(256), payload, "int8")
+    assert torch.equal(acc, torch.ones(256))
+    assert wire_codec.launch_counts() == before
     # the collectives run on the process group init() started, on the GPU
     # unless it was asked for the CPU: before init() they raise, naming it
     x = torch.ones(3)
     for call in (lambda: hvd.new_group([0]), lambda: hvd.reduce_scatter(x),
                  lambda: hvd.metric_average(1.0), hvd.assert_synchronized,
-                 lambda: hvd.allreduce(x, group=hvd.WORLD)):
+                 lambda: hvd.allreduce(x, group=hvd.WORLD),
+                 lambda: hvd.ring_allreduce(x, compression="int8"),
+                 lambda: hvd.ring_reduce_scatter(x),
+                 lambda: hvd.ring_allgather(x),
+                 lambda: hvd.allreduce(x, compression="int8")):
         with pytest.raises(RuntimeError, match="hvd.init"):
             call()
 
@@ -217,9 +236,11 @@ def test_one_rank_cpu_group():
 
 
 def test_what_is_not_ported_names_its_roadmap_item(monkeypatch):
-    """The wire compression modes and the sharded update (A4), AGC (A6)
-    and the rank-subset init (A8) raise NotImplementedError naming their
-    item; the tensor codecs run."""
+    """AGC (A6) and the rank-subset init (A8) raise NotImplementedError
+    naming their item. The wire compression modes and the sharded update
+    (A4, ported) run at one rank: the wire modes are the identity there
+    (the ring applies no codec to one rank), and the sharded optimizer is
+    built; the tensor codecs run."""
     with pytest.raises(NotImplementedError, match="A8"):
         hvd.init(device="cpu", ranks=[0])
     assert not hvd.is_initialized()
@@ -228,11 +249,12 @@ def test_what_is_not_ported_names_its_roadmap_item(monkeypatch):
         x = torch.arange(4.0)
         for mode in ("bf16", "int8", hvd.Compression.wire_bf16,
                      hvd.Compression.wire_int8):
-            with pytest.raises(NotImplementedError, match="A4"):
-                hvd.allreduce(x, compression=mode)
+            assert torch.equal(hvd.allreduce(x, compression=mode), x)
         monkeypatch.setenv("HVD_TPU_COMPRESSION", "int8")
-        with pytest.raises(NotImplementedError, match="A4"):
-            hvd.reduce_scatter(x)
+        # the ring's chunk: the vector padded to a whole int8 block
+        shard = hvd.reduce_scatter(x)
+        assert shard.shape == (256,) and torch.equal(shard[:4], x)
+        assert not shard[4:].any()
         monkeypatch.delenv("HVD_TPU_COMPRESSION")
         with pytest.raises(ValueError, match="unknown compression"):
             hvd.allreduce(x, compression="zstd")
@@ -241,16 +263,16 @@ def test_what_is_not_ported_names_its_roadmap_item(monkeypatch):
             assert torch.equal(hvd.allreduce(x, compression=codec), x)
         model = torch.nn.Linear(2, 2)
         sgd = torch.optim.SGD(model.parameters(), lr=0.1)
-        with pytest.raises(NotImplementedError, match="A4"):
-            hvd.DistributedOptimizer(sgd, sharded_update=True)
+        assert isinstance(hvd.DistributedOptimizer(sgd, sharded_update=True),
+                          hvd.ShardedDistributedOptimizer)
         monkeypatch.setenv("HVD_TPU_SHARDED_UPDATE", "1")
-        with pytest.raises(NotImplementedError, match="A4"):
-            hvd.DistributedOptimizer(sgd)
+        assert isinstance(hvd.DistributedOptimizer(sgd),
+                          hvd.ShardedDistributedOptimizer)
         monkeypatch.setenv("HVD_TPU_SHARDED_UPDATE", "0")
         with pytest.raises(NotImplementedError, match="A6"):
             hvd.DistributedOptimizer(sgd, agc=0.01)
-        with pytest.raises(NotImplementedError, match="A4"):
-            hvd.DistributedOptimizer(sgd, compression="int8")
+        opt = hvd.DistributedOptimizer(sgd, compression="int8")
+        assert opt._mode == "int8"
         hvd.DistributedOptimizer(sgd, compression=hvd.Compression.fp16,
                                  average=False, name_prefix="g")
     finally:

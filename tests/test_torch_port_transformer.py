@@ -238,3 +238,11 @@ def test_default_device_is_the_gpu():
         LeanBatchNorm(64)
     with pytest.raises(CudaUnavailableError):
         ResNet50Lean(num_classes=1000, bn_remat=True)
+    from horovod_tpu_torch.parallel import (lm_loss, make_fsdp_train_step,
+                                            make_train_step)
+    model = torch.nn.Linear(2, 2)
+    with pytest.raises(CudaUnavailableError):
+        make_train_step(model, lm_loss, torch.optim.Adam(model.parameters()),
+                        zero1=True)
+    with pytest.raises(CudaUnavailableError):
+        make_fsdp_train_step(model, lm_loss, torch.optim.Adam)

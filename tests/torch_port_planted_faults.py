@@ -14,7 +14,9 @@ kernels the ring_kernels phase, whose 4-rank ring carries state and
 offsets that the one-rank sp phase does not; for the rotary faults the
 kernels phase (or ring_kernels, for the ring's rotation and
 counter-rotation); for the faults of the data-parallel API the api phase,
-the train phase (the overlapped optimizer) or resnet_lean (bn_remat).
+the train phase (the overlapped optimizer) or resnet_lean (bn_remat);
+for the wire codec's faults the wire_kernels phase (the zero1 phase runs
+one rank, where the ring applies no codec).
 Every run must fail.
 Prints the readings each run logged (errors against the plain versions,
 the gradient gaps, the first losses) and exits 1 if a planted fault passed
@@ -33,6 +35,7 @@ BN_PHASES = ("bn_kernels", "resnet")
 LEAN_PHASES = ("bn_kernels", "resnet_lean")
 RING_PHASES = ("ring_kernels",)
 ROT_PHASES = ("kernels",)
+WIRE_PHASES = ("wire_kernels",)
 BN_ROW_LOOP = ("    for (long long r = rows.begin + ty; r < rows.end; "
                "r += sh.ty) {\n")
 # the normalize pass's y = x * a + b, and its ReLU
@@ -189,6 +192,32 @@ FAULTS = {
         "    k_pos = shard_positions(kv_offset, dk.shape[2], dk.device)\n",
         "    k_pos = shard_positions(kv_offset[:1], dk.shape[2], dk.device)\n",
         RING_PHASES),
+    # the wire codec (wire_kernels: the kernels against their plain
+    # versions and the rings through them). The int8 encode's amax drops
+    # NaN as fmaxf does: a NaN block quantizes as if it were finite
+    "wire_amax_fmaxf": (
+        "ops/csrc/wire_codec.cu",
+        "  for (int j = 1; j < kPerLane; ++j) amax = nan_max(amax, "
+        "fabsf(v[j]));\n",
+        "  for (int j = 0; j < kPerLane; ++j) amax = fmaxf(amax, "
+        "fabsf(v[j]));\n", WIRE_PHASES),
+    # the int8 encode rounds half away from zero (roundf), not to even
+    "wire_round_half_away": (
+        "ops/csrc/wire_codec.cu",
+        "    t = fminf(fmaxf(rintf(t), -127.f), 127.f);\n",
+        "    {\n      float u = __fmul_rn(v[j], inv);\n      t = fminf(fmaxf("
+        "roundf(u != u ? 0.f : u), -127.f), 127.f);\n    }\n", WIRE_PHASES),
+    # the int8 decode-add contracts the product and the sum into one FMA
+    "wire_decode_fma": (
+        "ops/csrc/wire_codec.cu",
+        "    for (int j = 0; j < kPerLane; ++j) d[j] = __fadd_rn(a[j], "
+        "d[j]);\n",
+        "    if (MODE == kInt8)\n      for (int j = 0; j < kPerLane; ++j) "
+        "d[j] = __fmaf_rn(p[j], s, a[j]);\n", WIRE_PHASES),
+    # the int8 decode applies block b's scale to block b + 1
+    "wire_scale_next_block": (
+        "ops/csrc/wire_codec.cu", "    s = scales[blk];\n",
+        "    if (blk > 0) s = scales[blk - 1];\n", WIRE_PHASES),
     # the data-parallel API. synchronize() sends the buckets still to go in
     # reverse order (and then the rest again): at one rank every sum is
     # right, the recorded bucket order is not
