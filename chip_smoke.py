@@ -5,7 +5,8 @@
     python3 chip_smoke.py --only kernels   # or api, train, bn_kernels,
                                            # resnet, resnet_lean,
                                            # ring_kernels, sp, lc, lc_sp,
-                                           # wire_kernels, zero1
+                                           # wire_kernels, zero1, moe,
+                                           # ulysses
 
 Phases, in order; any failure exits non-zero:
 
@@ -190,6 +191,39 @@ Phases, in order; any failure exits non-zero:
    step's, losses finite and falling, 12 launches of K1-K3 a step and no
    codec launch (one rank: the ring applies no codec); step time,
    optimizer-state bytes and peak memory of each.
+
+13. moe: the Switch-MoE LM of bench.py's MoE row (``--moe-experts 8
+   --fused-xent``: MODEL's widths, a ``MoeMlp`` of 8 experts in every
+   second block, top-1, capacity factor 1.25; flash attention,
+   ``lm_loss_streaming``, Adam(1e-4) in ``DistributedOptimizer``, 8 x 2048
+   tokens). Before the steps: the first MoE layer's output on its real
+   input against a per-token computation without one-hot contractions
+   (top-1 expert and gate from the router, queue positions by a stable
+   sort, tokens past the capacity dropped, gate * FFN_e(x) in f32 from the
+   same bf16 inputs): the same drop set (y's zero rows), the same routing
+   and slots in ``topk_dispatch``'s dispatch, the kept tokens within 2e-2
+   (norm-relative), the dropped share printed; the same weights with
+   ``ep_axis="ep"`` on ``hybrid_mesh((1,), ("ep",))`` (NCCL's
+   all-to-all) against the model without it: the first loss and every
+   gradient equal bit for bit; the same weights through dense attention:
+   the first loss at 8 x 2048 within 2e-2, every gradient at 2 x 2048 in
+   bf16 and float32, each with the share of tokens whose top-1 expert
+   differs between flash and dense, and again with the dense run routed
+   to the flash run's experts; the float32 gap on the same routing is held
+   to 5e-2 (a near-tie broken apart by the two attentions' roundings moves
+   a token to another expert and its gradients with it: the other three
+   are logged). Then 2 warm-up and 5 timed steps: finite, falling losses,
+   12 launches each of K1-K3 a step; step ms, tokens/s, peak memory, and
+   one MoE layer's parts timed forward and backward (the routing with the
+   [T, E, C] one-hot construction, the dispatch contraction, the experts'
+   products, the combine contraction).
+14. ulysses: the lc model with ``attention="ulysses"`` on a one-rank "sp"
+   axis (its all-to-alls run: NCCL copies): the first loss and every
+   gradient at 2 x 8192 equal to the lc flash model's on the same weights
+   bit for bit; 24 launches of the rotary pass in one loss's forward and
+   none in its backward; 2 warm-up and 3 timed steps of the flash model,
+   then of the Ulysses model (12 launches each of K1_rot-K3_rot and 24 of
+   the pass a step); step ms and peak memory of both.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -401,6 +435,18 @@ WIRE_SUM_TOL = {"none": 1e-5, "bf16": 2e-2, "int8": 4e-2}
 WIRE_LIBRARY_TOL = 1e-6
 # elements of an int8 block, one f32 scale each
 WIRE_BLOCK = 256
+# bench.py's MoE row (bench.py:305, built at :2508-2521): --moe-experts 8
+# on the LM (every second block, top-1, capacity factor 1.25), with
+# --fused-xent; the gradient check against dense attention at 2 x 2048
+MOE = dict(moe_experts=8, moe_every=2, moe_capacity_factor=1.25,
+           moe_top_k=1)
+MOE_GRAD_BATCH = 2
+# one MoE layer's kept tokens against the per-token computation in f32 from
+# the same bf16 inputs, norm-relative: the module rounds the expert
+# products and the gate-weighted combine to bf16. Between the sound
+# reading on an H100 (3.87e-3) and a combine that drops its gate (5.6 at a
+# small size on the CPU; slots shifted by one change the drop set)
+MOE_TOKEN_TOL = 2e-2
 # the zero1 and FSDP steps against the replicated one from the same
 # weights, norm-relative per parameter, after ZERO1_CHECK_STEP steps
 ZERO1_TOL = 1e-6
@@ -2846,19 +2892,516 @@ def phase_zero1():
     return counts
 
 
+def _moe_hooks(model):
+    """Forward hooks on ``model``'s MoeMlps: returns (records, handles), one
+    (input [T, D], output [T, D]) a MoE layer a forward, detached."""
+    from horovod_tpu_torch.parallel import MoeMlp
+    records = []
+
+    def keep(module, inp, out):
+        D = inp[0].shape[-1]
+        records.append((inp[0].detach().reshape(-1, D),
+                        out.detach().reshape(-1, D)))
+    handles = [m.register_forward_hook(keep) for m in model.modules()
+               if isinstance(m, MoeMlp)]
+    return records, handles
+
+
+def _top1(module, x):
+    """Each token's top-1 expert and its gate, computed as the router does
+    (f32 logits of the bf16 input)."""
+    import torch
+    probs = torch.softmax(x.float() @ module.router.float(), dim=-1)
+    gate, idx = probs.max(dim=-1)
+    return idx, gate
+
+
+def moe_token_check(module, x, y):
+    """One MoE layer's output ``y`` on its input ``x`` ([T, D]) against a
+    computation that uses no one-hot contraction: each token's top-1 expert
+    and gate from the router, its queue position by a stable sort of the
+    tokens by expert, the tokens at positions past the capacity dropped,
+    and for each kept token gate * FFN_e(x) in float32 from the same bf16
+    inputs (the weights cast as the module casts them). Checks the drop
+    set against y's all-zero rows, the routing and drop set of
+    ``topk_dispatch`` against the same, and the kept tokens' y; returns
+    the readings."""
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.parallel.expert import topk_dispatch
+    T = x.shape[0]
+    E = module.router.shape[1]
+    C = max(1, math.ceil(T / E * module.capacity_factor))
+    idx, gate = _top1(module, x)
+    order = torch.argsort(idx, stable=True)
+    counts = torch.bincount(idx, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.empty_like(idx)
+    pos[order] = torch.arange(T, device=x.device) - starts[idx[order]]
+    kept = pos < C
+    w_in = module.w_in.to(module.dtype).float()
+    w_out = module.w_out.to(module.dtype).float()
+    ref = torch.zeros(T, x.shape[1], device=x.device)
+    for e in range(E):
+        sel = kept & (idx == e)
+        h = F.silu(x[sel].float() @ w_in[e])
+        ref[sel] = gate[sel, None] * (h @ w_out[e])
+    dropped = (y == 0).all(dim=-1)
+    with torch.no_grad():
+        dispatch, _, _ = topk_dispatch(x.float() @ module.router.float(), C,
+                                       k=1)
+    flat = dispatch.view(T, -1)
+    routed = flat.amax(dim=-1) > 0
+    slot = flat.argmax(dim=-1)
+    del dispatch, flat
+    same_drops = bool(torch.equal(dropped, ~kept))
+    same_routing = bool(torch.equal(routed, kept)) and bool(torch.equal(
+        slot[kept], (idx * C + pos)[kept]))
+    err = ((y[kept].float() - ref[kept]).norm() /
+           ref[kept].norm().clamp_min(1e-30)).item()
+    return dict(tokens=T, capacity=C, dropped_share=1.0 - kept.float(
+        ).mean().item(), same_drop_set=same_drops,
+        same_routing=same_routing, rel_l2_err=err)
+
+
+def moe_split_ms(module, x):
+    """Device time of one MoE layer's parts at its own launch (x [T, D],
+    the layer's input), forward and backward each: the routing (router
+    product, softmax and the [T, E, C] one-hot construction of
+    ``topk_dispatch``), the dispatch contraction, the experts' two
+    products and the combine contraction, as ``moe_ffn`` runs them."""
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.parallel.expert import topk_dispatch
+    T, D = x.shape
+    E = module.router.shape[1]
+    C = max(1, math.ceil(T / E * module.capacity_factor))
+    dt = x.dtype
+    router = module.router.detach().clone().requires_grad_()
+    w_in = module.w_in.detach().to(dt).requires_grad_()
+    w_out = module.w_out.detach().to(dt).requires_grad_()
+    xg = x.detach().clone().requires_grad_()
+    g = torch.Generator(device=x.device).manual_seed(11)
+
+    def rand(*shape, dtype=dt):
+        return torch.randn(*shape, device=x.device, dtype=dtype, generator=g)
+
+    with torch.no_grad():
+        dispatch, combine, _ = topk_dispatch(x.float() @ router.float(), C,
+                                             k=1)
+        d16, c16 = dispatch.to(dt), combine.to(dt)
+        expert_in = torch.einsum("tec,td->ecd", d16, x)
+    c16g = c16.clone().requires_grad_()
+    ein = expert_in.clone().requires_grad_()
+    out = rand(E, C, D).requires_grad_()
+    g_comb = rand(T, E, C, dtype=torch.float32)
+    g_ecd, g_td = rand(E, C, D), rand(T, D)
+
+    one = torch.ones((), device=x.device)
+
+    def routing():
+        _, comb, aux = topk_dispatch(x.float() @ router.float(), C, k=1)
+        torch.autograd.grad([comb, aux], [router], [g_comb, one])
+
+    def dispatch_contraction():
+        y = torch.einsum("tec,td->ecd", d16, xg)
+        torch.autograd.grad(y, [xg], g_ecd)
+
+    def experts():
+        h = F.silu(torch.einsum("ecd,edf->ecf", ein, w_in))
+        y = torch.einsum("ecf,efd->ecd", h, w_out)
+        torch.autograd.grad(y, [ein, w_in, w_out], g_ecd)
+
+    def combine_contraction():
+        y = torch.einsum("tec,ecd->td", c16g, out)
+        torch.autograd.grad(y, [c16g, out], g_td)
+
+    parts = dict(routing=routing, dispatch=dispatch_contraction,
+                 experts=experts, combine=combine_contraction)
+    res = {name: time_ms(fn, n=3, reps=3, warmup=1)
+           for name, fn in parts.items()}
+    del dispatch, combine, d16, c16, c16g, g_comb
+    torch.cuda.empty_cache()
+    return res
+
+
+class _Routing:
+    """Swaps ``parallel.expert.topk_dispatch`` (top-1) for the length of a
+    ``with``: ``record`` keeps each call's top-1 experts, in call order;
+    ``pin`` routes each call to the experts recorded for it (the logits
+    given a large bias there, so the port's own dispatch builds the slots)
+    and takes the gates and the aux loss from the logits it is given, as
+    the reference does."""
+
+    def __init__(self):
+        self.choices, self.pinned = [], None
+
+    def record(self):
+        return self._swap(self._record)
+
+    def pin(self):
+        self.pinned = list(self.choices)
+        return self._swap(self._pin)
+
+    def _swap(self, fn):
+        import contextlib
+        from horovod_tpu_torch.parallel import expert
+
+        @contextlib.contextmanager
+        def swapped():
+            orig, expert.topk_dispatch = expert.topk_dispatch, fn
+            self.orig = orig
+            try:
+                yield
+            finally:
+                expert.topk_dispatch = orig
+        return swapped()
+
+    def _record(self, logits, capacity, k=1):
+        self.choices.append(logits.detach().float().argmax(dim=-1))
+        return self.orig(logits, capacity, k=k)
+
+    def _pin(self, logits, capacity, k=1):
+        import torch
+        import torch.nn.functional as F
+        idx = self.pinned.pop(0)
+        E = logits.shape[1]
+        oh = F.one_hot(idx, E).float()
+        dispatch, _, _ = self.orig(logits.detach().float() + 1e4 * oh,
+                                   capacity, k=1)
+        probs = torch.softmax(logits.float(), dim=-1)
+        gate = torch.sum(probs * oh, dim=-1)
+        aux = E * torch.sum(oh.mean(dim=0) * probs.mean(dim=0))
+        return dispatch, dispatch * gate[:, None, None], aux
+
+
+def moe_gradient_gaps(cfg, state, tokens, dtype, pin=False):
+    """The MoE LM in ``dtype`` through flash and through dense attention on
+    the same weights: every parameter's gradient gap (``gradient_gaps``)
+    and, per MoE layer, the share of tokens whose top-1 expert differs
+    between the two runs. ``pin``: the dense run routes each token to the
+    expert the flash run chose (``_Routing``), so a near-tie that the two
+    attentions' roundings break apart moves no token."""
+    import contextlib
+    import dataclasses
+    import torch
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.parallel import lm_loss_streaming
+    models = []
+    for attention in ("flash", "dense"):
+        m = Transformer(dataclasses.replace(cfg, attention=attention,
+                                            dtype=dtype),
+                        device=tokens.device)
+        m.load_state_dict(state)
+        models.append(m)
+    (rec_f, hf), (rec_d, hd) = (_moe_hooks(m) for m in models)
+    routing = _Routing()
+
+    def loss_fn(m, t):
+        ctx = (routing.record() if m is models[0] else
+               routing.pin() if pin else contextlib.nullcontext())
+        with ctx:
+            return lm_loss_streaming(m, t)
+
+    gaps = gradient_gaps(models[0], models[1], tokens, loss_fn)
+    for h in hf + hd:
+        h.remove()
+    mods = [b.moe_mlp for b in models[0].blocks if b.moe]
+    flips = [(_top1(m, a[0])[0] != _top1(m, b[0])[0]).float().mean().item()
+             for m, a, b in zip(mods, rec_f, rec_d)]
+    del models, rec_f, rec_d
+    torch.cuda.empty_cache()
+    order = sorted(gaps, key=gaps.get, reverse=True)
+    return dict(worst=order[0], gap=gaps[order[0]],
+                median=statistics.median(gaps.values()),
+                next=["%s %.3g" % (n, gaps[n]) for n in order[1:5]],
+                flips=["%.5f" % f for f in flips],
+                flip_share=sum(flips) / len(flips))
+
+
+def phase_moe(profile_dir=None):
+    """The Switch-MoE LM of bench.py's MoE row (MODEL's widths, MOE: 8
+    experts in every second block, top-1, capacity factor 1.25; flash
+    attention, the streaming loss, Adam 1e-4) at 8 x 2048 tokens: one MoE
+    layer against the per-token computation; the model with ``ep_axis`` on
+    a one-rank "ep" axis (NCCL's all-to-all) against it without, bit for
+    bit; against dense attention (the first loss at 8 x 2048, every
+    gradient at 2 x 2048, the share of tokens whose top-1 expert differs);
+    then 2 warm-up and 5 timed steps and the MoE layer's parts timed.
+    Returns K1-K3's launch counts."""
+    import dataclasses
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.ops.flash_attention import (launch_counts,
+                                                       reset_launch_counts)
+    from horovod_tpu_torch.parallel import (hybrid_mesh, lm_loss_streaming,
+                                            make_train_step)
+
+    hvd.init()
+    dev = hvd.device()
+    cfg = TransformerConfig(attention="flash", dtype=torch.bfloat16,
+                            max_seq_len=8192, **MODEL, **MOE)
+    B, L = BATCH
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (B, L), device=dev,
+                           generator=torch.Generator(device=dev
+                                                     ).manual_seed(1))
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    moe_blocks = [i for i, b in enumerate(model.blocks) if b.moe]
+    if moe_blocks != list(range(1, cfg.num_layers, 2)):
+        fail("MoE blocks %s, expected every second one" % moe_blocks)
+
+    # 1. the first MoE layer (block 1) on its real input at 8 x 2048
+    records, handles = _moe_hooks(model)
+    with torch.no_grad():
+        loss_first = lm_loss_streaming(model, tokens).item()
+    for h in handles:
+        h.remove()
+    module = model.blocks[moe_blocks[0]].moe_mlp
+    x, y = records[0]
+    token = moe_token_check(module, x, y)
+    log("moe per-token check (block %d, %d tokens, capacity %d): dropped "
+        "%.4f, same drop set %s, same routing %s, kept tokens' y rel %.3g"
+        % (moe_blocks[0], token["tokens"], token["capacity"],
+           token["dropped_share"], token["same_drop_set"],
+           token["same_routing"], token["rel_l2_err"]))
+    if not (token["same_drop_set"] and token["same_routing"]):
+        fail("the MoE layer's routing or drop set differs from the "
+             "per-token computation: %s" % token)
+    if not token["rel_l2_err"] <= MOE_TOKEN_TOL:
+        fail("the MoE layer's output is %.3g from the per-token computation "
+             "(limit %g)" % (token["rel_l2_err"], MOE_TOKEN_TOL))
+    split = moe_split_ms(module, x)
+    del records, x, y
+    torch.cuda.empty_cache()
+
+    # 2. the same weights with experts over a one-rank "ep" axis: the
+    # all-to-alls run (NCCL copies), so the loss and every gradient equal
+    hybrid_mesh((1,), ("ep",))
+    ep = Transformer(dataclasses.replace(cfg, ep_axis="ep"), device=dev)
+    ep.load_state_dict(model.state_dict())
+    same = {}
+    for label, m in (("local", model), ("ep", ep)):
+        loss = lm_loss_streaming(m, tokens)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        same[label] = (loss.detach(), grads)
+    names = [n for n, _ in model.named_parameters()]
+    diff = [n for n, a, b in zip(names, same["local"][1], same["ep"][1])
+            if not torch.equal(a, b)]
+    ep_loss_equal = bool(torch.equal(same["local"][0], same["ep"][0]))
+    log("moe ep_axis at one rank: loss equal %s, %d of %d gradients differ "
+        "%s" % (ep_loss_equal, len(diff), len(names), diff[:4]))
+    if not ep_loss_equal or diff:
+        fail("the model with ep_axis on a one-rank axis differs from it "
+             "without: loss equal %s, gradients %s" % (ep_loss_equal,
+                                                        diff[:8]))
+    del ep, same
+    torch.cuda.empty_cache()
+
+    # 3. the same weights through dense attention: the first loss at
+    # 8 x 2048; every gradient at 2 x 2048 in bf16 (logged) and in float32
+    # (checked), with the share of tokens whose top-1 expert differs
+    dense = Transformer(dataclasses.replace(cfg, attention="dense"),
+                        device=dev)
+    dense.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        loss_plain = lm_loss_streaming(dense, tokens).item()
+    del dense
+    torch.cuda.empty_cache()
+    rel = abs(loss_first - loss_plain) / abs(loss_plain)
+    log("moe first loss %.6f, dense attention %.6f, rel %.3g"
+        % (loss_first, loss_plain, rel))
+    if not rel <= 2e-2:
+        fail("moe first loss %.6f vs dense attention %.6f (rel %.3g)"
+             % (loss_first, loss_plain, rel))
+    grads = {"%s%s" % (label, "_pinned" if pin else ""): moe_gradient_gaps(
+        cfg, model.state_dict(), tokens[:MOE_GRAD_BATCH], dtype, pin)
+        for label, dtype in (("bf16", torch.bfloat16),
+                             ("f32", torch.float32))
+        for pin in (False, True)}
+    for label, g in grads.items():
+        log("moe gradient gap flash vs dense at %d x %d, %s: worst %s %.3g, "
+            "median %.3g, next %s; top-1 experts differing %.5f (by layer "
+            "%s)" % (MOE_GRAD_BATCH, L, label, g["worst"], g["gap"],
+                     g["median"], g["next"], g["flip_share"], g["flips"]))
+    checked = grads["f32_pinned"]
+    if not checked["gap"] <= GRAD_TOL:
+        fail("MoE gradients through the flash kernels disagree with dense "
+             "attention in float32 on the same routing: %s %.3g > %g"
+             % (checked["worst"], checked["gap"], GRAD_TOL))
+
+    # 4. the steps
+    opt = hvd.DistributedOptimizer(torch.optim.Adam(model.parameters(),
+                                                    lr=1e-4),
+                                   model.named_parameters())
+    step = make_train_step(model, lm_loss_streaming, opt)
+    warmup, timed = 2, 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        loss = step(tokens).item()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log("moe step %d: loss %.5f, %.1f ms" % (i, loss, times[-1] * 1e3))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = warmup + timed
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail("moe losses not finite and falling: %s" % losses)
+    for name, c in counts.items():
+        per_step = cfg.num_layers if name in FLASH else 0
+        if c != per_step * steps:
+            fail("%s launched %d times in %d moe steps, expected %d per step"
+                 % (name, c, steps, per_step))
+    step_s = statistics.median(times[warmup:])
+    n_moe = len(moe_blocks)
+    result = dict(step_ms=step_s * 1e3, tokens_per_s=B * L / step_s,
+                  peak_mem_gb=peak / 1e9, params=n_params,
+                  loss_first=losses[0], loss_last=losses[-1],
+                  loss_plain=loss_plain,
+                  grad_gap_worst={k: g["gap"] for k, g in grads.items()},
+                  top1_flip_share={k: g["flip_share"]
+                                   for k, g in grads.items()},
+                  per_token=token,
+                  ep_one_rank_bitwise=True,
+                  moe_layer_ms=split,
+                  moe_ms_per_step={k: v * n_moe for k, v in split.items()},
+                  launches=counts, steps=steps)
+    if profile_dir:
+        result["profile"] = profile_steps(step, tokens, profile_dir, "moe")
+    print("moe: " + json.dumps(result), flush=True)
+    hvd.shutdown()
+    return {name: counts[name] for name in FLASH}
+
+
+def phase_ulysses(profile_dir=None):
+    """The lc model (LC_MODEL, fused rotary, the streaming loss, 2 x 8192
+    tokens, Adam 1e-4) with ``attention="ulysses"`` on a one-rank "sp"
+    axis: its all-to-alls run (NCCL copies), so the first loss and every
+    gradient must equal the lc flash model's on the same weights bit for
+    bit; 24 launches of the rotary pass in one loss's forward, none in its
+    backward; 2 warm-up and 3 timed steps of the flash model, then of the
+    Ulysses model with 12 launches of each of K1_rot-K3_rot and 24 of the
+    pass a step. Returns the Ulysses steps' launch counts."""
+    import dataclasses
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.ops.flash_attention import (launch_counts,
+                                                       reset_launch_counts)
+    from horovod_tpu_torch.parallel import (hybrid_mesh, lm_loss_streaming,
+                                            make_train_step)
+
+    hvd.init()
+    dev = hvd.device()
+    hybrid_mesh((hvd.size(),), ("sp",))
+    cfg = TransformerConfig(attention="ulysses", sp_axis="sp",
+                            rope_fused=True, dtype=torch.bfloat16,
+                            max_seq_len=8192, **LC_MODEL)
+    B, L = LC_BATCH
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (B, L), device=dev,
+                           generator=torch.Generator(device=dev
+                                                     ).manual_seed(1))
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    flash = Transformer(dataclasses.replace(cfg, attention="flash",
+                                            sp_axis=None), device=dev)
+    flash.load_state_dict(model.state_dict())
+    names = [n for n, _ in model.named_parameters()]
+    got = {}
+    for label, m in (("flash", flash), ("ulysses", model)):
+        loss = lm_loss_streaming(m, tokens)
+        got[label] = (loss.detach(), torch.autograd.grad(
+            loss, list(m.parameters())))
+    diff = [n for n, a, b in zip(names, got["flash"][1], got["ulysses"][1])
+            if not torch.equal(a, b)]
+    loss_equal = bool(torch.equal(got["flash"][0], got["ulysses"][0]))
+    log("ulysses at one rank vs the lc flash model: loss equal %s (%.6f), "
+        "%d of %d gradients differ %s" % (loss_equal,
+                                         got["ulysses"][0].item(),
+                                         len(diff), len(names), diff[:4]))
+    if not loss_equal or diff:
+        fail("the Ulysses model on a one-rank axis differs from the lc "
+             "flash model: loss equal %s, gradients %s"
+             % (loss_equal, diff[:8]))
+    del got
+    torch.cuda.empty_cache()
+    passes = pass_launches(model, tokens, lm_loss_streaming,
+                           2 * cfg.num_layers, "ulysses")
+
+    def run(m, label):
+        opt = hvd.DistributedOptimizer(torch.optim.Adam(m.parameters(),
+                                                        lr=1e-4),
+                                       m.named_parameters())
+        step = make_train_step(m, lm_loss_streaming, opt)
+        warmup, timed = 2, 3
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, times = [], []
+        for i in range(warmup + timed):
+            t0 = time.perf_counter()
+            loss = step(tokens).item()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+            log("%s step %d: loss %.5f, %.1f ms" % (label, i, loss,
+                                                     times[-1] * 1e3))
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            fail("%s losses not finite and falling: %s" % (label, losses))
+        step_s = statistics.median(times[warmup:])
+        res = dict(step_ms=step_s * 1e3, tokens_per_s=B * L / step_s,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   loss_first=losses[0], loss_last=losses[-1])
+        return res, step, warmup + timed
+
+    # the flash model first, on its own weights' copy, for the step time
+    # beside the Ulysses model's in the same run
+    flash_res, _, _ = run(flash, "ulysses_flash")
+    del flash
+    torch.cuda.empty_cache()
+    result, step, steps = run(model, "ulysses")
+    counts = launch_counts()
+    kernels = dict({n: cfg.num_layers for n in FLASH_ROT},
+                   **{ROPE: 2 * cfg.num_layers})
+    for name, c in counts.items():
+        if c != kernels.get(name, 0) * steps:
+            fail("%s launched %d times in %d ulysses steps, expected %d per "
+                 "step" % (name, c, steps, kernels.get(name, 0)))
+    result.update(bitwise_lc_flash=True, flash=flash_res,
+                  pass_launches_forward_backward=passes,
+                  launches_per_step={n: c // steps for n, c in
+                                     counts.items() if c}, steps=steps)
+    if profile_dir:
+        result["profile"] = profile_steps(step, tokens, profile_dir,
+                                          "ulysses")
+    print("ulysses: " + json.dumps(result), flush=True)
+    hvd.shutdown()
+    return {name: counts[name] for name in kernels}
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("api", "kernels", "train",
                                        "bn_kernels", "resnet", "resnet_lean",
                                        "ring_kernels", "sp", "lc", "lc_sp",
-                                       "wire_kernels", "zero1"),
+                                       "wire_kernels", "zero1", "moe",
+                                       "ulysses"),
                     help="run the device and build phases and this one")
     ap.add_argument("--profile", metavar="DIR",
                     help="after the train, resnet, resnet_lean (and its "
-                    "bn_remat steps), sp and lc_sp phases, profile 3 more "
-                    "steps each (lc always profiles) and write the kernel "
-                    "tables to DIR/chip_smoke_{lm,resnet,resnet_lean,"
-                    "resnet_lean_remat,sp,lc,lc_unfused,lc_sp}_profile.txt")
+                    "bn_remat steps), sp, lc_sp, moe and ulysses phases, "
+                    "profile 3 more steps each (lc always profiles) and "
+                    "write the kernel tables to DIR/chip_smoke_{lm,resnet,"
+                    "resnet_lean,resnet_lean_remat,sp,lc,lc_unfused,lc_sp,"
+                    "moe,ulysses}_profile.txt")
     args = ap.parse_args()
     phase_device()
     if not (ROOT / "horovod_tpu_torch").is_dir():
@@ -2904,6 +3447,10 @@ def main():
         add(wire_launches)
     if run("zero1"):
         add(phase_zero1())
+    if run("moe"):
+        add(phase_moe(profile_dir=args.profile))
+    if run("ulysses"):
+        add(phase_ulysses(profile_dir=args.profile))
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         row = rows.get(name, {})

@@ -7,7 +7,9 @@ mesh), the collectives run over it or over groups of it,
 the backward pass, before every update (or, with ``sharded_update=True``,
 runs the ZeRO-1 sharded update), wire compression re-encodes each hop of
 an explicit ring in bf16 or block-int8, and the models' hot kernels and the
-wire codec are written by hand for Hopper (``ops/csrc``). It imports ``torch`` and
+wire codec are written by hand for Hopper (``ops/csrc``). ``parallel``
+holds the other strategies over a mesh of process groups: sequence
+(ring, Ulysses), tensor, pipeline and expert parallelism. It imports ``torch`` and
 numpy, never JAX or the ``horovod_tpu`` package.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``;

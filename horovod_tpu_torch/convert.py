@@ -11,7 +11,15 @@
   becomes [E, H * D];
 - ``mlp_in``, ``mlp_out`` and ``lm_head`` kernels [in, out] are
   transposed to [out, in];
-- ``norm1``, ``norm2``, ``norm_f`` ``scale`` [E] is the RMSNorm weight.
+- ``norm1``, ``norm2``, ``norm_f`` ``scale`` [E] is the RMSNorm weight;
+- a MoE block's ``moe_mlp`` ``router`` [E, experts], ``w_in``
+  [experts, E, M] and ``w_out`` [experts, M, E] are the ``MoeMlp``
+  parameters as they are.
+
+A local (tp-sharded) flax tree converts with the local config
+(``cfg.local(tp)``). ``shard_state_dict(state, tp_size, tp_rank, ep_size,
+ep_rank)`` slices a full port state dict to one tp or ep shard: the dims
+of ``tensor_parallel.tp_param_specs`` and ``expert.ep_param_specs``.
 
 ``resnet_state_dict_from_jax(variables_np, model)`` takes the flax
 ``{"params", "batch_stats"}`` tree of ``horovod_tpu.models.ResNet`` as
@@ -33,30 +41,65 @@ import re
 import numpy as np
 import torch
 
+from horovod_tpu_torch.parallel.expert import ep_param_specs
+from horovod_tpu_torch.parallel.tensor_parallel import tp_param_specs
+
 
 def _t(a):
     return torch.tensor(np.asarray(a, dtype=np.float32))
 
 
 def transformer_state_dict_from_jax(params_np, cfg):
-    E = cfg.embed_dim
     sd = {"embed.weight": _t(params_np["embed"]["embedding"]),
           "norm_f.weight": _t(params_np["norm_f"]["scale"]),
           "lm_head.weight": _t(np.asarray(params_np["lm_head"]["kernel"]).T)}
     for i in range(cfg.num_layers):
-        p = params_np["block_%d" % i]
-        pre = "blocks.%d." % i
-        attn = p["attn"]
-        for name in ("query", "key", "value"):
-            k = np.asarray(attn[name]["kernel"])
-            sd[pre + "attn.%s.weight" % name] = _t(k.reshape(E, -1).T)
-        sd[pre + "attn.out.weight"] = _t(
-            np.asarray(attn["out"]["kernel"]).reshape(-1, E).T)
-        sd[pre + "norm1.weight"] = _t(p["norm1"]["scale"])
-        sd[pre + "norm2.weight"] = _t(p["norm2"]["scale"])
-        sd[pre + "mlp_in.weight"] = _t(np.asarray(p["mlp_in"]["kernel"]).T)
-        sd[pre + "mlp_out.weight"] = _t(np.asarray(p["mlp_out"]["kernel"]).T)
+        for name, t in block_state_dict_from_jax(
+                params_np["block_%d" % i], cfg).items():
+            sd["blocks.%d.%s" % (i, name)] = t
     return sd
+
+
+def block_state_dict_from_jax(p, cfg):
+    """The ``state_dict`` of one ``Block`` from flax's ``block_<i>`` tree."""
+    E = cfg.embed_dim
+    sd = {}
+    attn = p["attn"]
+    for name in ("query", "key", "value"):
+        k = np.asarray(attn[name]["kernel"])
+        sd["attn.%s.weight" % name] = _t(k.reshape(E, -1).T)
+    sd["attn.out.weight"] = _t(
+        np.asarray(attn["out"]["kernel"]).reshape(-1, E).T)
+    sd["norm1.weight"] = _t(p["norm1"]["scale"])
+    sd["norm2.weight"] = _t(p["norm2"]["scale"])
+    if "moe_mlp" in p:
+        for name in ("router", "w_in", "w_out"):
+            sd["moe_mlp." + name] = _t(p["moe_mlp"][name])
+    else:
+        sd["mlp_in.weight"] = _t(np.asarray(p["mlp_in"]["kernel"]).T)
+        sd["mlp_out.weight"] = _t(np.asarray(p["mlp_out"]["kernel"]).T)
+    return sd
+
+
+def shard_state_dict(state, tp_size=1, tp_rank=0, ep_size=1, ep_rank=0):
+    """The shard of a full port state dict (or of any {name: tensor} of the
+    transformer's parameters, gradients too) that tp rank ``tp_rank`` of
+    ``tp_size`` and ep rank ``ep_rank`` of ``ep_size`` hold: each tensor
+    cut into contiguous equal chunks along its sharded dim, every other
+    tensor as it is."""
+    tp_dims, ep_dims = tp_param_specs(state), ep_param_specs(state)
+    out = {}
+    for name, t in state.items():
+        for dims, n, r in ((tp_dims, tp_size, tp_rank),
+                           (ep_dims, ep_size, ep_rank)):
+            if dims[name] is not None and n > 1:
+                if t.shape[dims[name]] % n:
+                    raise ValueError("%s: dim %d of %s does not split into "
+                                     "%d shards" % (name, dims[name],
+                                                    tuple(t.shape), n))
+                t = t.chunk(n, dims[name])[r]
+        out[name] = t.clone()
+    return out
 
 
 def _by_position(tree, exclude=()):

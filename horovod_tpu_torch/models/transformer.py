@@ -3,12 +3,14 @@
 Counterpart of ``horovod_tpu/models/transformer.py``: pre-norm blocks,
 RMSNorm, rotary position embedding applied to q and k outside the
 attention kernel (at the positions the caller passes, global ones for a
-sequence shard) or, with ``rope_fused=True`` under flash or ring attention,
-inside the kernels, attention ``"dense"`` (plain PyTorch), ``"flash"``
-(the Hopper kernels of ``ops/flash_attention``) or ``"ring"``
-(sequence-parallel ring attention over the mesh axis ``sp_axis``,
-``parallel/ring.py``), GQA through ``num_kv_heads``, a SiLU MLP and an
-untied lm_head. The parameters are the same for every attention.
+sequence shard) or, with ``rope_fused=True`` under flash, ring or Ulysses
+attention, inside the kernels, attention ``"dense"`` (plain PyTorch),
+``"flash"`` (the Hopper kernels of ``ops/flash_attention``), ``"ring"`` or
+``"ulysses"`` (sequence-parallel over the mesh axis ``sp_axis``,
+``parallel/ring.py``), GQA through ``num_kv_heads``, a SiLU MLP or, every
+``moe_every``-th block, a Switch MoE (``parallel/expert.py``, experts
+sharded over ``ep_axis``), Megatron tensor parallelism over ``tp_axis``
+(build with ``cfg.local(tp_size)``), and an untied lm_head.
 
 Precision follows flax's ``dtype=``/``param_dtype=``: parameters are
 float32, and with ``cfg.dtype=torch.bfloat16`` each product casts its
@@ -27,23 +29,32 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch.common.basics import resolve_device
 from horovod_tpu_torch.ops.flash_attention import apply_rotary, flash_attention
-from horovod_tpu_torch.parallel.ring import ring_attention
+from horovod_tpu_torch.parallel import _axis
+from horovod_tpu_torch.parallel.expert import MoeMlp
+from horovod_tpu_torch.parallel.ring import ring_attention, ulysses_attention
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """Same fields as the JAX package's config. The port runs
-    ``attention`` "dense", "flash" and "ring" (with ``sp_axis`` and
-    ``sp_schedule``) with ``num_kv_heads`` and ``rope_fused``; "ulysses"
-    and the tensor- and expert-parallel fields must keep their defaults
-    until their slices land.
+    """The JAX package's config, every field.
 
-    ``rope_fused=True`` rotates q and k inside the flash or ring kernels
-    (``rotary_base=rope_base``), at positions 0..L-1 of the sequence (the
-    ring: its shards' global positions): the ``positions`` the model is
-    given are then ignored, as in the JAX package, so packed sequences or
-    shifted windows need ``rope_fused=False``. Dense attention rotates
-    outside either way.
+    ``attention``: "dense", "flash", "ring" or "ulysses" (the last two with
+    ``sp_axis``; "ring" with ``sp_schedule``). ``rope_fused=True`` rotates
+    q and k inside the flash, ring or Ulysses kernels (``rotary_base=
+    rope_base``), at positions 0..L-1 of the sequence (the ring: its
+    shards' global positions): the ``positions`` the model is given are
+    then ignored, as in the JAX package, so packed sequences or shifted
+    windows need ``rope_fused=False``. Dense attention rotates outside
+    either way.
+
+    ``tp_axis``: the model runs as one tp shard (``num_heads``,
+    ``num_kv_heads`` and ``mlp_dim`` are the local sizes: build it from
+    ``local(tp_size)``) and sums the partial products of the out and mlp_out
+    projections over the axis. ``moe_experts``: every ``moe_every``-th
+    block (``i % moe_every == moe_every - 1``) swaps its MLP for a
+    ``MoeMlp`` of that many experts (top ``moe_top_k``), each rank holding
+    ``moe_experts / ep_size`` of them with ``ep_axis``. MoE and tp do not
+    combine (the reference's ``ValueError``).
 
     With ``attention="flash"`` on a GPU the kernels' products take bf16
     inputs whatever ``dtype`` is: a float32 config gets f32 softmax and
@@ -55,7 +66,7 @@ class TransformerConfig:
     embed_dim: int = 768
     mlp_dim: int = 3072
     max_seq_len: int = 8192
-    attention: str = "dense"      # dense | flash | ring (ulysses later)
+    attention: str = "dense"      # dense | flash | ring | ulysses
     num_kv_heads: Optional[int] = None
     rope_fused: bool = False
     rope_base: float = 10000.0
@@ -72,27 +83,44 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16
 
     def __post_init__(self):
-        later = []
-        if self.attention == "ulysses":
-            later.append("Ulysses sequence parallelism (attention='ulysses')")
-        elif self.attention not in ("dense", "flash", "ring"):
+        if self.attention not in ("dense", "flash", "ring", "ulysses"):
             raise ValueError("attention=%r is not dense|flash|ring|ulysses"
                              % self.attention)
-        if self.attention == "ring" and not self.sp_axis:
-            raise ValueError("attention='ring' needs sp_axis, the mesh axis "
-                             "that holds the sequence shards")
-        if self.tp_axis is not None:
-            later.append("tensor parallelism (tp_axis)")
-        if self.moe_experts is not None or self.ep_axis is not None:
-            later.append("mixture of experts (moe_experts, ep_axis)")
-        if later:
-            raise NotImplementedError(
-                "not in the port yet, each is a later slice: "
-                + "; ".join(later))
+        if self.attention in ("ring", "ulysses") and not self.sp_axis:
+            raise ValueError("attention=%r needs sp_axis, the mesh axis "
+                             "that holds the sequence shards"
+                             % self.attention)
+        if self.moe_experts is not None and self.tp_axis is not None:
+            # The MoE branch neither sums like the row-parallel mlp_out nor
+            # shards experts by tp: the activations would diverge across
+            # tp shards.
+            raise ValueError("moe_experts cannot be combined with "
+                             "tp_axis (MoE blocks are ep-parallel, "
+                             "not tensor-parallel)")
         G = self.num_kv_heads or self.num_heads
         if self.num_heads % G:
             raise ValueError("num_kv_heads=%d must divide num_heads=%d"
                              % (G, self.num_heads))
+
+    def local(self, tp_size):
+        """The per-shard config for ``tp_size``-way tensor parallelism."""
+        if self.num_heads % tp_size or self.mlp_dim % tp_size:
+            raise ValueError(
+                "tp_size=%d must divide both num_heads=%d and "
+                "mlp_dim=%d" % (tp_size, self.num_heads, self.mlp_dim))
+        kv = self.num_kv_heads
+        if kv is not None:
+            if kv % tp_size:
+                raise ValueError(
+                    "tp_size=%d must divide num_kv_heads=%d (tensor "
+                    "parallelism shards the kv heads too)"
+                    % (tp_size, kv))
+            kv = kv // tp_size
+        return dataclasses.replace(
+            self, num_heads=self.num_heads // tp_size,
+            num_kv_heads=kv,
+            mlp_dim=self.mlp_dim // tp_size,
+            head_dim=self.head_dim or self.embed_dim // self.num_heads)
 
 
 def _rotary(x, positions, base=10000.0):
@@ -142,7 +170,8 @@ class Attention(nn.Module):
         q = _linear(x, self.query, cfg.dtype).view(B, L, H, D)
         k = _linear(x, self.key, cfg.dtype).view(B, L, G, D)
         v = _linear(x, self.value, cfg.dtype).view(B, L, G, D)
-        fused = cfg.rope_fused and cfg.attention in ("flash", "ring")
+        fused = (cfg.rope_fused and
+                 cfg.attention in ("flash", "ring", "ulysses"))
         if not fused:
             q = _rotary(q, positions, cfg.rope_base)
             k = _rotary(k, positions, cfg.rope_base)
@@ -152,9 +181,16 @@ class Attention(nn.Module):
         elif cfg.attention == "ring":
             o = ring_attention(q, k, v, cfg.sp_axis, causal=True,
                                schedule=cfg.sp_schedule, rotary_base=rb)
+        elif cfg.attention == "ulysses":
+            o = ulysses_attention(q, k, v, cfg.sp_axis, causal=True,
+                                  rotary_base=rb)
         else:
             o = _dense_attention(q, k, v, D ** -0.5)
-        return _linear(o.reshape(B, L, H * D), self.out, cfg.dtype)
+        out = _linear(o.reshape(B, L, H * D), self.out, cfg.dtype)
+        if cfg.tp_axis is not None:
+            # each tp shard projected its local heads: a partial sum
+            out = _axis.psum(out, cfg.tp_axis)
+        return out
 
 
 def _dense_attention(q, k, v, scale):
@@ -173,21 +209,40 @@ def _dense_attention(q, k, v, scale):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, device=None):
+    """A pre-norm block: attention, then the SiLU MLP or, with ``moe``, a
+    ``MoeMlp`` (``cfg.moe_experts`` experts)."""
+
+    def __init__(self, cfg, moe=False, device=None):
         super().__init__()
         self.cfg = cfg
         E = cfg.embed_dim
         self.norm1 = RMSNorm(E, cfg.dtype, device=device)
         self.attn = Attention(cfg, device=device)
         self.norm2 = RMSNorm(E, cfg.dtype, device=device)
-        self.mlp_in = nn.Linear(E, cfg.mlp_dim, bias=False, device=device)
-        self.mlp_out = nn.Linear(cfg.mlp_dim, E, bias=False, device=device)
+        self.moe = moe
+        if moe:
+            self.moe_mlp = MoeMlp(E, cfg.moe_experts, cfg.mlp_dim,
+                                  capacity_factor=cfg.moe_capacity_factor,
+                                  ep_axis=cfg.ep_axis, ep_size=cfg.ep_size,
+                                  top_k=cfg.moe_top_k, dtype=cfg.dtype,
+                                  device=device)
+        else:
+            self.mlp_in = nn.Linear(E, cfg.mlp_dim, bias=False,
+                                    device=device)
+            self.mlp_out = nn.Linear(cfg.mlp_dim, E, bias=False,
+                                     device=device)
 
     def forward(self, x, positions):
-        dt = self.cfg.dtype
+        cfg = self.cfg
         x = x + self.attn(self.norm1(x), positions)
-        h = F.silu(_linear(self.norm2(x), self.mlp_in, dt))
-        return x + _linear(h, self.mlp_out, dt)
+        if self.moe:
+            return x + self.moe_mlp(self.norm2(x))
+        h = F.silu(_linear(self.norm2(x), self.mlp_in, cfg.dtype))
+        h = _linear(h, self.mlp_out, cfg.dtype)
+        if cfg.tp_axis is not None:
+            # column-parallel mlp_in, row-parallel mlp_out: a partial sum
+            h = _axis.psum(h, cfg.tp_axis)
+        return x + h
 
 
 class Transformer(nn.Module):
@@ -197,7 +252,7 @@ class Transformer(nn.Module):
     Built on ``device`` (default: the GPU; ``"cpu"`` for tests), its
     weights drawn from ``generator`` (a ``torch.Generator`` on that
     device) with flax's default scales: embedding N(0, 1/E), each linear
-    N(0, 1/fan_in), norms 1."""
+    N(0, 1/fan_in), norms 1, MoE weights N(0, 0.02)."""
 
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
@@ -205,8 +260,11 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab_size, cfg.embed_dim,
                                   device=device)
-        self.blocks = nn.ModuleList(Block(cfg, device=device)
-                                    for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(
+            Block(cfg, moe=(cfg.moe_experts is not None and
+                            i % cfg.moe_every == cfg.moe_every - 1),
+                  device=device)
+            for i in range(cfg.num_layers))
         self.norm_f = RMSNorm(cfg.embed_dim, cfg.dtype, device=device)
         self.lm_head = nn.Linear(cfg.embed_dim, cfg.vocab_size, bias=False,
                                  device=device)
@@ -223,6 +281,8 @@ class Transformer(nn.Module):
                                  generator=generator)
             elif isinstance(m, RMSNorm):
                 m.weight.fill_(1.0)
+            elif isinstance(m, MoeMlp):
+                m.reset_parameters(generator)
 
     def forward(self, tokens, positions=None, return_hidden=False):
         cfg = self.cfg

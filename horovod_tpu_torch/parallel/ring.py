@@ -1,8 +1,9 @@
-"""Sequence-parallel ring attention over a process group.
+"""Sequence-parallel ring attention over a process group, and Ulysses.
 
 Counterpart of the attention half of ``horovod_tpu/parallel/ring.py``
 (``ring_attention``, its forward and backward rings, ``zigzag_shard``,
-``zigzag_unshard``). Each rank of the group holds a shard of the sequence;
+``zigzag_unshard``, ``ulysses_attention``: two tiled all-to-alls around
+``flash_attention``, see its docstring). Each rank of the group holds a shard of the sequence;
 the k/v shards travel around the ring, one hop a step, and each step runs
 one kernel on the rank's q shard and the k/v shard it holds:
 
@@ -62,12 +63,14 @@ from horovod_tpu_torch.compression import NONE, chunk_length, resolve
 from horovod_tpu_torch.groups import group_rank, group_size, resolve_group
 from horovod_tpu_torch.ops.flash_attention import (_delta, _kernel_layout,
                                                    apply_rotary,
+                                                   flash_attention,
                                                    flash_ring_bwd_dkv,
                                                    flash_ring_bwd_dq,
                                                    flash_ring_step,
                                                    rope_rotate,
                                                    shard_positions)
 from horovod_tpu_torch.ops.wire_codec import wire_decode_add, wire_encode
+from horovod_tpu_torch.parallel import _axis
 from horovod_tpu_torch.parallel.mesh import axis_group
 
 
@@ -290,6 +293,40 @@ def zigzag_unshard(x, n, axis=1):
         out[r] = pairs[2 * r]
         out[2 * n - 1 - r] = pairs[2 * r + 1]
     return torch.cat(out, dim=axis)
+
+
+def ulysses_attention(q, k, v, axis_name, causal=True, scale=None,
+                      rotary_base=None):
+    """All-to-all sequence parallelism (DeepSpeed-Ulysses), the reference's
+    ``parallel/ring.py:653``.
+
+    q [B, L_local, H, D] and k, v [B, L_local, G, D] hold this rank's shard
+    of the sequence (shards in rank order along ``axis_name``). A tiled
+    all-to-all turns each into [B, L, H/n, D] (k, v: G/n heads): the heads
+    split into n contiguous chunks, chunk j to rank j, the sequence
+    gathered in rank order; ``flash_attention`` (K1-K3) runs over the whole
+    sequence on the local heads, and the inverse all-to-all gives each rank
+    its shard back. n must divide H and G; the contiguous split keeps each
+    kv head with its query heads. ``rotary_base`` fuses rotary in the
+    kernels: the gathered sequence starts at position 0, so the positions
+    are global. The exchanges run at one rank too."""
+    n = _axis.axis_size(axis_name)
+    H, G = q.shape[2], k.shape[2]
+    if H % G:
+        raise ValueError(
+            f"num_heads={H} must be a multiple of num_kv_heads={G}")
+    if H % n or G % n:
+        raise ValueError(
+            f"ulysses needs the sp axis size ({n}) to divide both "
+            f"num_heads={H} and num_kv_heads={G} (the all_to_all "
+            f"splits the head dims)")
+
+    def seq_to_heads(x):
+        return _axis.all_to_all(x, axis_name, 2, 1)
+
+    o = flash_attention(seq_to_heads(q), seq_to_heads(k), seq_to_heads(v),
+                        causal=causal, scale=scale, rotary_base=rotary_base)
+    return _axis.all_to_all(o, axis_name, 1, 2)
 
 
 # ------------------------------------------------- the ring collectives

@@ -154,10 +154,13 @@ def _fsdp_shards(p, n, min_size):
 
 
 def make_fsdp_train_step(model, loss_fn, optimizer_cls, optimizer_kwargs=None,
-                         min_size=1024, device=None):
-    """Fully sharded data parallelism (ZeRO-3) over the world:
-    ``horovod_tpu.parallel.make_fsdp_train_step`` written by hand over the
-    collectives, where the reference lets GSPMD insert them.
+                         min_size=1024, device=None, group=None,
+                         grad_sync=None):
+    """Fully sharded data parallelism (ZeRO-3) over the world, or over
+    ``group`` (a torch process group, e.g. ``axis_group("fsdp")`` of an
+    (fsdp, tp) ``hybrid_mesh``): ``horovod_tpu.parallel.make_fsdp_train_step``
+    written by hand over the collectives, where the reference lets GSPMD
+    insert them.
 
     Each parameter that ``_fsdp_shards`` picks is replaced, in ``model``,
     by its dim-0 shard (a ``torch.nn.utils.parametrize`` parametrization:
@@ -182,10 +185,18 @@ def make_fsdp_train_step(model, loss_fn, optimizer_cls, optimizer_kwargs=None,
     sharded parameters), ``step.full_parameters()`` ({name: whole tensor},
     a collective) and ``step.opt_state_bytes()`` (this rank's optimizer
     state). Reading a sharded parameter outside the step (``module.weight``)
-    allgathers it: do it on every rank."""
+    allgathers it: do it on every rank.
+
+    FSDP x tp: run this on the tp-local model (``cfg.local(tp)``, its tp
+    shard loaded) with ``group`` the fsdp axis, so each tp shard is sharded
+    again over fsdp, and ``grad_sync=lambda g: tp_grad_sync(g, "tp")``:
+    ``grad_sync`` maps {parameter name: gradient} to synced gradients after
+    the backward, before the update (names as ``named_parameters()`` gives
+    them, a sharded one's ending in ``parametrizations.<name>.original``)."""
     device = resolve_device(device)
-    n, r = basics.size(), basics.rank()
-    group = basics.process_group()
+    if group is None:
+        group = basics.process_group()
+    n, r = dist.get_world_size(group), dist.get_rank(group)
     counts = {}
     for _, p in model.named_parameters(remove_duplicate=False):
         counts[p] = counts.get(p, 0) + 1
@@ -213,9 +224,15 @@ def make_fsdp_train_step(model, loss_fn, optimizer_cls, optimizer_kwargs=None,
         with parametrize.cached():
             loss = loss_fn(model, batch)
             loss.backward()
-        allreduce_gradients(replicated, name_prefix="fsdp_grad")
+        allreduce_gradients(replicated, name_prefix="fsdp_grad", group=group)
+        if grad_sync is not None:
+            named = [(k, p) for k, p in model.named_parameters()
+                     if p.grad is not None]
+            synced = grad_sync({k: p.grad for k, p in named})
+            for k, p in named:
+                p.grad = synced[k]
         optimizer.step()
-        return allreduce(loss.detach().float(), average=True)
+        return allreduce(loss.detach().float(), average=True, group=group)
 
     def full_parameters():
         with torch.no_grad():

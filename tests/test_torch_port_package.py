@@ -29,6 +29,7 @@ PORT_FILES = PACKAGE_FILES + [
     ROOT / "tests" / "torch_port_api_worker.py",
     ROOT / "tests" / "torch_port_wire_worker.py",
     ROOT / "tests" / "torch_port_zero_worker.py",
+    ROOT / "tests" / "torch_port_parallel_worker.py",
     ROOT / "tests" / "torch_port_planted_faults.py",
     ROOT / "tests" / "torch_port_fwd_ab.py",
     ROOT / "tests" / "torch_port_bwd_ab.py",

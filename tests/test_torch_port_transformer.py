@@ -217,12 +217,96 @@ def test_rope_fused_dense_rotates_outside():
                                atol=LOGIT_TOL)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("ep_axis", "ep"), ("attention", "ulysses"), ("tp_axis", "tp"),
-    ("moe_experts", 4)])
-def test_later_slices_raise_not_implemented(field, value):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TransformerConfig(**{field: value})
+# Every field of the JAX config with a value other than its default (the
+# axes only name mesh axes: the model is built, not run).
+FIELDS = {"attention": "ulysses", "sp_axis": "sp", "sp_schedule": "zigzag",
+          "tp_axis": "tp", "head_dim": 32, "moe_experts": 4,
+          "moe_every": 3, "moe_capacity_factor": 2.0, "moe_top_k": 2,
+          "ep_axis": "ep", "ep_size": 2, "num_kv_heads": 2,
+          "rope_fused": True, "rope_base": 500.0, "max_seq_len": 128}
+
+
+def test_config_has_every_jax_field():
+    port = {f.name for f in dataclasses.fields(TransformerConfig)}
+    ref = {f.name for f in dataclasses.fields(jax_models.TransformerConfig)}
+    assert port == ref
+    assert set(FIELDS) <= port
+
+
+@pytest.mark.parametrize("field", sorted(FIELDS))
+def test_config_accepts_every_field(field):
+    """The fields the earlier slices refused (attention="ulysses", tp_axis,
+    moe_experts, ep_axis) build a model like the others; MoE with tp raises
+    the reference's ValueError."""
+    kw = dict(SMALL, **{field: FIELDS[field]})
+    if field == "attention":
+        kw["sp_axis"] = "sp"
+    if field in ("moe_every", "moe_capacity_factor", "moe_top_k",
+                 "ep_size"):
+        kw["moe_experts"] = 4
+    if field == "tp_axis":
+        with pytest.raises(ValueError, match="cannot be combined"):
+            TransformerConfig(moe_experts=4, **kw)
+    cfg = TransformerConfig(dtype=torch.float32, **kw)
+    assert getattr(cfg, field) == FIELDS[field]
+    model = Transformer(cfg, device="cpu")
+    moe = [i for i, b in enumerate(model.blocks) if b.moe]
+    every = cfg.moe_every
+    assert moe == ([i for i in range(cfg.num_layers)
+                    if i % every == every - 1] if cfg.moe_experts else [])
+
+
+# bench.py's MoE row (--moe-experts 8 --fused-xent: Switch top-1 every
+# second block, capacity factor 1.25, flash attention, the streaming loss)
+# cut to 2 layers and narrow widths; 16 x 8 = 128 tokens on 4 experts, 40
+# slots each, so some tokens drop on both sides.
+MOE_SMALL = dict(SMALL, num_layers=2, mlp_dim=128, moe_experts=4,
+                 attention="flash")
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_lm_slice_matches_jax(top_k):
+    """The slice as a whole at a small size: the MoE LM with flash
+    attention (the plain versions here) and the streaming loss plus 0.01
+    times the aux loss, converted from flax weights: the loss and every
+    parameter's gradient against the JAX model's, in float32."""
+    from horovod_tpu.ops.losses import chunked_softmax_cross_entropy
+    from horovod_tpu_torch.parallel import moe_aux_loss
+    kw = dict(MOE_SMALL, moe_top_k=top_k)
+    tokens = np.random.RandomState(12).randint(
+        0, kw["vocab_size"], (16, 8)).astype(np.int32)
+    model = jax_models.Transformer(jax_models.TransformerConfig(
+        dtype=jnp.float32, **kw))
+    x = jnp.asarray(tokens)
+    params = model.init(jax.random.PRNGKey(5), x)["params"]
+
+    def loss_fn(params):
+        hidden, state = model.apply({"params": params}, x,
+                                    return_hidden=True,
+                                    mutable=["intermediates"])
+        aux = sum(jax.tree_util.tree_leaves(state["intermediates"]))
+        return chunked_softmax_cross_entropy(
+            hidden, params["lm_head"]["kernel"], jnp.roll(x, -1, axis=1),
+            chunk=8) + 0.01 * aux
+
+    with jax.default_matmul_precision("highest"):
+        loss_j, grads_j = jax.value_and_grad(loss_fn)(params)
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    cfg = TransformerConfig(dtype=torch.float32, **kw)
+    port = Transformer(cfg, device="cpu")
+    port.load_state_dict(transformer_state_dict_from_jax(to_np(params), cfg))
+    loss = (lm_loss_streaming(port, torch.from_numpy(tokens).long()) +
+            0.01 * moe_aux_loss(port))
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-6)
+    loss.backward()
+    expected = transformer_state_dict_from_jax(to_np(grads_j), cfg)
+    names = dict(port.named_parameters())
+    assert set(names) == set(expected)
+    assert "blocks.1.moe_mlp.w_in" in names
+    for name, p in names.items():
+        np.testing.assert_allclose(p.grad.numpy(), expected[name].numpy(),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=name)
 
 
 def test_default_device_is_the_gpu():
@@ -246,3 +330,10 @@ def test_default_device_is_the_gpu():
                         zero1=True)
     with pytest.raises(CudaUnavailableError):
         make_fsdp_train_step(model, lm_loss, torch.optim.Adam)
+    from horovod_tpu_torch.parallel import MoeMlp
+    with pytest.raises(CudaUnavailableError):
+        MoeMlp(768, 8, 3072)
+    for kw in (dict(moe_experts=8), dict(attention="ulysses", sp_axis="sp"),
+               dict(tp_axis="tp")):
+        with pytest.raises(CudaUnavailableError):
+            Transformer(TransformerConfig(**dict(SMALL, **kw)))

@@ -16,7 +16,8 @@ kernels phase (or ring_kernels, for the ring's rotation and
 counter-rotation); for the faults of the data-parallel API the api phase,
 the train phase (the overlapped optimizer) or resnet_lean (bn_remat);
 for the wire codec's faults the wire_kernels phase (the zero1 phase runs
-one rank, where the ring applies no codec).
+one rank, where the ring applies no codec); for the MoE's faults (Python,
+in ``parallel/expert.py``) the moe phase.
 Every run must fail.
 Prints the readings each run logged (errors against the plain versions,
 the gradient gaps, the first losses) and exits 1 if a planted fault passed
@@ -237,6 +238,17 @@ FAULTS = {
         "ops/batch_norm.py",
         "            conv.stride, pad, padding, conv.dtype)\n",
         "        self._update_running(mean, var)\n", ("resnet_lean",)),
+    # the MoE's capacity positions one slot late: each expert's last
+    # queued token is dropped (the moe phase's per-token check)
+    "moe_positions_off_by_one": (
+        "parallel/expert.py",
+        "               .to(torch.int32) - 1)                                  "
+        "# [T]\n",
+        "        pos = pos + 1\n", ("moe",)),
+    # the MoE's combine without its gate
+    "moe_combine_without_gate": (
+        "parallel/expert.py", "        c = d * gate[:, None, None]\n",
+        "        c = d\n", ("moe",)),
 }
 
 
