@@ -6,7 +6,8 @@
                                            # resnet, resnet_lean,
                                            # ring_kernels, sp, lc, lc_sp,
                                            # wire_kernels, zero1, moe,
-                                           # ulysses
+                                           # ulysses, inception,
+                                           # resnet_nf, vgg16, word2vec
 
 Phases, in order; any failure exits non-zero:
 
@@ -82,7 +83,9 @@ Phases, in order; any failure exits non-zero:
    PyTorch's own ``torch.batch_norm_stats``,
    ``torch.batch_norm_backward_reduce``, ``torch.batch_norm_elemt`` and
    ``torch.batch_norm_backward_elemt`` (yardsticks the port never calls)
-   at the stem.
+   at the stem. The same checks and times at three of InceptionV3's
+   launches at batch 128: the stem (M = 128 * 149 * 149, C = 32), a 1x1
+   of 80 channels (128 * 73 * 73) and an E block's 448 (128 * 8 * 8).
 6. resnet: ``hvd.init()``, ResNet-50 with ``norm="pallas"`` (bf16 over f32
    params) from a seeded generator, its block-final BN scales set nonzero
    from the seed, SGD(0.01, momentum 0.9) in ``DistributedOptimizer`` and
@@ -224,6 +227,31 @@ Phases, in order; any failure exits non-zero:
    none in its backward; 2 warm-up and 3 timed steps of the flash model,
    then of the Ulysses model (12 launches each of K1_rot-K3_rot and 24 of
    the pass a step); step ms and peak memory of both.
+15. inception: bench.py's inception3pbn row, ``InceptionV3(norm="pallas")``
+   (94 ConvBN blocks on K7, K8 and the two BN passes) at 128 x 299 x 299,
+   SGD 0.01 momentum 0.9, dropout on: every block's kernel, scale and bias
+   gradients at batch 32 in float32 against the stock BN's on the same
+   weights, given the block's input and output cotangent in the stock
+   model's loss (<= 5e-2; the whole model's gaps are logged: chained
+   through 94 BN layers at initialisation two sound paths stand 0.06
+   apart), the first loss at 128 against it (2e-2 relative); 2 warm-up
+   and 5 timed steps with finite, falling losses and 94 launches of each
+   BN kernel a step; step ms, images/s, peak memory.
+16. resnet_nf: ``ResNet50NF`` at batch 256 through
+   ``make_train_step(agc=0.01)`` (the share of AGC units clipped in the
+   first step printed), then ``ResNet50GN`` (GroupNorm) without AGC: 7
+   steps each, finite and falling losses, step ms and peak memory beside
+   the resnet phase's ResNet-50.
+17. vgg16: ``VGG16`` at batch 64 x 224, SGD, dropout on: 7 steps, finite
+   and falling losses, step ms, peak memory.
+18. word2vec: ``SkipGram`` at bench.py's word2vec row (V 50000, D 256, B
+   4096, K 512, lr 0.5, Zipf ids) on a one-rank NCCL group: 10 steps on the
+   sparse plane (``allreduce_sparse``, ``apply_sparse_``) and 10 on the
+   dense one from the same tables; the tables then within 1e-5
+   (norm-relative) of each other, and the sparse path's peak memory above
+   the tables under one [V, D] table; ms a step of each. Then
+   ``MnistCNN`` (5 SGD steps at batch 64) and a ``checkpoint`` save and
+   restore of ResNet50NF's state and its optimizer's, equal bit for bit.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -451,6 +479,30 @@ MOE_TOKEN_TOL = 2e-2
 # weights, norm-relative per parameter, after ZERO1_CHECK_STEP steps
 ZERO1_TOL = 1e-6
 ZERO1_CHECK_STEP = 3
+# bench.py's inception3pbn row (bench.py:302-303, built at :2577-2636):
+# InceptionV3(norm="pallas") at 128 x 299 x 299, 94 BN layers; the
+# gradient check at batch 32 (the resnet phase's limits)
+INCEPTION_BATCH, INCEPTION_IMAGE, INCEPTION_GRAD_BATCH = 128, 299, 32
+INCEPTION_BN_LAYERS = 94
+# Inception's BN launches for the bn_kernels phase, name -> (M, C, dy
+# dtype, (H, W)) at batch 128: the stem's first (149 x 149 x 32), the 1x1
+# of 80 channels at 73 x 73, and an E block's 448 at 8 x 8
+INCEPTION_BN_SHAPES = {
+    "inc_stem": (128 * 149 * 149, 32, "bfloat16", (149, 149)),
+    "inc_c80": (128 * 73 * 73, 80, "bfloat16", (73, 73)),
+    "inc_c448": (128 * 8 * 8, 448, "bfloat16", (8, 8)),
+}
+# bench.py's resnet50nf row trains with AGC 0.01 (bench.py:2620-2636);
+# its vgg16 row at batch 64
+AGC_CLIPPING = 0.01
+VGG_BATCH = 64
+# bench.py's word2vec row (bench.py:2200-2262; --vocab-size 50000), 10
+# steps of each plane from the same tables; examples/jax_mnist.py's batch
+W2V_ROW = dict(V=50000, D=256, B=4096, K=512, lr=0.5, steps=10)
+W2V_TABLE_TOL = 1e-5
+MNIST_BATCH, MNIST_STEPS = 64, 5
+# each phase's printed result, by phase
+RESULTS = {}
 
 
 def log(*args):
@@ -964,16 +1016,23 @@ def _bn_pass_checks(bn, x, dy, gamma, beta, groups, extra):
 
 
 def phase_bn_kernels():
-    """K7 and K8 against their plain versions at BN_SHAPES (and, at the
-    stem, with BN_GROUPS ghost groups and K8 with the ReLU mask), the
-    normalize and dx passes bit for bit against theirs (both modes, with and
-    without the ReLU, with ghost groups where they divide M); times at the
-    stem, the widest activation of the main path. Returns {name: row}."""
+    """K7 and K8 against their plain versions at BN_SHAPES and at
+    INCEPTION_BN_SHAPES (and, at the stem, with BN_GROUPS ghost groups and
+    K8 with the ReLU mask), the normalize and dx passes bit for bit against
+    theirs (both modes, with and without the ReLU, with ghost groups where
+    they divide M); times at the ResNet stem, the widest activation of the
+    main path (the row's ``ms``), and at the three Inception launches
+    (``<label>_ms``), each beside its plain version, library call and
+    bound. Returns {name: row}."""
     import torch
     from horovod_tpu_torch.ops import batch_norm as bn
     rows = {name: {} for name in BN}
     bad = []
-    for seed, (label, (M, C, dy_dtype)) in enumerate(BN_SHAPES.items()):
+    shapes = dict(BN_SHAPES, **{k: v[:3] for k, v in
+                                INCEPTION_BN_SHAPES.items()})
+    timed = dict(stem=(112, 112), **{k: v[3] for k, v in
+                                     INCEPTION_BN_SHAPES.items()})
+    for seed, (label, (M, C, dy_dtype)) in enumerate(shapes.items()):
         x, dy, mean, rstd = _bn_inputs(M, C, dy_dtype, seed)
         g = torch.Generator(device="cuda").manual_seed(100 + seed)
         gamma = torch.rand(C, generator=g, device="cuda") + 0.5
@@ -1022,10 +1081,11 @@ def phase_bn_kernels():
                 "equal their plain versions" % (
                     label, M, C, groups, 8 + 4 * (label == "odd") - len(miss),
                     8 + 4 * (label == "odd")))
-        if label == "stem":
+        if label in timed:
             # the same memory as [N, C, H, W] channels_last tensors
-            x4, dy4 = (t.view(-1, 112, 112, C).permute(0, 3, 1, 2)
+            x4, dy4 = (t.view(-1, *timed[label], C).permute(0, 3, 1, 2)
                        for t in (x, dy))
+            pre = "" if label == "stem" else label + "_"
             a = gamma * rstd
             b = beta - mean * a
             dbeta, dgamma = bn.batch_norm_grad_stats_ref(dy, x, mean, rstd)
@@ -1064,14 +1124,17 @@ def phase_bn_kernels():
             }
             for name, (kern, plain, library, n_bytes) in runs.items():
                 r = rows[name]
-                r["ms"] = time_ms(kern)
-                r["plain_ms"] = time_ms(plain, n=5, reps=3, warmup=1)
-                r["library_ms"] = time_ms(library)
-                r["bound_ms"], r["bound_by"] = _bn_bound_ms(name, M, C,
-                                                            n_bytes)
-                log("%s stem: %.4f ms (bound %.4f, plain %.3f, library %.4f)"
-                    % (name, r["ms"], r["bound_ms"], r["plain_ms"],
-                       r["library_ms"]))
+                r[pre + "ms"] = time_ms(kern)
+                r[pre + "plain_ms"] = time_ms(plain, n=5, reps=3, warmup=1)
+                r[pre + "library_ms"] = time_ms(library)
+                r[pre + "bound_ms"], r[pre + "bound_by"] = _bn_bound_ms(
+                    name, M, C, n_bytes)
+                log("%s %s (%d x %d): %.4f ms (bound %.4f, plain %.3f, "
+                    "library %.4f)" % (name, label, M, C, r[pre + "ms"],
+                                       r[pre + "bound_ms"],
+                                       r[pre + "plain_ms"],
+                                       r[pre + "library_ms"]))
+        if label == "stem":
             # the resnet_lean phase's calls: bf16 arithmetic, the ReLU
             rows["bn_apply"]["lean_relu_ms"] = time_ms(
                 lambda: bn.bn_apply(x, a, b, 1, True, "lean"))
@@ -1516,6 +1579,7 @@ def phase_resnet(profile_dir=None, lean=False):
         result["bn_remat"], remat_counts = phase_bn_remat(
             initial, batch, result, profile_dir)
     print("%s: %s" % (name, json.dumps(result)), flush=True)
+    RESULTS[name] = result
     hvd.shutdown()
     return {kernel: counts[kernel] + (remat_counts[kernel] if lean else 0)
             for kernel in BN}
@@ -2400,7 +2464,8 @@ def _category(name, model):
     # matmuls in the LM
     if any(s in low for s in ("gemm", "xmma", "nvjet", "cutlass", "sm90_",
                               "conv", "dgrad", "wgrad", "fprop")):
-        return "convolutions" if model.startswith("resnet") else "matmuls"
+        return ("convolutions" if model.startswith(("resnet", "inception"))
+                else "matmuls")
     if "multi_tensor_apply" in low:
         return "optimizer"
     if "nccl" in low:
@@ -3387,21 +3452,417 @@ def phase_ulysses(profile_dir=None):
     hvd.shutdown()
     return {name: counts[name] for name in kernels}
 
+def _check_losses(name, losses):
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        fail("non-finite %s loss: %s" % (name, losses))
+    if not losses[-1] < losses[0]:
+        fail("%s loss did not fall: %s" % (name, losses))
+
+
+def _run_steps(name, step, batch, warmup=2, timed=5):
+    """``warmup + timed`` steps on ``batch`` after the peak-memory reset:
+    (losses, median step seconds of the timed ones, peak bytes)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        loss = step(batch).item()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log("%s step %d: loss %.5f, %.1f ms" % (name, i, loss,
+                                                times[-1] * 1e3))
+    _check_losses(name, losses)
+    return (losses, statistics.median(times[warmup:]),
+            torch.cuda.max_memory_allocated())
+
+
+def _image_batch(n, size, gen, dev):
+    import torch
+    return {"x": torch.randn(n, 3, size, size, generator=gen, device=dev),
+            "y": torch.randint(0, 1000, (n,), generator=gen, device=dev)}
+
+
+def block_gradient_gaps(model, stock, batch):
+    """{parameter: gap} of every ConvBN block of ``model`` against the same
+    block of ``stock``, each given the input and the output cotangent that
+    block has in ``stock``'s loss on ``batch``: the block's kernel, scale
+    and bias gradients, ||g - g_stock||_2 / ||g_stock||_2. Taken block by
+    block, the check reads each BN layer at its own launch without the
+    whole model's conditioning (two sound BN paths stand 0.06 apart
+    through all 94 blocks at initialisation, float32 on the CPU)."""
+    import torch
+    from horovod_tpu_torch.models.imagenet_extras import ConvBN
+    from horovod_tpu_torch.parallel import classification_loss
+    names = [n for n, m in stock.named_modules() if isinstance(m, ConvBN)]
+    seen = {}
+
+    def keep(name):
+        def hook(module, args, out):
+            out.register_hook(lambda g: seen[name].append(g.detach()))
+            seen[name] = [args[0].detach()]
+        return hook
+
+    hooks = [stock.get_submodule(n).register_forward_hook(keep(n))
+             for n in names]
+    classification_loss(stock, batch).backward()
+    for h in hooks:
+        h.remove()
+    stock.zero_grad(set_to_none=True)
+    gaps = {}
+    for n in names:
+        x, ct = seen.pop(n)
+        grads = []
+        for m in (model, stock):
+            block = m.get_submodule(n)
+            params = [block.conv.weight, block.bn.weight, block.bn.bias]
+            grads.append(torch.autograd.grad(block(x), params, ct))
+        for leaf, a, b in zip(("conv.weight", "bn.weight", "bn.bias"),
+                              *grads):
+            gaps["%s.%s" % (n, leaf)] = ((a - b).norm() / b.norm().clamp_min(
+                1e-30)).item()
+    return gaps
+
+
+def phase_inception(profile_dir=None):
+    """bench.py's inception3pbn row: InceptionV3(norm="pallas") at 128 x 299
+    x 299, SGD 0.01 momentum 0.9: 94 launches each of K7, K8 and the two BN
+    passes a step; the first loss against the stock BN on the same weights
+    and dropout masks, every block's gradients at batch 32 in float32
+    against it (``block_gradient_gaps``). Returns the kernels' launch
+    counts."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import InceptionV3
+    from horovod_tpu_torch.ops import batch_norm as bn
+    from horovod_tpu_torch.ops.flash_attention import (launch_counts,
+                                                       reset_launch_counts)
+    from horovod_tpu_torch.parallel import (classification_loss,
+                                            make_train_step)
+
+    hvd.init()
+    dev = hvd.device()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = InceptionV3(norm="pallas", dtype=torch.bfloat16, device=dev,
+                        generator=gen)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    batch = _image_batch(INCEPTION_BATCH, INCEPTION_IMAGE, gen, dev)
+    # the gradient check in float32 (as the resnet phase's: bf16 gradients
+    # of two sound BN paths stand far apart at init), block by block
+    # (block_gradient_gaps); the whole model's gaps, each model's dropout
+    # drawing its first masks, and the bf16 ones logged beside it
+    small = {k: v[:INCEPTION_GRAD_BATCH] for k, v in batch.items()}
+    f32 = []
+    for norm in ("pallas", "batch"):
+        f32.append(InceptionV3(norm=norm, dtype=torch.float32, device=dev))
+        f32[-1].load_state_dict(model.state_dict())
+    whole_gaps = gradient_gaps(*f32, small, classification_loss)
+    grad_gaps = block_gradient_gaps(*f32, small)
+    del f32
+    stock = InceptionV3(norm="batch", dtype=torch.bfloat16, device=dev)
+    stock.load_state_dict(model.state_dict())
+    gaps_bf16 = gradient_gaps(model, stock, small, classification_loss)
+    for m in (model, stock):
+        m.dropout.reset()  # the step's first masks are the stock loss's
+    with torch.no_grad():
+        loss_plain = classification_loss(stock, batch).item()
+    del stock
+    torch.cuda.empty_cache()
+    for label, gaps in (("bf16, whole model, not checked", gaps_bf16),
+                        ("float32, whole model, not checked", whole_gaps),
+                        ("float32, block by block", grad_gaps)):
+        leaf = max(gaps, key=gaps.get)
+        log("inception gradient gap pallas vs stock BN at batch %d (%s): "
+            "worst %s %.3g, median %.3g" % (
+                INCEPTION_GRAD_BATCH, label, leaf, gaps[leaf],
+                statistics.median(gaps.values())))
+    leaf = max(grad_gaps, key=grad_gaps.get)
+    if not grad_gaps[leaf] <= RESNET_GRAD_TOL:
+        fail("Inception gradients (norm='pallas', float32) disagree with the "
+             "stock BN: %s %.3g > %g" % (leaf, grad_gaps[leaf],
+                                         RESNET_GRAD_TOL))
+
+    step = make_train_step(model, classification_loss, torch.optim.SGD(
+        model.parameters(), lr=0.01, momentum=0.9))
+    reset_launch_counts()
+    bn.reset_launch_counts()
+    losses, step_s, peak = _run_steps("inception", step, batch)
+    counts = dict(launch_counts(), **bn.launch_counts())
+    steps = len(losses)
+    for kernel, n in counts.items():
+        per_step = INCEPTION_BN_LAYERS if kernel in BN else 0
+        if n != per_step * steps:
+            fail("%s launched %d times in %d inception steps, expected %d "
+                 "per step" % (kernel, n, steps, per_step))
+    rel = abs(losses[0] - loss_plain) / abs(loss_plain)
+    log("inception first loss %.6f, stock BN %.6f, rel %.3g"
+        % (losses[0], loss_plain, rel))
+    if not rel <= RESNET_LOSS_TOL:
+        fail("inception first loss %.6f vs stock BN %.6f (rel %.3g)"
+             % (losses[0], loss_plain, rel))
+    result = dict(step_ms=step_s * 1e3,
+                  images_per_s=INCEPTION_BATCH / step_s,
+                  peak_mem_gb=peak / 1e9, batch=INCEPTION_BATCH,
+                  loss_first=losses[0], loss_last=losses[-1],
+                  loss_plain=loss_plain, grad_gap_worst=grad_gaps[leaf],
+                  grad_gap_worst_whole=max(whole_gaps.values()),
+                  grad_gap_median_whole=statistics.median(
+                      whole_gaps.values()),
+                  grad_gap_worst_bf16=max(gaps_bf16.values()),
+                  launches=counts, steps=steps)
+    if profile_dir:
+        result["profile"] = profile_steps(step, batch, profile_dir,
+                                          "inception")
+    print("inception: %s" % json.dumps(result), flush=True)
+    hvd.shutdown()
+    return {kernel: counts[kernel] for kernel in BN}
+
+
+def agc_clip_share(model, batch, clipping):
+    """The share of AGC's units (``ops/agc.py``) whose gradient of one
+    loss on ``batch`` ``agc_clip`` changes."""
+    import torch
+    from horovod_tpu_torch.ops import agc
+    from horovod_tpu_torch.parallel import classification_loss
+    params = list(model.parameters())
+    grads = torch.autograd.grad(classification_loss(model, batch), params)
+    clipped = agc.agc_clip(list(grads), params, clipping)
+    changed = [agc.unitwise_norm(c - g, agc.unit_of(p)) > 0
+               for g, c, p in zip(grads, clipped, params)]
+    return (sum(int(c.sum()) for c in changed) /
+            sum(c.numel() for c in changed))
+
+
+def phase_resnet_nf():
+    """bench.py's resnet50nf row (ResNet50NF at batch 256 through
+    make_train_step(agc=0.01)) and resnet50gn row (ResNet50GN at 256, no
+    AGC), SGD 0.01 momentum 0.9: finite, falling losses; the share of AGC
+    units clipped in the first step; step time and peak memory beside the
+    resnet phase's ResNet-50 (when it ran in this call)."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import ResNet50GN, ResNet50NF
+    from horovod_tpu_torch.parallel import (classification_loss,
+                                            make_train_step)
+
+    hvd.init()
+    dev = hvd.device()
+    result = {}
+    for label, cls, agc in (("nf", ResNet50NF, AGC_CLIPPING),
+                            ("gn", ResNet50GN, None)):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = cls(num_classes=1000, dtype=torch.bfloat16, device=dev,
+                    generator=gen)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        batch = _image_batch(RESNET_BATCH, IMAGE, gen, dev)
+        extra = {}
+        if agc:
+            extra["agc_clipped_share"] = agc_clip_share(model, batch, agc)
+        step = make_train_step(model, classification_loss, torch.optim.SGD(
+            model.parameters(), lr=0.01, momentum=0.9), agc=agc)
+        losses, step_s, peak = _run_steps("resnet_" + label, step, batch)
+        result[label] = dict(step_ms=step_s * 1e3,
+                             images_per_s=RESNET_BATCH / step_s,
+                             peak_mem_gb=peak / 1e9, loss_first=losses[0],
+                             loss_last=losses[-1], agc=agc, **extra)
+        del step, model, batch
+        torch.cuda.empty_cache()
+    if "resnet" in RESULTS:
+        result["resnet50_pallas"] = {k: RESULTS["resnet"][k]
+                                     for k in ("step_ms", "peak_mem_gb")}
+    print("resnet_nf: %s" % json.dumps(result), flush=True)
+    hvd.shutdown()
+
+
+def phase_vgg16():
+    """bench.py's vgg16 row: VGG16 at batch 64 x 224 x 224, SGD 0.01
+    momentum 0.9, dropout on: finite, falling losses, step time, peak
+    memory."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import VGG16
+    from horovod_tpu_torch.parallel import (classification_loss,
+                                            make_train_step)
+
+    hvd.init()
+    dev = hvd.device()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = VGG16(dtype=torch.bfloat16, device=dev, generator=gen)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    batch = _image_batch(VGG_BATCH, IMAGE, gen, dev)
+    step = make_train_step(model, classification_loss, torch.optim.SGD(
+        model.parameters(), lr=0.01, momentum=0.9))
+    losses, step_s, peak = _run_steps("vgg16", step, batch)
+    print("vgg16: %s" % json.dumps(dict(
+        step_ms=step_s * 1e3, images_per_s=VGG_BATCH / step_s,
+        peak_mem_gb=peak / 1e9, loss_first=losses[0],
+        loss_last=losses[-1])), flush=True)
+    hvd.shutdown()
+
+
+def _w2v_inputs(dev):
+    """bench.py's word2vec draws (bench.py:2212-2231): Zipf-like ids from
+    seed 0, tables from seed 1."""
+    import numpy as np
+    import torch
+    V, D, B, K = (W2V_ROW[k] for k in "VDBK")
+    rng = np.random.RandomState(0)
+    p = 1.0 / np.arange(1, V + 1)
+    p /= p.sum()
+    ids = [torch.from_numpy(rng.choice(V, size=n, p=p)).to(dev)
+           for n in (B, B, K)]
+    r = np.random.RandomState(1)
+    tables = (r.randn(V, D).astype(np.float32) * 0.1,
+              r.randn(V, D).astype(np.float32) * 0.1,
+              np.zeros((V,), np.float32))
+    return ids, [torch.from_numpy(t).to(dev) for t in tables]
+
+
+def _w2v_run(dev, sparse, ids, tables, steps):
+    """``steps`` steps of one plane from ``tables``: (its numbers, the
+    tables after them)."""
+    import torch
+    from horovod_tpu_torch.models import SkipGram
+    from horovod_tpu_torch.models.word2vec import (make_dense_step,
+                                                   make_sparse_step)
+    V, D = W2V_ROW["V"], W2V_ROW["D"]
+    model = SkipGram(V, D, device=dev)
+    with torch.no_grad():
+        for p, t in zip((model.embedding.weight, model.nce_weight,
+                         model.nce_bias), tables):
+            p.copy_(t)
+    step = (make_sparse_step if sparse else make_dense_step)(
+        model, W2V_ROW["lr"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(*ids).item())
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    if steps < 2:
+        return None, None
+    _check_losses("word2vec " + ("sparse" if sparse else "dense"), losses)
+    out = dict(ms_per_step=statistics.median(times[2:]) * 1e3,
+               peak_above_start_mb=peak / 1e6, loss_first=losses[0],
+               loss_last=losses[-1])
+    return out, [p.detach() for p in (model.embedding.weight,
+                                      model.nce_weight, model.nce_bias)]
+
+
+def phase_word2vec():
+    """bench.py's word2vec row (V 50000, D 256, B 4096, K 512, lr 0.5) on a
+    one-rank NCCL group: W2V_ROW["steps"] steps on the sparse plane
+    (allreduce_sparse, apply_sparse_) and on the dense one from the same
+    tables; the tables after them within W2V_TABLE_TOL; the sparse path's
+    peak memory above the tables below one [V, D] table (no dense
+    gradient). Then MnistCNN (5 SGD steps at batch 64) and a checkpoint
+    save/restore round trip of ResNet50NF's state and its optimizer's,
+    equal bit for bit."""
+    import tempfile
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint
+    from horovod_tpu_torch.models import MnistCNN, ResNet50NF
+    from horovod_tpu_torch.parallel import (classification_loss,
+                                            make_train_step)
+
+    hvd.init()
+    dev = hvd.device()
+    ids, tables = _w2v_inputs(dev)
+    result, final = {}, {}
+    # one step of each first, on throwaway tables: cuBLAS takes its
+    # workspaces (one a thread: the forward's and autograd's) from the
+    # allocator at its first product, which would count in the peak
+    for label in ("sparse", "dense"):
+        _w2v_run(dev, label == "sparse", ids, tables, 1)
+    for label in ("sparse", "dense"):
+        result[label], final[label] = _w2v_run(dev, label == "sparse", ids,
+                                               tables, W2V_ROW["steps"])
+    gaps = {name: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            for name, a, b in zip(("emb", "nce_w", "nce_b"),
+                                  final["sparse"], final["dense"])}
+    result["table_gaps"] = gaps
+    table_mb = W2V_ROW["V"] * W2V_ROW["D"] * 4 / 1e6
+    result["table_mb"] = table_mb
+    log("word2vec: sparse %.3f ms, dense %.3f ms a step; tables after %d "
+        "steps: %s" % (result["sparse"]["ms_per_step"],
+                       result["dense"]["ms_per_step"], W2V_ROW["steps"],
+                       gaps))
+    if not max(gaps.values()) <= W2V_TABLE_TOL:
+        fail("word2vec: the sparse and dense tables disagree: %s > %g"
+             % (gaps, W2V_TABLE_TOL))
+    if not result["sparse"]["peak_above_start_mb"] < table_mb:
+        fail("word2vec: the sparse path's peak above its start (%.1f MB) "
+             "holds a [V, D] table (%.1f MB)" % (
+                 result["sparse"]["peak_above_start_mb"], table_mb))
+    del final, tables
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mnist = MnistCNN(device=dev, generator=gen)
+    batch = {"x": torch.randn(MNIST_BATCH, 1, 28, 28, generator=gen,
+                              device=dev),
+             "y": torch.randint(0, 10, (MNIST_BATCH,), generator=gen,
+                                device=dev)}
+    step = make_train_step(mnist, classification_loss,
+                           torch.optim.SGD(mnist.parameters(), lr=0.01))
+    losses, _, _ = _run_steps("mnist", step, batch, warmup=0,
+                              timed=MNIST_STEPS)
+    result["mnist_losses"] = losses
+
+    def nf_and_opt(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        model = ResNet50NF(num_classes=1000, device=dev, generator=g)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+            model.named_parameters(), agc=AGC_CLIPPING)
+        step = make_train_step(model, classification_loss, opt)
+        step(_image_batch(8, IMAGE, g, dev))
+        return model, opt.optimizer
+
+    model, opt = nf_and_opt(1)
+    tree = {"model": model.state_dict(), "opt": opt.state_dict()}
+    other, other_opt = nf_and_opt(2)
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d, tree, step=1)
+        back = checkpoint.restore(d, {"model": other.state_dict(),
+                                      "opt": other_opt.state_dict()}, step=1)
+    other.load_state_dict(back["model"])
+    other_opt.load_state_dict(back["opt"])
+    bad = [k for k, v in tree["model"].items()
+           if not torch.equal(other.state_dict()[k], v)]
+    for i, st in tree["opt"]["state"].items():
+        bad += ["opt.%s.%s" % (i, k) for k, v in st.items()
+                if not torch.equal(other_opt.state_dict()["state"][i][k], v)]
+    result["checkpoint_leaves"] = len(tree["model"]) + sum(
+        len(st) for st in tree["opt"]["state"].values())
+    if bad or other_opt.state_dict()["param_groups"] != \
+            tree["opt"]["param_groups"]:
+        fail("checkpoint round trip differs at %s" % bad[:5])
+    result["checkpoint_equal"] = True
+    print("word2vec: %s" % json.dumps(result), flush=True)
+    hvd.shutdown()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("api", "kernels", "train",
                                        "bn_kernels", "resnet", "resnet_lean",
                                        "ring_kernels", "sp", "lc", "lc_sp",
                                        "wire_kernels", "zero1", "moe",
-                                       "ulysses"),
+                                       "ulysses", "inception", "resnet_nf",
+                                       "vgg16", "word2vec"),
                     help="run the device and build phases and this one")
     ap.add_argument("--profile", metavar="DIR",
                     help="after the train, resnet, resnet_lean (and its "
-                    "bn_remat steps), sp, lc_sp, moe and ulysses phases, "
-                    "profile 3 more steps each (lc always profiles) and "
-                    "write the kernel tables to DIR/chip_smoke_{lm,resnet,"
-                    "resnet_lean,resnet_lean_remat,sp,lc,lc_unfused,lc_sp,"
-                    "moe,ulysses}_profile.txt")
+                    "bn_remat steps), sp, lc_sp, moe, ulysses and inception "
+                    "phases, profile 3 more steps each (lc always profiles) "
+                    "and write the kernel tables to DIR/chip_smoke_{lm,"
+                    "resnet,resnet_lean,resnet_lean_remat,sp,lc,lc_unfused,"
+                    "lc_sp,moe,ulysses,inception}_profile.txt")
     args = ap.parse_args()
     phase_device()
     if not (ROOT / "horovod_tpu_torch").is_dir():
@@ -3451,6 +3912,14 @@ def main():
         add(phase_moe(profile_dir=args.profile))
     if run("ulysses"):
         add(phase_ulysses(profile_dir=args.profile))
+    if run("inception"):
+        add(phase_inception(profile_dir=args.profile))
+    if run("resnet_nf"):
+        phase_resnet_nf()
+    if run("vgg16"):
+        phase_vgg16()
+    if run("word2vec"):
+        phase_word2vec()
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         row = rows.get(name, {})
@@ -3490,7 +3959,10 @@ def main():
             **{key: row[key] for key in ("bf16_ms", "bf16_plain_ms",
                                          "bf16_bound_ms", "bf16_bound_by",
                                          "bf16_library_ms")
-               if key in row}})
+               if key in row},
+            # the BN kernels at Inception's launches (INCEPTION_BN_SHAPES)
+            **{key: row[key] for key in row if key.startswith("inc_")
+               and key.endswith(("_ms", "_bound_by"))}})
     print(json.dumps({"kernels": kernels, "library": library}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

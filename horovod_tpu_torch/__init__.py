@@ -9,8 +9,11 @@ runs the ZeRO-1 sharded update), wire compression re-encodes each hop of
 an explicit ring in bf16 or block-int8, and the models' hot kernels and the
 wire codec are written by hand for Hopper (``ops/csrc``). ``parallel``
 holds the other strategies over a mesh of process groups: sequence
-(ring, Ulysses), tensor, pipeline and expert parallelism. It imports ``torch`` and
-numpy, never JAX or the ``horovod_tpu`` package.
+(ring, Ulysses), tensor, pipeline and expert parallelism. ``sparse`` is the
+embedding-row gradient plane (``allreduce_sparse``), ``checkpoint`` the
+root-saves, every-rank-restores checkpoint, ``ops.agc`` adaptive gradient
+clipping (``DistributedOptimizer(agc=)``), and ``models`` the model zoo. It
+imports ``torch`` and numpy, never JAX or the ``horovod_tpu`` package.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``;
 without a GPU they raise ``CudaUnavailableError``.
@@ -71,5 +74,12 @@ from horovod_tpu_torch.parallel import (  # noqa: F401
     ring_allreduce,
     ring_reduce_scatter,
 )
+from horovod_tpu_torch.sparse import (  # noqa: F401
+    allreduce_sparse,
+    apply_sparse,
+    apply_sparse_,
+    densify,
+)
+from horovod_tpu_torch import checkpoint  # noqa: F401
 
 __version__ = "0.1.0"

@@ -206,6 +206,48 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def _items(tree):
+    """(key, subtree) of a dict, namedtuple, tuple or list; None for a
+    leaf."""
+    if isinstance(tree, dict):
+        return list(tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return list(zip(tree._fields, tree))
+    if isinstance(tree, (list, tuple)):
+        return list(enumerate(tree))
+    return None
+
+
+def tree_flatten(tree, path=()):
+    """[(path, leaf)] of a tree of dicts, namedtuples, tuples and lists, in
+    the tree's own order; a path is the tuple of ``repr`` of the keys from
+    the root (a namedtuple's keys are its field names)."""
+    items = _items(tree)
+    if items is None:
+        return [(path, tree)]
+    return [pl for key, sub in items
+            for pl in tree_flatten(sub, path + (repr(key),))]
+
+
+def tree_unflatten(template, leaves, path=()):
+    """The structure of ``template`` (its containers' types and order) with
+    ``leaves[path]`` at each leaf, ``leaves`` a {path: leaf} as
+    ``tree_flatten`` gives the paths."""
+    items = _items(template)
+    if items is None:
+        return leaves[path]
+    built = [(k, tree_unflatten(sub, leaves, path + (repr(k),)))
+             for k, sub in items]
+    if isinstance(template, dict):
+        out = type(template)()
+        for k, v in built:
+            out[k] = v
+        return out
+    if hasattr(template, "_fields"):
+        return type(template)(*(v for _, v in built))
+    return type(template)(v for _, v in built)
+
+
 def sync_batch_norm_stats(stat_sum, stat_sumsq, count, group=None,
                           name="sync_bn"):
     """Sync BN's statistics from partial sums: sums this rank's per-channel

@@ -20,8 +20,12 @@ inside a block, and the stem's, applies that ReLU itself, while block-final
 norms, projections and the ReLU after the residual add stay apart, as in
 the reference), ``"batch"`` the stock BN (``F.batch_norm``), the
 counterpart of flax's ``nn.BatchNorm``. All keep flax's running statistics
-and state-dict keys. ``bn_group`` is sync BN over a process group (the
-counterpart of ``bn_axis_name``), ``bn_virtual_batch_size`` ghost BN
+and state-dict keys. ``"group"`` is ``GroupNorm`` (flax's
+``GroupNorm(num_groups=32, epsilon=1e-5)``, ``ResNet50GN``) and ``"none"``
+no norm at all, with no parameter (``ResNet50NF``, ``ResNet101NF``, the
+norm-free ResNets trained with AGC, ``ops/agc.py``). ``bn_group`` is
+sync BN over a process group (the counterpart of ``bn_axis_name``),
+``bn_virtual_batch_size`` ghost BN
 (``"lean"`` and ``"pallas"``). ``bn_remat`` (the counterpart of
 ``bn_remat_policy`` over each block) recomputes in the backward, instead
 of keeping, the output of every norm inside a block that a convolution
@@ -30,7 +34,8 @@ only ``"lean"``, whose normalize outputs are the ones tagged.
 
 Padding follows flax's ``"SAME"``: a stride-2 3x3 convolution of an even
 input pads 0 before and 1 after, where ``nn.Conv2d(padding=1)`` would pad
-1 and 1 and shift every output.
+1 and 1 and shift every output. ``Conv`` also takes flax's rectangular
+kernels, ``"VALID"`` and a bias (Inception, VGG, the MNIST CNN).
 """
 
 import functools
@@ -40,12 +45,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from horovod_tpu_torch.common.basics import resolve_device
+from horovod_tpu_torch.ops.agc import tag_units
 from horovod_tpu_torch.ops.batch_norm import (FusedBatchNorm, LeanBatchNorm,
                                                StockBatchNorm)
 
 _NORMS = {"batch": StockBatchNorm, "pallas": FusedBatchNorm,
           "lean": LeanBatchNorm}
-_LATER = ("group", "none")  # ROADMAP A6
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
 
 
 def _same_padding(size, k, stride):
@@ -55,16 +64,29 @@ def _same_padding(size, k, stride):
     return total // 2, total - total // 2
 
 
+def lecun_normal_(w, generator=None):
+    """flax's ``lecun_normal`` on a torch [out, in, ...] weight, in place: a
+    normal truncated at +-2 sigma, scaled so that its variance is
+    1 / fan_in (fan_in = in * the kernel's size)."""
+    std = w[0].numel() ** -0.5 / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
 class Conv(nn.Module):
-    """flax ``nn.Conv(use_bias=False)``: an f32 [out, in, kh, kw] weight,
-    the product in ``dtype``, padding ``"SAME"`` unless given as
-    ((top, bottom), (left, right))."""
+    """flax ``nn.Conv``: an f32 [out, in, kh, kw] weight (``kernel`` an int
+    or (kh, kw)), the product in ``dtype``, an f32 bias added in ``dtype``
+    with ``bias=True``; ``stride`` an int or a pair; padding ``"SAME"``,
+    ``"VALID"`` or ((top, bottom), (left, right))."""
 
     def __init__(self, cin, cout, kernel, stride=1, padding="SAME",
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, bias=False):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel,
+        kh, kw = _pair(kernel)
+        self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw,
                                                device=device))
+        self.bias = (nn.Parameter(torch.zeros(cout, device=device))
+                     if bias else None)
         self.stride = stride
         self.padding = padding
         self.dtype = dtype
@@ -73,10 +95,11 @@ class Conv(nn.Module):
         """(``F.pad``'s pad or None, ``F.conv2d``'s padding) for an input of
         ``shape``: symmetric padding goes to the convolution, asymmetric to
         an explicit pad."""
-        k = self.weight.shape[-1]
         if self.padding == "SAME":
-            (t, b), (lf, r) = (_same_padding(n, k, self.stride)
-                               for n in shape[2:])
+            (t, b), (lf, r) = (_same_padding(n, k, s) for n, k, s in zip(
+                shape[2:], self.weight.shape[2:], _pair(self.stride)))
+        elif self.padding == "VALID":
+            (t, b), (lf, r) = (0, 0), (0, 0)
         else:
             (t, b), (lf, r) = self.padding
         if t == b and lf == r:
@@ -88,8 +111,47 @@ class Conv(nn.Module):
         if pad:
             x = F.pad(x, pad)
         w = self.weight.to(self.dtype, memory_format=torch.channels_last)
-        return F.conv2d(x.to(self.dtype), w, stride=self.stride,
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), w, bias, stride=self.stride,
                         padding=padding)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups=32, epsilon=1e-5, dtype=dtype)``:
+    statistics and normalization in f32 over each sample's groups of
+    channels, f32 scale and bias, the output cast to ``dtype`` and
+    channels-last. flax's statistics are E[x^2] - E[x]^2, these
+    ``F.group_norm``'s (a library call for what XLA computes in the
+    reference: no Pallas body)."""
+
+    fuse_relu = False
+
+    def __init__(self, num_features, num_groups=32, eps=1e-5,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        if num_features % num_groups:
+            raise ValueError("GroupNorm: %d groups do not divide %d "
+                             "channels" % (num_groups, num_features))
+        self.num_groups, self.eps, self.dtype = num_groups, eps, dtype
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+
+    def forward(self, x):
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                         self.eps)
+        return y.to(self.dtype, memory_format=torch.channels_last)
+
+
+class NoNorm(nn.Module):
+    """``norm="none"``: the identity, no parameter."""
+
+    fuse_relu = False
+
+    def __init__(self, num_features=None):
+        super().__init__()
+
+    def forward(self, x):
+        return x
 
 
 class ResNetBlock(nn.Module):
@@ -154,29 +216,34 @@ class ResNet(nn.Module):
     Built on ``device`` (default: the GPU; ``"cpu"`` for tests), its
     weights drawn from ``generator`` (a ``torch.Generator`` on that device)
     with flax's initializers: convolutions and the head lecun-normal
-    (truncated normal of variance 1/fan_in), head bias 0, BN scale 1 and
-    bias 0, the block-final BN scale 0."""
+    (truncated normal of variance 1/fan_in), head bias 0, norm scale 1 and
+    bias 0, the block-final norm scale 0 (``norm="none"`` has none)."""
 
     def __init__(self, stage_sizes, block_cls, num_classes=1000,
                  num_filters=64, dtype=torch.bfloat16, norm="batch",
                  bn_group=None, bn_virtual_batch_size=None, bn_remat=False,
                  device=None, generator=None):
         super().__init__()
-        if norm in _LATER:
-            raise NotImplementedError(
-                "norm=%r is a later slice of the port (ROADMAP A6)" % norm)
-        if norm not in _NORMS:
+        if norm not in tuple(_NORMS) + ("group", "none"):
             raise ValueError("norm=%r is not batch|pallas|lean|group|none"
                              % norm)
         device = resolve_device(device)
         self.dtype = dtype
-        opts = dict(group=bn_group, device=device)
-        if bn_virtual_batch_size:
-            if norm == "batch":
-                raise ValueError("bn_virtual_batch_size (ghost BN) needs "
-                                 "norm='lean' or norm='pallas'")
-            opts["virtual_batch_size"] = bn_virtual_batch_size
-        norm_cls = functools.partial(_NORMS[norm], **opts)
+        if norm in ("group", "none"):
+            if bn_group is not None or bn_virtual_batch_size:
+                raise ValueError("bn_group and bn_virtual_batch_size apply "
+                                 "to the BN norms, not norm=%r" % norm)
+            norm_cls = (functools.partial(GroupNorm, dtype=dtype,
+                                          device=device)
+                        if norm == "group" else NoNorm)
+        else:
+            opts = dict(group=bn_group, device=device)
+            if bn_virtual_batch_size:
+                if norm == "batch":
+                    raise ValueError("bn_virtual_batch_size (ghost BN) "
+                                     "needs norm='lean' or norm='pallas'")
+                opts["virtual_batch_size"] = bn_virtual_batch_size
+            norm_cls = functools.partial(_NORMS[norm], **opts)
         norm_act = (functools.partial(norm_cls, fuse_relu=True)
                     if norm == "lean" else None)
         self.conv_init = Conv(3, num_filters, 7, 2, ((3, 3), (3, 3)),
@@ -196,23 +263,20 @@ class ResNet(nn.Module):
         self.head = nn.Linear(cin, num_classes, device=device)
         self.reset_parameters(generator)
         self.to(memory_format=torch.channels_last)
+        tag_units(self)
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
         for m in self.modules():
             if isinstance(m, (Conv, nn.Linear)):
-                fan_in = m.weight[0].numel()
-                # flax lecun_normal: a normal truncated at +-2 sigma, scaled
-                # so its variance is 1 / fan_in
-                std = fan_in ** -0.5 / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-            elif isinstance(m, tuple(_NORMS.values())):
+                lecun_normal_(m.weight, generator)
+            elif isinstance(m, tuple(_NORMS.values()) + (GroupNorm,)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
         self.head.bias.zero_()
         for block in self.blocks:
-            block.norms[-1].weight.zero_()
+            if not isinstance(block.norms[-1], NoNorm):
+                block.norms[-1].weight.zero_()
 
     def forward(self, x):
         x = x.to(self.dtype, memory_format=torch.channels_last)
@@ -241,3 +305,9 @@ ResNet50PBN = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3],
                                 block_cls=BottleneckBlock, norm="pallas")
 ResNet50Lean = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3],
                                  block_cls=BottleneckBlock, norm="lean")
+ResNet50GN = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3],
+                               block_cls=BottleneckBlock, norm="group")
+ResNet50NF = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3],
+                               block_cls=BottleneckBlock, norm="none")
+ResNet101NF = functools.partial(ResNet, stage_sizes=[3, 4, 23, 3],
+                                block_cls=BottleneckBlock, norm="none")

@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from horovod_tpu_torch.common.basics import resolve_device
+from horovod_tpu_torch.ops.agc import tag_units
 from horovod_tpu_torch.ops.flash_attention import apply_rotary, flash_attention
 from horovod_tpu_torch.parallel import _axis
 from horovod_tpu_torch.parallel.expert import MoeMlp
@@ -163,6 +164,14 @@ class Attention(nn.Module):
         self.value = lin(E, G * D)
         self.out = lin(H * D, E)
 
+    def agc_units(self):
+        """AGC's unit of q, k and v (``ops/agc.py``): each is flax's
+        DenseGeneral kernel [E, heads, D], whose unit is one d across the
+        heads and E, stored as a ``Linear`` [heads * D, E]."""
+        view = (-1, self.head_dim, self.cfg.embed_dim)
+        return {name + ".weight": (1, view)
+                for name in ("query", "key", "value")}
+
     def forward(self, x, positions):
         cfg = self.cfg
         B, L, _ = x.shape
@@ -269,6 +278,7 @@ class Transformer(nn.Module):
         self.lm_head = nn.Linear(cfg.embed_dim, cfg.vocab_size, bias=False,
                                  device=device)
         self.reset_parameters(generator)
+        tag_units(self)
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):

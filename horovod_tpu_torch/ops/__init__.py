@@ -2,6 +2,11 @@
 versions. The kernels build at first use (``_build.py``), never at
 import."""
 
+from horovod_tpu_torch.ops.agc import (  # noqa: F401
+    adaptive_grad_clip,
+    agc_clip,
+    unitwise_norm,
+)
 from horovod_tpu_torch.ops.batch_norm import (  # noqa: F401
     FusedBatchNorm,
     LeanBatchNorm,

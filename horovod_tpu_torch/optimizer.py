@@ -41,6 +41,7 @@ from horovod_tpu_torch.compression import (NONE, chunk_length, codec,
                                            resolve_wire_arg, wire_mode)
 from horovod_tpu_torch.groups import (assert_sharded_update_world_scope,
                                       group_size, resolve_group)
+from horovod_tpu_torch.ops.agc import adaptive_grad_clip
 
 # HVD_TPU_FUSION_THRESHOLD's default in native/operations.cc
 FUSION_THRESHOLD = 64 * 1024 * 1024
@@ -202,14 +203,19 @@ class ReplicatedDistributedOptimizer:
     Parameters without a gradient are skipped.
 
     ``group=None`` is the mesh's ``batch_group()``, looked up at every
-    reduction, or the world without a mesh. ``agc`` is not ported (ROADMAP
-    A6)."""
+    reduction, or the world without a mesh.
+
+    ``agc`` (a clipping factor, e.g. 0.01) is adaptive gradient clipping
+    (``ops/agc.py``): ``step()`` clips each reduced gradient unit-wise
+    against its parameter after ``synchronize()`` and before the inner
+    step, as the reference clips the averaged gradient
+    (``horovod_tpu/jax/__init__.py:512-521``)."""
 
     def __init__(self, optimizer, named_parameters=None, compression=None,
                  average=True, name_prefix="grad", group=None, agc=None):
-        if agc is not None:
-            raise NotImplementedError("agc= is ROADMAP A6")
         self.optimizer = optimizer
+        self.agc = agc
+        self._clip = None if agc is None else adaptive_grad_clip(agc)
         self._codec = codec(compression)
         self._mode = wire_mode(compression)
         self._average = average
@@ -311,6 +317,8 @@ class ReplicatedDistributedOptimizer:
 
     def step(self):
         self.synchronize()
+        if self._clip is not None:
+            self._clip(self._bucket_of)
         self.optimizer.step()
 
     def zero_grad(self, set_to_none=True):

@@ -154,6 +154,11 @@ class MoeMlp(nn.Module):
         self.aux_loss = None
         self.reset_parameters(generator)
 
+    def agc_units(self):
+        """AGC's unit (``ops/agc.py``): flax's layout is kept, so the last
+        dim."""
+        return {name: (-1, None) for name in ("router", "w_in", "w_out")}
+
     @torch.no_grad()
     def reset_parameters(self, generator=None):
         for p in (self.router, self.w_in, self.w_out):

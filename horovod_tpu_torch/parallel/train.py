@@ -59,8 +59,12 @@ def make_train_step(model, loss_fn, optimizer, accum_steps=1, device=None,
         parameter allgather stays exact), or, on the replicated path only,
         a tensor codec (``Compression.fp16``; under ``zero1`` a codec other
         than ``Compression.none`` raises ``ValueError``).
-      agc: adaptive gradient clipping, not ported (ROADMAP A6); with
-        ``zero1`` it raises the reference's ``ValueError``.
+      agc: adaptive gradient clipping factor (e.g. 0.01; None = off),
+        passed to ``DistributedOptimizer(agc=)``, which clips each reduced
+        gradient unit-wise against its parameter before the update
+        (``ops/agc.py``): the norm-free ResNets' knob. With ``zero1`` it
+        raises the reference's ``ValueError``; with an optimizer already
+        wrapped, pass it to the wrapper instead.
 
     ``step(batch)`` returns the loss averaged over the ranks, as a
     0-dim tensor on ``device``.
@@ -81,6 +85,9 @@ def make_train_step(model, loss_fn, optimizer, accum_steps=1, device=None,
             raise ValueError("zero1=True needs the sharded update: pass the "
                              "torch optimizer, or one wrapped in "
                              "DistributedOptimizer(sharded_update=True)")
+        if agc is not None and agc != getattr(optimizer, "agc", None):
+            raise ValueError("agc=%r: the optimizer is already wrapped; "
+                             "pass agc= to DistributedOptimizer" % (agc,))
     else:
         optimizer = DistributedOptimizer(
             optimizer, model.named_parameters(), compression=compression,

@@ -30,6 +30,7 @@ PORT_FILES = PACKAGE_FILES + [
     ROOT / "tests" / "torch_port_wire_worker.py",
     ROOT / "tests" / "torch_port_zero_worker.py",
     ROOT / "tests" / "torch_port_parallel_worker.py",
+    ROOT / "tests" / "torch_port_zoo_worker.py",
     ROOT / "tests" / "torch_port_planted_faults.py",
     ROOT / "tests" / "torch_port_fwd_ab.py",
     ROOT / "tests" / "torch_port_bwd_ab.py",
@@ -194,6 +195,22 @@ def test_entry_points_without_a_gpu_raise_the_named_error():
     with pytest.raises(hvd.CudaUnavailableError):
         hvd.make_fsdp_train_step(model, lm_loss, torch.optim.Adam)
     assert not hvd.is_initialized()
+    # the zoo and AGC (ROADMAP A6): the models are built on the GPU by
+    # default; agc_clip is a function of the caller's tensors
+    from horovod_tpu_torch.models import (VGG16, InceptionV3, MnistCNN,
+                                          ResNet50GN, ResNet50NF,
+                                          ResNet101NF, SkipGram)
+    from horovod_tpu_torch.ops import agc_clip
+    for entry in (VGG16, InceptionV3, MnistCNN, ResNet50GN, ResNet50NF,
+                  ResNet101NF, SkipGram):
+        with pytest.raises(hvd.CudaUnavailableError):
+            entry()
+    with pytest.raises(hvd.CudaUnavailableError):
+        make_train_step(model, lm_loss, torch.optim.SGD(model.parameters(),
+                                                        lr=0.1), agc=0.01)
+    clipped = agc_clip({"w": torch.ones(2, 2)}, {"w": torch.ones(2, 2)})
+    assert clipped["w"].device.type == "cpu"
+    assert not hvd.is_initialized()
     # the codec wrappers: on CPU tensors their plain versions, no kernel
     from horovod_tpu_torch.ops import wire_codec
     before = wire_codec.launch_counts()
@@ -210,7 +227,10 @@ def test_entry_points_without_a_gpu_raise_the_named_error():
                  lambda: hvd.ring_allreduce(x, compression="int8"),
                  lambda: hvd.ring_reduce_scatter(x),
                  lambda: hvd.ring_allgather(x),
-                 lambda: hvd.allreduce(x, compression="int8")):
+                 lambda: hvd.allreduce(x, compression="int8"),
+                 lambda: hvd.allreduce_sparse(torch.zeros(2).long(), x[:2]),
+                 lambda: hvd.checkpoint.save("/nonexistent", {"x": x}),
+                 lambda: hvd.checkpoint.restore("/nonexistent", {"x": x})):
         with pytest.raises(RuntimeError, match="hvd.init"):
             call()
 
@@ -237,11 +257,11 @@ def test_one_rank_cpu_group():
 
 
 def test_what_is_not_ported_names_its_roadmap_item(monkeypatch):
-    """AGC (A6) and the rank-subset init (A8) raise NotImplementedError
-    naming their item. The wire compression modes and the sharded update
-    (A4, ported) run at one rank: the wire modes are the identity there
-    (the ring applies no codec to one rank), and the sharded optimizer is
-    built; the tensor codecs run."""
+    """The rank-subset init (A8) raises NotImplementedError naming its
+    item. AGC (A6, ported) builds and clips; the wire compression modes and
+    the sharded update (A4, ported) run at one rank: the wire modes are the
+    identity there (the ring applies no codec to one rank), and the sharded
+    optimizer is built; the tensor codecs run."""
     with pytest.raises(NotImplementedError, match="A8"):
         hvd.init(device="cpu", ranks=[0])
     assert not hvd.is_initialized()
@@ -270,8 +290,20 @@ def test_what_is_not_ported_names_its_roadmap_item(monkeypatch):
         assert isinstance(hvd.DistributedOptimizer(sgd),
                           hvd.ShardedDistributedOptimizer)
         monkeypatch.setenv("HVD_TPU_SHARDED_UPDATE", "0")
-        with pytest.raises(NotImplementedError, match="A6"):
-            hvd.DistributedOptimizer(sgd, agc=0.01)
+        # agc= builds, and step() clips the reduced gradient unit-wise:
+        # each row of the Linear weight moves at most 0.01 of its norm
+        clipped = hvd.DistributedOptimizer(sgd, model.named_parameters(),
+                                           agc=0.01)
+        assert clipped.agc == 0.01
+        before = model.weight.detach().clone()
+        (model(torch.ones(3, 2)) * 1e4).sum().backward()
+        clipped.step()
+        moved = (model.weight.detach() - before).norm(dim=1)
+        # (moved is a difference of f32 weights near 0.5: ulps of 1e-4)
+        assert (moved <= 0.1 * 0.01 * before.norm(dim=1) * (1 + 1e-3)).all()
+        assert moved.min() > 0
+        sgd.zero_grad()
+        del clipped
         opt = hvd.DistributedOptimizer(sgd, compression="int8")
         assert opt._mode == "int8"
         hvd.DistributedOptimizer(sgd, compression=hvd.Compression.fp16,

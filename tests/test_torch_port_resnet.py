@@ -248,11 +248,15 @@ def test_sync_bn_on_two_gloo_ranks_gives_the_full_batch_gradient(tmp_path):
 
 
 def test_later_norms_and_ghost_bn_name_their_slice(one_rank):
-    """GroupNorm and no norm name ROADMAP A6; bn_remat, sync BN on the
-    stock path, norm="lean" and ghost BN construct and run."""
+    """GroupNorm and no norm (ported since ROADMAP A6), bn_remat, sync BN
+    on the stock path, norm="lean" and ghost BN construct and run; the BN
+    options are refused beside GroupNorm and no norm."""
     for norm in ("group", "none"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            ResNet50PBN(norm=norm, device="cpu")
+        model = ResNet(block_cls=BottleneckBlock, norm=norm, device="cpu",
+                       **dict(SMALL, num_filters=32))
+        assert model(torch.zeros(2, 3, 32, 32)).shape == (2, 10)
+        with pytest.raises(ValueError, match="BN norms"):
+            ResNet50PBN(norm=norm, bn_group=hvd.WORLD, device="cpu")
     remat = ResNet(block_cls=BottleneckBlock, norm="lean", bn_remat=True,
                    device="cpu", **SMALL)
     assert remat(torch.zeros(2, 3, 32, 32)).shape == (2, 10)
