@@ -83,9 +83,16 @@ Phases, in order; any failure exits non-zero:
    PyTorch's own ``torch.batch_norm_stats``,
    ``torch.batch_norm_backward_reduce``, ``torch.batch_norm_elemt`` and
    ``torch.batch_norm_backward_elemt`` (yardsticks the port never calls)
-   at the stem. The same checks and times at three of InceptionV3's
-   launches at batch 128: the stem (M = 128 * 149 * 149, C = 32), a 1x1
-   of 80 channels (128 * 73 * 73) and an E block's 448 (128 * 8 * 8).
+   at the stem, each back to back (``ms``) and replayed from a CUDA graph
+   (``device_ms``: at short launches the host sets the back-to-back pace,
+   and between replays the inputs stay in L2). The same checks and times
+   at five of InceptionV3's launches at batch 128: the stem (M = 128 * 149
+   * 149, C = 32), a 1x1 of 80 channels (128 * 73 * 73), an E block's 448
+   (128 * 8 * 8), 64 at 35 x 35 and 192 at 17 x 17. One call of each pass
+   under torch.profiler must run its one kernel and nothing else on the
+   device. Last, ``inception_step_ms``: both passes and their library
+   calls at all 18 (M, C) shapes of Inception's 94 BN launches, weighted
+   by their layers, back to back and on the device.
 6. resnet: ``hvd.init()``, ResNet-50 with ``norm="pallas"`` (bf16 over f32
    params) from a seeded generator, its block-final BN scales set nonzero
    from the seed, SGD(0.01, momentum 0.9) in ``DistributedOptimizer`` and
@@ -486,11 +493,25 @@ INCEPTION_BATCH, INCEPTION_IMAGE, INCEPTION_GRAD_BATCH = 128, 299, 32
 INCEPTION_BN_LAYERS = 94
 # Inception's BN launches for the bn_kernels phase, name -> (M, C, dy
 # dtype, (H, W)) at batch 128: the stem's first (149 x 149 x 32), the 1x1
-# of 80 channels at 73 x 73, and an E block's 448 at 8 x 8
+# of 80 channels at 73 x 73, an E block's 448 at 8 x 8, and the commonest
+# widths of the 35 x 35 and 17 x 17 blocks (64 and 192)
 INCEPTION_BN_SHAPES = {
     "inc_stem": (128 * 149 * 149, 32, "bfloat16", (149, 149)),
     "inc_c80": (128 * 73 * 73, 80, "bfloat16", (73, 73)),
     "inc_c448": (128 * 8 * 8, 448, "bfloat16", (8, 8)),
+    "inc_c64_35": (128 * 35 * 35, 64, "bfloat16", (35, 35)),
+    "inc_c192_17": (128 * 17 * 17, 192, "bfloat16", (17, 17)),
+}
+# All 94 of Inception's BN launches at batch 128, (H * W, C) -> layers
+# (forward hooks on the port's InceptionV3 at 299; a CPU test recounts
+# them): the passes' launch-weighted cost a step, inception_step_ms
+INCEPTION_BN_LAUNCHES = {
+    (149 * 149, 32): 1, (147 * 147, 32): 1, (147 * 147, 64): 1,
+    (73 * 73, 80): 1, (71 * 71, 192): 1,
+    (35 * 35, 32): 1, (35 * 35, 48): 3, (35 * 35, 64): 12, (35 * 35, 96): 7,
+    (17 * 17, 96): 1, (17 * 17, 128): 6, (17 * 17, 160): 12,
+    (17 * 17, 192): 26, (17 * 17, 384): 1,
+    (8 * 8, 192): 3, (8 * 8, 320): 3, (8 * 8, 384): 12, (8 * 8, 448): 2,
 }
 # bench.py's resnet50nf row trains with AGC 0.01 (bench.py:2620-2636);
 # its vgg16 row at batch 64
@@ -532,6 +553,40 @@ def time_ms(fn, n=20, reps=5, warmup=3):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def graph_ms(fn, n=20, reps=5, warmup=3):
+    """Milliseconds per call of ``fn()`` on the device: ``n`` calls
+    captured once in a CUDA graph and replayed ``reps`` times between two
+    CUDA events, the median. The replay launches the captured kernels
+    without the host, so at short launches this reads the device's time
+    where ``time_ms`` (the host dispatching each call) reads the host's.
+    Between the replayed calls the inputs stay in the card's 50 MB L2 where
+    they fit: a short launch's reading may beat its HBM bound."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
     return statistics.median(times)
 
 
@@ -1015,15 +1070,138 @@ def _bn_pass_checks(bn, x, dy, gamma, beta, groups, extra):
     return bad, worst
 
 
+def _bn_runs(bn, x, dy, gamma, beta, mean, rstd, hw, passes_only=False):
+    """name -> (kernel call, plain call, library call, bytes it must move)
+    of the four BN kernels at one launch, as the resnet and inception phases
+    call them (f32 arithmetic, no ReLU). The library calls are PyTorch's own
+    on the same memory viewed as [N, C, H, W] channels_last (``hw``), given
+    the same statistics (sum dy * (x - mean) = dgamma / rstd, formed
+    outside the timed call): yardsticks the port never calls."""
+    import torch
+    M, C = x.shape
+    x4, dy4 = (t.view(-1, *hw, C).permute(0, 3, 1, 2) for t in (x, dy))
+    a = gamma * rstd
+    b = beta - mean * a
+    dbeta, dgamma = bn.batch_norm_grad_stats_ref(dy, x, mean, rstd)
+    sum_dy_xmu = dgamma / rstd
+    count = torch.tensor([M], dtype=torch.int32, device="cuda")
+    dx_args = (dy, x, mean, rstd, gamma, beta, dbeta, dgamma, M)
+    runs = {
+        "batch_norm_stats": (
+            lambda: bn.batch_norm_stats(x),
+            lambda: bn.batch_norm_stats_ref(x),
+            lambda: torch.batch_norm_stats(x4, 1e-5),
+            x.numel() * x.element_size() + 2 * C * 4),
+        "batch_norm_grad_stats": (
+            lambda: bn.batch_norm_grad_stats(dy, x, mean, rstd),
+            lambda: bn.batch_norm_grad_stats_ref(dy, x, mean, rstd),
+            lambda: torch.batch_norm_backward_reduce(
+                dy4, x4, mean, rstd, None, True, False, False),
+            (x.numel() * x.element_size() + dy.numel() * dy.element_size()
+             + 2 * C * 4 + 2 * C * 4)),
+        "bn_apply": (
+            lambda: bn.bn_apply(x, a, b),
+            lambda: bn.bn_apply_ref(x, a, b),
+            lambda: torch.batch_norm_elemt(x4, gamma, beta, mean, rstd,
+                                           1e-5),
+            2 * x.numel() * x.element_size() + 2 * C * 4),
+        # the raw vectors the kernel reads: mean, rstd, gamma, dbeta, dgamma
+        "bn_dx": (
+            lambda: bn.bn_dx(*dx_args),
+            lambda: bn.bn_dx_ref(*dx_args),
+            lambda: torch.batch_norm_backward_elemt(
+                dy4, x4, mean, rstd, gamma, dbeta, sum_dy_xmu, count),
+            (2 * x.numel() * x.element_size() + dy.numel()
+             * dy.element_size() + 5 * C * 4)),
+    }
+    if passes_only:
+        del runs["batch_norm_stats"], runs["batch_norm_grad_stats"]
+    return runs
+
+
+def _device_activity(fn):
+    """The names of the device's kernels, copies and sets in one call of
+    ``fn`` under torch.profiler (after one call outside it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _bn_pass_launches(bn, rows):
+    """A profiler trace of one bn_apply and one bn_dx call at 8,192 x 448
+    (f32 arithmetic, the mean and var cotangents absent): each must show
+    its one kernel and no other device activity. Returns the failures."""
+    import torch
+    x, dy, mean, rstd = _bn_inputs(128 * 8 * 8, 448, "bfloat16", 99)
+    gamma = torch.rand(448, device="cuda") + 0.5
+    beta = torch.randn(448, device="cuda")
+    runs = _bn_runs(bn, x, dy, gamma, beta, mean, rstd, (8, 8),
+                    passes_only=True)
+    bad = []
+    for name, (kern, _, _, _) in runs.items():
+        seen = _device_activity(kern)
+        rows[name]["trace_device_activity"] = seen
+        log("%s, one call under the profiler: %s" % (name, seen))
+        if len(seen) != 1 or name + "_kernel" not in seen[0]:
+            bad.append("one %s call ran %s on the device, not its one kernel"
+                       % (name, seen))
+    return bad
+
+
+def _inception_step(bn, rows):
+    """The passes' cost an Inception step: bn_apply's and bn_dx's times
+    (and their library calls') at each of Inception's 18 (M, C) launch
+    shapes, weighted by its layers (INCEPTION_BN_LAUNCHES, 94 in all), back
+    to back (``inception_step_ms``) and on the device (``_device_ms``,
+    CUDA graphs: the short launches' inputs sit in L2 between calls)."""
+    import torch
+    keys = ("inception_step_ms", "inception_step_device_ms",
+            "library_inception_step_ms", "library_inception_step_device_ms")
+    for name in ("bn_apply", "bn_dx"):
+        rows[name].update(dict.fromkeys(keys, 0.0))
+    for seed, ((hw, C), layers) in enumerate(INCEPTION_BN_LAUNCHES.items()):
+        side = round(hw ** 0.5)
+        M = INCEPTION_BATCH * hw
+        x, dy, mean, rstd = _bn_inputs(M, C, "bfloat16", 200 + seed)
+        g = torch.Generator(device="cuda").manual_seed(300 + seed)
+        gamma = torch.rand(C, generator=g, device="cuda") + 0.5
+        beta = torch.randn(C, generator=g, device="cuda")
+        runs = _bn_runs(bn, x, dy, gamma, beta, mean, rstd, (side, side),
+                        passes_only=True)
+        for name, (kern, _, library, _) in runs.items():
+            times = (time_ms(kern), graph_ms(kern), time_ms(library),
+                     graph_ms(library))
+            for key, t in zip(keys, times):
+                rows[name][key] += layers * t
+            log("%s at %d x %d (x%d): %.4f ms, device %.4f; library %.4f, "
+                "device %.4f" % ((name, M, C, layers) + times))
+        del x, dy, runs
+        torch.cuda.empty_cache()
+    for name in ("bn_apply", "bn_dx"):
+        log("%s over Inception's 94 launches a step: %s" % (
+            name, json.dumps({k: rows[name][k] for k in keys})))
+
+
 def phase_bn_kernels():
     """K7 and K8 against their plain versions at BN_SHAPES and at
     INCEPTION_BN_SHAPES (and, at the stem, with BN_GROUPS ghost groups and
     K8 with the ReLU mask), the normalize and dx passes bit for bit against
     theirs (both modes, with and without the ReLU, with ghost groups where
     they divide M); times at the ResNet stem, the widest activation of the
-    main path (the row's ``ms``), and at the three Inception launches
-    (``<label>_ms``), each beside its plain version, library call and
-    bound. Returns {name: row}."""
+    main path (the row's ``ms``), and at the five Inception launches
+    (``<label>_ms``), each back to back and on the device (``device_ms``,
+    CUDA graphs), beside its plain version, library call and bound; one
+    call of each pass under the profiler (one kernel, nothing else on the
+    device); and the passes' launch-weighted cost an Inception step
+    (``inception_step_ms``). Returns {name: row}."""
     import torch
     from horovod_tpu_torch.ops import batch_norm as bn
     rows = {name: {} for name in BN}
@@ -1082,69 +1260,45 @@ def phase_bn_kernels():
                     label, M, C, groups, 8 + 4 * (label == "odd") - len(miss),
                     8 + 4 * (label == "odd")))
         if label in timed:
-            # the same memory as [N, C, H, W] channels_last tensors
-            x4, dy4 = (t.view(-1, *timed[label], C).permute(0, 3, 1, 2)
-                       for t in (x, dy))
             pre = "" if label == "stem" else label + "_"
-            a = gamma * rstd
-            b = beta - mean * a
-            dbeta, dgamma = bn.batch_norm_grad_stats_ref(dy, x, mean, rstd)
-            count = torch.tensor([M], dtype=torch.int32, device="cuda")
-            dx_args = (dy, x, mean, rstd, gamma, beta, dbeta, dgamma, M)
-            runs = {
-                "batch_norm_stats": (
-                    lambda: bn.batch_norm_stats(x),
-                    lambda: bn.batch_norm_stats_ref(x),
-                    lambda: torch.batch_norm_stats(x4, 1e-5),
-                    x.numel() * x.element_size() + 2 * C * 4),
-                "batch_norm_grad_stats": (
-                    lambda: bn.batch_norm_grad_stats(dy, x, mean, rstd),
-                    lambda: bn.batch_norm_grad_stats_ref(dy, x, mean, rstd),
-                    lambda: torch.batch_norm_backward_reduce(
-                        dy4, x4, mean, rstd, None, True, False, False),
-                    (x.numel() * x.element_size() + dy.numel()
-                     * dy.element_size() + 2 * C * 4 + 2 * C * 4)),
-                # the resnet phase's calls (f32 arithmetic, no ReLU); the
-                # yardsticks take the same statistics (sum dy * (x - mean)
-                # = dgamma / rstd)
-                "bn_apply": (
-                    lambda: bn.bn_apply(x, a, b),
-                    lambda: bn.bn_apply_ref(x, a, b),
-                    lambda: torch.batch_norm_elemt(x4, gamma, beta, mean,
-                                                   rstd, 1e-5),
-                    2 * x.numel() * x.element_size() + 2 * C * 4),
-                "bn_dx": (
-                    lambda: bn.bn_dx(*dx_args),
-                    lambda: bn.bn_dx_ref(*dx_args),
-                    lambda: torch.batch_norm_backward_elemt(
-                        dy4, x4, mean, rstd, gamma, dbeta, dgamma / rstd,
-                        count),
-                    (2 * x.numel() * x.element_size() + dy.numel()
-                     * dy.element_size() + 5 * C * 4)),
-            }
+            runs = _bn_runs(bn, x, dy, gamma, beta, mean, rstd, timed[label])
             for name, (kern, plain, library, n_bytes) in runs.items():
                 r = rows[name]
                 r[pre + "ms"] = time_ms(kern)
+                r[pre + "device_ms"] = graph_ms(kern)
                 r[pre + "plain_ms"] = time_ms(plain, n=5, reps=3, warmup=1)
                 r[pre + "library_ms"] = time_ms(library)
+                r[pre + "library_device_ms"] = graph_ms(library)
                 r[pre + "bound_ms"], r[pre + "bound_by"] = _bn_bound_ms(
                     name, M, C, n_bytes)
-                log("%s %s (%d x %d): %.4f ms (bound %.4f, plain %.3f, "
-                    "library %.4f)" % (name, label, M, C, r[pre + "ms"],
-                                       r[pre + "bound_ms"],
-                                       r[pre + "plain_ms"],
-                                       r[pre + "library_ms"]))
+                log("%s %s (%d x %d): %.4f ms, device %.4f (bound %.4f, "
+                    "plain %.3f, library %.4f, device %.4f)" % (
+                        name, label, M, C, r[pre + "ms"], r[pre + "device_ms"],
+                        r[pre + "bound_ms"], r[pre + "plain_ms"],
+                        r[pre + "library_ms"], r[pre + "library_device_ms"]))
         if label == "stem":
             # the resnet_lean phase's calls: bf16 arithmetic, the ReLU
-            rows["bn_apply"]["lean_relu_ms"] = time_ms(
-                lambda: bn.bn_apply(x, a, b, 1, True, "lean"))
-            rows["bn_dx"]["lean_relu_ms"] = time_ms(
-                lambda: bn.bn_dx(*dx_args, 1, True, "lean"))
-            log("stem, lean mode with the ReLU: bn_apply %.4f ms, bn_dx %.4f"
-                % (rows["bn_apply"]["lean_relu_ms"],
-                   rows["bn_dx"]["lean_relu_ms"]))
+            a = gamma * rstd
+            b = beta - mean * a
+            dbeta, dgamma = bn.batch_norm_grad_stats_ref(dy, x, mean, rstd)
+            lean = {"bn_apply": lambda: bn.bn_apply(x, a, b, 1, True, "lean"),
+                    "bn_dx": lambda: bn.bn_dx(dy, x, mean, rstd, gamma, beta,
+                                              dbeta, dgamma, M, 1, True,
+                                              "lean")}
+            for name, fn in lean.items():
+                rows[name]["lean_relu_ms"] = time_ms(fn)
+                rows[name]["lean_relu_device_ms"] = graph_ms(fn)
+            log("stem, lean mode with the ReLU: bn_apply %.4f ms (device "
+                "%.4f), bn_dx %.4f (device %.4f)" % (
+                    rows["bn_apply"]["lean_relu_ms"],
+                    rows["bn_apply"]["lean_relu_device_ms"],
+                    rows["bn_dx"]["lean_relu_ms"],
+                    rows["bn_dx"]["lean_relu_device_ms"]))
         del x, dy
         torch.cuda.empty_cache()
+    bad += _bn_pass_launches(bn, rows)
+    if not bad:
+        _inception_step(bn, rows)
     if bad:
         fail("BN kernels disagree with their plain versions: "
              + "; ".join(bad))
@@ -3960,9 +4114,13 @@ def main():
                                          "bf16_bound_ms", "bf16_bound_by",
                                          "bf16_library_ms")
                if key in row},
-            # the BN kernels at Inception's launches (INCEPTION_BN_SHAPES)
-            **{key: row[key] for key in row if key.startswith("inc_")
-               and key.endswith(("_ms", "_bound_by"))}})
+            # the BN kernels: device times (CUDA graphs), the lean calls at
+            # the stem, the launches at Inception's shapes
+            # (INCEPTION_BN_SHAPES), the passes' cost an Inception step and
+            # one call's device activity under the profiler
+            **{key: row[key] for key in row if name in BN
+               and (key.endswith(("_ms", "_bound_by"))
+                    or key == "trace_device_activity")}})
     print(json.dumps({"kernels": kernels, "library": library}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

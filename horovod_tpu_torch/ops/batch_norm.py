@@ -17,13 +17,15 @@ and ``LeanBatchNorm``, with ghost BN). Four kernels, in
 The statistics read their operands once (bf16 or f32), accumulate in f32
 and return f32 sums, reduced across blocks in a fixed order (no float
 atomics), so the same input gives bit-identical statistics. The two passes
-are elementwise, in one of two arithmetic modes: ``"pallas"`` computes in
-f32 and rounds once to x's dtype (``_FusedBatchNormFn``), ``"lean"`` rounds
-every operation to x's dtype (the lean path's bf16 ops). Each pass equals
-its plain version bit for bit, because the wrapper computes the
-per-channel terms with the plain version's own torch expressions, and the
-kernel rounds them to x's dtype in lean mode as ``.to(dtype)`` does and
-each product and sum apart (no FMA). Rows split into
+are elementwise, one launch a call, in one of two arithmetic modes:
+``"pallas"`` computes in f32 and rounds once to x's dtype
+(``_FusedBatchNormFn``), ``"lean"`` rounds every operation to x's dtype
+(the lean path's bf16 ops). Each pass equals its plain version bit for
+bit: the kernel takes the raw per-channel vectors and forms the terms
+itself with the plain version's own f32 operations (the divisions by the
+row count as products with its f32 reciprocal, which the wrapper hands to
+both), rounds them to x's dtype in lean mode as ``.to(dtype)`` does, and
+rounds each product and sum apart (no FMA). Rows split into
 ``groups`` ghost groups of M / groups contiguous rows: a channels-last
 activation keeps its batch axis outermost, so a ghost batch is a block of
 rows. Every kernel masks both ragged tails, so every M >= 1 and C >= 1 is
@@ -49,6 +51,8 @@ them (``lean_batch_norm_conv``).
 """
 
 import ctypes
+import functools
+import struct
 from typing import Optional
 
 import torch
@@ -69,12 +73,16 @@ _THREADS = 256          # threads of a block (csrc/batch_norm.cu)
 # and every rank splits (and so rounds) alike.
 _TARGET_BLOCKS = 528
 _MIN_ROWS = 32
-# The passes: about 8 blocks of 256 threads per SM, each thread taking at
-# least _PASS_UNROLL rows (csrc/batch_norm.cu's kApplyUnroll).
+# The passes (csrc's pass_shape and pass_rows): a tile of at most
+# _PASS_TILE channels a block; each group split so that the blocks are a
+# whole multiple of _SMS (the SMs of an H100), at least one each where the
+# rows allow it, at most _PASS_BLOCKS, with at least _PASS_ROWS rows a
+# thread between those. Fixed numbers, as the statistics' (the passes'
+# output does not depend on the split, but every rank launches alike).
+_PASS_TILE = 1024
+_SMS = 132
 _PASS_BLOCKS = 1056
-_PASS_UNROLL = 4
-# The terms of the dx pass, in the order of csrc/batch_norm.cu's Term.
-_DX_TERMS = ("mean", "rstd", "k", "c1", "c2", "gamma", "beta", "c3", "c4")
+_PASS_ROWS = 16
 
 _bound = {}
 
@@ -159,16 +167,37 @@ def bn_apply_ref(x2d, a, b, groups=1, relu=False, mode="pallas"):
     return y.view(x2d.shape)
 
 
+def _f32(v):
+    """v rounded to the nearest float32, as a Python float."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
+@functools.lru_cache(maxsize=256)
+def count_scales(count):
+    """(1 / count, 2 / count) as float32 scalars: the factors of the dx
+    pass's divisions by the row count. The first is ATen's on CUDA for a
+    tensor divided by a Python number (``BinaryDivTrueKernel.cu``
+    multiplies by ``1.0f / count``; XLA multiplies by the reciprocal too),
+    the second the f32 value of the double ``2.0 / count`` (``gvar * (2.0 /
+    count)`` in ``_bn_train_bwd`` and ``_lean_bwd``). Dividing the
+    float32 count in double and rounding once to float32 is the float32
+    quotient: double holds more than twice float32's 24 bits."""
+    return _f32(1.0 / _f32(count)), _f32(2.0 / count)
+
+
 def _dx_terms(mean, rstd, gamma, beta, dbeta, dgamma, count, gmean, gvar):
     """The per-(group, channel) terms of the dx pass in f32 ({name: tensor
-    or None}): k = gamma * rstd, c1 = dbeta / count, c2 = dgamma / count, c3
-    = gmean / count, c4 = gvar * 2 / count, with mean, rstd, gamma, beta. The
-    kernel reads these values, the plain version broadcasts them (in lean
-    mode both round them to x's dtype first, as ``_lean_bwd:399-409``)."""
-    return dict(mean=mean, rstd=rstd, k=gamma * rstd, c1=dbeta / count,
-                c2=dgamma / count, gamma=gamma, beta=beta,
-                c3=None if gmean is None else gmean / count,
-                c4=None if gvar is None else gvar * (2.0 / count))
+    or None}): k = gamma * rstd, c1 = dbeta * (1 / count), c2 = dgamma *
+    (1 / count), c3 = gmean * (1 / count), c4 = gvar * (2 / count), with
+    ``count_scales``' f32 factors, and mean, rstd, gamma, beta. The kernel
+    forms the same values from the raw vectors; the plain version
+    broadcasts these (in lean mode both round them to x's dtype first, as
+    ``_lean_bwd:399-409``)."""
+    inv, two = count_scales(count)
+    return dict(mean=mean, rstd=rstd, k=gamma * rstd, c1=dbeta * inv,
+                c2=dgamma * inv, gamma=gamma, beta=beta,
+                c3=None if gmean is None else gmean * inv,
+                c4=None if gvar is None else gvar * two)
 
 
 def bn_dx_ref(dy2d, x2d, mean, rstd, gamma, beta, dbeta, dgamma, count,
@@ -176,9 +205,10 @@ def bn_dx_ref(dy2d, x2d, mean, rstd, gamma, beta, dbeta, dgamma, count,
     """Plain version of the dx pass: dx = gamma * rstd * (dy - dbeta / count
     - x_hat * dgamma / count), plus gmean / count + gvar * 2 / count * (x -
     mean) for the mean and var cotangents that are given, dy masked as K8's
-    with ``relu`` (then ``beta`` is needed). ``dbeta`` and ``dgamma`` are
-    the sums over the ``count`` rows of each group (over the sync group
-    too). ``"pallas"``: ``_bn_train_bwd:237-242`` in f32, one rounding;
+    with ``relu`` (then ``beta`` is needed); each division a product with
+    the f32 factor of ``count_scales``. ``dbeta`` and ``dgamma`` are the
+    sums over the ``count`` rows of each group (over the sync group too).
+    ``"pallas"``: ``_bn_train_bwd:237-242`` in f32, one rounding;
     ``"lean"``: ``_lean_bwd:381-409``, each operation in x's dtype."""
     t = _dx_terms(mean, rstd, gamma, beta, dbeta, dgamma, count, gmean, gvar)
     dt = x2d.dtype if mode == "lean" else torch.float32
@@ -199,6 +229,15 @@ def bn_dx_ref(dy2d, x2d, mean, rstd, gamma, beta, dbeta, dgamma, count,
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The passes' packed arguments (csrc/batch_norm.cu: hvd_bn_apply, hvd_bn_dx),
+# 8-byte fields: the output, the inputs and their dtypes, the flags, M, C,
+# groups, vec, splits, the stream, then a (pointer, group stride, channel
+# stride) triple for each per-(group, channel) f32 input (a, b; mean, rstd,
+# gamma, beta, dbeta, dgamma, gmean, gvar), and for bn_dx 1 / count and 2 /
+# count. One struct.pack and one ctypes argument a call.
+_APPLY_ARGS = struct.Struct("<17q")
+_DX_ARGS = struct.Struct("<37q2d")
+_NO_TERM = (0, 0, 0)
 # C entry point -> its argument types (csrc/batch_norm.cu)
 _ARGTYPES = {
     # x, dtype, ws, out, M, C, groups, vec, splits, stream
@@ -207,12 +246,8 @@ _ARGTYPES = {
     # groups, vec, splits, stream
     "hvd_bn_grad_stats": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _L,
                           _I, _I, _I, _I, _P],
-    # y, x, dtype, a, b, lean, relu, M, C, groups, vec, splits, stream
-    "hvd_bn_apply": [_P, _P, _I, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P],
-    # dx, dy, dtype, x, dtype, terms, lean, relu, extra, M, C, groups, vec,
-    # splits, stream
-    "hvd_bn_dx": [_P, _P, _I, _P, _I, ctypes.POINTER(_P), _I, _I, _I, _L,
-                  _I, _I, _I, _I, _P],
+    "hvd_bn_apply": [ctypes.c_char_p],
+    "hvd_bn_dx": [ctypes.c_char_p],
 }
 
 
@@ -230,24 +265,28 @@ def _entry(name):
 def _on_cpu(what, t):
     """True for CPU tensors (the plain version runs); False for CUDA
     tensors (the kernel runs); raises for any other device."""
-    if t.device.type == "cpu":
+    if t.is_cpu:
         return True
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError("%s: tensors on %s; the kernels run on CUDA and the "
                          "plain version on the CPU" % (what, t.device))
     return False
 
 
-def _check_rows(what, name, t, device, shape=None):
-    if t.dim() != 2 or t.shape[0] < 1 or t.shape[1] < 1:
+def _check_rows(what, name, t, like=None):
+    """Raises unless ``t`` is a non-empty contiguous (M, C) bf16 or f32
+    tensor, of ``like``'s shape and on its device when ``like`` is given;
+    returns (its shape, its data pointer)."""
+    size = t.shape
+    if len(size) != 2 or size[0] < 1 or size[1] < 1:
         raise ValueError("%s: %s must be a non-empty (M, C) tensor, got %s"
-                         % (what, name, tuple(t.shape)))
-    if shape is not None and t.shape != shape:
+                         % (what, name, tuple(size)))
+    if like is not None and size != like.shape:
         raise ValueError("%s: %s is %s, x is %s"
-                         % (what, name, tuple(t.shape), tuple(shape)))
-    if t.device != device:
+                         % (what, name, tuple(size), tuple(like.shape)))
+    if like is not None and t.get_device() != like.get_device():
         raise ValueError("%s: %s is on %s, x on %s"
-                         % (what, name, t.device, device))
+                         % (what, name, t.device, like.device))
     if t.dtype not in _DTYPES:
         raise TypeError("%s: %s is %s; the kernels take bfloat16 or float32"
                         % (what, name, t.dtype))
@@ -256,6 +295,7 @@ def _check_rows(what, name, t, device, shape=None):
             "%s: %s must be a contiguous (M, C) view (a channels_last "
             "activation as x.movedim(1, -1).view(-1, C)); got strides %s"
             % (what, name, tuple(t.stride())))
+    return size, t.data_ptr()
 
 
 def _check_args(what, x2d, groups, mode):
@@ -287,6 +327,28 @@ def _terms(what, x2d, groups, **terms):
     return out
 
 
+def _pass_term(what, name, t, index, groups, C):
+    """(pointer, group stride, channel stride) of a per-(group, channel)
+    f32 input of a pass, (C,) (group stride 0: one vector for every group)
+    or (groups, C), any strides, on CUDA device ``index``; (0, 0, 0) for
+    None. Raises on a wrong shape, device or dtype."""
+    if t is None:
+        return _NO_TERM
+    size, strides = t.shape, t.stride()
+    if len(size) == 1:
+        ok, gs, cs = size[0] == C, 0, strides[0]
+    else:
+        ok, gs, cs = size == (groups, C), strides[0], strides[-1]
+    if not ok or t.get_device() != index:
+        raise ValueError("%s: %s must be (%d,) or (%d, %d) on cuda:%d, got "
+                         "%s on %s" % (what, name, C, groups, C, index,
+                                       tuple(size), t.device))
+    if t.dtype is not torch.float32:
+        raise TypeError("%s: %s is %s; the passes take float32 terms"
+                        % (what, name, t.dtype))
+    return t.data_ptr(), gs, cs
+
+
 def _vec(C, tensors):
     """8 channels a thread (16-byte loads) when C % 8 == 0 and every base
     is 16-byte aligned, else 1."""
@@ -310,11 +372,26 @@ def _plan(Mg, C, vec, groups):
                       -(-_TARGET_BLOCKS // (col_tiles * groups))))
 
 
+def _pass_shape(C, vec):
+    """(column tiles, tx, ty) of csrc's pass_shape: tx threads along C, VEC
+    channels each and at most _PASS_TILE channels a tile, by ty = 256 / tx
+    along M."""
+    tc = -(-C // vec)
+    tx = min(tc, _PASS_TILE // vec, _THREADS)
+    return -(-tc // tx), tx, _THREADS // tx
+
+
+@functools.lru_cache(maxsize=1024)
 def _pass_plan(Mg, C, vec, groups):
-    """Row splits of each group for the passes."""
-    col_tiles, rows_per_pass = _columns(C, vec)
-    return max(1, min(-(-Mg // (rows_per_pass * _PASS_UNROLL)),
-                      -(-_PASS_BLOCKS // (col_tiles * groups))))
+    """Row splits of each group for the passes, from (Mg, C, vec, groups)
+    alone: blocks of at least _PASS_ROWS rows a thread, at most
+    _PASS_BLOCKS of them, in whole multiples of _SMS (every SM the same
+    share of rows), and at least _SMS while each thread keeps a row."""
+    col_tiles, _, ty = _pass_shape(C, vec)
+    per = col_tiles * groups  # blocks for each split of the groups
+    blocks = min(Mg // (ty * _PASS_ROWS) * per, _PASS_BLOCKS)
+    blocks = max(blocks // _SMS * _SMS, _SMS)
+    return max(1, min(-(-blocks // per), Mg // ty))
 
 
 def _stream(dev):
@@ -336,21 +413,16 @@ def _launch_stats(name, args, tensors, M, C, groups):
     return out
 
 
-def _launch_pass(name, x2d, reads, args, groups):
-    """Launches the pass ``name`` over (M, C) into a new (M, C) tensor in
-    x's dtype, which it returns: the entry's arguments are that output,
-    ``args``, then M, C, groups, vec, splits and the stream."""
-    out = torch.empty_like(x2d)
-    M, C = x2d.shape
-    vec = _vec(C, reads + [out])
-    splits = _pass_plan(M // groups, C, vec, groups)
+def _launch_pass(name, args, index):
+    """One ctypes call of the pass ``name`` with its packed arguments,
+    switching the current device only when x's (``index``) is not."""
     lib, fn = _entry(name)
-    dev = x2d.device
-    with torch.cuda.device(dev):
-        err = fn(out.data_ptr(), *args, M, C, groups, vec, splits,
-                 _stream(dev))
+    if index == torch._C._cuda_getDevice():
+        err = fn(args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(args)
     _build.check(lib, err, name)
-    return out
 
 
 def _pair(out, groups):
@@ -367,7 +439,7 @@ def batch_norm_stats(x2d, groups=1):
     what = "batch_norm_stats"
     if _on_cpu(what, x2d):
         return batch_norm_stats_ref(x2d, groups)
-    _check_rows(what, "x", x2d, x2d.device)
+    _check_rows(what, "x", x2d)
     _check_args(what, x2d, groups, "pallas")
     M, C = x2d.shape
     out = _launch_stats("hvd_bn_stats", [x2d.data_ptr(), _DTYPES[x2d.dtype]],
@@ -390,8 +462,8 @@ def batch_norm_grad_stats(dy2d, x2d, mean, rstd, groups=1, gamma=None,
     if _on_cpu(what, x2d):
         return batch_norm_grad_stats_ref(dy2d, x2d, mean, rstd, groups,
                                          gamma, beta, mode)
-    _check_rows(what, "x", x2d, x2d.device)
-    _check_rows(what, "dy", dy2d, x2d.device, x2d.shape)
+    _check_rows(what, "x", x2d)
+    _check_rows(what, "dy", dy2d, x2d)
     _check_args(what, x2d, groups, mode)
     M, C = x2d.shape
     t = _terms(what, x2d, groups, mean=mean, rstd=rstd, gamma=gamma,
@@ -411,16 +483,23 @@ def batch_norm_grad_stats(dy2d, x2d, mean, rstd, groups=1, gamma=None,
 def bn_apply(x2d, a, b, groups=1, relu=False, mode="pallas"):
     """The normalize pass: y = x * a + b per (group, channel), max(y, 0)
     with ``relu``, a new (M, C) tensor in x's dtype. a and b are f32 (C,) or
-    (G, C) with ``groups`` row blocks; ``mode`` is ``bn_apply_ref``'s."""
+    (G, C) with ``groups`` row blocks; ``mode`` is ``bn_apply_ref``'s. On
+    CUDA one launch, and no torch op but the output's allocation."""
     what = "bn_apply"
     if _on_cpu(what, x2d):
         return bn_apply_ref(x2d, a, b, groups, relu, mode)
-    _check_rows(what, "x", x2d, x2d.device)
+    (M, C), xp = _check_rows(what, "x", x2d)
     _check_args(what, x2d, groups, mode)
-    t = _terms(what, x2d, groups, a=a, b=b)
-    y = _launch_pass("hvd_bn_apply", x2d, [x2d], [
-        x2d.data_ptr(), _DTYPES[x2d.dtype], t["a"].data_ptr(),
-        t["b"].data_ptr(), int(mode == "lean"), int(relu)], groups)
+    index = x2d.get_device()
+    y = torch.empty_like(x2d)
+    yp = y.data_ptr()
+    vec = 8 if C % 8 == 0 and not (xp | yp) & 15 else 1
+    _launch_pass("hvd_bn_apply", _APPLY_ARGS.pack(
+        yp, xp, _DTYPES[x2d.dtype], mode == "lean", bool(relu), M, C,
+        groups, vec, _pass_plan(M // groups, C, vec, groups),
+        torch._C._cuda_getCurrentRawStream(index),
+        *_pass_term(what, "a", a, index, groups, C),
+        *_pass_term(what, "b", b, index, groups, C)), index)
     bn_apply.launches += 1
     bn_apply.relu_launches += bool(relu)
     return y
@@ -430,31 +509,37 @@ def bn_dx(dy2d, x2d, mean, rstd, gamma, beta, dbeta, dgamma, count,
           groups=1, relu=False, mode="pallas", gmean=None, gvar=None):
     """The dx pass of the BN backward: ``bn_dx_ref``'s dx, a new (M, C)
     tensor in x's dtype. dy and x are (M, C) (f32 dy with bf16 x is
-    allowed); mean, rstd, dbeta, dgamma (and gmean, gvar) f32 (C,) or (G, C);
-    gamma (and beta, needed with ``relu``) f32 (C,)."""
+    allowed); mean, rstd, dbeta, dgamma (and gmean, gvar) f32 (C,) or (G,
+    C); gamma (and beta, needed with ``relu``) f32 (C,). On CUDA one launch,
+    and no torch op but the output's allocation: the kernel forms the terms
+    from these raw vectors and ``count_scales(count)``."""
     what = "bn_dx"
     if relu and beta is None:
         raise ValueError("%s: the ReLU mask needs beta" % what)
     if _on_cpu(what, x2d):
         return bn_dx_ref(dy2d, x2d, mean, rstd, gamma, beta, dbeta, dgamma,
                          count, groups, relu, mode, gmean, gvar)
-    _check_rows(what, "x", x2d, x2d.device)
-    _check_rows(what, "dy", dy2d, x2d.device, x2d.shape)
+    (M, C), xp = _check_rows(what, "x", x2d)
+    _, dyp = _check_rows(what, "dy", dy2d, x2d)
     _check_args(what, x2d, groups, mode)
-    terms = _dx_terms(mean, rstd, gamma, beta if relu else None, dbeta,
-                      dgamma, count, gmean, gvar)
-    extra = gmean is not None or gvar is not None
-    if extra:  # one flag in the kernel: a missing cotangent adds zero
-        zero = torch.zeros_like(terms["mean"])
-        for k in ("c3", "c4"):
-            terms[k] = zero if terms[k] is None else terms[k]
-    t = _terms(what, x2d, groups, **terms)
-    ptrs = (_P * len(_DX_TERMS))(*(None if t[k] is None else t[k].data_ptr()
-                                   for k in _DX_TERMS))
-    dx = _launch_pass("hvd_bn_dx", x2d, [dy2d, x2d], [
-        dy2d.data_ptr(), _DTYPES[dy2d.dtype], x2d.data_ptr(),
-        _DTYPES[x2d.dtype], ptrs, int(mode == "lean"), int(relu),
-        int(extra)], groups)
+    index = x2d.get_device()
+    dx = torch.empty_like(x2d)
+    dxp = dx.data_ptr()
+    vec = 8 if C % 8 == 0 and not (xp | dyp | dxp) & 15 else 1
+    _launch_pass("hvd_bn_dx", _DX_ARGS.pack(
+        dxp, dyp, _DTYPES[dy2d.dtype], xp, _DTYPES[x2d.dtype],
+        mode == "lean", bool(relu), M, C, groups, vec,
+        _pass_plan(M // groups, C, vec, groups),
+        torch._C._cuda_getCurrentRawStream(index),
+        *_pass_term(what, "mean", mean, index, groups, C),
+        *_pass_term(what, "rstd", rstd, index, groups, C),
+        *_pass_term(what, "gamma", gamma, index, groups, C),
+        *_pass_term(what, "beta", beta if relu else None, index, groups, C),
+        *_pass_term(what, "dbeta", dbeta, index, groups, C),
+        *_pass_term(what, "dgamma", dgamma, index, groups, C),
+        *_pass_term(what, "gmean", gmean, index, groups, C),
+        *_pass_term(what, "gvar", gvar, index, groups, C),
+        *count_scales(count)), index)
     bn_dx.launches += 1
     bn_dx.relu_launches += bool(relu)
     return dx

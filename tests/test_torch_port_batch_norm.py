@@ -3,6 +3,9 @@ autograd function, the module, sync BN) against the JAX package's, on the
 CPU. The Pallas kernels run in interpret mode, as tests/test_batch_norm.py
 runs them; inputs are made with numpy from a seed and handed to both."""
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,9 @@ from horovod_tpu.ops import batch_norm as jbn
 from horovod_tpu_torch.ops import batch_norm as tbn
 
 import torch_port_bn_worker as worker
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -200,3 +206,128 @@ def test_sync_bn_on_two_gloo_ranks_equals_global_batch_bn(tmp_path):
                                **tol)
     torch.testing.assert_close(sum(o["dgamma"] for o in outs), dgamma, **tol)
     torch.testing.assert_close(sum(o["dbeta"] for o in outs), dbeta, **tol)
+
+
+def _bwd_inputs(M, C, seed):
+    """x, dy, gmean, gvar f32 and x's mean and rstd, gamma, from a seed."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(M, C).astype(np.float32) * 2.0 + 0.5)
+    dy = torch.from_numpy(rng.randn(M, C).astype(np.float32))
+    gamma = torch.from_numpy(rng.rand(C).astype(np.float32) + 0.5)
+    gm = torch.from_numpy(rng.randn(C).astype(np.float32))
+    gv = torch.from_numpy(rng.randn(C).astype(np.float32))
+    var, mean = torch.var_mean(x, 0, correction=0)
+    return x, dy, gamma, mean, torch.rsqrt(var + 1e-5), gm, gv
+
+
+@pytest.mark.parametrize("cot", ["none", "gmean", "gvar", "both"])
+@pytest.mark.parametrize("M,C", [(301, 32), (257, 48), (129, 80),
+                                 (77, 192), (33, 448)])
+def test_dx_plain_version_with_its_reciprocal_matches_jax(M, C, cot):
+    """bn_dx_ref (each division by the row count a product with the f32
+    reciprocal the kernel is handed) against _bn_train_bwd at the widths
+    of Inception's launches and odd M, with each of the mean and var
+    cotangents alone, both, or neither (zeros on the JAX side)."""
+    x, dy, gamma, mean, rstd, gm, gv = _bwd_inputs(M, C, 20 + C)
+    gmean = gm if cot in ("gmean", "both") else None
+    gvar = gv if cot in ("gvar", "both") else None
+    zeros = torch.zeros(C)
+    dx_j, dgamma_j, dbeta_j = jbn._bn_train_bwd(
+        1e-5, True, None, tuple(jnp.asarray(t.numpy())
+                                for t in (x, gamma, mean, rstd)),
+        tuple(jnp.asarray(t.numpy()) for t in (
+            dy, zeros if gmean is None else gmean,
+            zeros if gvar is None else gvar)))
+    dbeta, dgamma = tbn.batch_norm_grad_stats_ref(dy, x, mean, rstd)
+    dx = tbn.bn_dx_ref(dy, x, mean, rstd, gamma, None, dbeta, dgamma, M,
+                       gmean=gmean, gvar=gvar)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_j), rtol=BN_TOL,
+                               atol=BN_TOL)
+    inv, two = tbn.count_scales(M)
+    assert np.float32(inv) == np.float32(1) / np.float32(M)
+    assert np.float32(two) == np.float32(2.0 / M)
+
+
+@pytest.mark.parametrize("mode", tbn.MODES)
+def test_pass_plain_versions_take_shared_terms_with_ghost_groups(mode):
+    """With ghost groups a (C,) term is every group's: the plain passes
+    give what they give on the same term repeated to (G, C)."""
+    M, C, G = 96, 24, 4
+    x, dy, gamma, _, _, gm, gv = _bwd_inputs(M, C, 5)
+    x = x.to(torch.bfloat16)
+    var, mean = torch.var_mean(x.float(), 0, correction=0)
+    rstd = torch.rsqrt(var + 1e-5)
+    beta = gm.clone()
+    db, dg = tbn.batch_norm_grad_stats_ref(dy, x, mean, rstd, G)
+
+    def rep(t):
+        return t.expand(G, C).contiguous()
+    a, b = gamma * rstd, beta - mean * gamma * rstd
+    for relu in (False, True):
+        assert torch.equal(tbn.bn_apply_ref(x, a, b, G, relu, mode),
+                           tbn.bn_apply_ref(x, rep(a), rep(b), G, relu, mode))
+        shared = tbn.bn_dx_ref(dy, x, mean, rstd, gamma, beta, db, dg, M // G,
+                               G, relu, mode, gm, gv)
+        full = tbn.bn_dx_ref(dy, x, rep(mean), rep(rstd), gamma, beta, db,
+                             dg, M // G, G, relu, mode, rep(gm), rep(gv))
+        assert torch.equal(shared, full)
+
+
+# Inception's launches (chip_smoke.INCEPTION_BN_LAUNCHES) at batch 128 and
+# the ResNet-50 stem, plain and in 8 ghost groups: (Mg, C, groups)
+_PLAN_SHAPES = sorted({(128 * hw, C, 1) for hw, C in
+                       chip_smoke.INCEPTION_BN_LAUNCHES}
+                      | {(256 * 112 * 112, 64, 1), (32 * 112 * 112, 64, 8)})
+
+
+@pytest.mark.parametrize("Mg,C,groups", _PLAN_SHAPES)
+def test_pass_plan_fills_the_card_and_amortises_the_terms(Mg, C, groups,
+                                                          monkeypatch):
+    """The passes' split at each launch: at least one block for each of the
+    132 SMs, at most _PASS_BLOCKS (plus one split's worth), a whole
+    multiple of 132 with one split a group, every thread at least
+    _PASS_ROWS rows unless the 132-block floor takes them, every row in
+    one split; and the split is worked out from (M, C, G, vec) alone: the
+    same with every query of the device refused."""
+    tbn._pass_plan.cache_clear()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plan asked the device")
+    for name in ("is_available", "device_count", "get_device_properties",
+                 "current_device", "get_device_name"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    splits = tbn._pass_plan(Mg, C, 8, groups)
+    col_tiles, tx, ty = tbn._pass_shape(C, 8)
+    per = col_tiles * groups
+    blocks = splits * per
+    assert tx * 8 >= min(C, tbn._PASS_TILE) and tx * ty <= 256
+    assert 132 <= blocks <= max(tbn._PASS_BLOCKS, 132) + per
+    rows_a_thread = Mg // splits // ty   # the shortest split's, floored
+    assert rows_a_thread >= tbn._PASS_ROWS or blocks < 132 + per
+    assert rows_a_thread >= 1
+    assert per > 1 or blocks % 132 == 0
+    # pass_rows: split s takes [Mg * s / splits, Mg * (s + 1) / splits)
+    ends = [Mg * s // splits for s in range(splits + 1)]
+    assert ends[0] == 0 and ends[-1] == Mg
+    assert all(b > a for a, b in zip(ends, ends[1:]))
+    monkeypatch.undo()
+    tbn._pass_plan.cache_clear()
+    assert tbn._pass_plan(Mg, C, 8, groups) == splits
+
+
+def test_inception_launch_table_counts_the_models_norms():
+    """chip_smoke's INCEPTION_BN_LAUNCHES is the port's InceptionV3 at 299:
+    94 FusedBatchNorm layers, by (H * W, C), counted with forward hooks."""
+    from collections import Counter
+    from horovod_tpu_torch.models import InceptionV3
+    model = InceptionV3(norm="pallas", dtype=torch.float32,
+                        device="cpu").eval()
+    seen = Counter()
+    for mod in model.modules():
+        if isinstance(mod, tbn.FusedBatchNorm):
+            mod.register_forward_hook(lambda m, args, out: seen.update(
+                [(args[0].shape[2] * args[0].shape[3], args[0].shape[1])]))
+    with torch.no_grad():
+        model(torch.zeros(1, 3, 299, 299))
+    assert dict(seen) == chip_smoke.INCEPTION_BN_LAUNCHES
+    assert sum(seen.values()) == chip_smoke.INCEPTION_BN_LAYERS == 94

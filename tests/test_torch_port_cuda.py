@@ -880,6 +880,58 @@ def test_bn_passes_refuse_what_they_do_not_take(cuda):
         bn.batch_norm_grad_stats(x, x, c, c, gamma=c)
 
 
+@pytest.mark.parametrize("mode", bn.MODES)
+@pytest.mark.parametrize("M,C,groups,vec_ok", [
+    (4096, 64, 8, True), (6144, 24, 3, True), (333, 72, 3, False)])
+def test_bn_passes_read_terms_through_their_strides(cuda, M, C, groups,
+                                                    vec_ok, mode):
+    """The passes read each per-(group, channel) term through its own
+    strides: (C,) statistics shared by every ghost group (group stride 0),
+    (G, C) sums that are K8's strided views (row stride 2C), a cotangent
+    expanded from one value (both strides 0), a (G, C) term every other
+    column of a wider tensor; one launch each, equal to the plain versions
+    given the same tensors, with and without the ReLU."""
+    x, dy, _, _ = _bn_inputs(cuda, M, C, torch.bfloat16, torch.bfloat16,
+                             seed=11)
+    if not vec_ok:  # x at an odd offset: VEC = 1
+        x = torch.cat([x.view(-1), x.view(-1)[:1]])[1:].view(M, C)
+    mean, rstd, gamma, beta = _bn_terms(cuda, x, C, 1, seed=12)
+    dbeta, dgamma = bn.batch_norm_grad_stats(dy, x, mean.expand(groups, C),
+                                             rstd.expand(groups, C), groups)
+    assert dbeta.stride() == (2 * C, 1)
+    gmean = torch.full((), 0.25, device=cuda).expand(groups, C)
+    wide = torch.randn(groups, 2 * C, device=cuda)
+    gvar = wide[:, ::2]
+    a = gamma * rstd
+    b = beta - mean * a
+    for relu in (False, True):
+        before = bn.launch_counts()
+        y = bn.bn_apply(x, a, b, groups, relu, mode)
+        dx = bn.bn_dx(dy, x, mean, rstd, gamma, beta, dbeta, dgamma,
+                      M // groups, groups, relu, mode, gmean, gvar)
+        torch.cuda.synchronize()
+        after = bn.launch_counts()
+        assert after["bn_apply"] == before["bn_apply"] + 1
+        assert after["bn_dx"] == before["bn_dx"] + 1
+        assert torch.equal(y, bn.bn_apply_ref(x, a, b, groups, relu, mode))
+        assert torch.equal(dx, bn.bn_dx_ref(
+            dy, x, mean, rstd, gamma, beta, dbeta, dgamma, M // groups,
+            groups, relu, mode, gmean, gvar))
+
+
+def test_bn_pass_terms_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(64, 16, device=cuda)
+    c = torch.ones(16, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        bn.bn_apply(x, c.double(), c)
+    with pytest.raises(ValueError, match="on cuda"):
+        bn.bn_dx(x, x, c, c, c.cpu(), None, c, c, 64)
+    with pytest.raises(ValueError, match=r"\(2, 16\)"):
+        bn.bn_dx(x, x, c.repeat(3, 1), c, c, None, c, c, 32, groups=2)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bn.bn_dx(x, x, c, c, None, None, c, c, 64)  # no gamma
+
+
 @pytest.mark.parametrize("relu,groups", [(False, 1), (True, 1), (True, 4)])
 def test_lean_batch_norm_on_the_gpu(cuda, relu, groups):
     """lean_batch_norm_train forward and backward through K7, K8 and the

@@ -345,3 +345,53 @@ def test_lean_sync_bn_on_two_gloo_ranks_equals_global_batch_bn(tmp_path,
                                dx[back], **tol)
     torch.testing.assert_close(sum(o["dgamma"] for o in outs), dgamma, **tol)
     torch.testing.assert_close(sum(o["dbeta"] for o in outs), dbeta, **tol)
+
+
+@pytest.mark.parametrize("cot", ["none", "gmean", "gvar"])
+@pytest.mark.parametrize("groups,shared", [(1, False), (3, False),
+                                           (3, True)])
+@pytest.mark.parametrize("M,C", [(303, 32), (261, 48), (129, 80),
+                                 (75, 192), (33, 448)])
+def test_lean_dx_plain_version_matches_lean_bwd(M, C, groups, shared, cot):
+    """bn_dx_ref in lean mode (each division by the row count a product
+    with the f32 reciprocal the kernel is handed) against _lean_bwd at the
+    widths of Inception's launches, odd M, with the ReLU mask: dx bit for
+    bit. With ghost groups the statistics are (G, C), or one (C,) vector
+    for every group (``shared``, tiled to (G, C) on the JAX side); the mean
+    and var cotangents one at a time (zeros on the JAX side)."""
+    rng = np.random.RandomState(C + groups)
+    x = torch.from_numpy(rng.randn(M, C).astype(np.float32) * 2 + 0.5).to(
+        torch.bfloat16)
+    gy = torch.from_numpy(rng.randn(M, C).astype(np.float32)).to(
+        torch.bfloat16)
+    gamma = torch.from_numpy(rng.rand(C).astype(np.float32) + 0.5)
+    beta = torch.from_numpy(rng.randn(C).astype(np.float32))
+    xg = x.float().view(groups, -1, C)
+    var, mean = torch.var_mean(xg[0] if shared or groups == 1 else xg, -2,
+                               correction=0)
+    rstd = torch.rsqrt(var + 1e-5)
+    stat = (groups, C) if groups > 1 else (C,)
+
+    def full(t):
+        return t.expand(stat).contiguous()
+    gm = torch.from_numpy(rng.randn(*stat).astype(np.float32))
+    gv = torch.from_numpy(rng.randn(*stat).astype(np.float32))
+    cots = {"gmean": gm if cot == "gmean" else None,
+            "gvar": gv if cot == "gvar" else None}
+    dx_j, dgamma_j, dbeta_j = jbn._lean_bwd(
+        1e-5, True, groups, None, None, None,
+        (_jnp(x), jnp.asarray(gamma.numpy()), jnp.asarray(beta.numpy()),
+         jnp.asarray(full(mean).numpy()), jnp.asarray(full(rstd).numpy())),
+        (_jnp(gy), *(jnp.asarray(np.zeros(stat, np.float32) if t is None
+                                 else t.numpy()) for t in cots.values())))
+    if groups == 1:  # the sums _lean_bwd took
+        dbeta = torch.from_numpy(np.asarray(dbeta_j))
+        dgamma = torch.from_numpy(np.asarray(dgamma_j))
+    else:
+        dbeta, dgamma = tbn.batch_norm_grad_stats_ref(
+            gy, x, mean, rstd, groups, gamma, beta, "lean")
+    dx = tbn.bn_dx_ref(gy, x, mean, rstd, gamma, beta, dbeta, dgamma,
+                       M // groups, groups, True, "lean", **cots)
+    assert dx.dtype == torch.bfloat16
+    np.testing.assert_array_equal(dx.float().numpy(),
+                                  np.asarray(dx_j, np.float32))

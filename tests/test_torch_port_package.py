@@ -34,6 +34,7 @@ PORT_FILES = PACKAGE_FILES + [
     ROOT / "tests" / "torch_port_planted_faults.py",
     ROOT / "tests" / "torch_port_fwd_ab.py",
     ROOT / "tests" / "torch_port_bwd_ab.py",
+    ROOT / "tests" / "torch_port_bn_ab.py",
     ROOT / "tests" / "test_torch_port_cuda.py",
 ]
 

@@ -39,11 +39,9 @@ ROT_PHASES = ("kernels",)
 WIRE_PHASES = ("wire_kernels",)
 BN_ROW_LOOP = ("    for (long long r = rows.begin + ty; r < rows.end; "
                "r += sh.ty) {\n")
-# the normalize pass's y = x * a + b, and its ReLU
-BN_APPLY_Y = ("        float t = rnd<RT>(__fadd_rn(rnd<RT>(__fmul_rn(v[u][j], "
-              "a[j])), b[j]));\n")
-BN_APPLY_RELU = ("        if (RELU) t = t < 0.f ? 0.f : t;  // NaN stays NaN, "
-                 "as torch.relu\n")
+# the normalize pass's y = x * a + b on a lane pair, and its ReLU
+BN_APPLY_Y = "        P t = A::add(A::mul(v[j], va[j]), vb[j]);\n"
+BN_APPLY_RELU = "        if (RELU) t = A::relu(t);\n"
 # K2's and K3's scores, masked and before the exponentials
 BWD_SCORES = "        const float* st = stats + stage * Tile::kStats;\n"
 # The ring's epilogue in flash_bwd.cu (K5, K6): the carried sums' rows,
@@ -95,22 +93,21 @@ FAULTS = {
     # the normalize pass drops the shift b on the last tile of channels
     "bn_apply_shift_last_tile": (
         "ops/csrc/batch_norm.cu", BN_APPLY_Y,
-        "        if (c0 + VEC >= C) t = rnd<RT>(__fmul_rn(v[u][j], a[j]));\n",
-        BN_PHASES),
+        "        if (c0 + VEC >= C) t = A::mul(v[j], va[j]);\n", BN_PHASES),
     # the normalize pass leaves the fused ReLU out on the last tile of
     # channels
     "bn_apply_relu_last_tile": (
         "ops/csrc/batch_norm.cu", BN_APPLY_RELU,
-        "        if (RELU && c0 + VEC >= C) t = rnd<RT>(__fadd_rn(rnd<RT>("
-        "__fmul_rn(v[u][j], a[j])), b[j]));\n", LEAN_PHASES),
+        "        if (RELU && c0 + VEC >= C) t = A::add(A::mul(v[j], va[j]), "
+        "vb[j]);\n", LEAN_PHASES),
     # the normalize pass takes the next ghost group's a and b (the
     # resnet_lean phase's ghost-BN gradient check must see it)
     "bn_apply_next_group": (
         "ops/csrc/batch_norm.cu",
-        "    b[j] = rnd<RT>(shift[rows.g * C + c0 + j]);\n",
-        "    a[j] = rnd<RT>(scale[(rows.g + 1) % (gridDim.x / splits) * C + c0 "
-        "+ j]);\n    b[j] = rnd<RT>(shift[(rows.g + 1) % (gridDim.x / "
-        "splits) * C + c0 + j]);\n",
+        "    s[width + i] = from_float<RT>(value(b, rows.g, c));\n",
+        "    s[i] = from_float<RT>(value(a, (rows.g + 1) % (gridDim.x / "
+        "splits), c));\n    s[width + i] = from_float<RT>(value(b, (rows.g "
+        "+ 1) % (gridDim.x / splits), c));\n",
         LEAN_PHASES),
     # the dx pass drops the dgamma term on the last tile of channels; only
     # bn_kernels sees it: the resnet phase's float32 gradient gap read
@@ -118,19 +115,36 @@ FAULTS = {
     # channels)
     "bn_dx_drop_dgamma_last_tile": (
         "ops/csrc/batch_norm.cu",
-        "    c2[j] = rnd<RT>(terms.p[kC2][at + j]);\n",
-        "    if (c0 + VEC >= C) c2[j] = 0.f;\n", ("bn_kernels",)),
+        "  term_pairs<RT, VEC>(mine + 4 * width, c2);\n",
+        "  if (c0 + VEC >= C)\n    for (int j = 0; j < NP; ++j) c2[j] = "
+        "A::of(make_float2(0.f, 0.f));\n", ("bn_kernels",)),
     # the dx pass scales the last tile of channels by rstd, not gamma * rstd
     "bn_dx_scale_last_tile": (
         "ops/csrc/batch_norm.cu",
-        "    k[j] = rnd<RT>(terms.p[kScale][at + j]);\n",
-        "    if (c0 + VEC >= C) k[j] = rs[j];\n", BN_PHASES),
+        "  term_pairs<RT, VEC>(mine + 2 * width, k);\n",
+        "  if (c0 + VEC >= C)\n    for (int j = 0; j < NP; ++j) k[j] = "
+        "rs[j];\n", BN_PHASES),
     # the dx pass ignores the ReLU mask on the last tile of channels
     "bn_dx_mask_last_tile": (
         "ops/csrc/batch_norm.cu",
-        "    be[j] = RELU ? rnd<RT>(terms.p[kBeta][at + j]) : 0.f;\n",
-        "    if (RELU && c0 + VEC >= C) {\n      ga[j] = 0.f;\n      be[j] = "
-        "1.f;\n    }\n", LEAN_PHASES),
+        "    term_pairs<RT, VEC>(mine + kBe * width, be);\n",
+        "    if (c0 + VEC >= C)\n      for (int j = 0; j < NP; ++j) {\n"
+        "        ga[j] = A::of(make_float2(0.f, 0.f));\n        be[j] = "
+        "A::of(make_float2(1.f, 1.f));\n      }\n", LEAN_PHASES),
+    # the dx pass builds c1 from the row count plus one (an off-by-one
+    # reciprocal)
+    "bn_dx_count_off_by_one": (
+        "ops/csrc/batch_norm.cu",
+        "        from_float<RT>(__fmul_rn(value(in.t[kDbeta], g, c), "
+        "in.inv));\n",
+        "    col[3 * width] = from_float<RT>(__fmul_rn(value(in.t[kDbeta], g, "
+        "c), __frcp_rn(__frcp_rn(in.inv) + 1.f)));\n", ("bn_kernels",)),
+    # the passes' row split drops the last rows of each group that an
+    # uneven split leaves (every split Mg / splits rows, rounded down)
+    "bn_pass_drops_last_rows": (
+        "ops/csrc/batch_norm.cu",
+        "  long long end = g * Mg + Mg * (s + 1) / splits;\n",
+        "  end = begin + Mg / splits;\n", ("bn_kernels",)),
     # K4 ignores the carried running max, starting it from -inf
     "ring_fwd_drop_carried_m": (
         "ops/csrc/flash_fwd.cu",
