@@ -75,12 +75,19 @@ Phases, in order; any failure exits non-zero:
    and holds each output row to ||kernel - plain||_2 / ||plain||_2 <= 1e-4
    against the f32 plain version; at the stem also K7 over 8 ghost groups
    (batches of 32) and K8 over them under the ReLU mask, in both arithmetic
-   modes. The normalize pass (``bn_apply``) and the dx pass (``bn_dx``),
-   in both modes (f32 "pallas", bf16 "lean"), with and without the ReLU, at
-   every shape and with 8 ghost groups where they divide M (at the odd
-   shape also with the mean and var cotangents), must equal their plain
-   versions bit for bit (``torch.equal``). Times kernel, plain version and
-   PyTorch's own ``torch.batch_norm_stats``,
+   modes. At every K7 case, K7 with the forward's terms
+   (``batch_norm_stats_terms``: mean, var, rstd, a, b) must equal the
+   torch ops of ``batch_norm_stats_terms_ref`` applied to K7's own sums
+   bit for bit (``torch.equal``). Every K7, K7-with-terms and K8 case runs
+   again, from a CUDA graph's replays and once more after them, and must
+   give its first outputs bit for bit (each call leaves its scratch's
+   counters at 0). The normalize pass (``bn_apply``) and the dx pass
+   (``bn_dx``), in both modes (f32 "pallas", bf16 "lean"), with and
+   without the ReLU, at every shape and with 8 ghost groups where they
+   divide M (at the odd shape also with the mean and var cotangents),
+   must equal their plain versions bit for bit (``torch.equal``). Times
+   kernel, plain version and PyTorch's own ``torch.batch_norm_stats``
+   (beside K7 and K7 with terms: it returns mean and invstd),
    ``torch.batch_norm_backward_reduce``, ``torch.batch_norm_elemt`` and
    ``torch.batch_norm_backward_elemt`` (yardsticks the port never calls)
    at the stem, each back to back (``ms``) and replayed from a CUDA graph
@@ -88,11 +95,13 @@ Phases, in order; any failure exits non-zero:
    and between replays the inputs stay in L2). The same checks and times
    at five of InceptionV3's launches at batch 128: the stem (M = 128 * 149
    * 149, C = 32), a 1x1 of 80 channels (128 * 73 * 73), an E block's 448
-   (128 * 8 * 8), 64 at 35 x 35 and 192 at 17 x 17. One call of each pass
-   under torch.profiler must run its one kernel and nothing else on the
-   device. Last, ``inception_step_ms``: both passes and their library
-   calls at all 18 (M, C) shapes of Inception's 94 BN launches, weighted
-   by their layers, back to back and on the device.
+   (128 * 8 * 8), 64 at 35 x 35 and 192 at 17 x 17. One call of each BN
+   kernel (K7, K7 with terms, K8 and the passes) under torch.profiler must
+   run its one kernel and nothing else on the device, and one
+   ``fused_batch_norm_train`` forward K7's kernel and ``bn_apply``'s.
+   Last, ``inception_step_ms``: K7 with terms, K8 and both passes and their
+   library calls at all 18 (M, C) shapes of Inception's 94 BN launches,
+   weighted by their layers, back to back and on the device.
 6. resnet: ``hvd.init()``, ResNet-50 with ``norm="pallas"`` (bf16 over f32
    params) from a seeded generator, its block-final BN scales set nonzero
    from the seed, SGD(0.01, momentum 0.9) in ``DistributedOptimizer`` and
@@ -265,6 +274,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import functools
 import json
 import math
 import re
@@ -292,6 +302,10 @@ GRAD_TOL = 5e-2            # worst parameter's gradient gap, flash vs dense
 # The BN kernels against their f32 plain versions: the same f32 values
 # summed in another order (each output row, norm-relative).
 BN_TOL = 1e-4
+# the eps of K7's terms in the bn_kernels phase (the ResNet's)
+BN_EPS = 1e-5
+# the name under which a row holds K7 with terms (its keys "terms_...")
+BN_TERMS = "batch_norm_stats_terms"
 # The ResNet: the first loss and the worst parameter's gradient gap
 # (norm-relative) between norm="pallas" and the stock BN on the same weights.
 RESNET_LOSS_TOL = 2e-2
@@ -556,6 +570,9 @@ def time_ms(fn, n=20, reps=5, warmup=3):
     return statistics.median(times)
 
 
+_GRAPH_STREAM = []
+
+
 def graph_ms(fn, n=20, reps=5, warmup=3):
     """Milliseconds per call of ``fn()`` on the device: ``n`` calls
     captured once in a CUDA graph and replayed ``reps`` times between two
@@ -563,16 +580,20 @@ def graph_ms(fn, n=20, reps=5, warmup=3):
     without the host, so at short launches this reads the device's time
     where ``time_ms`` (the host dispatching each call) reads the host's.
     Between the replayed calls the inputs stay in the card's 50 MB L2 where
-    they fit: a short launch's reading may beat its HBM bound."""
+    they fit: a short launch's reading may beat its HBM bound. The warm-up
+    and the capture run on one side stream, made once: the BN statistics
+    keep their scratch for each stream and make it outside a capture."""
     import torch
-    side = torch.cuda.Stream()
+    if not _GRAPH_STREAM:
+        _GRAPH_STREAM.append(torch.cuda.Stream())
+    side = _GRAPH_STREAM[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(n):
             fn()
     graph.replay()
@@ -1070,13 +1091,17 @@ def _bn_pass_checks(bn, x, dy, gamma, beta, groups, extra):
     return bad, worst
 
 
-def _bn_runs(bn, x, dy, gamma, beta, mean, rstd, hw, passes_only=False):
+def _bn_runs(bn, x, dy, gamma, beta, mean, rstd, hw, names=None):
     """name -> (kernel call, plain call, library call, bytes it must move)
     of the four BN kernels at one launch, as the resnet and inception phases
-    call them (f32 arithmetic, no ReLU). The library calls are PyTorch's own
+    call them (f32 arithmetic, no ReLU), and of K7 with the forward's terms
+    (``batch_norm_stats_terms``, what the forward without a sync group
+    launches); only ``names`` if given. The library calls are PyTorch's own
     on the same memory viewed as [N, C, H, W] channels_last (``hw``), given
     the same statistics (sum dy * (x - mean) = dgamma / rstd, formed
-    outside the timed call): yardsticks the port never calls."""
+    outside the timed call): yardsticks the port never calls.
+    ``torch.batch_norm_stats`` returns mean and invstd, the function of K7
+    with terms; it stands beside K7's sums too."""
     import torch
     M, C = x.shape
     x4, dy4 = (t.view(-1, *hw, C).permute(0, 3, 1, 2) for t in (x, dy))
@@ -1092,6 +1117,12 @@ def _bn_runs(bn, x, dy, gamma, beta, mean, rstd, hw, passes_only=False):
             lambda: bn.batch_norm_stats_ref(x),
             lambda: torch.batch_norm_stats(x4, 1e-5),
             x.numel() * x.element_size() + 2 * C * 4),
+        # reads x, gamma and beta, writes mean, var, rstd, a and b
+        "batch_norm_stats_terms": (
+            lambda: bn.batch_norm_stats_terms(x, gamma, beta, BN_EPS),
+            lambda: bn.batch_norm_stats_terms_ref(x, gamma, beta, BN_EPS),
+            lambda: torch.batch_norm_stats(x4, BN_EPS),
+            x.numel() * x.element_size() + 7 * C * 4),
         "batch_norm_grad_stats": (
             lambda: bn.batch_norm_grad_stats(dy, x, mean, rstd),
             lambda: bn.batch_norm_grad_stats_ref(dy, x, mean, rstd),
@@ -1114,59 +1145,105 @@ def _bn_runs(bn, x, dy, gamma, beta, mean, rstd, hw, passes_only=False):
             (2 * x.numel() * x.element_size() + dy.numel()
              * dy.element_size() + 5 * C * 4)),
     }
-    if passes_only:
-        del runs["batch_norm_stats"], runs["batch_norm_grad_stats"]
-    return runs
+    return {k: v for k, v in runs.items() if names is None or k in names}
 
 
 def _device_activity(fn):
     """The names of the device's kernels, copies and sets in one call of
-    ``fn`` under torch.profiler (after one call outside it)."""
+    ``fn`` under torch.profiler (after one call outside it). The session
+    opens with a spin kernel of its own, left out of the names: after a
+    long profiled run in the same process (``--profile``'s steps) a
+    session's first device record went missing, whichever kernel it was."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     return [e.name for e in prof.events()
             if str(e.device_type).endswith("CUDA")
-            and not getattr(e, "is_user_annotation", False)]
+            and not getattr(e, "is_user_annotation", False)
+            and "spin_kernel" not in e.name]
+
+
+def _traced_as(fn, kernels, tries=5):
+    """(names, ok): one call of ``fn`` traced by ``_device_activity`` must
+    run exactly ``kernels`` (name fragments, in order) and nothing else.
+    The profiler now and then delivers no record of a kernel that ran (an
+    empty or shorter trace, at any of these calls on the H100), so a trace
+    that holds only expected kernels but not all of them is taken again,
+    up to ``tries`` times; a trace with anything else fails at once."""
+    for _ in range(tries):
+        seen = _device_activity(fn)
+        if not all(any(k in n for k in kernels) for n in seen):
+            return seen, False
+        if len(seen) == len(kernels) and all(
+                k in n for k, n in zip(kernels, seen)):
+            return seen, True
+    return seen, False
+
+
+def _row_key(name, key):
+    """(row, key) of a reading: K7 with terms goes in K7's row, prefixed."""
+    if name == BN_TERMS:
+        return "batch_norm_stats", "terms_" + key
+    return name, key
 
 
 def _bn_pass_launches(bn, rows):
-    """A profiler trace of one bn_apply and one bn_dx call at 8,192 x 448
-    (f32 arithmetic, the mean and var cotangents absent): each must show
-    its one kernel and no other device activity. Returns the failures."""
+    """A profiler trace, at 8,192 x 448 (f32 arithmetic, no ReLU, the mean
+    and var cotangents absent), of one call of each BN kernel (K7, K7 with
+    terms, K8, bn_apply, bn_dx): each must show its one kernel and no
+    other device activity; and of one ``fused_batch_norm_train`` forward
+    without a sync group: K7's kernel and bn_apply's, nothing else.
+    Returns the failures."""
     import torch
     x, dy, mean, rstd = _bn_inputs(128 * 8 * 8, 448, "bfloat16", 99)
     gamma = torch.rand(448, device="cuda") + 0.5
     beta = torch.randn(448, device="cuda")
-    runs = _bn_runs(bn, x, dy, gamma, beta, mean, rstd, (8, 8),
-                    passes_only=True)
+    runs = _bn_runs(bn, x, dy, gamma, beta, mean, rstd, (8, 8))
     bad = []
+    kernel = {"batch_norm_stats": "bn_stats_kernel",
+              BN_TERMS: "bn_stats_kernel",
+              "batch_norm_grad_stats": "bn_stats_kernel",
+              "bn_apply": "bn_apply_kernel", "bn_dx": "bn_dx_kernel"}
     for name, (kern, _, _, _) in runs.items():
-        seen = _device_activity(kern)
-        rows[name]["trace_device_activity"] = seen
+        seen, ok = _traced_as(kern, [kernel[name]])
+        row, key = _row_key(name, "trace_device_activity")
+        rows[row][key] = seen
         log("%s, one call under the profiler: %s" % (name, seen))
-        if len(seen) != 1 or name + "_kernel" not in seen[0]:
+        if not ok:
             bad.append("one %s call ran %s on the device, not its one kernel"
                        % (name, seen))
+    seen, ok = _traced_as(lambda: bn.fused_batch_norm_train(
+        x, gamma, beta, BN_EPS), ["bn_stats_kernel", "bn_apply_kernel"])
+    rows["bn_apply"]["fused_forward_trace_device_activity"] = seen
+    log("fused_batch_norm_train forward under the profiler: %s" % seen)
+    if not ok:
+        bad.append("one fused_batch_norm_train forward ran %s on the device, "
+                   "not K7's kernel and bn_apply's" % seen)
     return bad
 
 
 def _inception_step(bn, rows):
-    """The passes' cost an Inception step: bn_apply's and bn_dx's times
-    (and their library calls') at each of Inception's 18 (M, C) launch
-    shapes, weighted by its layers (INCEPTION_BN_LAUNCHES, 94 in all), back
-    to back (``inception_step_ms``) and on the device (``_device_ms``,
-    CUDA graphs: the short launches' inputs sit in L2 between calls)."""
+    """The BN kernels' cost an Inception step: K7 with terms (as the
+    forward launches it), K8, bn_apply's and bn_dx's times (and their
+    library calls') at each of Inception's 18 (M, C) launch shapes,
+    weighted by its layers (INCEPTION_BN_LAUNCHES, 94 in all), back to back
+    (``inception_step_ms``) and on the device (``_device_ms``, CUDA graphs:
+    the short launches' inputs sit in L2 between calls)."""
     import torch
+    names = (BN_TERMS, "batch_norm_grad_stats", "bn_apply", "bn_dx")
     keys = ("inception_step_ms", "inception_step_device_ms",
             "library_inception_step_ms", "library_inception_step_device_ms")
-    for name in ("bn_apply", "bn_dx"):
-        rows[name].update(dict.fromkeys(keys, 0.0))
+    for name in names:
+        for key in keys:
+            row, k = _row_key(name, key)
+            rows[row][k] = 0.0
     for seed, ((hw, C), layers) in enumerate(INCEPTION_BN_LAUNCHES.items()):
         side = round(hw ** 0.5)
         M = INCEPTION_BATCH * hw
@@ -1175,19 +1252,66 @@ def _inception_step(bn, rows):
         gamma = torch.rand(C, generator=g, device="cuda") + 0.5
         beta = torch.randn(C, generator=g, device="cuda")
         runs = _bn_runs(bn, x, dy, gamma, beta, mean, rstd, (side, side),
-                        passes_only=True)
+                        names)
         for name, (kern, _, library, _) in runs.items():
             times = (time_ms(kern), graph_ms(kern), time_ms(library),
                      graph_ms(library))
             for key, t in zip(keys, times):
-                rows[name][key] += layers * t
+                row, k = _row_key(name, key)
+                rows[row][k] += layers * t
             log("%s at %d x %d (x%d): %.4f ms, device %.4f; library %.4f, "
                 "device %.4f" % ((name, M, C, layers) + times))
         del x, dy, runs
         torch.cuda.empty_cache()
-    for name in ("bn_apply", "bn_dx"):
+    for name in names:
+        got = {}
+        for key in keys:
+            row, k = _row_key(name, key)
+            got[key] = rows[row][k]
         log("%s over Inception's 94 launches a step: %s" % (
-            name, json.dumps({k: rows[name][k] for k in keys})))
+            name, json.dumps(got)))
+
+
+def _stats_repeat(fn):
+    """Whether ``fn()`` (a K7 or K8 call) gives its first outputs bit for
+    bit when called again, from a CUDA graph's replays, and once more after
+    them: each call must leave the scratch's counters at 0."""
+    import torch
+    first = fn()
+    again = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = fn()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    after = fn()
+    same = all(torch.equal(a, b) for out in (again, captured, after)
+               for a, b in zip(first, out))
+    del graph
+    return same
+
+
+def _terms_check(bn, terms, sums, count, gamma, beta):
+    """The names of K7's terms that differ from the torch ops
+    (``_terms_of_sums``) on K7's own sums, and the largest |difference| of
+    each in units of the reference's last place (ulp)."""
+    import torch
+    ref = bn._terms_of_sums(*sums, count, gamma, beta, BN_EPS)
+    bad, ulps = [], {}
+    for name, got, want in zip(("mean", "var", "rstd", "a", "b"), terms,
+                               ref):
+        ulp = (torch.nextafter(want.abs(), torch.full_like(want, math.inf))
+               - want.abs())
+        ulps[name] = ((got - want).abs() / ulp).max().item()
+        if not torch.equal(got, want):
+            bad.append(name)
+    return bad, ulps
 
 
 def phase_bn_kernels():
@@ -1215,28 +1339,32 @@ def phase_bn_kernels():
         g = torch.Generator(device="cuda").manual_seed(100 + seed)
         gamma = torch.rand(C, generator=g, device="cuda") + 0.5
         beta = torch.randn(C, generator=g, device="cuda")
-        outs = {"batch_norm_stats": (bn.batch_norm_stats(x),
-                                     bn.batch_norm_stats_ref(x)),
-                "batch_norm_grad_stats": (
-                    bn.batch_norm_grad_stats(dy, x, mean, rstd),
-                    bn.batch_norm_grad_stats_ref(dy, x, mean, rstd))}
+        # case -> (groups, K7 or K8 call, its plain call)
+        calls = {"batch_norm_stats": (
+                     1, lambda: bn.batch_norm_stats(x),
+                     lambda: bn.batch_norm_stats_ref(x)),
+                 "batch_norm_grad_stats": (
+                     1, lambda: bn.batch_norm_grad_stats(dy, x, mean, rstd),
+                     lambda: bn.batch_norm_grad_stats_ref(dy, x, mean,
+                                                          rstd))}
         if label == "stem":
             # ghost batches of 32, K8 also under the mask in both modes
             gm = bn.batch_norm_stats_ref(x, BN_GROUPS)[0] / (M // BN_GROUPS)
             gr = torch.full_like(gm, 0.5)
-            outs["batch_norm_stats@g8"] = (
-                bn.batch_norm_stats(x, BN_GROUPS),
-                bn.batch_norm_stats_ref(x, BN_GROUPS))
+            calls["batch_norm_stats@g8"] = (
+                BN_GROUPS, lambda: bn.batch_norm_stats(x, BN_GROUPS),
+                lambda: bn.batch_norm_stats_ref(x, BN_GROUPS))
             for mode in bn.MODES:
                 args = (dy, x, gm, gr, BN_GROUPS, gamma, beta, mode)
-                outs["batch_norm_grad_stats@g8_mask_" + mode] = (
-                    bn.batch_norm_grad_stats(*args),
-                    bn.batch_norm_grad_stats_ref(*args))
-        torch.cuda.synchronize()
-        for key, (got, ref) in outs.items():
+                calls["batch_norm_grad_stats@g8_mask_" + mode] = (
+                    BN_GROUPS,
+                    lambda args=args: bn.batch_norm_grad_stats(*args),
+                    lambda args=args: bn.batch_norm_grad_stats_ref(*args))
+        for key, (groups, kern, plain) in calls.items():
             name, _, case = key.partition("@")
             tag = label + ("_" + case if case else "")
-            errs = [_err(a, b) for a, b in zip(got, ref)]
+            got = kern()
+            errs = [_err(a, b) for a, b in zip(got, plain())]
             r = rows[name]
             r[tag + "_max_abs_err"] = max(e[0] for e in errs)
             r[tag + "_rel_l2_err"] = max(e[1] for e in errs)
@@ -1246,7 +1374,30 @@ def phase_bn_kernels():
             if not r[tag + "_rel_l2_err"] <= BN_TOL:
                 bad.append("%s at the %s shape: rel_l2_err %.3g > %g"
                            % (name, tag, r[tag + "_rel_l2_err"], BN_TOL))
-        del outs
+            if not _stats_repeat(kern):
+                bad.append("%s at the %s shape: a repeated call or a graph "
+                           "replay differs from the first call" % (name, tag))
+            if name != "batch_norm_stats":
+                continue
+            # K7 with terms on the same split: its terms equal to the torch
+            # ops on K7's own sums (got), bit for bit
+            terms_call = functools.partial(bn.batch_norm_stats_terms, x,
+                                           gamma, beta, BN_EPS, groups)
+            miss, ulps = _terms_check(bn, terms_call(), got, M // groups,
+                                      gamma, beta)
+            r["terms_%s_max_ulp" % tag] = max(ulps.values())
+            log("%s %s (%d x %d): the terms %s their torch ops on K7's sums "
+                "(largest gap in ulp %s)" % (
+                    BN_TERMS, tag, M, C, "differ from" if miss else "equal",
+                    json.dumps(ulps)))
+            if miss:
+                bad.append("%s at the %s shape: %s differ from the torch ops "
+                           "on K7's sums" % (BN_TERMS, tag, ", ".join(miss)))
+            if not _stats_repeat(terms_call):
+                bad.append("%s at the %s shape: a repeated call or a graph "
+                           "replay differs from the first call"
+                           % (BN_TERMS, tag))
+            del got
         for groups in (1, BN_GROUPS) if M % BN_GROUPS == 0 else (1,):
             miss, worst = _bn_pass_checks(bn, x, dy, gamma, beta, groups,
                                           extra=label == "odd")
@@ -1263,19 +1414,20 @@ def phase_bn_kernels():
             pre = "" if label == "stem" else label + "_"
             runs = _bn_runs(bn, x, dy, gamma, beta, mean, rstd, timed[label])
             for name, (kern, plain, library, n_bytes) in runs.items():
-                r = rows[name]
-                r[pre + "ms"] = time_ms(kern)
-                r[pre + "device_ms"] = graph_ms(kern)
-                r[pre + "plain_ms"] = time_ms(plain, n=5, reps=3, warmup=1)
-                r[pre + "library_ms"] = time_ms(library)
-                r[pre + "library_device_ms"] = graph_ms(library)
-                r[pre + "bound_ms"], r[pre + "bound_by"] = _bn_bound_ms(
-                    name, M, C, n_bytes)
+                row, p = _row_key(name, pre)
+                r = rows[row]
+                r[p + "ms"] = time_ms(kern)
+                r[p + "device_ms"] = graph_ms(kern)
+                r[p + "plain_ms"] = time_ms(plain, n=5, reps=3, warmup=1)
+                r[p + "library_ms"] = time_ms(library)
+                r[p + "library_device_ms"] = graph_ms(library)
+                r[p + "bound_ms"], r[p + "bound_by"] = _bn_bound_ms(
+                    row, M, C, n_bytes)
                 log("%s %s (%d x %d): %.4f ms, device %.4f (bound %.4f, "
                     "plain %.3f, library %.4f, device %.4f)" % (
-                        name, label, M, C, r[pre + "ms"], r[pre + "device_ms"],
-                        r[pre + "bound_ms"], r[pre + "plain_ms"],
-                        r[pre + "library_ms"], r[pre + "library_device_ms"]))
+                        name, label, M, C, r[p + "ms"], r[p + "device_ms"],
+                        r[p + "bound_ms"], r[p + "plain_ms"],
+                        r[p + "library_ms"], r[p + "library_device_ms"]))
         if label == "stem":
             # the resnet_lean phase's calls: bf16 arithmetic, the ReLU
             a = gamma * rstd
@@ -2611,7 +2763,7 @@ def _category(name, model):
         return "ring kernels"
     if "flash" in low:
         return "flash kernels"
-    if "hvdbn" in low:  # K7, K8 (bn_partial, bn_finalize) and the passes
+    if "hvdbn" in low:  # K7, K8 (bn_stats_kernel) and the passes
         return ("batch-norm passes" if "apply" in low or "dx_kernel" in low
                 else "batch-norm statistics")
     # cuDNN's and CUTLASS's kernels: convolutions in the ResNet, the
@@ -4119,8 +4271,8 @@ def main():
             # (INCEPTION_BN_SHAPES), the passes' cost an Inception step and
             # one call's device activity under the profiler
             **{key: row[key] for key in row if name in BN
-               and (key.endswith(("_ms", "_bound_by"))
-                    or key == "trace_device_activity")}})
+               and key.endswith(("_ms", "_bound_by", "_max_ulp",
+                                 "trace_device_activity"))}})
     print(json.dumps({"kernels": kernels, "library": library}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

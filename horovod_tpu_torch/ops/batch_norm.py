@@ -8,16 +8,22 @@ and ``LeanBatchNorm``, with ghost BN). Four kernels, in
 ``csrc/batch_norm.cu``:
 
 - K7 ``batch_norm_stats``: per (group, channel) (sum x, sum x^2) of a
-  (M, C) activation;
+  (M, C) activation; ``batch_norm_stats_terms`` is the same launch with
+  the forward's per-channel terms (mean, var, rstd, a = gamma * rstd, b =
+  beta - mean * a) formed from the sums on the device;
 - K8 ``batch_norm_grad_stats``: per (group, channel) (sum dy, sum dy *
   x_hat), i.e. (dbeta, dgamma), optionally under the ReLU mask;
 - ``bn_apply``: the normalize pass, y = x * a + b, optionally max(y, 0);
 - ``bn_dx``: the dx pass of the BN backward, optionally under the ReLU mask.
 
-The statistics read their operands once (bf16 or f32), accumulate in f32
-and return f32 sums, reduced across blocks in a fixed order (no float
-atomics), so the same input gives bit-identical statistics. The two passes
-are elementwise, one launch a call, in one of two arithmetic modes:
+Every kernel is one launch a call. The statistics read their operands
+once (bf16 or f32), accumulate in f32 and return f32 sums, reduced across
+blocks in a fixed order by the last block of each column tile (no float
+atomics), so the same input gives bit-identical statistics; their scratch
+(the blocks' partial sums and the tiles' counters, which each call leaves
+at 0) is kept for each (device, stream). K7's terms equal the torch
+operations of ``batch_norm_stats_terms_ref`` on K7's sums bit for bit.
+The two passes are elementwise, in one of two arithmetic modes:
 ``"pallas"`` computes in f32 and rounds once to x's dtype
 (``_FusedBatchNormFn``), ``"lean"`` rounds every operation to x's dtype
 (the lean path's bf16 ops). Each pass equals its plain version bit for
@@ -67,20 +73,28 @@ from horovod_tpu_torch.ops import _build
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MODES = ("pallas", "lean")
 _THREADS = 256          # threads of a block (csrc/batch_norm.cu)
-# Row splits of the statistics: enough pass-1 blocks to fill the card
-# (about 4 of 256 threads per SM of an H100), each thread taking at least
-# _MIN_ROWS rows. A fixed number, not read from the device, so every card
-# and every rank splits (and so rounds) alike.
-_TARGET_BLOCKS = 528
-_MIN_ROWS = 32
-# The passes (csrc's pass_shape and pass_rows): a tile of at most
+_SMS = 132              # the SMs of an H100
+# The statistics (csrc's bn_stats_kernel): one column tile for C up to
+# _STATS_ONE_TILE channels (the kernel takes up to 128), else tiles of
+# _STATS_TILE; each group split so that the blocks are a whole multiple of
+# _SMS, at least one each where the rows allow it, with at least four
+# times the rows a thread keeps in flight between those (K7 8, K8 4:
+# _STATS_ROWS), and at most _STATS_BLOCKS in all: one wave at two
+# resident blocks an SM (K8's registers allow two), which also bounds the
+# last block's serial read of a tile's splits * 2 * tile partial sums.
+# Fixed numbers, not read from the device, so every card and every rank
+# splits (and so rounds) alike.
+_STATS_ONE_TILE = 80
+_STATS_TILE = 64
+_STATS_ROWS = {"K7": 32, "K8": 16}
+_STATS_BLOCKS = 264
+# The passes (csrc's pass_shape and split_rows): a tile of at most
 # _PASS_TILE channels a block; each group split so that the blocks are a
-# whole multiple of _SMS (the SMs of an H100), at least one each where the
-# rows allow it, at most _PASS_BLOCKS, with at least _PASS_ROWS rows a
-# thread between those. Fixed numbers, as the statistics' (the passes'
-# output does not depend on the split, but every rank launches alike).
+# whole multiple of _SMS, at least one each where the rows allow it, at
+# most _PASS_BLOCKS, with at least _PASS_ROWS rows a thread between those
+# (the passes' output does not depend on the split, but every rank
+# launches alike).
 _PASS_TILE = 1024
-_SMS = 132
 _PASS_BLOCKS = 1056
 _PASS_ROWS = 16
 
@@ -130,6 +144,26 @@ def batch_norm_stats_ref(x2d, groups=1):
     xf = _split(x2d, groups).float()
     axis = 0 if groups == 1 else 1
     return xf.sum(axis), (xf * xf).sum(axis)
+
+
+def _terms_of_sums(s, ss, count, gamma, beta, eps):
+    """The forward's per-(group, channel) terms from the sums over
+    ``count`` rows, in torch ops (``_bn_train_fwd:205-209``, ``_lean_fwd
+    :356-360``): (mean, var, rstd, a, b)."""
+    mean = s / count
+    var = torch.clamp(ss / count - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    a = gamma * rstd
+    b = beta - mean * a
+    return mean, var, rstd, a, b
+
+
+def batch_norm_stats_terms_ref(x2d, gamma, beta, eps, groups=1):
+    """Plain version of K7 with the forward's terms: ``batch_norm_stats_ref``
+    and the torch ops of ``_terms_of_sums``; (mean, var, rstd, a, b), f32
+    (C,) each, or (G, C) over ``groups`` row blocks."""
+    return _terms_of_sums(*batch_norm_stats_ref(x2d, groups),
+                          x2d.shape[0] // groups, gamma, beta, eps)
 
 
 def batch_norm_grad_stats_ref(dy2d, x2d, mean, rstd, groups=1, gamma=None,
@@ -228,27 +262,17 @@ def bn_dx_ref(dy2d, x2d, mean, rstd, gamma, beta, dbeta, dgamma, count,
 # --------------------------------------------------------------- kernels
 
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# The passes' packed arguments (csrc/batch_norm.cu: hvd_bn_apply, hvd_bn_dx),
-# 8-byte fields: the output, the inputs and their dtypes, the flags, M, C,
-# groups, vec, splits, the stream, then a (pointer, group stride, channel
-# stride) triple for each per-(group, channel) f32 input (a, b; mean, rstd,
-# gamma, beta, dbeta, dgamma, gmean, gvar), and for bn_dx 1 / count and 2 /
-# count. One struct.pack and one ctypes argument a call.
-_APPLY_ARGS = struct.Struct("<17q")
-_DX_ARGS = struct.Struct("<37q2d")
+# Each entry point takes one packed block of 8-byte fields
+# (csrc/batch_norm.cu): the output, the inputs and their dtypes, the flags,
+# M, C, groups, vec, the plan, the stream (and for the statistics their
+# scratch), then a (pointer, group stride, channel stride) triple for each
+# per-(group, channel) f32 input, and the f32 scalars as doubles. One
+# struct.pack and one ctypes argument a call.
+_STATS_ARGS = struct.Struct("<18q2d")   # K7: gamma, beta; 1 / count, eps
+_GRAD_ARGS = struct.Struct("<27q")      # K8: mean, rstd, gamma, beta
+_APPLY_ARGS = struct.Struct("<17q")     # a, b
+_DX_ARGS = struct.Struct("<37q2d")      # 8 terms; 1 / count, 2 / count
 _NO_TERM = (0, 0, 0)
-# C entry point -> its argument types (csrc/batch_norm.cu)
-_ARGTYPES = {
-    # x, dtype, ws, out, M, C, groups, vec, splits, stream
-    "hvd_bn_stats": [_P, _I, _P, _P, _L, _I, _I, _I, _I, _P],
-    # dy, dtype, x, dtype, mean, rstd, gamma, beta, lean, ws, out, M, C,
-    # groups, vec, splits, stream
-    "hvd_bn_grad_stats": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _L,
-                          _I, _I, _I, _I, _P],
-    "hvd_bn_apply": [ctypes.c_char_p],
-    "hvd_bn_dx": [ctypes.c_char_p],
-}
 
 
 def _entry(name):
@@ -256,7 +280,7 @@ def _entry(name):
     if name not in _bound:
         lib = _build.library("batch_norm")
         fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = [ctypes.c_char_p]
         fn.restype = ctypes.c_int
         _bound[name] = (lib, fn)
     return _bound[name]
@@ -306,32 +330,11 @@ def _check_args(what, x2d, groups, mode):
                          % (what, groups, x2d.shape[0]))
 
 
-def _terms(what, x2d, groups, **terms):
-    """The per-(group, channel) terms as contiguous f32 (G, C) tensors on
-    x's device (a (C,) term is the same for every group); None stays None.
-    Raises on a wrong shape or device."""
-    C = x2d.shape[1]
-    out = {}
-    for name, t in terms.items():
-        if t is None:
-            out[name] = None
-            continue
-        if t.device != x2d.device or t.shape not in ((C,), (groups, C)):
-            raise ValueError("%s: %s must be (%d,) or (%d, %d) on %s, got %s "
-                             "on %s" % (what, name, C, groups, C, x2d.device,
-                                        tuple(t.shape), t.device))
-        if t.dtype != torch.float32 or not t.is_contiguous() or (
-                groups > 1 and t.dim() == 1):
-            t = t.float().expand(groups, C).contiguous()
-        out[name] = t
-    return out
-
-
 def _pass_term(what, name, t, index, groups, C):
     """(pointer, group stride, channel stride) of a per-(group, channel)
-    f32 input of a pass, (C,) (group stride 0: one vector for every group)
-    or (groups, C), any strides, on CUDA device ``index``; (0, 0, 0) for
-    None. Raises on a wrong shape, device or dtype."""
+    f32 input of a kernel, (C,) (group stride 0: one vector for every
+    group) or (groups, C), any strides, on CUDA device ``index``; (0, 0, 0)
+    for None. Raises on a wrong shape, device or dtype."""
     if t is None:
         return _NO_TERM
     size, strides = t.shape, t.stride()
@@ -344,32 +347,63 @@ def _pass_term(what, name, t, index, groups, C):
                          "%s on %s" % (what, name, C, groups, C, index,
                                        tuple(size), t.device))
     if t.dtype is not torch.float32:
-        raise TypeError("%s: %s is %s; the passes take float32 terms"
+        raise TypeError("%s: %s is %s; the kernels take float32 terms"
                         % (what, name, t.dtype))
     return t.data_ptr(), gs, cs
 
 
-def _vec(C, tensors):
-    """8 channels a thread (16-byte loads) when C % 8 == 0 and every base
-    is 16-byte aligned, else 1."""
-    return 8 if C % 8 == 0 and all(t.data_ptr() % 16 == 0
-                                   for t in tensors) else 1
-
-
-def _columns(C, vec):
-    """(column tiles, rows a block covers in one step) of csrc's
-    block_shape."""
+@functools.lru_cache(maxsize=1024)
+def _stats_plan(Mg, C, vec, groups, kernel):
+    """(tx, column tiles, splits, stride) of ``kernel`` ("K7" or "K8")
+    over ``groups`` groups of Mg rows, from these alone: one tile of C
+    channels up to _STATS_ONE_TILE, else tiles of _STATS_TILE (tx threads
+    along C, ty = 256 // tx along M); blocks of at least
+    _STATS_ROWS[kernel] rows a thread, a whole multiple of _SMS (fewer by
+    what a split of every group and tile leaves over), at least _SMS while
+    each thread keeps a row, at most _STATS_BLOCKS (or one split a group);
+    each block's scratch row of stride f32 (2 * tile rounded up to 4)."""
     tc = -(-C // vec)
-    tx = min(tc, _THREADS)
-    return -(-tc // tx), _THREADS // tx
+    tx = tc if tc * vec <= _STATS_ONE_TILE else _STATS_TILE // vec
+    tiles = -(-tc // tx)
+    ty = _THREADS // tx
+    per = tiles * groups  # blocks for each split of the groups
+    blocks = Mg // (ty * _STATS_ROWS[kernel]) * per // _SMS * _SMS
+    blocks = max(min(blocks, _STATS_BLOCKS), _SMS)
+    # rounded down: a 133rd block would double one SM's share of the rows
+    splits = max(1, min(blocks // per, Mg // ty))
+    return tx, tiles, splits, -(-2 * tx * vec // 4) * 4
 
 
-def _plan(Mg, C, vec, groups):
-    """Row splits of each group for the statistics' pass 1: the workspace
-    is f32 [groups * splits, 2, C]."""
-    col_tiles, rows_per_pass = _columns(C, vec)
-    return max(1, min(-(-Mg // (rows_per_pass * _MIN_ROWS)),
-                      -(-_TARGET_BLOCKS // (col_tiles * groups))))
+# (device index, stream) -> [scratch, tickets, floats, pointer]: the
+# statistics' tickets (u32, each 0 between calls) and partial sums (f32)
+_scratch = {}
+# scratch that grew out of use, kept alive: a captured CUDA graph may
+# still launch on it
+_retired = []
+# (device index, *shape) -> an f32 tensor of the statistics' output shape
+_out_like = {}
+
+
+def _scratch_of(what, index, stream, tickets, floats):
+    """(tickets pointer, partials pointer) of the (device, stream)'s
+    scratch, which holds at least ``tickets`` counters and ``floats``
+    partial sums; made (zeroed once) or grown outside CUDA graph capture
+    only."""
+    have = _scratch.get((index, stream))
+    if have is None or have[1] < tickets or have[2] < floats:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "%s: the statistics' scratch of this stream is missing or too "
+                "small in a CUDA graph capture; call the kernel once on the "
+                "capturing stream, at this shape, before the capture" % what)
+        if have is not None:
+            _retired.append(have[0])
+        t = 1 << max(10, (tickets - 1).bit_length())
+        f = 1 << max(16, (floats - 1).bit_length())
+        buf = torch.zeros(t + f, dtype=torch.int32, device=index)
+        have = [buf, t, f, buf.data_ptr()]
+        _scratch[(index, stream)] = have
+    return have[3], have[3] + 4 * have[1]
 
 
 def _pass_shape(C, vec):
@@ -394,28 +428,10 @@ def _pass_plan(Mg, C, vec, groups):
     return max(1, min(-(-blocks // per), Mg // ty))
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _launch_stats(name, args, tensors, M, C, groups):
-    """Launches K7 or K8 over (M, C) and returns its (G, 2, C) f32 output."""
-    dev = tensors[0].device
-    vec = _vec(C, tensors)
-    splits = _plan(M // groups, C, vec, groups)
-    ws = torch.empty(groups * splits, 2, C, dtype=torch.float32, device=dev)
-    out = torch.empty(groups, 2, C, dtype=torch.float32, device=dev)
-    lib, fn = _entry(name)
-    with torch.cuda.device(dev):
-        err = fn(*args, ws.data_ptr(), out.data_ptr(), M, C, groups, vec,
-                 splits, _stream(dev))
-    _build.check(lib, err, name)
-    return out
-
-
-def _launch_pass(name, args, index):
-    """One ctypes call of the pass ``name`` with its packed arguments,
-    switching the current device only when x's (``index``) is not."""
+def _launch(name, args, index):
+    """One ctypes call of the entry point ``name`` with its packed
+    arguments, switching the current device only when x's (``index``) is
+    not."""
     lib, fn = _entry(name)
     if index == torch._C._cuda_getDevice():
         err = fn(args)
@@ -425,59 +441,96 @@ def _launch_pass(name, args, index):
     _build.check(lib, err, name)
 
 
-def _pair(out, groups):
-    """(G, 2, C) -> two (C,) tensors, or two (G, C) for groups > 1."""
-    if groups == 1:
-        return out[0, 0], out[0, 1]
-    return out[:, 0], out[:, 1]
+def _stats_fields(what, x2d, M, C, groups, vec, kernel, planes):
+    """The statistics' output (f32 [planes, C], or [planes, groups, C]) on
+    x's device and the packed fields from M to the tickets pointer: the
+    plan, the stream, the (device, stream)'s scratch."""
+    index = x2d.get_device()
+    tx, tiles, splits, stride = _stats_plan(M // groups, C, vec, groups,
+                                            kernel)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    tickets, ws = _scratch_of(what, index, stream, groups * tiles,
+                              groups * tiles * splits * stride)
+    shape = (index, planes, C) if groups == 1 else (index, planes, groups, C)
+    like = _out_like.get(shape)
+    if like is None:  # empty_like of a kept tensor is the cheapest alloc
+        like = _out_like[shape] = x2d.new_empty(shape[1:],
+                                                dtype=torch.float32)
+    out = torch.empty_like(like)
+    return out, index, (M, C, groups, vec, tx, splits, stream, ws, tickets)
+
+
+def _k7(what, x2d, groups, gamma=None, beta=None, eps=0.0):
+    """One K7 launch: the (2, ...) sums, or with gamma and beta the (5, ...)
+    terms, as views; counted in ``batch_norm_stats.launches``."""
+    (M, C), xp = _check_rows(what, "x", x2d)
+    _check_args(what, x2d, groups, "pallas")
+    vec = 8 if C % 8 == 0 and not xp & 15 else 1
+    out, index, fields = _stats_fields(what, x2d, M, C, groups, vec, "K7",
+                                       2 if gamma is None else 5)
+    _launch("hvd_bn_stats", _STATS_ARGS.pack(
+        out.data_ptr(), xp, _DTYPES[x2d.dtype], *fields,
+        *_pass_term(what, "gamma", gamma, index, groups, C),
+        *_pass_term(what, "beta", beta, index, groups, C),
+        count_scales(M // groups)[0], eps), index)
+    batch_norm_stats.launches += 1
+    return out.unbind(0)
 
 
 def batch_norm_stats(x2d, groups=1):
     """K7: (sum x, sum x^2) over the rows of a (M, C) tensor, two (C,) f32
     tensors; with ``groups`` > 1 over each of that many blocks of M /
-    groups rows, two (G, C) tensors."""
+    groups rows, two (G, C) tensors. Both are contiguous views of one
+    buffer."""
     what = "batch_norm_stats"
     if _on_cpu(what, x2d):
         return batch_norm_stats_ref(x2d, groups)
-    _check_rows(what, "x", x2d)
-    _check_args(what, x2d, groups, "pallas")
-    M, C = x2d.shape
-    out = _launch_stats("hvd_bn_stats", [x2d.data_ptr(), _DTYPES[x2d.dtype]],
-                        [x2d], M, C, groups)
-    batch_norm_stats.launches += 1
-    return _pair(out, groups)
+    return _k7(what, x2d, groups)
+
+
+def batch_norm_stats_terms(x2d, gamma, beta, eps, groups=1):
+    """K7 with the forward's per-(group, channel) terms: (mean, var, rstd,
+    a, b), f32 (C,) each, or (G, C) over ``groups`` row blocks, contiguous
+    views of one [5, G, C] buffer; bit for bit the torch ops of
+    ``batch_norm_stats_terms_ref`` on K7's sums. gamma and beta are f32
+    (C,) or (G, C). One K7 launch (``batch_norm_stats.launches``)."""
+    what = "batch_norm_stats_terms"
+    if _on_cpu(what, x2d):
+        return batch_norm_stats_terms_ref(x2d, gamma, beta, eps, groups)
+    return _k7(what, x2d, groups, gamma, beta, eps)
 
 
 def batch_norm_grad_stats(dy2d, x2d, mean, rstd, groups=1, gamma=None,
                           beta=None, mode="pallas"):
     """K8: (sum dy, sum dy * (x - mean) * rstd) over the rows, i.e. (dbeta,
-    dgamma), two (C,) f32 tensors, or (G, C) over ``groups`` row blocks.
-    dy and x are (M, C), bf16 or f32 each (f32 dy with bf16 x is allowed);
-    mean and rstd are f32 (C,) or (G, C). With ``gamma`` and ``beta`` dy
-    counts only where x_hat * gamma + beta > 0 (the fused ReLU's mask).
-    ``mode`` is the arithmetic of x_hat and the mask, as in ``bn_dx``."""
+    dgamma), two (C,) f32 tensors, or (G, C) over ``groups`` row blocks,
+    contiguous views of one buffer. dy and x are (M, C), bf16 or f32 each
+    (f32 dy with bf16 x is allowed); mean and rstd are f32 (C,) or (G, C),
+    any strides. With ``gamma`` and ``beta`` dy counts only where x_hat *
+    gamma + beta > 0 (the fused ReLU's mask). ``mode`` is the arithmetic of
+    x_hat and the mask, as in ``bn_dx``."""
     what = "batch_norm_grad_stats"
     if (gamma is None) != (beta is None):
         raise ValueError("%s: the ReLU mask needs gamma and beta" % what)
     if _on_cpu(what, x2d):
         return batch_norm_grad_stats_ref(dy2d, x2d, mean, rstd, groups,
                                          gamma, beta, mode)
-    _check_rows(what, "x", x2d)
-    _check_rows(what, "dy", dy2d, x2d)
+    (M, C), xp = _check_rows(what, "x", x2d)
+    _, dyp = _check_rows(what, "dy", dy2d, x2d)
     _check_args(what, x2d, groups, mode)
-    M, C = x2d.shape
-    t = _terms(what, x2d, groups, mean=mean, rstd=rstd, gamma=gamma,
-               beta=beta)
-    ptr = {k: None if v is None else v.data_ptr() for k, v in t.items()}
-    out = _launch_stats(
-        "hvd_bn_grad_stats",
-        [dy2d.data_ptr(), _DTYPES[dy2d.dtype], x2d.data_ptr(),
-         _DTYPES[x2d.dtype],
-         ptr["mean"], ptr["rstd"], ptr["gamma"], ptr["beta"],
-         int(mode == "lean")], [dy2d, x2d], M, C, groups)
+    vec = 8 if C % 8 == 0 and not (xp | dyp) & 15 else 1
+    out, index, fields = _stats_fields(what, x2d, M, C, groups, vec, "K8",
+                                       2)
+    _launch("hvd_bn_grad_stats", _GRAD_ARGS.pack(
+        out.data_ptr(), dyp, _DTYPES[dy2d.dtype], xp, _DTYPES[x2d.dtype],
+        mode == "lean", *fields,
+        *_pass_term(what, "mean", mean, index, groups, C),
+        *_pass_term(what, "rstd", rstd, index, groups, C),
+        *_pass_term(what, "gamma", gamma, index, groups, C),
+        *_pass_term(what, "beta", beta, index, groups, C)), index)
     batch_norm_grad_stats.launches += 1
     batch_norm_grad_stats.relu_launches += gamma is not None
-    return _pair(out, groups)
+    return out.unbind(0)
 
 
 def bn_apply(x2d, a, b, groups=1, relu=False, mode="pallas"):
@@ -494,7 +547,7 @@ def bn_apply(x2d, a, b, groups=1, relu=False, mode="pallas"):
     y = torch.empty_like(x2d)
     yp = y.data_ptr()
     vec = 8 if C % 8 == 0 and not (xp | yp) & 15 else 1
-    _launch_pass("hvd_bn_apply", _APPLY_ARGS.pack(
+    _launch("hvd_bn_apply", _APPLY_ARGS.pack(
         yp, xp, _DTYPES[x2d.dtype], mode == "lean", bool(relu), M, C,
         groups, vec, _pass_plan(M // groups, C, vec, groups),
         torch._C._cuda_getCurrentRawStream(index),
@@ -526,7 +579,7 @@ def bn_dx(dy2d, x2d, mean, rstd, gamma, beta, dbeta, dgamma, count,
     dx = torch.empty_like(x2d)
     dxp = dx.data_ptr()
     vec = 8 if C % 8 == 0 and not (xp | dyp | dxp) & 15 else 1
-    _launch_pass("hvd_bn_dx", _DX_ARGS.pack(
+    _launch("hvd_bn_dx", _DX_ARGS.pack(
         dxp, dyp, _DTYPES[dy2d.dtype], xp, _DTYPES[x2d.dtype],
         mode == "lean", bool(relu), M, C, groups, vec,
         _pass_plan(M // groups, C, vec, groups),
@@ -613,14 +666,18 @@ def _group_sum(pair, group):
     return (stacked[0], stacked[1]), dist.get_world_size(group)
 
 
-def _batch_stats(x2d, eps, groups, group):
-    """K7 and the statistics of ``_bn_train_fwd``/``_lean_fwd``: (mean,
-    var, rstd, the rows each statistic covers), f32 (C,) or (G, C)."""
+def _batch_stats(x2d, gamma, beta, eps, groups, group):
+    """K7 and the terms of ``_bn_train_fwd``/``_lean_fwd``: (mean, var,
+    rstd, a, b, the rows each statistic covers), f32 (C,) or (G, C).
+    Without a sync group one launch forms them all; with one the sums
+    cross its ranks first and the terms are torch ops."""
+    count = x2d.shape[0] // groups
+    if group is None:
+        return batch_norm_stats_terms(x2d, gamma, beta, eps, groups) + (
+            count,)
     (s, ss), n = _group_sum(batch_norm_stats(x2d, groups), group)
-    count = x2d.shape[0] // groups * n  # equal shards, as psum(1)
-    mean = s / count
-    var = torch.clamp(ss / count - mean * mean, min=0.0)
-    return mean, var, torch.rsqrt(var + eps), count
+    count *= n  # equal shards, as psum(1)
+    return _terms_of_sums(s, ss, count, gamma, beta, eps) + (count,)
 
 
 class _FusedBatchNormFn(torch.autograd.Function):
@@ -629,9 +686,8 @@ class _FusedBatchNormFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2d, gamma, beta, eps, group):
-        mean, var, rstd, _ = _batch_stats(x2d, eps, 1, group)
-        a = gamma * rstd
-        b = beta - mean * a
+        mean, var, rstd, a, b, _ = _batch_stats(x2d, gamma, beta, eps, 1,
+                                                group)
         y = bn_apply(x2d, a, b)
         ctx.save_for_backward(x2d, gamma, mean, rstd)
         ctx.group = group
@@ -672,9 +728,8 @@ class _LeanBatchNormFn(torch.autograd.Function):
     def forward(ctx, x, gamma, beta, eps, relu, groups, group):
         C = x.shape[-1]
         x2d = x.view(-1, C)
-        mean, var, rstd, count = _batch_stats(x2d, eps, groups, group)
-        a = gamma * rstd
-        b = beta - mean * a
+        mean, var, rstd, a, b, count = _batch_stats(x2d, gamma, beta, eps,
+                                                    groups, group)
         y = bn_apply(x2d, a, b, groups, relu, "lean")
         ctx.save_for_backward(x, gamma, beta, mean, rstd)
         ctx.relu, ctx.groups, ctx.group, ctx.count = relu, groups, group, count
@@ -737,9 +792,10 @@ def lean_batch_norm_train(x, gamma, beta, eps=1e-5, relu=False, groups=1,
 class _LeanNormConvFn(torch.autograd.Function):
     """``bn_remat``: a lean BN and the convolution that reads its output,
     with that output not kept for the backward. The forward runs K7, the
-    normalize pass and the convolution, and saves x, the statistics and the
-    convolution's weight; the backward recomputes the normalize output
-    with one launch of the normalize pass (through its custom op), runs the
+    normalize pass and the convolution, and saves x, the statistics, the
+    normalize pass's a and b and the convolution's weight; the backward
+    recomputes the normalize output from those a and b with one launch of
+    the normalize pass (through its custom op), runs the
     convolution's backward on it, then K8 and the dx pass as
     ``_LeanBatchNormFn`` does. The same operations on the same values as
     the two modules apart, so the same results."""
@@ -748,15 +804,14 @@ class _LeanNormConvFn(torch.autograd.Function):
     def forward(ctx, x, gamma, beta, weight, eps, relu, groups, group, conv):
         xl = x.movedim(1, -1)
         x2d = xl.view(-1, xl.shape[-1])
-        mean, var, rstd, count = _batch_stats(x2d, eps, groups, group)
-        a = gamma * rstd
-        b = beta - mean * a
+        mean, var, rstd, a, b, count = _batch_stats(x2d, gamma, beta, eps,
+                                                    groups, group)
         y = bn_apply(x2d, a, b, groups, relu, "lean")
         stride, pad, padding, dtype = conv
         w = weight.to(dtype, memory_format=torch.channels_last)
         out = F.conv2d(_padded(y.view(xl.shape).movedim(-1, 1), pad)
                        .to(dtype), w, stride=stride, padding=padding)
-        ctx.save_for_backward(x, gamma, beta, mean, rstd, w)
+        ctx.save_for_backward(x, gamma, beta, mean, rstd, w, a, b)
         ctx.relu, ctx.groups, ctx.group, ctx.count = relu, groups, group, count
         ctx.conv, ctx.weight_dtype = conv, weight.dtype
         ctx.set_materialize_grads(False)
@@ -764,12 +819,10 @@ class _LeanNormConvFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout, gmean, gvar):
-        x, gamma, beta, mean, rstd, w = ctx.saved_tensors
+        x, gamma, beta, mean, rstd, w, a, b = ctx.saved_tensors
         stride, pad, padding, dtype = ctx.conv
         xl = x.movedim(1, -1)
         x2d = xl.view(-1, xl.shape[-1])
-        a = gamma * rstd
-        b = beta - mean * a
         y = torch.ops.horovod_tpu_torch.bn_apply(x2d, a, b, ctx.groups,
                                                  ctx.relu, "lean")
         yp = _padded(y.view(xl.shape).movedim(-1, 1), pad).to(dtype)

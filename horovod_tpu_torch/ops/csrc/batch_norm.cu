@@ -8,7 +8,11 @@
 // (:381-409). Over a row-major (M, C) activation, the channels last and
 // contiguous, whose rows split into G ghost groups of M / G contiguous rows
 // (G = 1: one group, plain BN):
-//   K7: per (group, channel) (sum x, sum x^2);
+//   K7: per (group, channel) (sum x, sum x^2); with the forward's terms
+//       also mean = s * inv, var = max(ss * inv - mean^2, 0), rstd =
+//       rsqrt(var + eps), a = gamma * rstd and b = beta - mean * a, with
+//       inv = 1 / count as an f32 scalar from the caller (_bn_train_fwd
+//       :205-209, _lean_fwd :356-360);
 //   K8: per (group, channel) (sum dy, sum dy * x_hat), i.e. (dbeta, dgamma),
 //       where x_hat = (x - mean) * rstd and, with the ReLU mask, dy counts
 //       only where the pre-activation x_hat * gamma + beta is > 0;
@@ -17,11 +21,11 @@
 //       masked as in K8, with k = gamma * rstd, c1 = dbeta * (1 / count),
 //       c2 = dgamma * (1 / count), c3 = gmean * (1 / count) and c4 = gvar *
 //       (2 / count), 1 / count and 2 / count f32 scalars from the caller.
-// The passes take the raw f32 per-(group, channel) vectors, each with its
+// Every kernel takes its per-(group, channel) f32 inputs raw, each with its
 // own group and channel strides (a group stride of 0 shares a (C,) vector
-// among the groups), and form their terms themselves, once a block, with
-// the plain versions' correctly rounded f32 operations; in lean mode each
-// term is then rounded to x's dtype (the lean formulas' .astype(dtype)).
+// among the groups), and forms its terms itself with the plain versions'
+// correctly rounded f32 operations; in lean mode the passes then round
+// each term to x's dtype (the lean formulas' .astype(dtype)).
 //
 // Arithmetic. Two modes, each the op-for-op image of one Python formula:
 // "pallas" (RT = float) computes in f32 and rounds once to x's dtype at the
@@ -33,48 +37,57 @@
 // operation rounds the exact result once; the plain version rounds the f32
 // result to bf16, which is the same value because f32 carries more than
 // twice bf16's 8 significant bits (rounding twice is then innocuous for +,
-// -, *). So the two passes equal their plain versions bit for bit. The
-// statistics' sums may contract: they are held to a tolerance, in another
-// order anyway.
+// -, *). So the two passes equal their plain versions bit for bit, and so
+// do K7's terms the torch operations on K7's own sums (rsqrtf is the
+// rsqrt of ATen's CUDA torch.rsqrt). The statistics' sums are held to a
+// tolerance: they add the same f32 values in another order (x * x and
+// dy * x_hat each an explicit FMA into the sum).
 //
-// Bound on the H100: bytes. The passes do 2 to 12 operations per element,
+// Bound on the H100: bytes. The kernels do 2 to 12 operations per element,
 // far below the card's 295 operations per byte: at the ResNet-50 stem
 // (M = 256 * 112 * 112, C = 64, bf16) one read of x is 411 MB, 0.123 ms at
 // 3.35 TB/s; K7 reads x, K8 x and dy, bn_apply reads x and writes y (0.245
 // ms), bn_dx reads x and dy and writes dx (0.368 ms).
 //
-// Design. The statistics: blocks of 256 threads laid out as tx threads along
-// C, each owning VEC = 8 neighbouring channels (one 16-byte load of bf16,
-// two of f32), times ty = 256 / tx threads along M: at C = 64 a warp covers
-// four 128-byte rows, at C >= 2048 the block spans one row. Blocks split the
-// rows of each group (grid.x = groups * splits, so no block straddles a
-// group) and the channels among column tiles (grid.y). Each thread strides
-// over its block's rows with f32 accumulators in registers; the ty partial
-// sums meet in shared memory and are added in a fixed order, and the block
-// writes its (2, C-tile) partials to the workspace [groups * splits, 2, C];
-// a second launch adds each group's splits per channel, again in a fixed
-// order. No float atomics: the same input gives bit-identical statistics on
-// every run and on every rank.
-// The passes: one launch a call. A block is tx * ty threads (tx along C,
-// at most 1024 channels a tile, ty = 256 / tx along M).
-// Before it walks its rows the block forms its tile's terms into shared
-// memory, one channel a thread, each warp reading 32 neighbouring channels
-// of a raw vector at once; each thread then reads its VEC channels' terms
-// into registers with 16-byte shared loads. The caller's plan gives each
-// group `splits` blocks: enough rows a thread (16) to amortise the terms,
-// the blocks a whole multiple of the 132 SMs (each SM the same share of
-// rows), at least 132 where the rows allow it and at most 1056; the
-// splits depend on (M, C, G, VEC) only. Split s of a group takes the
-// rows [Mg * s / splits, Mg * (s + 1) / splits). Each thread keeps
-// kPassUnroll rows of x (and dy) in flight before it computes and stores
-// them (streaming hints, ld.global.cs and st.global.cs, measured no faster
-// at the ResNet-50 stem: the loads alone 1-3 % slower). Both ragged tails
-// are masked: rows past a split's end by the loop bound, channels past C by
-// the column test (VEC = 1 when C is not a multiple of 8 or a base is not
-// 16-byte aligned; then each lane pair holds one channel twice).
-// Not yet done (later work): TMA or cp.async staging; for the statistics a
-// split for short launches as the passes' and a last-block reduction
-// instead of their second launch.
+// Design. Every kernel is one launch a call, on a grid (G * splits, column
+// tiles): split s of group g takes the rows [Mg * s / splits, Mg * (s + 1) /
+// splits) of the group, so every row of the group is in exactly one split
+// and no block straddles a group. The caller's plan (from (M, C, G, VEC)
+// alone) sizes the splits: blocks a whole multiple of the 132 SMs (each SM
+// the same share of rows), at least 132 where the rows allow it, enough
+// rows a thread to amortise a block's fixed work. A block is tx * ty
+// threads, tx along C, each owning VEC = 8 neighbouring channels (one
+// 16-byte load of bf16, two of f32; VEC = 1 when C is not a multiple of 8
+// or a base is not 16-byte aligned, and then the passes' lane pairs hold
+// one channel twice), by ty = 256 / tx along M. Each thread keeps
+// kUnroll rows of x (and dy) in flight before it uses them, K7 twice as
+// many (streaming hints, ld.global.cs and st.global.cs, measured no faster
+// in the passes at the ResNet-50 stem: the loads alone 1-3 % slower). Both
+// ragged tails are masked: rows past a split's end by the loop bound,
+// channels past C by the column test.
+// The statistics: the caller picks tx, at most kStatsTile channels a tile.
+// Each thread sums its rows in f32 registers; the ty partial sums meet in
+// shared memory and are added in a fixed order, and the block writes its
+// (2, tile) sums to the caller's scratch, then takes an integer ticket on
+// its (group, tile)'s counter. The block that draws the last ticket adds
+// the tile's splits in a fixed order that does not depend on which block
+// came last (thread part q adds the splits q, q + Q, ... in float4s, then
+// the Q parts are added in order), writes the outputs (and K7's terms) and
+// sets the counter back to 0, so the scratch is ready for the next call
+// and a call launches no memset. No float atomics: the same input gives
+// bit-identical statistics on every run and on every rank. The plan caps
+// the blocks at one wave of two an SM (each block at most 128 registers a
+// thread), which also keeps the last block's serial read (splits * 2 *
+// tile f32 values) small beside the kernel. (A thread block cluster holds
+// at most 16 blocks, far fewer than the splits.)
+// The passes: a tile of at most kPassTile channels a block. Before it walks
+// its rows the block forms its tile's terms into shared memory, one
+// channel a thread, each warp reading 32 neighbouring channels of a raw
+// vector at once; each thread then reads its VEC channels' terms into
+// registers with 16-byte shared loads.
+// Not yet done (later work): TMA or cp.async staging of row chunks; for
+// the statistics a two-level (or cluster) first stage of the last block's
+// reduction, whose serial read grows with the splits (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,12 +102,17 @@ namespace hvdbn {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;
-constexpr int kFinalGroups = kThreads / 32;  // pass 2: 8 warps of 32 channels
+// rows of x (and dy) in flight per thread (K7, which reads x alone, keeps
+// twice as many)
+constexpr int kUnroll = 4;
+// The statistics: channels of a block's tile at most (its (2, tile) sums
+// meet in shared memory), and the splits' partial sums a thread of the last
+// block has in flight.
+constexpr int kStatsTile = 128;
+constexpr int kFinalBatch = 8;
 // The passes: channels of a block's tile at most (its terms sit in shared
-// memory: 9 planes of 1024 f32 values are 36 KB), and rows of x (and dy) in
-// flight per thread.
+// memory: 9 planes of 1024 f32 values are 36 KB).
 constexpr int kPassTile = 1024;
-constexpr int kPassUnroll = 4;
 // bn_dx's raw per-(group, channel) f32 inputs, in the order of the caller's
 // array
 enum DxInput { kMean, kRstd, kGamma, kBeta, kDbeta, kDgamma, kGmean, kGvar,
@@ -118,68 +136,16 @@ __device__ __forceinline__ float rnd(float v) {
   return to_float(from_float<RT>(v));
 }
 
-// VEC elements from p into f32: 16-byte loads for VEC = 8 (p 16-byte
-// aligned), one scalar load for VEC = 1.
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* p, float (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    v[0] = to_float(p[0]);
-  } else {
-    constexpr int kPer = 16 / sizeof(T);
-    static_assert(VEC % kPer == 0, "VEC must fill whole 16-byte loads");
-#pragma unroll
-    for (int i = 0; i < VEC / kPer; ++i) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + i);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) v[i * kPer + j] = to_float(e[j]);
-    }
-  }
-}
-
-// VEC f32 values rounded to T and stored at p, as load_vec reads them.
-template <typename T, int VEC>
-__device__ __forceinline__ void store_vec(T* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    p[0] = from_float<T>(v[0]);
-  } else {
-    constexpr int kPer = 16 / sizeof(T);
-#pragma unroll
-    for (int i = 0; i < VEC / kPer; ++i) {
-      uint4 raw;
-      T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) e[j] = from_float<T>(v[i * kPer + j]);
-      reinterpret_cast<uint4*>(p)[i] = raw;
-    }
-  }
-}
-
 // tx threads along C (VEC channels each) by ty threads along M.
 struct Shape {
   int tx, ty;
 };
 
-__host__ __device__ inline Shape block_shape(int C, int vec) {
-  const int tc = (C + vec - 1) / vec;
-  const int tx = tc < kThreads ? tc : kThreads;
-  return {tx, kThreads / tx};
-}
-
-// The rows [begin, end) of this block: split s of group g, each group Mg
-// rows, each split rows_per_split of them.
+// The rows [begin, end) of a block of group g.
 struct Rows {
   int g;
   long long begin, end;
 };
-
-__device__ __forceinline__ Rows block_rows(long long Mg, int splits,
-                                           long long rows_per_split) {
-  const int g = blockIdx.x / splits, s = blockIdx.x % splits;
-  const long long group_end = (g + 1) * Mg;
-  const long long begin = g * Mg + s * rows_per_split;
-  return {g, begin, min(group_end, begin + rows_per_split)};
-}
 
 // The pre-activation x_hat * gamma + beta in RT (_lean_bwd:385): the ReLU
 // mask is pre > 0. It recomputes the sign of the forward's x * a + b, which
@@ -187,135 +153,6 @@ __device__ __forceinline__ Rows block_rows(long long Mg, int splits,
 template <typename RT>
 __device__ __forceinline__ float pre_of(float xh, float ga, float be) {
   return rnd<RT>(__fadd_rn(rnd<RT>(__fmul_rn(xh, ga)), be));
-}
-
-// x - mean, x_hat = (x - mean) * rstd and the dy that counts (0 where the
-// ReLU mask is off), each operation rounded to RT: _bn_train_bwd's
-// arithmetic (RT = float) or _lean_bwd:381-386's (RT = x's dtype).
-template <typename RT, bool MASK>
-__device__ __forceinline__ void masked(float x, float dy, float mu, float rs,
-                                       float ga, float be, float& xm,
-                                       float& xh, float& d) {
-  xm = rnd<RT>(__fsub_rn(x, mu));
-  xh = rnd<RT>(__fmul_rn(xm, rs));
-  d = rnd<RT>(dy);
-  if (MASK && !(pre_of<RT>(xh, ga, be) > 0.f)) d = 0.f;
-}
-
-// Statistics, pass 1. GRAD = false: K7 on x (dy and the terms unused).
-// GRAD = true: K8; gamma and beta non-null select the ReLU mask.
-template <typename TX, typename TD, typename RT, int VEC, bool GRAD>
-__global__ void __launch_bounds__(kThreads)
-    bn_partial_kernel(const TX* __restrict__ x, const TD* __restrict__ dy,
-                      const float* __restrict__ mean,
-                      const float* __restrict__ rstd,
-                      const float* __restrict__ gamma,
-                      const float* __restrict__ beta, float* __restrict__ ws,
-                      long long Mg, int C, int splits,
-                      long long rows_per_split) {
-  __shared__ float red[2][kThreads * VEC];
-  const Shape sh = block_shape(C, VEC);
-  const int width = sh.tx * VEC;  // channels of this block's tile
-  const int tx = threadIdx.x % sh.tx, ty = threadIdx.x / sh.tx;
-  const int c0 = blockIdx.y * width + tx * VEC;
-  const bool in_block = ty < sh.ty;
-  const bool active = in_block && c0 < C;
-  const Rows rows = block_rows(Mg, splits, rows_per_split);
-  const bool mask = GRAD && gamma != nullptr;
-
-  float a[VEC], b[VEC], mu[VEC], rs[VEC], ga[VEC], be[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    a[j] = b[j] = 0.f;
-    mu[j] = rs[j] = ga[j] = be[j] = 0.f;
-  }
-  if (GRAD && active) {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      mu[j] = rnd<RT>(mean[rows.g * C + c0 + j]);
-      rs[j] = rnd<RT>(rstd[rows.g * C + c0 + j]);
-      if (mask) {
-        ga[j] = rnd<RT>(gamma[rows.g * C + c0 + j]);
-        be[j] = rnd<RT>(beta[rows.g * C + c0 + j]);
-      }
-    }
-  }
-  if (active) {
-    for (long long r = rows.begin + ty; r < rows.end; r += sh.ty) {
-      float v[VEC];
-      load_vec<TX, VEC>(x + r * C + c0, v);
-      if constexpr (GRAD) {
-        float d[VEC];
-        load_vec<TD, VEC>(dy + r * C + c0, d);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          float xm, xh, dm;
-          masked<RT, false>(v[j], d[j], mu[j], rs[j], 0.f, 0.f, xm, xh, dm);
-          if (mask && !(pre_of<RT>(xh, ga[j], be[j]) > 0.f)) dm = 0.f;
-          a[j] += dm;
-          b[j] += dm * xh;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          a[j] += v[j];
-          b[j] += v[j] * v[j];
-        }
-      }
-    }
-  }
-  if (in_block) {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      red[0][ty * width + tx * VEC + j] = a[j];
-      red[1][ty * width + tx * VEC + j] = b[j];
-    }
-  }
-  __syncthreads();
-  float* out = ws + blockIdx.x * 2LL * C;
-  for (int col = threadIdx.x; col < width; col += kThreads) {
-    const int c = blockIdx.y * width + col;
-    if (c >= C) continue;
-    float s0 = 0.f, s1 = 0.f;
-    for (int t = 0; t < sh.ty; ++t) {  // a fixed order: deterministic
-      s0 += red[0][t * width + col];
-      s1 += red[1][t * width + col];
-    }
-    out[c] = s0;
-    out[C + c] = s1;
-  }
-}
-
-// Statistics, pass 2: out[g][k][c] = sum over s of ws[g * splits + s][k][c].
-// Block (x, g) owns 32 channels of group g; warp w adds the splits w, w + 8,
-// ..., then warp 0 adds the 8 sums in order.
-__global__ void __launch_bounds__(kThreads)
-    bn_finalize_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                       int splits, int C) {
-  __shared__ float red[2][kFinalGroups][32];
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
-  const int c = blockIdx.x * 32 + lane;
-  const float* part = ws + blockIdx.y * (long long)splits * 2 * C;
-  float s0 = 0.f, s1 = 0.f;
-  if (c < C) {
-    for (int s = w; s < splits; s += kFinalGroups) {
-      s0 += part[s * 2LL * C + c];
-      s1 += part[s * 2LL * C + C + c];
-    }
-  }
-  red[0][w][lane] = s0;
-  red[1][w][lane] = s1;
-  __syncthreads();
-  if (w == 0 && c < C) {
-    float t0 = 0.f, t1 = 0.f;
-#pragma unroll
-    for (int k = 0; k < kFinalGroups; ++k) {
-      t0 += red[0][k][lane];
-      t1 += red[1][k][lane];
-    }
-    out[blockIdx.y * 2LL * C + c] = t0;
-    out[blockIdx.y * 2LL * C + C + c] = t1;
-  }
 }
 
 // ------------------------------------------------------------------ passes
@@ -500,9 +337,10 @@ __host__ __device__ inline Shape pass_shape(int C, int vec) {
   return {tx, kThreads / tx};
 }
 
-// The rows of split s of group g: [Mg * s / splits, Mg * (s + 1) / splits)
-// of the group, every row of the group in exactly one split.
-__device__ __forceinline__ Rows pass_rows(long long Mg, int splits) {
+// The rows of split s of group g (block x = g * splits + s): [Mg * s /
+// splits, Mg * (s + 1) / splits) of the group, every row of the group in
+// exactly one split.
+__device__ __forceinline__ Rows split_rows(long long Mg, int splits) {
   const int g = blockIdx.x / splits, s = blockIdx.x % splits;
   const long long begin = g * Mg + Mg * s / splits;
   long long end = g * Mg + Mg * (s + 1) / splits;
@@ -531,7 +369,7 @@ __global__ void __launch_bounds__(kThreads)
   RT* s = reinterpret_cast<RT*>(smem);
   const Shape sh = pass_shape(C, VEC);
   const int width = sh.tx * VEC, cb = blockIdx.y * width;
-  const Rows rows = pass_rows(Mg, splits);
+  const Rows rows = split_rows(Mg, splits);
   for (int i = threadIdx.x; i < width && cb + i < C; i += blockDim.x) {
     const int c = cb + i;
     s[i] = from_float<RT>(value(a, rows.g, c));
@@ -545,15 +383,15 @@ __global__ void __launch_bounds__(kThreads)
   term_pairs<RT, VEC>(s + tx * VEC, va);
   term_pairs<RT, VEC>(s + width + tx * VEC, vb);
   for (long long r = rows.begin + ty; r < rows.end;
-       r += kPassUnroll * sh.ty) {
-    Raw<TX, VEC> in[kPassUnroll];
+       r += kUnroll * sh.ty) {
+    Raw<TX, VEC> in[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kPassUnroll; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       const long long ru = r + u * sh.ty;
       if (ru < rows.end) load_raw(x + ru * C + c0, in[u]);
     }
 #pragma unroll
-    for (int u = 0; u < kPassUnroll; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       const long long ru = r + u * sh.ty;
       if (ru >= rows.end) continue;
       P v[NP];
@@ -588,7 +426,7 @@ __global__ void __launch_bounds__(kThreads)
   RT* s = reinterpret_cast<RT*>(smem);
   const Shape sh = pass_shape(C, VEC);
   const int width = sh.tx * VEC, cb = blockIdx.y * width;
-  const Rows rows = pass_rows(Mg, splits);
+  const Rows rows = split_rows(Mg, splits);
   const bool with_c3 = EXTRA && in.t[kGmean].p != nullptr;
   const bool with_c4 = EXTRA && in.t[kGvar].p != nullptr;
   for (int i = threadIdx.x; i < width && cb + i < C; i += blockDim.x) {
@@ -634,11 +472,11 @@ __global__ void __launch_bounds__(kThreads)
     term_pairs<RT, VEC>(mine + kC4 * width, c4);
   }
   for (long long r = rows.begin + ty; r < rows.end;
-       r += kPassUnroll * sh.ty) {
-    Raw<TX, VEC> vx[kPassUnroll];
-    Raw<TD, VEC> vd[kPassUnroll];
+       r += kUnroll * sh.ty) {
+    Raw<TX, VEC> vx[kUnroll];
+    Raw<TD, VEC> vd[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kPassUnroll; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       const long long ru = r + u * sh.ty;
       if (ru < rows.end) {
         load_raw(x + ru * C + c0, vx[u]);
@@ -646,7 +484,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 #pragma unroll
-    for (int u = 0; u < kPassUnroll; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       const long long ru = r + u * sh.ty;
       if (ru >= rows.end) continue;
       P v[NP], d[NP];
@@ -666,6 +504,229 @@ __global__ void __launch_bounds__(kThreads)
       store_pairs<TX, RT, VEC>(dx + ru * C + c0, v);
     }
   }
+}
+
+// --------------------------------------------------------------- statistics
+
+// VEC elements as loaded, in f32
+template <typename T, int VEC>
+__device__ __forceinline__ void floats_of(const Raw<T, VEC>& r,
+                                          float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    v[0] = to_float(r.e);
+  } else {
+    const T* e = reinterpret_cast<const T*>(r.w);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = to_float(e[j]);
+  }
+}
+
+// VEC elements at p in global memory, through the read-only path
+template <typename T, int VEC>
+__device__ __forceinline__ void ldg_raw(const T* p, Raw<T, VEC>& r) {
+  if constexpr (VEC == 1) {
+    r.e = __ldg(p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC * (int)sizeof(T) / 16; ++i)
+      r.w[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
+  }
+}
+
+// K7's and K8's inputs. x, dy: [G * Mg, C]; mean, rstd (K8): x_hat's
+// statistics; gamma, beta: K8's ReLU mask (null p: none) or K7's terms.
+// ws: [G * tiles * splits][stride] f32 partial sums, stride = 2 * tile
+// rounded up to 4; tickets: [G * tiles] counters, 0 between calls; out: f32
+// planes [n][G][C] (K7 (s, ss) or (mean, var, rstd, a, b); K8 (dbeta,
+// dgamma)); inv = 1 / count and eps in f32 for K7's terms.
+struct StatsParams {
+  const void* x;
+  const void* dy;
+  Term mean, rstd, gamma, beta;
+  float* ws;
+  unsigned* tickets;
+  float* out;
+  long long Mg;
+  int C, G, tx, splits, stride;
+  float inv, eps;
+};
+
+// GRAD = false: K7 on x (TERMS: with the forward's terms). GRAD = true: K8,
+// x_hat and the mask in RT's arithmetic.
+template <typename TX, typename TD, typename RT, int VEC, bool GRAD,
+          bool TERMS>
+__global__ void __launch_bounds__(kThreads, 2)
+    bn_stats_kernel(const StatsParams p) {
+  __shared__ float red[2][kThreads * VEC];
+  __shared__ float4 part[kThreads];
+  __shared__ float tot[2 * kStatsTile];
+  __shared__ bool last;
+  const int tx_n = p.tx, ty_n = kThreads / tx_n, C = p.C;
+  const int width = tx_n * VEC, cb = blockIdx.y * width;
+  const int tx = threadIdx.x % tx_n, ty = threadIdx.x / tx_n;
+  const int c0 = cb + tx * VEC;
+  const bool in_block = ty < ty_n;
+  const bool active = in_block && c0 < C;
+  Rows rows = split_rows(p.Mg, p.splits);
+  const int g = rows.g;
+  const bool mask = GRAD && p.gamma.p != nullptr;
+
+  float s0[VEC], s1[VEC], mu[VEC], rs[VEC], ga[VEC], be[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    s0[j] = s1[j] = 0.f;
+    mu[j] = rs[j] = ga[j] = be[j] = 0.f;
+  }
+  if (GRAD && active) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      mu[j] = rnd<RT>(value(p.mean, g, c0 + j));
+      rs[j] = rnd<RT>(value(p.rstd, g, c0 + j));
+      if (mask) {
+        ga[j] = rnd<RT>(value(p.gamma, g, c0 + j));
+        be[j] = rnd<RT>(value(p.beta, g, c0 + j));
+      }
+    }
+  }
+  if (active) {
+    const TX* x = static_cast<const TX*>(p.x);
+    const TD* dy = static_cast<const TD*>(p.dy);
+    constexpr int U = GRAD ? kUnroll : 2 * kUnroll;
+    for (long long r = rows.begin + ty; r < rows.end; r += U * ty_n) {
+      Raw<TX, VEC> vx[U];
+      Raw<TD, VEC> vd[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const long long ru = r + u * ty_n;
+        if (ru < rows.end) {
+          ldg_raw(x + ru * C + c0, vx[u]);
+          if constexpr (GRAD) ldg_raw(dy + ru * C + c0, vd[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (r + u * ty_n >= rows.end) continue;
+        float v[VEC];
+        floats_of(vx[u], v);
+        if constexpr (GRAD) {
+          float d[VEC];
+          floats_of(vd[u], d);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            // x_hat = (x - mean) * rstd and the dy that counts, each
+            // operation rounded to RT: _bn_train_bwd's arithmetic (RT =
+            // float) or _lean_bwd:381-386's (RT = x's dtype)
+            const float xm = rnd<RT>(__fsub_rn(v[j], mu[j]));
+            const float xh = rnd<RT>(__fmul_rn(xm, rs[j]));
+            float dm = rnd<RT>(d[j]);
+            if (mask && !(pre_of<RT>(xh, ga[j], be[j]) > 0.f)) dm = 0.f;
+            s0[j] = __fadd_rn(s0[j], dm);
+            s1[j] = __fmaf_rn(dm, xh, s1[j]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            s0[j] = __fadd_rn(s0[j], v[j]);
+            s1[j] = __fmaf_rn(v[j], v[j], s1[j]);
+          }
+        }
+      }
+    }
+  }
+  if (in_block) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      red[0][ty * width + tx * VEC + j] = s0[j];
+      red[1][ty * width + tx * VEC + j] = s1[j];
+    }
+  }
+  __syncthreads();
+  // The block's (2, tile) sums, each over the ty rows in order, to its
+  // row of the scratch (the padding to a whole float4 as 0).
+  const int tiles = gridDim.y, n = 2 * width;
+  const long long tile_row = (long long)(g * tiles + blockIdx.y) * p.splits;
+  float* mine = p.ws + (tile_row + blockIdx.x % p.splits) * p.stride;
+  for (int v = threadIdx.x; v < p.stride; v += kThreads) {
+    float t = 0.f;
+    if (v < n) {
+      const float* col = &red[v / width][v % width];
+#pragma unroll 8
+      for (int k = 0; k < ty_n; ++k) t = __fadd_rn(t, col[k * width]);
+    }
+    mine[v] = t;
+  }
+  __threadfence();
+  __syncthreads();
+  unsigned* ticket = p.tickets + g * tiles + blockIdx.y;
+  if (threadIdx.x == 0)
+    last = atomicAdd(ticket, 1u) == (unsigned)(p.splits - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // The last block of the tile: part q adds the splits q, q + Q, ... in
+  // float4s (read from L2, where the other blocks wrote them; kFinalBatch
+  // loads in flight, then added in order), then the Q parts are added in
+  // order.
+  const float4* all = reinterpret_cast<const float4*>(p.ws + tile_row *
+                                                      p.stride);
+  const int n4 = p.stride / 4, Q = kThreads / n4;
+  if (threadIdx.x < Q * n4) {
+    const int q = threadIdx.x / n4, i = threadIdx.x % n4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = q; s0 < p.splits; s0 += kFinalBatch * Q) {
+      float4 w[kFinalBatch];
+#pragma unroll
+      for (int k = 0; k < kFinalBatch; ++k) {
+        const int s = s0 + k * Q;
+        if (s < p.splits) w[k] = __ldcg(all + (long long)s * n4 + i);
+      }
+#pragma unroll
+      for (int k = 0; k < kFinalBatch; ++k) {
+        if (s0 + k * Q >= p.splits) break;
+        acc.x = __fadd_rn(acc.x, w[k].x);
+        acc.y = __fadd_rn(acc.y, w[k].y);
+        acc.z = __fadd_rn(acc.z, w[k].z);
+        acc.w = __fadd_rn(acc.w, w[k].w);
+      }
+    }
+    part[q * n4 + i] = acc;
+  }
+  __syncthreads();
+  const float* parts = reinterpret_cast<const float*>(part);
+  for (int v = threadIdx.x; v < n; v += kThreads) {
+    float t = 0.f;
+    for (int q = 0; q < Q; ++q) t = __fadd_rn(t, parts[q * p.stride + v]);
+    tot[v] = t;
+  }
+  __syncthreads();
+  const long long plane = (long long)p.G * C;
+  float* out = p.out + (long long)g * C;
+  for (int col = threadIdx.x; col < width && cb + col < C;
+       col += kThreads) {
+    const int c = cb + col;
+    const float s = tot[col], ss = tot[width + col];
+    if constexpr (TERMS) {
+      // the torch operations of batch_norm_stats_terms_ref, each rounded
+      // on its own: s / count and ss / count as ATen's CUDA division by a
+      // Python number (a product with 1.0f / count), clamp(min=0)
+      // propagating NaN, rsqrt as torch.rsqrt
+      const float mean = __fmul_rn(s, p.inv);
+      const float d = __fsub_rn(__fmul_rn(ss, p.inv), __fmul_rn(mean, mean));
+      const float var = d != d ? d : fmaxf(d, 0.f);
+      const float rstd = rsqrtf(__fadd_rn(var, p.eps));
+      const float a = __fmul_rn(value(p.gamma, g, c), rstd);
+      const float b = __fsub_rn(value(p.beta, g, c), __fmul_rn(mean, a));
+      out[c] = mean;
+      out[plane + c] = var;
+      out[2 * plane + c] = rstd;
+      out[3 * plane + c] = a;
+      out[4 * plane + c] = b;
+    } else {
+      out[c] = s;
+      out[plane + c] = ss;
+    }
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 // ---------------------------------------------------------------- dispatch
@@ -695,33 +756,39 @@ cudaError_t by_flag(int flag, F&& f) {
   return flag ? f(std::true_type{}) : f(std::false_type{});
 }
 
-// (grid, rows per split) of a sweep over G groups of Mg rows
-inline dim3 grid_of(long long Mg, int C, int vec, int groups, int splits,
-                    long long* rows_per_split) {
-  const Shape sh = block_shape(C, vec);
-  const int col_tiles = ((C + vec - 1) / vec + sh.tx - 1) / sh.tx;
-  *rows_per_split = (Mg + splits - 1) / splits;
-  return dim3(groups * splits, col_tiles);
+// K7's or K8's launch: grid (groups * splits, column tiles) of tx * ty
+// threads, the tile tx * vec channels; the scratch row of a block holds
+// its (2, tile) sums, 2 * tile rounded up to whole float4s.
+template <typename TX, typename TD, typename RT, int VEC, bool GRAD,
+          bool TERMS>
+cudaError_t run_stats(StatsParams p, long long M, int vec,
+                      cudaStream_t stream) {
+  if (p.tx < 1 || p.tx * vec > kStatsTile || p.splits < 1 || p.G < 1 ||
+      M % p.G)
+    return cudaErrorInvalidValue;
+  const int width = p.tx * vec;
+  p.Mg = M / p.G;
+  p.stride = (2 * width + 3) / 4 * 4;
+  const dim3 grid(p.G * p.splits, (p.C + width - 1) / width);
+  bn_stats_kernel<TX, TD, RT, VEC, GRAD, TERMS>
+      <<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
-template <typename TX, typename TD, typename RT, int VEC, bool GRAD>
-cudaError_t run_stats(const void* x, const void* dy, const void* mean,
-                      const void* rstd, const void* gamma, const void* beta,
-                      void* ws, void* out, long long M, int C, int groups,
-                      int splits, cudaStream_t stream) {
-  const long long Mg = M / groups;
-  long long rows_per_split;
-  const dim3 grid = grid_of(Mg, C, VEC, groups, splits, &rows_per_split);
-  bn_partial_kernel<TX, TD, RT, VEC, GRAD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TD*>(dy),
-      static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<float*>(ws), Mg, C, splits, rows_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bn_finalize_kernel<<<dim3((C + 31) / 32, groups), kThreads, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<float*>(out), splits, C);
-  return cudaGetLastError();
+// The statistics' fields common to K7 and K8: the output, the scratch, the
+// plan.
+inline StatsParams stats_params(void* out, void* ws, void* tickets, int C,
+                                int groups, int tx, int splits) {
+  StatsParams sp;
+  memset(&sp, 0, sizeof(sp));
+  sp.out = static_cast<float*>(out);
+  sp.ws = static_cast<float*>(ws);
+  sp.tickets = static_cast<unsigned*>(tickets);
+  sp.C = C;
+  sp.G = groups;
+  sp.tx = tx;
+  sp.splits = splits;
+  return sp;
 }
 
 // The passes' launch: grid (groups * splits, column tiles), tx * ty
@@ -750,37 +817,72 @@ inline Term term_of(const long long* v) {
 
 // dtype: 0 = bfloat16, 1 = float32. M rows in `groups` groups of M / groups
 // (the caller checks that groups divides M). vec: 8 (C % 8 == 0 and 16-byte
-// aligned bases) or 1. splits: blocks per group. Each entry returns the
-// cudaError_t of its launches.
+// aligned bases) or 1. Each entry takes one packed block of 8-byte fields,
+// so that the caller makes one call with one argument, and returns the
+// cudaError_t of its launch.
 
-// K7. ws: f32 [groups * splits, 2, C] scratch; out: f32 [groups, 2, C].
-extern "C" int hvd_bn_stats(const void* x, int x_dtype, void* ws, void* out,
-                            long long M, int C, int groups, int vec,
-                            int splits, void* stream) {
+// K7, one launch. p: out, x, x's dtype, M, C, groups, vec, tx, splits,
+// stream, ws (f32 [groups * tiles * splits][stride]), tickets (u32 [groups *
+// tiles], 0), then (pointer, group stride, channel stride) of gamma and of
+// beta, each f32 (C,) (group stride 0) or [groups, C], and 1 / count and
+// eps as doubles. Without gamma and beta (null pointers) out is f32 [2,
+// groups, C]: (sum x, sum x^2); with them [5, groups, C]: (mean, var, rstd,
+// a, b), the forward's terms from f32(1 / count) and f32(eps).
+extern "C" int hvd_bn_stats(const long long* p) {
   using namespace hvdbn;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int x_dtype = p[2], C = p[4], groups = p[5], vec = p[6];
+  StatsParams sp = stats_params(reinterpret_cast<void*>(p[0]),
+                                reinterpret_cast<void*>(p[10]),
+                                reinterpret_cast<void*>(p[11]), C, groups,
+                                p[7], p[8]);
+  sp.x = reinterpret_cast<const void*>(p[1]);
+  sp.gamma = term_of(p + 12);
+  sp.beta = term_of(p + 15);
+  double scales[2];
+  memcpy(scales, p + 18, sizeof(scales));
+  sp.inv = static_cast<float>(scales[0]);
+  sp.eps = static_cast<float>(scales[1]);
+  const long long M = p[3];
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(p[9]);
+  const int terms = sp.gamma.p != nullptr;
+  if ((sp.beta.p != nullptr) != terms) return cudaErrorInvalidValue;
   return by_dtype(x_dtype, [&](auto tx) {
     using TX = typename decltype(tx)::type;
     return by_vec(vec, [&](auto v) {
-      return run_stats<TX, TX, float, decltype(v)::value, false>(
-          x, nullptr, nullptr, nullptr, nullptr, nullptr, ws, out, M, C,
-          groups, splits, st);
+      return by_flag(terms, [&](auto t) {
+        return run_stats<TX, TX, float, decltype(v)::value, false,
+                         decltype(t)::value>(sp, M, vec, st);
+      });
     });
   });
 }
 
-// K8. mean, rstd: f32 [groups, C]; gamma, beta: f32 [groups, C] for the ReLU
-// mask, or both null. lean: 1 rounds the terms, x_hat and the pre-activation
-// to x's dtype. dy and x may differ in dtype (f32 dy with bf16 x).
-extern "C" int hvd_bn_grad_stats(const void* dy, int dy_dtype, const void* x,
-                                 int x_dtype, const void* mean,
-                                 const void* rstd, const void* gamma,
-                                 const void* beta, int lean, void* ws,
-                                 void* out, long long M, int C, int groups,
-                                 int vec, int splits, void* stream) {
+// K8, one launch. p: out (f32 [2, groups, C]: dbeta, dgamma), dy, dy's
+// dtype, x, x's dtype (dy and x may differ: f32 dy with bf16 x), lean (1
+// rounds the terms, x_hat and the pre-activation to x's dtype), M, C,
+// groups, vec, tx, splits, stream, ws, tickets (as K7's), then the
+// (pointer, group stride, channel stride) triples of mean, rstd, and of
+// gamma and beta for the ReLU mask (both null: no mask), each f32 (C,) or
+// [groups, C].
+extern "C" int hvd_bn_grad_stats(const long long* p) {
   using namespace hvdbn;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((gamma == nullptr) != (beta == nullptr)) return cudaErrorInvalidValue;
+  const int dy_dtype = p[2], x_dtype = p[4], lean = p[5], C = p[7];
+  const int groups = p[8], vec = p[9];
+  StatsParams sp = stats_params(reinterpret_cast<void*>(p[0]),
+                                reinterpret_cast<void*>(p[13]),
+                                reinterpret_cast<void*>(p[14]), C, groups,
+                                p[10], p[11]);
+  sp.dy = reinterpret_cast<const void*>(p[1]);
+  sp.x = reinterpret_cast<const void*>(p[3]);
+  sp.mean = term_of(p + 15);
+  sp.rstd = term_of(p + 18);
+  sp.gamma = term_of(p + 21);
+  sp.beta = term_of(p + 24);
+  const long long M = p[6];
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(p[12]);
+  if (!sp.mean.p || !sp.rstd.p ||
+      (sp.gamma.p == nullptr) != (sp.beta.p == nullptr))
+    return cudaErrorInvalidValue;
   return by_dtype(x_dtype, [&](auto tx) {
     using TX = typename decltype(tx)::type;
     return by_dtype(dy_dtype, [&](auto td) {
@@ -788,17 +890,13 @@ extern "C" int hvd_bn_grad_stats(const void* dy, int dy_dtype, const void* x,
       return by_flag(lean, [&](auto l) {
         using RT = std::conditional_t<decltype(l)::value, TX, float>;
         return by_vec(vec, [&](auto v) {
-          return run_stats<TX, TD, RT, decltype(v)::value, true>(
-              x, dy, mean, rstd, gamma, beta, ws, out, M, C, groups, splits,
-              st);
+          return run_stats<TX, TD, RT, decltype(v)::value, true, false>(
+              sp, M, vec, st);
         });
       });
     });
   });
 }
-
-// The passes take one packed block of 8-byte fields, so that the caller
-// makes one call with one argument.
 
 // bn_apply, one launch: y = x * a + b in the mode's arithmetic. p: y, x
 // ([M, C], y in x's dtype), x's dtype, lean, relu, M, C, groups, vec,

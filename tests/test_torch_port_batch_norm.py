@@ -306,7 +306,7 @@ def test_pass_plan_fills_the_card_and_amortises_the_terms(Mg, C, groups,
     assert rows_a_thread >= tbn._PASS_ROWS or blocks < 132 + per
     assert rows_a_thread >= 1
     assert per > 1 or blocks % 132 == 0
-    # pass_rows: split s takes [Mg * s / splits, Mg * (s + 1) / splits)
+    # split_rows: split s takes [Mg * s / splits, Mg * (s + 1) / splits)
     ends = [Mg * s // splits for s in range(splits + 1)]
     assert ends[0] == 0 and ends[-1] == Mg
     assert all(b > a for a, b in zip(ends, ends[1:]))
@@ -331,3 +331,101 @@ def test_inception_launch_table_counts_the_models_norms():
         model(torch.zeros(1, 3, 299, 299))
     assert dict(seen) == chip_smoke.INCEPTION_BN_LAUNCHES
     assert sum(seen.values()) == chip_smoke.INCEPTION_BN_LAYERS == 94
+
+
+@pytest.mark.parametrize("M,C", [(301, 32), (257, 48), (129, 80), (77, 192),
+                                 (33, 448)])
+def test_stats_terms_plain_version_matches_jax(M, C):
+    """batch_norm_stats_terms_ref (K7's sums and the forward's torch ops)
+    against _bn_train_fwd at the widths of Inception's launches and odd M:
+    mean and var, and y = x * a + b from its a and b."""
+    rng = np.random.RandomState(30 + C)
+    x = rng.randn(M, C).astype(np.float32) * 2.0 + 0.5
+    gamma = rng.rand(C).astype(np.float32) + 0.5
+    beta = rng.randn(C).astype(np.float32)
+    (y_j, mean_j, var_j), _ = jbn._bn_train_fwd(
+        *map(jnp.asarray, (x, gamma, beta)), 1e-3, True)
+    xt = torch.from_numpy(x)
+    mean, var, rstd, a, b = tbn.batch_norm_stats_terms_ref(
+        xt, torch.from_numpy(gamma), torch.from_numpy(beta), 1e-3)
+    for name, got, want in (("mean", mean, mean_j), ("var", var, var_j),
+                            ("y", tbn.bn_apply_ref(xt, a, b), y_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=BN_TOL, atol=BN_TOL, err_msg=name)
+    assert torch.equal(rstd, torch.rsqrt(var + 1e-3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_stats_terms_are_the_forward_sequence_bit_for_bit(groups, dtype):
+    """The terms (plain version, and _batch_stats without a sync group)
+    equal bit for bit the sequence the forwards ran on K7's sums before
+    K7 formed them: s / count, clamp(ss / count - mean^2, 0), rsqrt(var +
+    eps), gamma * rstd, beta - mean * a."""
+    M, C = 96, 24
+    x, _ = _inputs(M, C, 31, x_bf16=dtype == torch.bfloat16)
+    rng = np.random.RandomState(32)
+    gamma = torch.from_numpy(rng.rand(C).astype(np.float32) + 0.5)
+    beta = torch.from_numpy(rng.randn(C).astype(np.float32))
+    s, ss = tbn.batch_norm_stats(x, groups)
+    count = M // groups
+    mean = s / count
+    var = torch.clamp(ss / count - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + 1e-5)
+    a = gamma * rstd
+    want = (mean, var, rstd, a, beta - mean * a)
+    got = tbn.batch_norm_stats_terms(x, gamma, beta, 1e-5, groups)
+    stats = tbn._batch_stats(x, gamma, beta, 1e-5, groups, None)
+    assert stats[5] == count
+    for name, g1, g2, w in zip(("mean", "var", "rstd", "a", "b"), got,
+                               stats, want):
+        assert torch.equal(g1, w) and torch.equal(g2, w), name
+
+
+@pytest.mark.parametrize("Mg,C,groups", _PLAN_SHAPES)
+def test_stats_plan_fills_the_card_and_bounds_the_last_block(
+        Mg, C, groups, monkeypatch):
+    """K7's and K8's split at each launch: tiles that cover C with at most
+    128 channels each (one tile up to _STATS_ONE_TILE); one block for each
+    of the 132 SMs where the rows allow it, fewer by what the splits of
+    every tile and group leave over, never two on an SM in the first 132,
+    a whole multiple of 132 with one tile and one group; at most
+    _STATS_BLOCKS blocks (one
+    wave at two an SM) unless a group's one split takes more, so the last
+    block reads at most _STATS_BLOCKS * 2 * 128 partial sums; every
+    thread at least _STATS_ROWS[kernel] rows unless the 132-block floor or
+    the blocks' ceiling takes them; every row in one split; and the plan is worked out from (M, C,
+    G, vec) alone: the same with every query of the device refused."""
+    tbn._stats_plan.cache_clear()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plan asked the device")
+    for name in ("is_available", "device_count", "get_device_properties",
+                 "current_device", "get_device_name"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    plans = {(vec, k): tbn._stats_plan(Mg, C, vec, groups, k)
+             for vec in (8, 1) for k in ("K7", "K8")}
+    for (vec, kernel), (tx, tiles, splits, stride) in plans.items():
+        ty = 256 // tx
+        width = tx * vec
+        assert width <= 128 and tiles * width >= C > (tiles - 1) * width
+        assert tiles == 1 or C > tbn._STATS_ONE_TILE
+        assert stride % 4 == 0 and 2 * width <= stride < 2 * width + 4
+        per = tiles * groups
+        blocks = splits * per
+        assert 1 <= splits and (blocks <= tbn._STATS_BLOCKS or splits == 1)
+        assert blocks > 132 - per or splits == Mg // ty
+        assert blocks <= 132 or blocks >= 264 - per
+        assert per > 1 or blocks % 132 == 0 or splits == Mg // ty
+        rows_a_thread = Mg // splits // ty   # the shortest split's, floored
+        assert (rows_a_thread >= tbn._STATS_ROWS[kernel]
+                or blocks <= 132 or blocks > tbn._STATS_BLOCKS - per)
+        assert rows_a_thread >= 1
+        # split_rows: split s takes [Mg * s / splits, Mg * (s + 1) / splits)
+        ends = [Mg * s // splits for s in range(splits + 1)]
+        assert ends[0] == 0 and ends[-1] == Mg
+        assert all(b > a for a, b in zip(ends, ends[1:]))
+    monkeypatch.undo()
+    tbn._stats_plan.cache_clear()
+    assert all(tbn._stats_plan(Mg, C, vec, groups, k) == plan
+               for (vec, k), plan in plans.items())

@@ -887,7 +887,8 @@ def test_bn_passes_read_terms_through_their_strides(cuda, M, C, groups,
                                                     vec_ok, mode):
     """The passes read each per-(group, channel) term through its own
     strides: (C,) statistics shared by every ghost group (group stride 0),
-    (G, C) sums that are K8's strided views (row stride 2C), a cotangent
+    (G, C) sums as the rows of a (G, 2, C) tensor (row stride 2C; K8's own
+    outputs are contiguous views of its [2, G, C] output), a cotangent
     expanded from one value (both strides 0), a (G, C) term every other
     column of a wider tensor; one launch each, equal to the plain versions
     given the same tensors, with and without the ReLU."""
@@ -898,6 +899,10 @@ def test_bn_passes_read_terms_through_their_strides(cuda, M, C, groups,
     mean, rstd, gamma, beta = _bn_terms(cuda, x, C, 1, seed=12)
     dbeta, dgamma = bn.batch_norm_grad_stats(dy, x, mean.expand(groups, C),
                                              rstd.expand(groups, C), groups)
+    assert dbeta.is_contiguous() and dgamma.is_contiguous()
+    assert dgamma.data_ptr() == dbeta.data_ptr() + 4 * groups * C
+    pair = torch.stack([dbeta, dgamma], 1)
+    dbeta, dgamma = pair[:, 0], pair[:, 1]
     assert dbeta.stride() == (2 * C, 1)
     gmean = torch.full((), 0.25, device=cuda).expand(groups, C)
     wide = torch.randn(groups, 2 * C, device=cuda)
@@ -930,6 +935,82 @@ def test_bn_pass_terms_refuse_what_they_do_not_take(cuda):
         bn.bn_dx(x, x, c.repeat(3, 1), c, c, None, c, c, 32, groups=2)
     with pytest.raises(RuntimeError, match="CUDA error"):
         bn.bn_dx(x, x, c, c, None, None, c, c, 64)  # no gamma
+
+
+@pytest.mark.parametrize("M,C,groups,x_dtype,dy_dtype", BN_PASS_SHAPES)
+def test_bn_stats_terms_equal_torch_ops_on_the_sums(cuda, M, C, groups,
+                                                    x_dtype, dy_dtype):
+    """K7 with the forward's terms: one launch, (mean, var, rstd, a, b)
+    contiguous views of one [5, G, C] buffer, equal bit for bit to the
+    torch ops of batch_norm_stats_terms_ref on K7's own sums (the same
+    split), with gamma and beta (C,) or (G, C); the sums within BN_TOL of
+    the plain version."""
+    x, _, _, _ = _bn_inputs(cuda, M, C, x_dtype, dy_dtype, seed=13)
+    _, _, gamma, beta = _bn_terms(cuda, x, C, 1, seed=14)
+    sums = bn.batch_norm_stats(x, groups)
+    assert _rows_rel(sums, bn.batch_norm_stats_ref(x, groups)) <= BN_TOL
+    shape = (C,) if groups == 1 else (groups, C)
+    cases = [(gamma, beta)]
+    if groups > 1:
+        cases.append((gamma.expand(groups, C) * 1.5, beta.expand(groups, C)))
+    for ga, be in cases:
+        before = bn.launch_counts()
+        terms = bn.batch_norm_stats_terms(x, ga, be, 1e-3, groups)
+        after = bn.launch_counts()
+        assert {k: after[k] - before[k] for k in after} == dict(
+            {k: 0 for k in after}, batch_norm_stats=1)
+        ref = bn._terms_of_sums(*sums, M // groups, ga, be, 1e-3)
+        for name, got, want in zip(("mean", "var", "rstd", "a", "b"), terms,
+                                   ref):
+            assert got.shape == shape and got.is_contiguous(), name
+            assert torch.equal(got, want), name
+        assert terms[4].data_ptr() == terms[0].data_ptr() + 16 * groups * C
+
+
+def _stats_calls(cuda, seed=15):
+    """K7, K7 with terms and K8 with the mask at a ghost-grouped shape."""
+    M, C, groups = 40_000, 72, 4
+    x, dy, _, _ = _bn_inputs(cuda, M, C, torch.bfloat16, torch.bfloat16,
+                             seed=seed)
+    mean, rstd, gamma, beta = _bn_terms(cuda, x, C, groups, seed=seed + 1)
+    return {"k7": lambda: bn.batch_norm_stats(x, groups),
+            "k7_terms": lambda: bn.batch_norm_stats_terms(x, gamma, beta,
+                                                          1e-5, groups),
+            "k8_mask": lambda: bn.batch_norm_grad_stats(
+                dy, x, mean, rstd, groups, gamma, beta, "lean")}
+
+
+def test_bn_stats_repeat_and_replay_bit_for_bit(cuda):
+    """Each call leaves its tiles' counters at 0: a second call, a CUDA
+    graph's replays (captured on the stream the calls warmed) and a call
+    after them give the first call's outputs bit for bit."""
+    for name, fn in _stats_calls(cuda).items():
+        first = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            again = fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = fn()
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        after = fn()
+        for out in (again, captured, after, fn()):
+            assert all(torch.equal(a, b) for a, b in zip(first, out)), name
+
+
+def test_bn_stats_scratch_is_not_made_in_a_capture(cuda):
+    """A capture on a stream whose scratch does not exist yet raises (its
+    zeroing would be a memset in every replay) instead of launching."""
+    fn = _stats_calls(cuda, seed=17)["k7"]
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="scratch"):
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+            fn()
 
 
 @pytest.mark.parametrize("relu,groups", [(False, 1), (True, 1), (True, 4)])

@@ -395,3 +395,32 @@ def test_lean_dx_plain_version_matches_lean_bwd(M, C, groups, shared, cot):
     assert dx.dtype == torch.bfloat16
     np.testing.assert_array_equal(dx.float().numpy(),
                                   np.asarray(dx_j, np.float32))
+
+
+@pytest.mark.parametrize("groups", [2, 4, 8])
+@pytest.mark.parametrize("C", [32, 80, 448])
+def test_lean_terms_with_ghost_groups_match_jax(C, groups):
+    """The lean forward with ghost groups (K7's terms per group, then the
+    normalize pass in lean mode) against lean_batch_norm_train's y, mean
+    and var, float32, at the widths of Inception's launches."""
+    M = 8 * 9
+    rng = np.random.RandomState(40 + C + groups)
+    x = rng.randn(M, C).astype(np.float32) * 2 + 0.5
+    gamma = rng.rand(C).astype(np.float32) + 0.5
+    beta = rng.randn(C).astype(np.float32)
+    outs_j = jbn.lean_batch_norm_train(*map(jnp.asarray, (x, gamma, beta)),
+                                       1e-5, True, groups)
+    xt = torch.from_numpy(x)
+    mean, var, rstd, a, b = tbn.batch_norm_stats_terms_ref(
+        xt, torch.from_numpy(gamma), torch.from_numpy(beta), 1e-5, groups)
+    assert mean.shape == (groups, C)
+    y = tbn.bn_apply_ref(xt, a, b, groups, True, "lean")
+    for name, got, want in zip(("y", "mean", "var"), (y, mean, var),
+                               outs_j):
+        assert _rel(got.numpy(), want) <= F32_TOL, (name, _rel(got.numpy(),
+                                                               want))
+    ours = tbn.lean_batch_norm_train(xt, torch.from_numpy(gamma),
+                                     torch.from_numpy(beta), 1e-5, True,
+                                     groups)
+    for got, want in zip(ours, (y, mean, var)):
+        assert torch.equal(got, want)

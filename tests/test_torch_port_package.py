@@ -35,6 +35,7 @@ PORT_FILES = PACKAGE_FILES + [
     ROOT / "tests" / "torch_port_fwd_ab.py",
     ROOT / "tests" / "torch_port_bwd_ab.py",
     ROOT / "tests" / "torch_port_bn_ab.py",
+    ROOT / "tests" / "torch_port_bn_plans.py",
     ROOT / "tests" / "test_torch_port_cuda.py",
 ]
 
@@ -176,6 +177,10 @@ def test_entry_points_without_a_gpu_raise_the_named_error():
     y, _, _ = lean_batch_norm_train(torch.ones(4, 3), torch.ones(3),
                                     torch.zeros(3), relu=True)
     assert y.device.type == "cpu" and bn.launch_counts() == before
+    terms = bn.batch_norm_stats_terms(torch.ones(4, 3), torch.ones(3),
+                                      torch.zeros(3), 1e-5, groups=2)
+    assert all(t.device.type == "cpu" and t.shape == (2, 3) for t in terms)
+    assert bn.launch_counts() == before
     assert not hvd.is_initialized()
     model = torch.nn.Linear(2, 2)
     with pytest.raises(hvd.CudaUnavailableError):

@@ -237,20 +237,26 @@ def _saved_numel(model, x):
 def test_bn_remat_keeps_no_normalize_output(block):
     """What bn_remat=True keeps for the backward is bn_remat=False's less
     the inputs of every convolution after a norm inside a block (each
-    norm's output, padded where the convolution pads it asymmetrically)."""
+    norm's output, padded where the convolution pads it asymmetrically),
+    plus each such norm's per-channel a and b, which the backward's
+    recomputation reads as the forward formed them."""
     _, variables = rn._flax_model(block, "lean")
     plain, remat = _port_pair(block, variables)
     x = rn._torch_batch(*rn._batch())["x"]
-    conv_inputs = []
-    hooks = [conv.register_forward_pre_hook(
-        lambda mod, args: conv_inputs.append(_padded_numel(mod, args[0])))
-        for b in plain.blocks for conv in b.convs[1:]]
+    conv_inputs, channels = [], []
+
+    def record(mod, args):
+        conv_inputs.append(_padded_numel(mod, args[0]))
+        channels.append(args[0].shape[1])
+    hooks = [conv.register_forward_pre_hook(record)
+             for b in plain.blocks for conv in b.convs[1:]]
     before = _saved_numel(plain, x)
     for h in hooks:
         h.remove()
     assert len(conv_inputs) == len(plain.blocks) * (len(plain.blocks[0].convs)
                                                     - 1)
-    assert _saved_numel(remat, x) == before - sum(conv_inputs)
+    assert _saved_numel(remat, x) == (before - sum(conv_inputs)
+                                      + 2 * sum(channels))
 
 
 def _padded_numel(conv, x):

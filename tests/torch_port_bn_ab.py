@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the BN passes ``bn_apply`` and ``bn_dx`` of this tree against
-another tree's, in one call on one GPU.
+"""Times the BN kernels (the statistics K7 and K8 and the passes
+``bn_apply`` and ``bn_dx``) of this tree against another tree's, in one
+call on one GPU.
 
     python3 tests/torch_port_bn_ab.py OTHER_ROOT [--rounds N]
 
@@ -13,23 +14,29 @@ timing them with this tree's ``chip_smoke.time_ms`` (20 calls back to
 back between CUDA events: ``_ms``) and ``chip_smoke.graph_ms`` (the same
 calls replayed from a CUDA graph: ``_device_ms``):
 
-- both passes at the ResNet-50 stem, 3,211,264 x 64 bf16, in f32
-  arithmetic (the resnet phase's calls) and in lean mode with the ReLU or
-  mask (resnet_lean's);
-- both passes in f32 at the bn_kernels phase's five Inception launches
+- ``stats`` (K7, ``batch_norm_stats``), ``grad_stats`` (K8,
+  ``batch_norm_grad_stats``), ``stats_terms`` (K7 with the forward's
+  terms, ``batch_norm_stats_terms``, in trees that have it) and both
+  passes at the ResNet-50 stem, 3,211,264 x 64 bf16, in f32 arithmetic
+  (the resnet phase's calls), and K8 and the passes in lean mode with the
+  ReLU or mask (resnet_lean's);
+- the same calls in f32 at the bn_kernels phase's five Inception launches
   (``chip_smoke.INCEPTION_BN_SHAPES``);
 - ``host_us``: microseconds of host time a wrapper call at 8,192 x 448,
   1,000 calls under ``time.perf_counter`` without synchronising, median of
   5;
 - ``inception_bn_ms``: one forward and backward through 94
   ``FusedBatchNorm`` layers at Inception's launch shapes at batch 128
-  (``chip_smoke.INCEPTION_BN_LAUNCHES``; K7, K8 and both passes, no
-  convolution), host clock to ``torch.cuda.synchronize()``, median of 5.
+  (``chip_smoke.INCEPTION_BN_LAUNCHES``; K7 (with terms where the tree
+  has them), K8 and both passes, no convolution), host clock to
+  ``torch.cuda.synchronize()``, median of 5.
 
-Each run saves both passes' outputs at 36,992 x 192 (f32 and lean with
-the ReLU), and the runner reports whether every run's equal the first
-run's bit for bit (``bitwise``). Prints one ``AB {...}`` JSON line a run
-and the card's name and power limit.
+Each run saves every call's outputs at 36,992 x 192 (f32, and lean with
+the ReLU or mask), and the runner reports, for each tree, whether every
+run's equal that tree's first run's bit for bit (``bitwise``; two trees'
+statistics may differ in their last bits, summed in another order).
+Prints one ``AB {...}`` JSON line a run and the card's name and power
+limit.
 """
 
 import importlib.util
@@ -71,16 +78,25 @@ def inputs(M, C, seed):
 
 
 def calls(bn, M, C, seed, lean=False):
-    """{pass: a call of it} at (M, C): f32 arithmetic without the ReLU, or
-    lean mode with it."""
+    """{kernel: a call of it} at (M, C): f32 arithmetic without the ReLU,
+    or lean mode with it (K8 with the mask; no K7)."""
     x, dy, mean, rstd, gamma, beta = inputs(M, C, seed)
     a = gamma * rstd
     b = beta - mean * a
     dbeta, dgamma = bn.batch_norm_grad_stats(dy, x, mean, rstd)
     extra = (1, True, "lean") if lean else ()
-    return {"apply": lambda: bn.bn_apply(x, a, b, *extra),
-            "dx": lambda: bn.bn_dx(dy, x, mean, rstd, gamma, beta, dbeta,
-                                   dgamma, M, *extra)}
+    mask = (1, gamma, beta, "lean") if lean else ()
+    out = {"grad_stats": lambda: bn.batch_norm_grad_stats(dy, x, mean, rstd,
+                                                          *mask),
+           "apply": lambda: bn.bn_apply(x, a, b, *extra),
+           "dx": lambda: bn.bn_dx(dy, x, mean, rstd, gamma, beta, dbeta,
+                                  dgamma, M, *extra)}
+    if not lean:
+        out["stats"] = lambda: bn.batch_norm_stats(x)
+        if hasattr(bn, "batch_norm_stats_terms"):
+            out["stats_terms"] = lambda: bn.batch_norm_stats_terms(
+                x, gamma, beta, 1e-5)
+    return out
 
 
 def host_us(fn, n=1000, reps=5):
@@ -151,10 +167,13 @@ def one(root, label, save=None):
         outs = {}
         for tag, lean in (("f32", False), ("lean_relu", True)):
             for name, fn in calls(bn, *SAVED_SHAPE, 3, lean).items():
-                outs["%s_%s" % (name, tag)] = fn()
+                got = fn()
+                for i, t in enumerate(got if isinstance(got, tuple)
+                                      else (got,)):
+                    outs["%s_%s_%d" % (name, tag, i)] = t
         torch.save(outs, save)
     print("AB " + json.dumps(res), flush=True)
 
 
 if __name__ == "__main__":
-    ab.main(one=one, script=__file__, doc=__doc__)
+    ab.main(one=one, script=__file__, doc=__doc__, by_tree=True)

@@ -127,10 +127,11 @@ def rotary(fa):
     return "rotary_base" in inspect.signature(fa.flash_fwd).parameters
 
 
-def main(one=one, script=__file__, doc=__doc__, compare=True):
+def main(one=one, script=__file__, doc=__doc__, compare=True, by_tree=False):
     """Runs ``one`` of ``script`` in turns, other/this/this/other;
     ``compare``: each run saves its outputs, and the runner holds them
-    against the first run's (``bitwise``)."""
+    against the first run's (``bitwise``), or with ``by_tree`` against the
+    first run of the same tree (``{"other": ..., "this": ...}``)."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("other", help="root of the other tree")
     ap.add_argument("--rounds", type=int, default=1)
@@ -164,6 +165,15 @@ def main(one=one, script=__file__, doc=__doc__, compare=True):
             sys.exit("%s run failed (%d):\n%s" % (label, run.returncode,
                                                   run.stderr[-3000:]))
         print(lines[0], flush=True)
+    if by_tree:
+        report = {}
+        for label in ("other", "this"):
+            mine = [p for p, (_, lab) in zip(saved, order)
+                    if lab == label and p.exists()]
+            if len(mine) > 1:
+                report[label] = bitwise(mine)
+        print("AB bitwise " + json.dumps(report), flush=True)
+        return
     saved = [p for p in saved if p.exists()]
     if len(saved) > 1:
         print("AB bitwise " + json.dumps(bitwise(saved)), flush=True)

@@ -37,8 +37,9 @@ LEAN_PHASES = ("bn_kernels", "resnet_lean")
 RING_PHASES = ("ring_kernels",)
 ROT_PHASES = ("kernels",)
 WIRE_PHASES = ("wire_kernels",)
-BN_ROW_LOOP = ("    for (long long r = rows.begin + ty; r < rows.end; "
-               "r += sh.ty) {\n")
+# the statistics' row loop (K7, K8)
+BN_ROW_LOOP = ("    for (long long r = rows.begin + ty; r < rows.end; r += U * "
+               "ty_n) {\n")
 # the normalize pass's y = x * a + b on a lane pair, and its ReLU
 BN_APPLY_Y = "        P t = A::add(A::mul(v[j], va[j]), vb[j]);\n"
 BN_APPLY_RELU = "        if (RELU) t = A::relu(t);\n"
@@ -86,10 +87,35 @@ FAULTS = {
     # K8's ReLU mask inverted: dy counts where the pre-activation is <= 0
     "bn_grad_mask_inverted": (
         "ops/csrc/batch_norm.cu",
-        "          if (mask && !(pre_of<RT>(xh, ga[j], be[j]) > 0.f)) dm = 0.f;"
-        "\n",
-        "          if (mask) dm = pre_of<RT>(xh, ga[j], be[j]) > 0.f ? 0.f : "
+        "            if (mask && !(pre_of<RT>(xh, ga[j], be[j]) > 0.f)) dm = "
+        "0.f;\n",
+        "            if (mask) dm = pre_of<RT>(xh, ga[j], be[j]) > 0.f ? 0.f : "
         "rnd<RT>(d[j]);\n", LEAN_PHASES),
+    # the statistics' last block leaves split 0 of its tile out of the sums
+    "bn_stats_last_block_skips_split0": (
+        "ops/csrc/batch_norm.cu",
+        "        if (s < p.splits) w[k] = __ldcg(all + (long long)s * n4 + "
+        "i);\n",
+        "        if (s == 0) w[k] = make_float4(0.f, 0.f, 0.f, 0.f);\n",
+        ("bn_kernels",)),
+    # the statistics' last block never sets its tile's counter back: a
+    # first call is right, the next draws no last ticket
+    "bn_stats_ticket_not_reset": (
+        "ops/csrc/batch_norm.cu", "  if (threadIdx.x == 0) *ticket = 0u;\n",
+        "  if (threadIdx.x == 0) *ticket = (unsigned)p.splits;\n",
+        BN_PHASES),
+    # K7's terms with b = beta + mean * a
+    "bn_stats_terms_b_sign": (
+        "ops/csrc/batch_norm.cu", "      out[4 * plane + c] = b;\n",
+        "      out[4 * plane + c] = __fadd_rn(value(p.beta, g, c), "
+        "__fmul_rn(mean, a));\n", BN_PHASES),
+    # the statistics' split drops the second half of each group's last
+    # split (the group's last chunk of rows)
+    "bn_stats_split_drops_group_tail": (
+        "ops/csrc/batch_norm.cu",
+        "  Rows rows = split_rows(p.Mg, p.splits);\n",
+        "  if (blockIdx.x % p.splits + 1 == p.splits)\n"
+        "    rows.end -= (rows.end - rows.begin) / 2;\n", ("bn_kernels",)),
     # the normalize pass drops the shift b on the last tile of channels
     "bn_apply_shift_last_tile": (
         "ops/csrc/batch_norm.cu", BN_APPLY_Y,
