@@ -7,7 +7,8 @@
                                            # ring_kernels, sp, lc, lc_sp,
                                            # wire_kernels, zero1, moe,
                                            # ulysses, inception,
-                                           # resnet_nf, vgg16, word2vec
+                                           # resnet_nf, vgg16, word2vec,
+                                           # launch
 
 Phases, in order; any failure exits non-zero:
 
@@ -268,6 +269,35 @@ Phases, in order; any failure exits non-zero:
    the tables under one [V, D] table; ms a step of each. Then
    ``MnistCNN`` (5 SGD steps at batch 64) and a ``checkpoint`` save and
    restore of ResNet50NF's state and its optimizer's, equal bit for bit.
+19. launch: the train phase's LM (MODEL, BATCH, seeds 0 and 1, Adam 1e-4
+   in the overlapped DistributedOptimizer) started by the port's launcher
+   and trained in ``@elastic.run`` with a ``TorchState`` committed every
+   step (``tests/torch_port_launch_worker.py``). First the durable
+   checkpoints' crc32c library (built with g++ in the checkout) against
+   its plain version ``_py_crc32c`` on 4 MiB of seeded bytes, equal, and
+   its rate on 256 MiB. (a) ``python -m horovod_tpu_torch.run -np 1 -H
+   localhost:1 ... --steps 6``: the worker asserts that the launcher
+   started it and that ``init()`` read no MASTER_ADDR, and counts 12
+   launches of K1, K2 and K3 each a step; it saves its final parameters
+   and Adam moments. (b) The same run again: whether two uninterrupted
+   runs agree bit for bit, and the gap if not. (c) The launcher with
+   ``--min-np 1 --max-np 1 --ckpt-dir D --restart-from-ckpt``: durable
+   every commit; after step 3's manifest is published the worker kills
+   itself with SIGKILL, the elastic driver restarts the job once, and the
+   new worker resumes at step 3 from the CRC-checked shards and runs to
+   step 6; its final state must equal run a's (``torch.equal`` if a and b
+   agreed, else within a-b's gap). Prints the restarts, the resumed step,
+   the checkpoint's bytes, the write time (the median shard's split into
+   staging on the host, pickling, CRC, writing and fsync), the crc32c
+   rate, the median commit time beside the median step time, every step's
+   time and host enqueue time (medians over the warm steps: not a
+   process's first, nor the profiled one), step 5 of runs a and c under
+   torch.profiler
+   (the kernels' device time beside the wall time: in c the writer is
+   busy), and each run's peak device memory. Any non-zero exit, a worker
+   off the GPU, a launch count other than 12 a step or a restart count
+   other than 1 fails the phase. The K1-K3 launches of runs a and c add
+   to the kernels line's counts.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -4153,6 +4183,204 @@ def phase_word2vec():
     hvd.shutdown()
 
 
+LAUNCH_STEPS = 6
+LAUNCH_KILL_AFTER = 3
+LAUNCH_PROFILE_STEP = 5  # in run c, the restarted process's last step
+LAUNCH_TIMEOUT = 420  # seconds a launched run may take
+CRC_CHECK_BYTES = 4 << 20
+CRC_RATE_BYTES = 256 << 20
+
+
+def _launched(cmd, env, timeout=LAUNCH_TIMEOUT):
+    """Runs one launcher command in its own session from the checkout's
+    root; on a timeout kills its whole process group. Returns (rc, stdout,
+    stderr, seconds)."""
+    import os
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        fail("launched run timed out after %d s: %s\n%s" % (
+            timeout, " ".join(cmd), err[-4000:]))
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def _launch_reports(out):
+    return [json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
+            if line.startswith("LAUNCH_REPORT ")]
+
+
+def _max_gap(a, b):
+    """max |a - b| over the saved parameters and Adam moments (f32)."""
+    gap = 0.0
+    for key in ("params", "exp_avg", "exp_avg_sq"):
+        for name, t in a[key].items():
+            gap = max(gap, (t.float() - b[key][name].float()).abs().max()
+                      .item())
+    return gap
+
+
+def _same_state(a, b):
+    """The saved parameters, Adam moments and step counts equal bit for
+    bit."""
+    import torch
+    return a["adam_step"] == b["adam_step"] and all(
+        torch.equal(t, b[key][name]) for key in ("params", "exp_avg",
+                                                 "exp_avg_sq")
+        for name, t in a[key].items())
+
+
+def phase_launch(card):
+    """The train phase's LM started by the port's launcher (a), again (b),
+    and killed and restarted by the elastic driver from its durable
+    checkpoint (c); the crc32c library against its plain version (d).
+    Returns K1-K3's launches in runs a and c."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from horovod_tpu_torch.elastic import durable
+
+    torch.cuda.empty_cache()  # the workers need the card's memory
+    gen = torch.Generator().manual_seed(0)
+    blob = torch.randint(0, 256, (CRC_CHECK_BYTES,), dtype=torch.uint8,
+                         generator=gen).numpy().tobytes()
+    native = durable.crc32c(blob)
+    plain = durable._py_crc32c(blob)
+    if native != plain:
+        fail("launch: native crc32c %08x != _py_crc32c %08x on %d seeded "
+             "bytes" % (native, plain, len(blob)))
+    big = torch.randint(0, 256, (CRC_RATE_BYTES,), dtype=torch.uint8,
+                        generator=gen)
+    durable.crc32c(big[:1 << 20])
+    t0 = time.perf_counter()
+    durable.crc32c(big)
+    crc_gbs = CRC_RATE_BYTES / (time.perf_counter() - t0) / 1e9
+    del big
+    log("launch: crc32c equal to _py_crc32c on %d seeded bytes; %.2f GB/s "
+        "on %d MiB (%s)" % (len(blob), crc_gbs, CRC_RATE_BYTES >> 20, card))
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_launch_"))
+    env = dict(os.environ)
+    for key in ("MASTER_ADDR", "MASTER_PORT", "PYTHONUNBUFFERED"):
+        env.pop(key, None)
+    worker = [sys.executable, "tests/torch_port_launch_worker.py",
+              "--steps", str(LAUNCH_STEPS)]
+    profiled = ["--profile-step", str(LAUNCH_PROFILE_STEP)]
+    launcher = [sys.executable, "-m", "horovod_tpu_torch.run"]
+    runs, finals = {}, {}
+    try:
+        for label in ("a", "b", "c"):
+            out_dir = tmp / label
+            out_dir.mkdir()
+            if label == "c":
+                cmd = launcher + ["-np", "1", "--min-np", "1", "--max-np",
+                                  "1", "--ckpt-dir", str(tmp / "ckpt"),
+                                  "--restart-from-ckpt", "-H", "localhost:1"
+                                  ] + worker + [
+                    "--out", str(out_dir),
+                    "--kill-after", str(LAUNCH_KILL_AFTER)] + profiled
+            else:
+                cmd = launcher + ["-np", "1", "-H", "localhost:1"] + \
+                    worker + ["--out", str(out_dir)] + (
+                        profiled if label == "a" else [])
+            rc, out, err, seconds = _launched(cmd, env)
+            reports = _launch_reports(out)
+            log("launch %s: rc %d, %.1f s, %d report(s)" % (
+                label, rc, seconds, len(reports)))
+            if rc != 0 or not reports:
+                fail("launch run %s exited %d:\n%s" % (label, rc,
+                                                        err[-6000:]))
+            for r in reports:
+                if not r["device"].startswith("cuda"):
+                    fail("launch run %s: a worker ran on %s" % (
+                        label, r["device"]))
+                if r["bad_launches"]:
+                    fail("launch run %s: K1-K3 launches other than %d a "
+                         "step: %s" % (label, MODEL["num_layers"],
+                                       r["bad_launches"][:6]))
+            runs[label] = dict(reports=reports, seconds=seconds,
+                               restarts=err.count("full-job restart "))
+            finals[label] = torch.load(out_dir / "final.pt")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for label in ("a", "b"):
+        r = runs[label]["reports"]
+        if len(r) != 1 or r[0]["start_step"] != 0 or \
+                r[0]["step"] != LAUNCH_STEPS or runs[label]["restarts"]:
+            fail("launch run %s: %s" % (label, r))
+    killed, resumed = runs["c"]["reports"][:1], runs["c"]["reports"][1:]
+    restarts = runs["c"]["restarts"]
+    if restarts != 1 or len(resumed) != 1 or not killed[0]["killed"] or \
+            resumed[0]["start_step"] != LAUNCH_KILL_AFTER or \
+            resumed[0]["restores"] != 1 or \
+            resumed[0]["step"] != LAUNCH_STEPS:
+        fail("launch run c: %d restart(s), reports %s" % (
+            restarts, runs["c"]["reports"]))
+    ab_equal = _same_state(finals["a"], finals["b"])
+    ab_gap = 0.0 if ab_equal else _max_gap(finals["a"], finals["b"])
+    ac_equal = _same_state(finals["a"], finals["c"])
+    ac_gap = 0.0 if ac_equal else _max_gap(finals["a"], finals["c"])
+    if not (ac_equal if ab_equal else ac_gap <= ab_gap):
+        fail("launch: the restarted run's final state differs from run "
+             "a's by %.3g (runs a and b: %s)" % (
+                 ac_gap, "equal" if ab_equal else "%.3g" % ab_gap))
+    first = killed[0]
+    write_s = first["write_s"] + resumed[0]["write_s"]
+    crc_s = first["crc_s"] + resumed[0]["crc_s"]
+    crc_bytes = first["crc_bytes"] + resumed[0]["crc_bytes"]
+    shards = first["shards"] + resumed[0]["shards"]
+    result = dict(
+        card=card, steps=LAUNCH_STEPS, params=first["params"],
+        restarts=restarts, resumed_step=resumed[0]["start_step"],
+        a_b_bitwise=ab_equal, a_b_max_abs_gap=ab_gap,
+        a_c_bitwise=ac_equal, a_c_max_abs_gap=ac_gap,
+        checkpoint_bytes=first["durable_bytes"] // max(
+            1, first["durable_writes"]),
+        durable_writes=[first["durable_writes"],
+                        resumed[0]["durable_writes"]],
+        write_s=write_s, median_write_s=statistics.median(write_s),
+        crc32c_gb_s=crc_gbs,
+        writer_crc32c_gb_s=crc_bytes / sum(crc_s) / 1e9 if crc_s else None,
+        median_step_ms={k: runs[k]["reports"][0]["median_step_ms"]
+                        for k in ("a", "b")},
+        median_commit_ms={k: runs[k]["reports"][0]["median_commit_ms"]
+                          for k in ("a", "b")},
+        c_median_step_ms=[r["median_step_ms"] for r in runs["c"]["reports"]],
+        c_median_commit_ms=[r["median_commit_ms"]
+                            for r in runs["c"]["reports"]],
+        step_ms={k: [r["step_ms"] for r in runs[k]["reports"]]
+                 for k in runs},
+        enqueue_ms={k: [r["enqueue_ms"] for r in runs[k]["reports"]]
+                    for k in runs},
+        profiled_step={k: [r["profile"] for r in runs[k]["reports"]
+                           if r["profile"]] for k in ("a", "c")},
+        shards=shards,
+        shard_profile_median_s={
+            part: statistics.median(sh[part] for sh in shards)
+            for part in ("seconds", "stage_seconds", "pickle_seconds",
+                         "crc_seconds", "write_seconds", "fsync_seconds")},
+        peak_device_gib={k: [r["peak_device_bytes"] / 2 ** 30
+                             for r in runs[k]["reports"]] for k in runs},
+        losses={k: [x for r in runs[k]["reports"] for x in r["losses"]]
+                for k in runs},
+        seconds={k: runs[k]["seconds"] for k in runs})
+    print("launch: " + json.dumps(result), flush=True)
+    counts = {}
+    for label in ("a", "c"):
+        for r in runs[label]["reports"]:
+            for name, n in r["launches"].items():
+                counts[name] = counts.get(name, 0) + n
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("api", "kernels", "train",
@@ -4160,7 +4388,7 @@ def main():
                                        "ring_kernels", "sp", "lc", "lc_sp",
                                        "wire_kernels", "zero1", "moe",
                                        "ulysses", "inception", "resnet_nf",
-                                       "vgg16", "word2vec"),
+                                       "vgg16", "word2vec", "launch"),
                     help="run the device and build phases and this one")
     ap.add_argument("--profile", metavar="DIR",
                     help="after the train, resnet, resnet_lean (and its "
@@ -4170,7 +4398,7 @@ def main():
                     "resnet,resnet_lean,resnet_lean_remat,sp,lc,lc_unfused,"
                     "lc_sp,moe,ulysses,inception}_profile.txt")
     args = ap.parse_args()
-    phase_device()
+    card = phase_device()
     if not (ROOT / "horovod_tpu_torch").is_dir():
         fail("horovod_tpu_torch/ is not beside chip_smoke.py")
     sys.path.insert(0, str(ROOT))
@@ -4226,6 +4454,8 @@ def main():
         phase_vgg16()
     if run("word2vec"):
         phase_word2vec()
+    if run("launch"):
+        add(phase_launch(card))
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         row = rows.get(name, {})

@@ -15,71 +15,66 @@ root-saves, every-rank-restores checkpoint, ``ops.agc`` adaptive gradient
 clipping (``DistributedOptimizer(agc=)``), and ``models`` the model zoo. It
 imports ``torch`` and numpy, never JAX or the ``horovod_tpu`` package.
 
+``run`` is the launcher (``python -m horovod_tpu_torch.run -np N cmd``),
+``elastic`` the elastic state, the ``@elastic.run`` decorator, its driver
+and durable checkpoints, and ``spark`` the Spark barrier-task runner.
+
 Entry points run on the GPU unless the caller passes ``device="cpu"``;
 without a GPU they raise ``CudaUnavailableError``.
+
+The names below load on first use (PEP 562), so that the launcher, the
+elastic driver and the process-tree middleman, which import
+``horovod_tpu_torch.run``, start without importing torch.
 """
 
-from horovod_tpu_torch.common.basics import (  # noqa: F401
-    CudaUnavailableError,
-    batch_group,
-    device,
-    init,
-    init_distributed,
-    is_initialized,
-    local_rank,
-    local_size,
-    mesh_groups,
-    model_group,
-    model_parallel_size,
-    process_group,
-    rank,
-    shutdown,
-    size,
-)
-from horovod_tpu_torch.common.ops import (  # noqa: F401
-    allgather,
-    allreduce,
-    broadcast,
-    reduce_scatter,
-    shard_partition,
-    sync_batch_norm_stats,
-)
-from horovod_tpu_torch.compression import Compression  # noqa: F401
-from horovod_tpu_torch.divergence import (  # noqa: F401
-    DivergenceError,
-    assert_synchronized,
-    collective_digest,
-    metric_average,
-)
-from horovod_tpu_torch.groups import (  # noqa: F401
-    WORLD,
-    ProcessGroup,
-    group_rank,
-    group_size,
-    new_group,
-)
-from horovod_tpu_torch.optimizer import (  # noqa: F401
-    DistributedOptimizer,
-    ReplicatedDistributedOptimizer,
-    ShardedDistributedOptimizer,
-    allreduce_gradients,
-    broadcast_optimizer_state,
-    broadcast_parameters,
-    sharded_state_full,
-    sharded_state_shard,
-)
-from horovod_tpu_torch.parallel import (  # noqa: F401
-    make_fsdp_train_step,
-    ring_allgather,
-    ring_allreduce,
-    ring_reduce_scatter,
-)
-from horovod_tpu_torch.sparse import (  # noqa: F401
-    allreduce_sparse,
-    apply_sparse,
-    apply_sparse_,
-    densify,
-)
-from horovod_tpu_torch import checkpoint  # noqa: F401
+import importlib
 
+# name -> the module that defines it
+_EXPORTS = {
+    "horovod_tpu_torch.common.basics": (
+        "CudaUnavailableError", "batch_group", "cross_rank", "cross_size",
+        "device", "init", "init_distributed", "is_homogeneous",
+        "is_initialized", "local_rank", "local_size", "mesh_groups",
+        "model_group", "model_parallel_size", "process_group",
+        "rank", "register_init_callback", "shutdown", "size"),
+    "horovod_tpu_torch.common.ops": (
+        "HorovodInternalError", "allgather", "allreduce", "broadcast",
+        "reduce_scatter", "shard_partition", "sync_batch_norm_stats"),
+    "horovod_tpu_torch.compression": ("Compression",),
+    "horovod_tpu_torch.divergence": (
+        "DivergenceError", "assert_synchronized", "collective_digest",
+        "metric_average"),
+    "horovod_tpu_torch.groups": (
+        "WORLD", "ProcessGroup", "group_rank", "group_size", "new_group"),
+    "horovod_tpu_torch.optimizer": (
+        "DistributedOptimizer", "ReplicatedDistributedOptimizer",
+        "ShardedDistributedOptimizer", "allreduce_gradients",
+        "broadcast_optimizer_state", "broadcast_parameters",
+        "sharded_state_full", "sharded_state_shard"),
+    "horovod_tpu_torch.parallel": (
+        "make_fsdp_train_step", "ring_allgather", "ring_allreduce",
+        "ring_reduce_scatter"),
+    "horovod_tpu_torch.sparse": (
+        "allreduce_sparse", "apply_sparse", "apply_sparse_", "densify"),
+}
+_WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
+_SUBMODULES = ("checkpoint", "elastic", "spark", "run")
+
+__all__ = sorted(_WHERE) + list(_SUBMODULES)
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    if name in _WHERE:
+        value = getattr(importlib.import_module(_WHERE[name]), name)
+    elif name in _SUBMODULES:
+        value = importlib.import_module(__name__ + "." + name)
+    else:
+        raise AttributeError("module %r has no attribute %r"
+                             % (__name__, name))
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

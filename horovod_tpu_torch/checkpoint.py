@@ -34,8 +34,8 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.common import basics
-from horovod_tpu_torch.common.ops import (broadcast, tree_flatten,
-                                          tree_unflatten)
+from horovod_tpu_torch.common.ops import (broadcast, raise_peer_loss,
+                                          tree_flatten, tree_unflatten)
 from horovod_tpu_torch.optimizer import broadcast_parameters
 
 FORMAT = "horovod_tpu_torch.checkpoint/1"
@@ -182,7 +182,7 @@ def _broadcast_leaves(leaves, root_rank):
     others = [p for p in paths if not torch.is_tensor(leaves[p])]
     if others:
         objs = [leaves[p] for p in others]
-        dist.broadcast_object_list(objs, src=root_rank,
-                                   group=basics.process_group())
+        raise_peer_loss(dist.broadcast_object_list)(
+            objs, src=root_rank, group=basics.process_group())
         out.update(zip(others, objs))
     return out

@@ -19,12 +19,70 @@ codec on each hop and an f32 accumulator (the reference's in-jit routing,
 ``horovod_tpu/jax/__init__.py:185-208`` and ``:260-272``).
 """
 
+import functools
+
 import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch import divergence
 from horovod_tpu_torch.compression import NONE, codec, wire_mode
 from horovod_tpu_torch.groups import group_rank, group_size, resolve_group
+
+
+class HorovodInternalError(RuntimeError):
+    """A collective failed because a peer was lost (the counterpart of
+    ``horovod_tpu/common/ops.py``'s): gloo's transport errors, NCCL's
+    remote error, its timeouts and its aborted communicator, and
+    torch.distributed's ``DistNetworkError``, raised by the collectives
+    here, the parallel modules' and ``DistributedOptimizer``'s.
+    ``@elastic.run`` catches it, rolls back to the last commit and
+    re-initializes at the next generation."""
+
+
+# What a lost peer raises through torch.distributed, and nothing else: a
+# bare "nccl", "socket" or "timeout" also names deterministic bugs (NCCL's
+# invalid usage, a CUDA error inside NCCL, a data loader's timeout), which
+# a rollback would only repeat.
+_PEER_LOSS = (
+    # gloo's tcp pair and buffers ("[gloo/transport/tcp/pair.cc:...]")
+    "connection closed by peer", "connection reset by peer", "broken pipe",
+    "ms for recv operation to complete", "ms for send operation to complete",
+    # NCCL: ncclRemoteError, ProcessGroupNCCL's timeouts (the watchdog's,
+    # and TORCH_NCCL_BLOCKING_WAIT's) and a communicator it aborted
+    "remote process exited or there was a network error",
+    "watchdog caught collective operation timeout",
+    "timed out in blocking wait", "nccl communicator was aborted")
+
+
+def peer_loss(exc):
+    """``exc`` as a ``HorovodInternalError`` when it is a lost peer's
+    error from torch.distributed, else None."""
+    if isinstance(exc, HorovodInternalError):
+        return exc
+    network_error = getattr(dist, "DistNetworkError", ())
+    if (network_error and isinstance(exc, network_error)) or (
+            isinstance(exc, RuntimeError) and
+            any(m in str(exc).lower() for m in _PEER_LOSS)):
+        err = HorovodInternalError("collective failed, a peer was lost: %s"
+                                   % exc)
+        err.__cause__ = exc
+        return err
+    return None
+
+
+def raise_peer_loss(fn):
+    """Decorator: a lost peer's error inside ``fn`` comes out as
+    ``HorovodInternalError``."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        try:
+            return fn(*args, **kwargs)
+        except RuntimeError as e:
+            err = peer_loss(e)
+            if err is None or err is e:
+                raise
+            raise err from e
+    return wrapper
 
 
 def shard_partition(count, n):
@@ -69,6 +127,7 @@ def _ring():
     return ring
 
 
+@raise_peer_loss
 def allreduce(tensor, average=True, name=None, compression=None,
               prescale_factor=1.0, postscale_factor=1.0, group=None):
     """Sum (or mean, ``average=True``) of ``tensor`` over the group's
@@ -94,6 +153,7 @@ def allreduce(tensor, average=True, name=None, compression=None,
     return comp.decompress(out, ctx)
 
 
+@raise_peer_loss
 def reduce_scatter(tensor, average=True, name=None, compression=None,
                    prescale_factor=1.0, postscale_factor=1.0, group=None):
     """The flattened ``tensor`` summed (or averaged) over the group's ranks,
@@ -151,6 +211,7 @@ def reduce_scatter(tensor, average=True, name=None, compression=None,
     return comp.decompress(out, ctx)
 
 
+@raise_peer_loss
 def allgather(tensor, name=None, group=None):
     """Concatenation along dim 0 of every group rank's ``tensor`` (a 0-d
     tensor counts as one row); the ranks may differ in dim 0 only."""
@@ -171,6 +232,7 @@ def allgather(tensor, name=None, group=None):
     return torch.cat([p[:c] for p, c in zip(parts, counts)], dim=0)
 
 
+@raise_peer_loss
 def broadcast(tensor, root_rank=0, name=None, group=None):
     """``tensor`` as it is on ``root_rank`` (a WORLD rank, also under
     ``group=``), on every rank of the group. ``tensor`` may be a tuple,

@@ -67,6 +67,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from horovod_tpu_torch.common.basics import resolve_device
+from horovod_tpu_torch.common.ops import raise_peer_loss
 from horovod_tpu_torch.groups import resolve_group
 from horovod_tpu_torch.ops import _build
 
@@ -654,6 +655,7 @@ def _(dy2d, x2d, *args):
 # ----------------------------------------------------- training-mode BN
 
 
+@raise_peer_loss
 def _group_sum(pair, group):
     """(a, b) summed over ``group`` (a ``ProcessGroup``, WORLD or a
     ``torch.distributed`` process group) in one collective of the stacked

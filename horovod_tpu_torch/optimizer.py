@@ -35,8 +35,8 @@ import torch.distributed as dist
 
 from horovod_tpu_torch import divergence
 from horovod_tpu_torch.common import basics
-from horovod_tpu_torch.common.ops import (allgather, reduce_scatter,
-                                          shard_partition)
+from horovod_tpu_torch.common.ops import (allgather, raise_peer_loss,
+                                          reduce_scatter, shard_partition)
 from horovod_tpu_torch.compression import (NONE, chunk_length, codec,
                                            resolve_wire_arg, wire_mode)
 from horovod_tpu_torch.groups import (assert_sharded_update_world_scope,
@@ -64,6 +64,7 @@ def _reduce_flat(flat, comp, mode, average, group, name):
         work = dist.all_reduce(wire, op=dist.ReduceOp.SUM,
                                group=resolve_group(group), async_op=True)
 
+    @raise_peer_loss
     def finish():
         if work is not None:
             work.wait()
@@ -102,6 +103,7 @@ def _tensors(params):
     return [p[1] if isinstance(p, tuple) else p for p in params]
 
 
+@raise_peer_loss
 def broadcast_parameters(params, root_rank=0, name_prefix="param"):
     """Overwrites ``params`` (a state_dict, named_parameters() or
     tensors) with their values on ``root_rank``, in place, each named
@@ -113,6 +115,7 @@ def broadcast_parameters(params, root_rank=0, name_prefix="param"):
                            group=basics.process_group())
 
 
+@raise_peer_loss
 def broadcast_optimizer_state(optimizer, root_rank=0,
                               name_prefix="opt_state"):
     """Overwrites the tensors of the optimizer's state (moments, step
@@ -288,19 +291,27 @@ class ReplicatedDistributedOptimizer:
         self._next = i + 1
 
     def _drain(self):
-        for _, finish in self._pending:
-            finish()
-        self._reset()
+        try:
+            for _, finish in self._pending:
+                finish()
+        finally:
+            self._reset()
 
     def synchronize(self):
         """Reduces the gradients over the ranks now: sends every bucket
         that has not gone out, in order, waits for all of them and writes
         the results into the gradients."""
-        while self._next < len(self.buckets):
-            self._launch(self._next)
-        with torch.no_grad():
-            for grads, finish in self._pending:
-                _scatter(finish(), grads)
+        try:
+            while self._next < len(self.buckets):
+                self._launch(self._next)
+            with torch.no_grad():
+                for grads, finish in self._pending:
+                    _scatter(finish(), grads)
+        except Exception:
+            # a lost peer: drop the window, so that the backward after an
+            # elastic re-init starts a fresh one
+            self._reset()
+            raise
         self.launch_order = self._order
         self._reset()
 

@@ -20,6 +20,7 @@ the tensor); the permute of one rank is the identity, a copy.
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.common.ops import raise_peer_loss
 from horovod_tpu_torch.parallel.mesh import axis_group
 
 
@@ -33,6 +34,7 @@ def axis_index(axis):
     return dist.get_rank(axis_group(axis))
 
 
+@raise_peer_loss
 def _sum(x, group):
     out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
@@ -56,6 +58,7 @@ def psum(x, axis):
     return _Psum.apply(x, axis_group(axis))
 
 
+@raise_peer_loss
 def _all_to_all(x, group, split_dim, concat_dim):
     n = dist.get_world_size(group)
     if x.shape[split_dim] % n:
@@ -88,6 +91,7 @@ def all_to_all(x, axis, split_dim, concat_dim):
     return _AllToAll.apply(x, axis_group(axis), split_dim, concat_dim)
 
 
+@raise_peer_loss
 def _shift(x, group, step):
     """``x`` sent to rank (r + step) % n of ``group``; returns what rank
     (r - step) % n sent."""

@@ -59,6 +59,7 @@ every step.
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.common.ops import raise_peer_loss
 from horovod_tpu_torch.compression import NONE, chunk_length, resolve
 from horovod_tpu_torch.groups import group_rank, group_size, resolve_group
 from horovod_tpu_torch.ops.flash_attention import (_delta, _kernel_layout,
@@ -102,6 +103,7 @@ class _Exchange:
     same-shaped ones from the previous rank, posted now and waited for in
     ``wait()``."""
 
+    @raise_peer_loss
     def __init__(self, tensors, group, n, idx):
         self.recv = [torch.empty_like(t) for t in tensors]
         nxt = dist.get_global_rank(group, (idx + 1) % n)
@@ -110,6 +112,7 @@ class _Exchange:
                [dist.P2POp(dist.irecv, t, prv, group) for t in self.recv])
         self.works = dist.batch_isend_irecv(ops)
 
+    @raise_peer_loss
     def wait(self):
         for w in self.works:
             w.wait()

@@ -21,7 +21,8 @@ from torch.nn.utils import parametrize
 from horovod_tpu_torch import divergence
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.basics import resolve_device
-from horovod_tpu_torch.common.ops import allreduce, tree_map
+from horovod_tpu_torch.common.ops import (allreduce, raise_peer_loss,
+                                          tree_map)
 from horovod_tpu_torch.compression import resolve_wire_arg
 from horovod_tpu_torch.ops.losses import chunked_softmax_cross_entropy
 from horovod_tpu_torch.optimizer import (DistributedOptimizer,
@@ -121,6 +122,7 @@ class _Gather(torch.autograd.Function):
     backward reduce-scatters the whole tensor's gradient and averages it."""
 
     @staticmethod
+    @raise_peer_loss
     def forward(ctx, shard, name, group, n):
         ctx.name, ctx.group, ctx.n = name, group, n
         parts = [torch.empty_like(shard) for _ in range(n)]
@@ -129,6 +131,7 @@ class _Gather(torch.autograd.Function):
         return torch.cat(parts, 0)
 
     @staticmethod
+    @raise_peer_loss
     def backward(ctx, grad):
         chunks = [c.contiguous() for c in grad.chunk(ctx.n, 0)]
         out = torch.empty_like(chunks[0])

@@ -37,6 +37,11 @@ PORT_FILES = PACKAGE_FILES + [
     ROOT / "tests" / "torch_port_bn_ab.py",
     ROOT / "tests" / "torch_port_bn_plans.py",
     ROOT / "tests" / "test_torch_port_cuda.py",
+    ROOT / "tests" / "torch_port_launch_worker.py",
+    ROOT / "tests" / "torch_port_launch_ops_worker.py",
+    ROOT / "tests" / "torch_port_elastic_worker.py",
+    ROOT / "tests" / "torch_port_durable_worker.py",
+    ROOT / "tests" / "torch_port_spark_worker.py",
 ]
 
 
@@ -65,6 +70,20 @@ def test_forbidden_names_are_matched_exactly():
 def test_no_jax_or_horovod_tpu_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, "%s imports %s" % (path.relative_to(ROOT), bad)
+
+
+# A library built from horovod_tpu/ (its native core, its TF or torch glue):
+# the port builds its own copy of what it needs (elastic/native/).
+REFERENCE_LIBRARY = re.compile(r"libhorovod_tpu|horovod_tpu/\w+/\S*\.so")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_library_of_horovod_tpu_is_loaded(path):
+    bad = [node.value for node in ast.walk(ast.parse(path.read_text()))
+           if isinstance(node, ast.Constant) and isinstance(node.value, str)
+           and REFERENCE_LIBRARY.search(node.value)]
+    assert not bad, "%s names %s" % (path.relative_to(ROOT), bad)
 
 
 def test_package_imports_without_nvcc_triton_or_gpu(tmp_path):
@@ -217,6 +236,36 @@ def test_entry_points_without_a_gpu_raise_the_named_error():
     clipped = agc_clip({"w": torch.ones(2, 2)}, {"w": torch.ones(2, 2)})
     assert clipped["w"].device.type == "cpu"
     assert not hvd.is_initialized()
+    # the host runtime (ROADMAP A8a, A8b): init() through the launcher's
+    # env, the elastic decorator and the launch phase's worker default to
+    # the GPU
+    import runpy
+    from horovod_tpu_torch import elastic
+    launcher_env = {"HVD_TPU_RANK": "0", "HVD_TPU_SIZE": "1",
+                    "HVD_TPU_LOCAL_RANK": "0", "HVD_TPU_ADDRS": "127.0.0.1:0"}
+    saved = {k: os.environ.get(k) for k in launcher_env}
+    os.environ.update(launcher_env)
+    try:
+        with pytest.raises(hvd.CudaUnavailableError):
+            hvd.init()
+        with pytest.raises(hvd.CudaUnavailableError):
+            elastic.run(lambda state: None)(elastic.ElasticState(step=0))
+        worker = runpy.run_path(str(ROOT / "tests" /
+                                    "torch_port_launch_worker.py"))
+        argv = sys.argv
+        sys.argv = ["torch_port_launch_worker.py", "--out", "/nonexistent"]
+        try:
+            with pytest.raises(hvd.CudaUnavailableError):
+                worker["main"]()
+        finally:
+            sys.argv = argv
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    assert not hvd.is_initialized()
     # the codec wrappers: on CPU tensors their plain versions, no kernel
     from horovod_tpu_torch.ops import wire_codec
     before = wire_codec.launch_counts()
@@ -263,14 +312,11 @@ def test_one_rank_cpu_group():
 
 
 def test_what_is_not_ported_names_its_roadmap_item(monkeypatch):
-    """The rank-subset init (A8) raises NotImplementedError naming its
-    item. AGC (A6, ported) builds and clips; the wire compression modes and
+    """AGC (A6, ported) builds and clips; the wire compression modes and
     the sharded update (A4, ported) run at one rank: the wire modes are the
     identity there (the ring applies no codec to one rank), and the sharded
-    optimizer is built; the tensor codecs run."""
-    with pytest.raises(NotImplementedError, match="A8"):
-        hvd.init(device="cpu", ranks=[0])
-    assert not hvd.is_initialized()
+    optimizer is built; the tensor codecs run. (The launcher's options that
+    are not ported name their items: see the next test.)"""
     hvd.init(device="cpu")
     try:
         x = torch.arange(4.0)
@@ -316,6 +362,18 @@ def test_what_is_not_ported_names_its_roadmap_item(monkeypatch):
                                  average=False, name_prefix="g")
     finally:
         hvd.shutdown()
+
+
+@pytest.mark.parametrize("option,item", [
+    (["--lint"], "A8g"), (["--lint=strict"], "A8g"),
+    (["--metrics-port", "9000"], "A8d")])
+def test_launcher_options_not_ported_name_their_roadmap_item(option, item):
+    """The launcher's hvd-lint preflight (ROADMAP A8g) and metrics endpoint
+    (A8d) raise NotImplementedError naming their items, before anything
+    is launched."""
+    from horovod_tpu_torch.run import run
+    with pytest.raises(NotImplementedError, match=item):
+        run.main(option + ["-np", "1", "--", "python", "train.py"])
 
 
 def test_mesh_and_groups_at_one_rank(monkeypatch):
