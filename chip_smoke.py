@@ -8,7 +8,7 @@
                                            # wire_kernels, zero1, moe,
                                            # ulysses, inception,
                                            # resnet_nf, vgg16, word2vec,
-                                           # launch
+                                           # launch, serve
 
 Phases, in order; any failure exits non-zero:
 
@@ -298,6 +298,41 @@ Phases, in order; any failure exits non-zero:
    off the GPU, a launch count other than 12 a step or a restart count
    other than 1 fails the phase. The K1-K3 launches of runs a and c add
    to the kernels line's counts.
+20. serve: the serve plane (``horovod_tpu_torch.serve``) at ``bench.py
+   --serve``'s two configurations (``bench.py:608-780``). (a) In this
+   process on cuda:0: ``make_forward`` for the affine model at dim 16 and
+   the mlp at dim 2048 (hidden 8192) in every bucket up to the replica's
+   max batch of 16, each against the numpy ``forward`` (largest absolute
+   error <= 1e-4), timed with CUDA events as the replica calls it (frame
+   to the device, the products, the result back) and its products alone,
+   beside their bound; the peak device memory. (b) The curve: ``python -m
+   horovod_tpu_torch.serve -np 2 --model affine --dim 16`` over a lineage
+   at step 10, every replica's ``/healthz`` device on the GPU, open-loop
+   load at 20, 40 and 80 rps for 3 s each: zero errors, zero mismatches,
+   every request answered once, and at least 0.9 of the offered rate
+   achieved; then SIGTERM drains the pool and the supervisor exits
+   ``EXIT_DRAINED``. The load comes from 4 processes of 128 senders each
+   on one shared schedule (request k at k / rate), so a slow answer
+   delays no later send; latency counts from the scheduled time. The
+   answers are checked after each window, in one numpy forward for each
+   weight set they name, row by row as ``check_response`` does (atol
+   1e-3). The load encodes a request's body before its time and parses
+   the answers after the window, so that its own JSON is off the clock.
+   (c) The step: the port's ``ServeSupervisor`` with 2 replicas of the
+   mlp at dim 2048, three windows at 280 rps. Swap (5 s): step 20 is
+   published 1 s in, both replicas swap to it within the window, answers
+   by both weight sets, the same limits as (b). Kill (4 s): one replica
+   is SIGKILLed 1 s in; every answer by step 20's weights, none failed,
+   none lost, no hang; the survivor alone is past its capacity until the
+   respawn serves, so here 0.9 of the offered rate must be sent on
+   schedule, not answered. Respawned (3 s): once the driver's new replica
+   serves step 20 on the GPU, the pool answers 280 rps again by step
+   20's weights alone, each replica some, the limits of (b). Then the
+   pool drains to ``EXIT_DRAINED``. Prints each window's offered, sent
+   and achieved rps, p50 and p99, the forward's times, each replica's
+   device and the peak memory of (a). The serve path runs no
+   hand-written kernel (the products are cuBLAS's through
+   ``torch.matmul``).
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -4381,6 +4416,625 @@ def phase_launch(card):
     return counts
 
 
+# The serve phase: bench.py --serve's curve (bench.py:676-699: the affine
+# model at dim 16 on 2 replicas, 3 s at each rate, load seed 12) and its
+# traffic step (:721-722: the mlp at dim 2048, 280 rps, load seed 13) in
+# three windows: 5 s with a swap, 4 s with a kill, 3 s after the respawn
+SERVE_CURVE = dict(model="affine", dim=16, rates=(20, 40, 80), seconds=3.0,
+                   seed=12)
+SERVE_STEP = dict(model="mlp", dim=2048, rate=280, swap_s=5.0, kill_s=4.0,
+                  after_s=3.0, seed=13)
+SERVE_MAX_BATCH = 16        # the replica's default --max-batch
+SERVE_FWD_TOL = 1e-4        # make_forward against the numpy forward
+SERVE_BOOT_S = 60           # each replica imports torch, makes a CUDA
+                            # context and loads the lineage (bench.py:660)
+SERVE_LOAD_PROCS = 4        # load processes
+SERVE_LOAD_THREADS = 128    # sender threads in each
+SERVE_MIN_SHARE = 0.9       # achieved over offered rate, at the least
+
+
+def _free_port_block(n):
+    """A base port with n consecutive free ports on the loopback, below
+    the kernel's range of ephemeral ports where it can: there the load's
+    own outgoing connections take no replica's port, and a connection to
+    a replica that is down cannot meet itself (a TCP self-connect)."""
+    import random
+    import socket
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 0
+    lo, hi = (10000, low - n) if low - n > 12000 else (20000, 55000)
+    for _ in range(64):
+        base = random.randint(lo, hi)
+        socks = []
+        try:
+            for i in range(n):
+                sock = socket.socket()
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                sock.bind(("127.0.0.1", base + i))
+                socks.append(sock)
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+        return base
+    fail("serve: no block of %d free ports" % n)
+
+
+def _get_json(url, timeout=2.0):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _serve_env(model, dim, port_base, ckpt_dir):
+    """The replicas' env: the card (no HVD_TPU_SERVE_DEVICE), this
+    checkout first on PYTHONPATH."""
+    import os
+    env = dict(os.environ)
+    for key in ("HVD_TPU_SERVE_DEVICE", "MASTER_ADDR", "MASTER_PORT",
+                "PYTHONUNBUFFERED"):
+        env.pop(key, None)
+    env.update({"PYTHONPATH": str(ROOT), "HVD_TPU_SERVE_MODEL": model,
+                "HVD_TPU_SERVE_DIM": str(dim),
+                "HVD_TPU_SERVE_PORT": str(port_base),
+                "HVD_TPU_CKPT_DIR": str(ckpt_dir),
+                "HVD_TPU_SERVE_SWAP_INTERVAL": "0.2"})
+    return env
+
+
+def _wait_replicas(endpoints, n, label):
+    """{endpoint: /healthz} of n serving replicas, each on the GPU."""
+    deadline = time.monotonic() + SERVE_BOOT_S
+    while True:
+        docs = {}
+        for ep in endpoints():
+            try:
+                doc = _get_json("http://%s/healthz" % ep, timeout=1.0)
+            except (OSError, ValueError):
+                continue
+            if doc.get("ok") and not doc.get("draining"):
+                docs[ep] = doc
+        if len(docs) >= n:
+            break
+        if time.monotonic() > deadline:
+            fail("serve %s: %d of %d replicas answered within %d s" % (
+                label, len(docs), n, SERVE_BOOT_S))
+        time.sleep(0.1)
+    off = {ep: d.get("device") for ep, d in docs.items()
+           if not str(d.get("device")).startswith("cuda")}
+    if off:
+        fail("serve %s: replicas off the GPU: %s" % (label, off))
+    return docs
+
+
+def _serve_load_slice(task):
+    """One load process's share of an open-loop schedule: request k
+    (rid ``rid_base + k``) is sent at ``start + k / rate`` by process
+    ``k mod procs``, from one of its sender threads, through the port's
+    ``ServeClient`` (its rotation, retries and causes). A request's body
+    is encoded before its time and its answer parsed after the window, so
+    that the load's own JSON (about 3.5 ms a request at dim 2048) is off
+    the clock. Returns the answers unchecked (the parent checks them) and
+    the errors."""
+    import http.client
+    import threading
+    import numpy as np
+    if task["root"] not in sys.path:
+        sys.path.insert(0, task["root"])
+    from horovod_tpu_torch.serve.client import ServeClient, ServeError
+    from horovod_tpu_torch.serve.loadgen import request_input
+
+    class Client(ServeClient):
+        body = b""
+
+        def __init__(self, endpoints, first, **kwargs):
+            super().__init__(endpoints, **kwargs)
+            self._rr = first  # the senders start on different replicas
+
+        def _post(self, endpoint, doc, timeout):
+            host, port = endpoint.rsplit(":", 1)
+            conn = http.client.HTTPConnection(host, int(port),
+                                              timeout=timeout)
+            try:
+                conn.request("POST", "/infer", body=self.body, headers={
+                    "Content-Type": "application/json"})
+                resp = conn.getresponse()
+                status, raw = resp.status, resp.read()
+            finally:
+                conn.close()
+            if status == 200:
+                return {"y": raw}  # parsed after the window
+            try:
+                doc = json.loads(raw.decode("utf-8"))
+            except ValueError:
+                doc = {"error": "HTTP %d" % status}
+            doc.setdefault("cause", "http")
+            doc["_status"] = status
+            return doc
+
+    def endpoints():  # the parent rewrites the file as the pool changes
+        with open(task["endpoints_file"]) as f:
+            return json.load(f)
+    mine = list(range(task["slice"], task["n"], task["procs"]))
+    interval = 1.0 / task["rate"]
+    lock = threading.Lock()
+    answers, errors = [], []
+
+    def sender(j, ks):
+        client = Client(endpoints, j, total_deadline=task["deadline"])
+        for k in ks:
+            rid = task["rid_base"] + k
+            x = request_input(task["seed"], rid, task["dim"])
+            client.body = json.dumps({"id": str(rid), "x": [
+                float(v) for v in x]}).encode("utf-8")
+            wake = task["start"] + k * interval
+            delay = wake - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            sent = time.monotonic()
+            try:
+                raw = client.infer((), rid=str(rid))["y"]
+            except ServeError as e:
+                with lock:
+                    errors.append((rid, e.cause, str(e)))
+                continue
+            except Exception as e:  # anything else the client let out
+                with lock:
+                    errors.append((rid, type(e).__name__, str(e)))
+                continue
+            done = time.monotonic()
+            with lock:
+                answers.append((rid, sent - wake, done - wake, done, raw))
+
+    threads = [threading.Thread(target=sender,
+                                args=(j, mine[j::task["threads"]]))
+               for j in range(task["threads"])]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    rows = []
+    for rid, lag, latency, done, raw in answers:
+        try:
+            doc = json.loads(raw.decode("utf-8"))
+            rows.append((rid, lag, latency, done, doc.get("weights_crc"),
+                         np.asarray(doc["y"], np.float32)))
+        except (ValueError, KeyError, TypeError) as e:
+            errors.append((rid, "bad-answer", str(e)))
+    return rows, errors
+
+
+def _serve_load_ready(root):
+    """Imports a load process's modules before its first window."""
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import horovod_tpu_torch.serve.client  # noqa: F401
+    import horovod_tpu_torch.serve.loadgen  # noqa: F401
+    time.sleep(0.2)  # so that every process of the pool takes one
+    return True
+
+
+class _ServeLoad:
+    """The serve phase's load generator: SERVE_LOAD_PROCS processes (each
+    its own interpreter, so a slow answer or a check holds no sender
+    back), started once; the endpoints they send to are a file that
+    ``set_endpoints`` rewrites."""
+
+    def __init__(self, tmp):
+        import multiprocessing
+        self.endpoints_file = tmp / "endpoints.json"
+        self.set_endpoints([])
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            SERVE_LOAD_PROCS)
+        self.pool.map(_serve_load_ready, [str(ROOT)] * SERVE_LOAD_PROCS,
+                      chunksize=1)
+
+    def set_endpoints(self, endpoints):
+        import os
+        part = self.endpoints_file.with_suffix(".part")
+        part.write_text(json.dumps(list(endpoints)))
+        os.replace(part, self.endpoints_file)
+
+    def start(self, rate, seconds, dim, seed, rid_base, deadline):
+        """Starts one window in the background; ``finish`` collects it."""
+        n = max(1, int(rate * seconds))
+        start = time.monotonic() + 0.25
+        tasks = [dict(root=str(ROOT), endpoints_file=str(
+            self.endpoints_file), slice=i, procs=SERVE_LOAD_PROCS,
+            threads=SERVE_LOAD_THREADS, n=n, rate=rate, start=start,
+            dim=dim, seed=seed, rid_base=rid_base, deadline=deadline)
+            for i in range(SERVE_LOAD_PROCS)]
+        return dict(rate=rate, seconds=seconds, n=n, start=start, dim=dim,
+                    seed=seed, rid_base=rid_base, job=self.pool.map_async(
+                        _serve_load_slice, tasks, chunksize=1))
+
+    def run(self, *args, **kwargs):
+        return self.finish(self.start(*args, **kwargs))
+
+    def finish(self, window, timeout=120):
+        """The window's answers and errors, once every sender is done."""
+        rows, errors = [], []
+        for r, e in window["job"].get(timeout=timeout):
+            rows += r
+            errors += e
+        window.update(rows=rows, errors=errors)
+        return window
+
+    def close(self):
+        self.pool.terminate()
+        self.pool.join()
+
+
+def _check_window(w, model, leaves_by_crc, label, bar="answers"):
+    """Checks one window's answers, each against the numpy forward of the
+    weight set its fingerprint names (one batched forward a set, then
+    ``check_response``'s test a row: ``np.allclose``, atol 1e-3), and
+    summarises it. Fails on an error, a wrong or missing answer, or a
+    rate under SERVE_MIN_SHARE of the offered one: of the answers (``bar``
+    "answers", the pool whole), or of the sends (``bar`` "sends": the
+    window of the kill, where the survivor alone is past its capacity
+    until the respawn serves, and only the load offered is held; None:
+    no rate is held)."""
+    import numpy as np
+    from horovod_tpu_torch.serve import model as smodel
+    from horovod_tpu_torch.serve.loadgen import request_input
+    rows, rate = w["rows"], w["rate"]
+    rids = sorted(r[0] for r in rows)
+    expected = list(range(w["rid_base"], w["rid_base"] + w["n"]))
+    mismatches, by_crc = [], {}
+    for crc in sorted({r[4] for r in rows}, key=str):
+        mine = [r for r in rows if r[4] == crc]
+        by_crc[crc] = len(mine)
+        if crc not in leaves_by_crc:
+            mismatches += [(r[0], "unknown weights %r" % (crc,))
+                           for r in mine]
+            continue
+        got = [r[5] for r in mine]
+        bad = [r[0] for r, y in zip(mine, got) if y.shape != (w["dim"],)]
+        if bad:
+            mismatches += [(rid, "shape") for rid in bad]
+            continue
+        x = np.stack([request_input(w["seed"], r[0], w["dim"])
+                      for r in mine])
+        expect = smodel.forward(model, leaves_by_crc[crc], x)
+        got = np.stack(got)
+        good = np.isclose(got, expect, atol=1e-3).all(axis=1)
+        mismatches += [
+            (r[0], "answer does not match the %s weights it claims (max "
+             "err %.3g)" % (crc, float(np.abs(g - e).max())))
+            for r, g, e, ok in zip(mine, got, expect, good) if not ok]
+    span = max((r[3] for r in rows), default=w["start"]) - w["start"]
+    achieved = len(rows) / span if span > 0 else 0.0
+    lat = sorted(r[2] for r in rows)
+    # the last send's time past the window's start, over the schedule
+    last_send = max(((r[0] - w["rid_base"]) / rate + r[1] for r in rows),
+                    default=0.0)
+    sent = len(rows) / last_send if last_send > 0 else float(rate)
+
+    def q(p):
+        return lat[min(len(lat) - 1, int(p * len(lat)))] * 1e3 if lat \
+            else None
+    row = dict(offered_rps=rate, requests=w["n"], ok=len(rows),
+               errors=len(w["errors"]), mismatches=len(mismatches),
+               achieved_rps=achieved, sent_rps=sent, p50_ms=q(0.50),
+               p99_ms=q(0.99),
+               max_send_lag_ms=max((r[1] for r in rows), default=0) * 1e3,
+               wall_s=span, by_crc=by_crc)
+    if w["errors"] or mismatches or rids != expected:
+        fail("serve %s at %s rps: %d of %d answered (%d distinct), errors "
+             "%s, mismatches %s" % (label, rate, len(rows), w["n"],
+                                    len(set(rids)), w["errors"][:5],
+                                    mismatches[:5]))
+    held = achieved if bar == "answers" else sent
+    if bar is not None and held < SERVE_MIN_SHARE * rate:
+        fail("serve %s: %.1f rps %s of %s offered (at least %.0f %% "
+             "needed): %s" % (label, held, "achieved" if bar == "answers"
+                              else "sent", rate, 100 * SERVE_MIN_SHARE,
+                              json.dumps(row)))
+    return row
+
+
+def _serve_forward():
+    """make_forward on cuda:0 against the numpy forward in every bucket,
+    timed as the replica calls it and its products alone."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.serve import model as smodel
+    from horovod_tpu_torch.serve.batcher import BUCKETS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for name, dim in (("affine", SERVE_CURVE["dim"]),
+                      ("mlp", SERVE_STEP["dim"])):
+        leaves = smodel.init_leaves(name, dim, seed=1)
+        fwd = smodel.make_forward(name, leaves)
+        if fwd.device != torch.device("cuda", 0):
+            fail("serve: make_forward ran on %s" % fwd.device)
+        products = smodel._entry(name)[1]
+        on_card = {k: torch.from_numpy(v).cuda() for k, v in leaves.items()}
+        weight_bytes = sum(v.nbytes for v in leaves.values())
+        macs = sum(v.size for v in leaves.values() if v.ndim == 2)
+        rng = np.random.RandomState(dim)
+        err, buckets = 0.0, {}
+        for bucket in (b for b in BUCKETS if b <= SERVE_MAX_BATCH):
+            x = rng.standard_normal((bucket, dim)).astype(np.float32)
+            y = fwd(x)
+            if y.shape != (bucket, dim) or not np.isfinite(y).all():
+                fail("serve: %s forward gave %s" % (name, y.shape))
+            err = max(err, float(np.abs(
+                y - smodel.forward(name, leaves, x)).max()))
+            xt = torch.from_numpy(x).cuda()
+            t_bytes = (weight_bytes + 2 * x.nbytes) / PEAK_BYTES
+            t_ops = 2 * bucket * macs / PEAK_F32_FLOPS
+            buckets[bucket] = dict(
+                forward_ms=time_ms(lambda: fwd(x)),
+                products_ms=time_ms(lambda: products(on_card, xt)),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if err > SERVE_FWD_TOL:
+            fail("serve: %s at dim %d: forward %.3g from the numpy one "
+                 "(limit %g)" % (name, dim, err, SERVE_FWD_TOL))
+        out[name] = dict(dim=dim, max_abs_err=err, buckets=buckets)
+        del fwd, on_card
+    torch.cuda.synchronize()
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_curve(tmp, load):
+    """bench.py --serve's curve through ``python -m horovod_tpu_torch.serve``;
+    SIGTERM drains it."""
+    import os
+    import signal
+    from horovod_tpu_torch.elastic.state import EXIT_DRAINED
+    from horovod_tpu_torch.serve import model as smodel
+    from horovod_tpu_torch.serve.swap import publish_leaves
+    c = SERVE_CURVE
+    leaves = smodel.init_leaves(c["model"], c["dim"], seed=1)
+    crc = smodel.fingerprint(leaves)
+    ckpt = tmp / "curve"
+    publish_leaves(str(ckpt), 10, leaves)
+    base = _free_port_block(5)  # replicas from base, the status port last
+    status = "http://127.0.0.1:%d/serve" % (base + 4)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.serve", "-np", "2",
+           "--model", c["model"], "--dim", str(c["dim"]), "--ckpt-dir",
+           str(ckpt), "--port-base", str(base), "--status-port",
+           str(base + 4), "--no-autoscale", "--drain-grace", "30"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=_serve_env(
+        c["model"], c["dim"], base, ckpt), start_new_session=True)
+    try:
+        def endpoints():
+            try:
+                return _get_json(status, timeout=1.0)["endpoints"]
+            except (OSError, ValueError, KeyError):
+                return []
+        health = _wait_replicas(endpoints, 2, "curve")
+        boot_s = time.perf_counter() - t0
+        load.set_endpoints(sorted(health))
+        rows = []
+        for i, rate in enumerate(c["rates"]):
+            w = load.run(rate, c["seconds"], c["dim"], c["seed"],
+                         rid_base=i * 100000, deadline=10.0)
+            rows.append(_check_window(w, c["model"], {crc: leaves},
+                                      "curve"))
+            log("serve curve: %s" % json.dumps(rows[-1]))
+        pool = _get_json(status)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != EXIT_DRAINED:
+            fail("serve curve: the supervisor exited %s after SIGTERM, "
+                 "not EXIT_DRAINED (%d)" % (rc, EXIT_DRAINED))
+    finally:
+        if proc.poll() is None:  # a failure above: tear the pool down
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    return dict(boot_s=boot_s, rows=rows, rc=rc,
+                # admission to answer inside the replicas over the three
+                # rates (the histogram's bucket bounds, the worse replica)
+                replica_quantiles_ms=[pool["p50_ms"], pool["p99_ms"]],
+                devices={str(d["replica"]): d["device"]
+                         for d in health.values()},
+                batches=pool["batches_total"],
+                responses=pool["responses_total"])
+
+
+def _replica_pid(middleman_pid):
+    """The replica process under the driver's middleman (killing it, not
+    the middleman, leaves no orphan replica on its port)."""
+    from horovod_tpu_torch.run.exec_middleman import _ppid_map
+    for _ in range(100):
+        kids = [p for p, pp in _ppid_map().items() if pp == middleman_pid]
+        if kids:
+            return kids[0]
+        time.sleep(0.05)
+    fail("serve step: no replica under middleman %d" % middleman_pid)
+
+
+def _model_steps(endpoints):
+    """The lineage steps the replicas serve, sorted; None for one that
+    did not answer."""
+    steps = []
+    for ep in endpoints:
+        try:
+            steps.append(_get_json("http://%s/serve" % ep)["model_step"])
+        except (OSError, ValueError, KeyError):
+            steps.append(None)
+    return sorted(steps, key=lambda v: (v is None, v))
+
+
+def _respawned(sup, initial):
+    """True once a replica the driver started after ``initial`` (worker
+    ids) answers its health check."""
+    for wid, ep in sup._replica_addrs():
+        if wid not in initial:
+            try:
+                return bool(_get_json("http://%s/healthz" % ep,
+                                      timeout=0.5).get("ok"))
+            except (OSError, ValueError):
+                return False
+    return False
+
+
+def _serve_step(tmp, load):
+    """The traffic step on 2 replicas of the mlp at 2048, three windows at
+    280 rps: a swap to step 20 during the first, a SIGKILL during the
+    second, and the pool after the respawn, all on step 20, in the third.
+    """
+    import os
+    import signal
+    import threading
+    from horovod_tpu_torch.elastic.state import EXIT_DRAINED
+    from horovod_tpu_torch.serve import model as smodel
+    from horovod_tpu_torch.serve.supervisor import ServeSupervisor
+    from horovod_tpu_torch.serve.swap import publish_leaves
+    s = SERVE_STEP
+    old = smodel.init_leaves(s["model"], s["dim"], seed=2)
+    new = smodel.init_leaves(s["model"], s["dim"], seed=3)
+    crc_old, crc_new = smodel.fingerprint(old), smodel.fingerprint(new)
+    ckpt = tmp / "step"
+    publish_leaves(str(ckpt), 10, old)
+    base = _free_port_block(4)  # 2 replicas and a respawn's id
+    saved = os.environ.get("HVD_TPU_ELASTIC_COOLDOWN")
+    os.environ["HVD_TPU_ELASTIC_COOLDOWN"] = "1"  # the respawn's wait
+    try:
+        sup = ServeSupervisor(
+            [sys.executable, "-m", "horovod_tpu_torch.serve.replica"],
+            {"localhost": 2}, min_replicas=1, max_replicas=2, np_initial=2,
+            port_base=base, env=_serve_env(s["model"], s["dim"], base,
+                                           ckpt))
+    finally:
+        if saved is None:
+            os.environ.pop("HVD_TPU_ELASTIC_COOLDOWN")
+        else:
+            os.environ["HVD_TPU_ELASTIC_COOLDOWN"] = saved
+    box = {}
+    driver = threading.Thread(target=lambda: box.update(
+        rc=sup.driver.run(install_signal_handlers=False)), daemon=True)
+    t0 = time.monotonic()
+    driver.start()
+
+    def window(seconds, rid_base):
+        load.set_endpoints(sup.endpoints())
+        return load.start(s["rate"], seconds, s["dim"], s["seed"],
+                          rid_base=rid_base, deadline=30.0)
+    try:
+        health = _wait_replicas(sup.endpoints, 2, "step")
+        boot_s = time.monotonic() - t0
+        # the swap: step 20 published 1 s into the window
+        w = window(s["swap_s"], 900000)
+        time.sleep(max(0.0, w["start"] + 1.0 - time.monotonic()))
+        publish_leaves(str(ckpt), 20, new)
+        t_pub = time.monotonic()
+        while _model_steps(sup.endpoints()) != [20, 20]:
+            if time.monotonic() - t_pub > 15:
+                fail("serve step: the replicas did not swap to step 20")
+            time.sleep(0.05)
+        swapped_s = time.monotonic() - t_pub
+        if swapped_s > s["swap_s"] - 1.5:
+            fail("serve step: the swap took %.2f s of the %.0f s window" %
+                 (swapped_s, s["swap_s"]))
+        swap = _check_window(load.finish(w), s["model"],
+                             {crc_old: old, crc_new: new}, "swap")
+        if not swap["by_crc"].get(crc_old) or \
+                not swap["by_crc"].get(crc_new):
+            fail("serve step: answers by weights %s do not cross the swap"
+                 % swap["by_crc"])
+        # the kill, 1 s into the window; every answer by step 20's weights
+        initial = set(sup.driver.live_workers())
+        victim = min(initial)
+        w = window(s["kill_s"], 910000)
+        time.sleep(max(0.0, w["start"] + 1.0 - time.monotonic()))
+        os.kill(_replica_pid(sup.driver.worker_pid(victim)), signal.SIGKILL)
+        t_kill = time.monotonic()
+        respawn_s = None
+        while not w["job"].ready() or respawn_s is None:
+            load.set_endpoints(sup.endpoints())  # the pool as it changes
+            if respawn_s is None and _respawned(sup, initial):
+                respawn_s = time.monotonic() - t_kill
+            if time.monotonic() - t_kill > 120:
+                fail("serve step: %s 120 s after the kill" % (
+                    "the load hung" if not w["job"].ready() else
+                    "no replica replaced the killed one"))
+            time.sleep(0.05)
+        kill = _check_window(load.finish(w), s["model"], {crc_new: new},
+                             "kill", bar="sends")
+        after = _wait_replicas(
+            lambda: [ep for wid, ep in sup._replica_addrs()
+                     if wid != victim], 2, "respawn")
+        if _model_steps(after) != [20, 20]:
+            fail("serve step: after the respawn the replicas serve steps "
+                 "%s" % _model_steps(after))
+        before = {ep: _get_json("http://%s/serve" % ep)["responses_total"]
+                  for ep in after}
+        # the pool whole again
+        w = window(s["after_s"], 920000)
+        respawned = _check_window(load.finish(w), s["model"],
+                                  {crc_new: new}, "respawned")
+        views = {ep: _get_json("http://%s/serve" % ep) for ep in after}
+        served = {ep: views[ep]["responses_total"] - before[ep]
+                  for ep in after}
+        if not all(served.values()):
+            fail("serve step: a replica answered nothing after the "
+                 "respawn: %s" % served)
+        sup.driver.request_drain("all")
+        driver.join(timeout=60)
+        if driver.is_alive() or box.get("rc") != EXIT_DRAINED:
+            fail("serve step: the pool did not drain (rc %s)" %
+                 box.get("rc"))
+    finally:
+        if driver.is_alive():
+            sup.driver.terminate()
+            driver.join(timeout=30)
+    return dict(boot_s=boot_s, swap=swap, kill=kill, respawned=respawned,
+                swapped_s=swapped_s, killed_worker=victim,
+                respawn_s=respawn_s, rc=box["rc"],
+                # admission to answer inside each replica (the histogram's
+                # bucket bounds), the killed one's lost with it
+                replica_quantiles_ms={
+                    str(v["replica"]): [v["p50_ms"], v["p99_ms"]]
+                    for v in views.values()},
+                devices={str(d["replica"]): d["device"]
+                         for d in list(health.values()) +
+                         list(after.values())},
+                responses_after_respawn=served)
+
+
+def phase_serve(card):
+    """The serve plane on the card: the forward in process, the curve
+    through the CLI, the traffic step with a swap and a kill."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    forward = _serve_forward()
+    for name in ("affine", "mlp"):
+        log("serve forward %s: %s" % (name, json.dumps(forward[name])))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    load = _ServeLoad(tmp)
+    try:
+        curve = _serve_curve(tmp, load)
+        step = _serve_step(tmp, load)
+    finally:
+        load.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    # also on stderr: after every phase the kernels line can push this
+    # line out of a kept tail of stdout
+    log("serve step: %s; the phase %.1f s" % (json.dumps(step), seconds))
+    print(json.dumps({"serve": dict(
+        card=card, forward=forward, curve=curve, step=step,
+        seconds=seconds)}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("api", "kernels", "train",
@@ -4388,7 +5042,8 @@ def main():
                                        "ring_kernels", "sp", "lc", "lc_sp",
                                        "wire_kernels", "zero1", "moe",
                                        "ulysses", "inception", "resnet_nf",
-                                       "vgg16", "word2vec", "launch"),
+                                       "vgg16", "word2vec", "launch",
+                                       "serve"),
                     help="run the device and build phases and this one")
     ap.add_argument("--profile", metavar="DIR",
                     help="after the train, resnet, resnet_lean (and its "
@@ -4456,6 +5111,8 @@ def main():
         phase_word2vec()
     if run("launch"):
         add(phase_launch(card))
+    if run("serve"):
+        phase_serve(card)
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         row = rows.get(name, {})

@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -106,6 +107,37 @@ def test_package_imports_without_nvcc_triton_or_gpu(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_serve_supervisor_client_and_loadgen_start_without_torch():
+    """``python -m horovod_tpu_torch.serve --help`` and the supervisor, the
+    client and the load generator load no torch: only the replicas
+    compute."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    code = (
+        "import sys\n"
+        "import horovod_tpu_torch.serve.supervisor\n"
+        "import horovod_tpu_torch.serve.client\n"
+        "import horovod_tpu_torch.serve.loadgen\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'horovod_tpu')]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['serve', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('horovod_tpu_torch.serve', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "assert 'torch' not in sys.modules\n")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--ckpt-dir" in proc.stdout
 
 
 def test_missing_nvcc_is_a_named_error(monkeypatch, tmp_path):
@@ -266,6 +298,28 @@ def test_entry_points_without_a_gpu_raise_the_named_error():
             else:
                 os.environ[k] = v
     assert not hvd.is_initialized()
+    # the serve plane (ROADMAP A8e): the forward and the replica default to
+    # the GPU (cuda:(worker id mod count)); the CPU only when asked
+    from horovod_tpu_torch.serve import model as serve_model
+    from horovod_tpu_torch.serve import replica
+    leaves = serve_model.init_leaves("affine", 4)
+    with pytest.raises(hvd.CudaUnavailableError):
+        serve_model.make_forward("affine", leaves)
+    with pytest.raises(hvd.CudaUnavailableError):
+        serve_model.make_forward("mlp", serve_model.init_leaves("mlp", 4),
+                                 device="cuda:0")
+    saved_device = os.environ.pop("HVD_TPU_SERVE_DEVICE", None)
+    try:
+        with pytest.raises(hvd.CudaUnavailableError):
+            replica.main(["--port-base", "0"])
+        with pytest.raises(hvd.CudaUnavailableError):
+            replica.main(["--port-base", "0", "--device", "cuda"])
+    finally:
+        if saved_device is not None:
+            os.environ["HVD_TPU_SERVE_DEVICE"] = saved_device
+    cpu = serve_model.make_forward("affine", leaves, device="cpu")
+    assert cpu.device == torch.device("cpu")
+    assert cpu(np.ones((2, 4), np.float32)).shape == (2, 4)
     # the codec wrappers: on CPU tensors their plain versions, no kernel
     from horovod_tpu_torch.ops import wire_codec
     before = wire_codec.launch_counts()
