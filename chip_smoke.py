@@ -8,7 +8,7 @@
                                            # wire_kernels, zero1, moe,
                                            # ulysses, inception,
                                            # resnet_nf, vgg16, word2vec,
-                                           # launch, serve
+                                           # launch, serve, fleet
 
 Phases, in order; any failure exits non-zero:
 
@@ -333,6 +333,40 @@ Phases, in order; any failure exits non-zero:
    device and the peak memory of (a). The serve path runs no
    hand-written kernel (the products are cuBLAS's through
    ``torch.matmul``).
+21. fleet: the fleet controller (``python -m horovod_tpu_torch.fleet.cli
+   --port 0``) on a pool of one slot, the card. Job ``train0`` (priority
+   0, durable every commit) is the launch phase's LM worker for 6 steps,
+   which prints the fleet's lineage lines (the CRC32C of the parameters,
+   Adam's moments and the steps at every start, commit and end) and holds
+   after step 2's commit until a drain request reaches it. Job ``serve0``
+   (kind serve, priority 10) is one replica of the serve phase's mlp at
+   2048 over a lineage at step 10, serving for 12 s
+   (``HVD_TPU_SERVE_EXIT_AFTER``); it arrives 25 s after the controller
+   starts, so the controller preempts train0 by graceful drain, which
+   lands at a commit strictly inside the run. While serve0 holds the
+   slot: its replica answers 300 requests at 100 rps, each checked as
+   the serve phase's windows are and by step 10's weights, on the GPU;
+   ``nvidia-smi --query-compute-apps=pid`` lists no process of train0,
+   train0's drained process is gone and the device memory in use above
+   the phase's start is under train0's peak; the durable lineage's last
+   step is the drained step, the highest committed; ``/fleet`` shows each job's
+   kind, placement and state; ``python -m horovod_tpu_torch.run.top
+   --fleet --once`` renders both jobs. When serve0 retires (exit 0),
+   train0 is restored from its lineage and finishes. The controller's
+   log must name the preemption and the restore and end with all 2 jobs
+   completed, rc 0; the drained worker exits ``EXIT_DRAINED`` unescalated
+   and the restored one starts at the drained step from a state it
+   committed (its start CRC among that step's commit CRCs); every step of
+   both processes launches K1-K3 12 times each; train0's final parameters
+   and Adam moments equal bit for bit those of an uninterrupted run of
+   the same worker for the same steps (the launch phase's run a when it
+   ran, else one run here); the lingering controller's ``/metrics``
+   counts 1 preemption, 1 restore and 2 completions and has observed the
+   drain and restore latencies. Prints ``{"fleet": {...}}``: the drained
+   step, the drain and restore seconds, the serve window's answers and
+   p50, train0's warm step before and after the restore, the phase's
+   seconds and the card. Its K1-K3 launches add to the kernels line's
+   counts.
 
 Before the last line it prints one ``{"kernels": [...]}`` JSON line; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -4219,6 +4253,7 @@ def phase_word2vec():
 
 
 LAUNCH_STEPS = 6
+_LAUNCH_FINAL = {}  # run a's final state, once the launch phase ran
 LAUNCH_KILL_AFTER = 3
 LAUNCH_PROFILE_STEP = 5  # in run c, the restarted process's last step
 LAUNCH_TIMEOUT = 420  # seconds a launched run may take
@@ -4345,6 +4380,7 @@ def phase_launch(card):
             finals[label] = torch.load(out_dir / "final.pt")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    _LAUNCH_FINAL["a"] = finals["a"]  # the fleet phase's reference
 
     for label in ("a", "b"):
         r = runs[label]["reports"]
@@ -5035,6 +5071,380 @@ def phase_serve(card):
         seconds=seconds)}), flush=True)
 
 
+# The fleet phase: the launch phase's LM as job train0 under the fleet
+# controller on a pool of one slot (the card), preempted by graceful drain
+# for a serve pool of the serve phase's mlp at 2048 (serve0), then restored
+# from its durable lineage
+FLEET_WORKER = "tests/torch_port_launch_worker.py"
+FLEET_STEPS = LAUNCH_STEPS  # the launch phase's run a is the reference
+FLEET_HOLD_AFTER = 2        # train0 holds after this step's commit
+FLEET_ARRIVAL_S = 25.0      # serve0 arrives this long after the start
+FLEET_DRAIN_GRACE = 120     # seconds before a drain escalates to SIGKILL
+FLEET_SERVE = dict(model="mlp", dim=2048, rate=100, seconds=3.0, seed=14,
+                   exit_after=12.0)
+FLEET_TIMEOUT = 420         # the controller's --timeout
+FLEET_LINE = re.compile(
+    r"job (\S+) worker (\S+) (start|commit|done) step (\d+) "
+    r"crc ([0-9a-f]{8})(?: size (\d+) pid (\d+))?")
+
+
+def _fleet_lineage(text):
+    """train0's lineage lines: (kind, step, crc, pid) in order."""
+    return [(m.group(3), int(m.group(4)), m.group(5),
+             int(m.group(7)) if m.group(7) else None)
+            for m in FLEET_LINE.finditer(text) if m.group(1) == "train0"]
+
+
+def _prometheus_samples(text):
+    """{sample (with its labels): value} of a Prometheus text page."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def _gpu_pids():
+    """The pids ``nvidia-smi --query-compute-apps=pid`` lists."""
+    proc = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60)
+    if proc.returncode != 0:
+        fail("fleet: nvidia-smi --query-compute-apps failed: %s" %
+             proc.stderr)
+    return sorted(int(x) for x in proc.stdout.split() if x.isdigit())
+
+
+def _alive(pid):
+    import os
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        pass
+    return True
+
+
+def _fleet_top(port, env):
+    """``python -m horovod_tpu_torch.run.top --fleet --once`` against the
+    controller: (rc, stdout, stderr)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run.top", "--fleet",
+         "--once", "localhost:%d" % port], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=60)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+class _Timeline:
+    """Stamps each new line of the controller's log with the seconds since
+    ``start`` (a thread reads the file every 0.1 s)."""
+
+    def __init__(self, path, start):
+        import threading
+        self.path, self.start, self.lines = path, start, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        seen = 0
+        while not self._stop.wait(0.1):
+            lines = self.path.read_text().splitlines()
+            t = time.monotonic() - self.start
+            self.lines += [(t, line) for line in lines[seen:]]
+            seen = len(lines)
+
+    def first(self, needle):
+        return next((round(t, 1) for t, line in self.lines if needle in line),
+                    None)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def _fleet_reference(env, tmp):
+    """train0's uninterrupted twin: the launch phase's run a when it ran
+    in this invocation (the same worker for the same steps), else one run
+    of it here."""
+    import torch
+    if "a" in _LAUNCH_FINAL:
+        return _LAUNCH_FINAL["a"], "launch run a"
+    out_dir = tmp / "reference"
+    out_dir.mkdir()
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "1", "-H",
+           "localhost:1", sys.executable, FLEET_WORKER, "--steps",
+           str(FLEET_STEPS), "--out", str(out_dir)]
+    rc, out, err, seconds = _launched(cmd, env)
+    reports = _launch_reports(out)
+    if rc != 0 or len(reports) != 1 or reports[0]["bad_launches"] or \
+            reports[0]["step"] != FLEET_STEPS:
+        fail("fleet: the uninterrupted run exited %d, reports %s:\n%s" % (
+            rc, reports, err[-6000:]))
+    log("fleet: the uninterrupted run took %.1f s" % seconds)
+    return torch.load(out_dir / "final.pt"), "its own run (%.1f s)" % seconds
+
+
+def phase_fleet(card):
+    """train0 (the LM) preempted on the card by serve0 through the fleet
+    controller and restored bit for bit; returns train0's K1-K3
+    launches."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import urllib.request
+    import torch
+    from horovod_tpu_torch.elastic.durable import last_durable_step
+    from horovod_tpu_torch.elastic.state import EXIT_DRAINED
+    from horovod_tpu_torch.serve import model as smodel
+    from horovod_tpu_torch.serve.swap import publish_leaves
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the jobs need the card's memory
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for key in ("MASTER_ADDR", "MASTER_PORT", "PYTHONUNBUFFERED",
+                "HVD_TPU_SERVE_DEVICE"):
+        env.pop(key, None)
+    s = FLEET_SERVE
+    proc, load, timeline, live, final = None, None, None, {}, {}
+    free, total = torch.cuda.mem_get_info()
+    used_before = total - free  # this process's own, and nothing else's
+    try:
+        reference, reference_from = _fleet_reference(env, tmp)
+        leaves = smodel.init_leaves(s["model"], s["dim"], seed=4)
+        crc = smodel.fingerprint(leaves)
+        serve_ckpt, train_ckpt = tmp / "serve", tmp / "train"
+        publish_leaves(str(serve_ckpt), 10, leaves)
+        base = _free_port_block(2)  # the replica and a respawn's id
+        serve_env = {k: v for k, v in _serve_env(
+            s["model"], s["dim"], base, serve_ckpt).items()
+            if env.get(k) != v and k != "HVD_TPU_CKPT_DIR"}
+        serve_env["HVD_TPU_SERVE_EXIT_AFTER"] = str(s["exit_after"])
+        out_dir = tmp / "out"
+        out_dir.mkdir()
+        jobfile = {"hosts": "localhost:1", "drain_grace": FLEET_DRAIN_GRACE,
+                   "jobs": [
+                       {"name": "train0", "command": [
+                           sys.executable, str(ROOT / FLEET_WORKER),
+                           "--steps", str(FLEET_STEPS), "--out", str(out_dir),
+                           "--job", "train0", "--hold-after",
+                           str(FLEET_HOLD_AFTER)],
+                        "np": 1, "min_np": 1, "priority": 0,
+                        "ckpt_dir": str(train_ckpt)},
+                       {"name": "serve0", "kind": "serve", "command": [
+                           sys.executable, "-m",
+                           "horovod_tpu_torch.serve.replica"],
+                        "np": 1, "min_np": 1, "priority": 10,
+                        "arrival": FLEET_ARRIVAL_S,
+                        "ckpt_dir": str(serve_ckpt), "env": serve_env}]}
+        (tmp / "jobs.json").write_text(json.dumps(jobfile))
+        load = _ServeLoad(tmp)
+        load.set_endpoints(["127.0.0.1:%d" % base])
+        log_path = tmp / "fleet.log"
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "horovod_tpu_torch.fleet.cli",
+                 "--port", "0", "--linger", "60", "--timeout",
+                 str(FLEET_TIMEOUT), str(tmp / "jobs.json")],
+                cwd=str(ROOT), env=env, stdout=logf,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        t_start = time.monotonic()
+        timeline = _Timeline(log_path, t_start)
+
+        def wait_for(pattern, what, timeout):
+            deadline = time.monotonic() + timeout
+            while True:
+                m = re.search(pattern, log_path.read_text())
+                if m:
+                    return m
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    fail("fleet: %s (controller rc %s):\n%s" % (
+                        what, proc.poll(), log_path.read_text()[-8000:]))
+                time.sleep(0.1)
+        port = int(wait_for(r"metrics at http://localhost:(\d+)",
+                            "no metrics endpoint", 60).group(1))
+        wait_for(r"job serve0 admitted", "serve0 was never admitted",
+                 FLEET_ARRIVAL_S + FLEET_DRAIN_GRACE + 120)
+        live["serve0_admitted_s"] = time.monotonic() - t_start
+        ep = "127.0.0.1:%d" % base
+        live["health"] = _wait_replicas(lambda: [ep], 1, "fleet")
+        w = load.start(s["rate"], s["seconds"], s["dim"], s["seed"],
+                       rid_base=930000, deadline=10.0)
+        # while serve0 answers: train0's state on disk and on the card
+        text = log_path.read_text()
+        live["lineage"] = _fleet_lineage(text)
+        live["durable_step"] = last_durable_step(str(train_ckpt))[0]
+        live["gpu_pids"] = _gpu_pids()
+        free, total = torch.cuda.mem_get_info()
+        live["used_above_start"] = total - free - used_before
+        live["view"] = _get_json("http://localhost:%d/fleet" % port,
+                                 timeout=5)
+        live["top"] = _fleet_top(port, env)
+        window = _check_window(load.finish(w), s["model"], {crc: leaves},
+                               "fleet")
+        wait_for(r"final view served", "the fleet did not finish",
+                 FLEET_TIMEOUT + 60)
+        with urllib.request.urlopen("http://localhost:%d/metrics" % port,
+                                    timeout=5) as resp:
+            final["metrics"] = _prometheus_samples(resp.read().decode())
+        final["view"] = _get_json("http://localhost:%d/fleet" % port,
+                                  timeout=5)
+        final["top"] = _fleet_top(port, env)
+        proc.send_signal(signal.SIGINT)  # ends the linger
+        final["rc"] = proc.wait(timeout=60)
+        final["seconds"] = time.monotonic() - t_start
+        final["log"] = log_path.read_text()
+        final["state"] = torch.load(out_dir / "final.pt")
+    finally:
+        if proc is not None and proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        if timeline is not None:
+            timeline.stop()
+        if load is not None:
+            load.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for at, line in timeline.lines:
+        if line.startswith(("[fleet]", "[elastic]", "[durable]")) or \
+                "holding" in line or "start step" in line:
+            log("fleet log %6.1f s: %s" % (at, line[:240]))
+
+    text = final["log"]
+    bad = []
+    if final["rc"] != 0:
+        bad.append("the controller exited %d" % final["rc"])
+    for needle in ("preempting job train0", "job train0 preempted",
+                   "job train0 restored",
+                   "fleet finished: all 2 job(s) completed"):
+        if needle not in text:
+            bad.append("the log lacks %r" % needle)
+    if not re.search(r"worker \d+ on \S+ drained \(rc=%d\)" % EXIT_DRAINED,
+                     text) or "escalat" in text:
+        bad.append("train0's worker did not exit EXIT_DRAINED unescalated")
+    reports = _launch_reports(text)
+    drained = [r for r in reports if r["drained"]]
+    rest = [r for r in reports if not r["drained"]]
+    step = drained[0]["step"] if len(drained) == 1 else None
+    if len(drained) != 1 or len(rest) != 1 or \
+            drained[0]["start_step"] != 0 or not 0 < step < FLEET_STEPS or \
+            rest[0]["start_step"] != step or rest[0]["restores"] != 1 or \
+            rest[0]["step"] != FLEET_STEPS:
+        bad.append("train0's processes: %s" % [
+            {k: r[k] for k in ("drained", "start_step", "step", "restores")}
+            for r in reports])
+    for r in reports:
+        n = len(r["steps"])
+        if not r["device"].startswith("cuda") or r["bad_launches"] or \
+                r["launches"] != {k: n * MODEL["num_layers"] for k in FLASH}:
+            bad.append("train0 (from step %s) on %s launched %s in %d "
+                       "steps, off by %s" % (r["start_step"], r["device"],
+                                             r["launches"], n,
+                                             r["bad_launches"][:6]))
+    # the drain: durable at the highest committed step, the process gone
+    committed = [(st, c) for kind, st, c, _ in live["lineage"]
+                 if kind == "commit"]
+    pids = [pid for kind, _, _, pid in live["lineage"] if kind == "start"]
+    if step is None or max((st for st, _ in committed), default=None) != \
+            step or live["durable_step"] != step:
+        bad.append("drained at step %s; committed %s, durable %s" % (
+            step, [st for st, _ in committed], live["durable_step"]))
+    # (nvidia-smi may list the pids of another namespace: the memory in
+    # use is the check that holds there, against train0's own peak)
+    on_card = sorted(set(pids) & set(live["gpu_pids"]))
+    peak = min(r["peak_device_bytes"] for r in reports) if reports else 0
+    if len(pids) != 1 or on_card or _alive(pids[0]) or \
+            live["used_above_start"] >= peak:
+        bad.append("train0's process %s on the card while serve0 serves "
+                   "(nvidia-smi lists %s; %.2f GiB in use above the "
+                   "phase's start, train0's peak %.2f GiB)" % (
+                       pids, live["gpu_pids"],
+                       live["used_above_start"] / 2 ** 30, peak / 2 ** 30))
+    # the restore: from a state train0 committed at the drained step
+    lineage = _fleet_lineage(text)
+    starts = [(st, c) for kind, st, c, _ in lineage if kind == "start"]
+    commit_crcs = {}
+    for kind, st, c, _ in lineage:
+        if kind == "commit":
+            commit_crcs.setdefault(st, set()).add(c)
+    done = [(st, c) for kind, st, c, _ in lineage if kind == "done"]
+    if len(starts) != 2 or starts[0][0] != 0 or starts[1][0] != step or \
+            starts[1][1] not in commit_crcs.get(step, ()) or \
+            done != [(FLEET_STEPS, c) for c in
+                     commit_crcs.get(FLEET_STEPS, ())]:
+        bad.append("train0's lineage: starts %s, done %s, commits %s" % (
+            starts, done, sorted(commit_crcs.items())))
+    bitwise = _same_state(final["state"], reference)
+    if not bitwise:
+        bad.append("train0's final state is %.3g from %s's" % (
+            _max_gap(final["state"], reference), reference_from))
+    # the controller's views
+    jobs = live["view"]["jobs"]
+    want = {"train0": ("train", "pack", "preempted"),
+            "serve0": ("serve", "spread", "running")}
+    got = {n: (j.get("kind"), j.get("placement"), j.get("state"))
+           for n, j in jobs.items()}
+    if got != want:
+        bad.append("/fleet while serve0 serves: %s" % got)
+    if {n: j["state"] for n, j in final["view"]["jobs"].items()} != {
+            "train0": "done", "serve0": "done"}:
+        bad.append("/fleet at the end: %s" % final["view"]["jobs"])
+    for label, (rc, out, err) in (("live", live["top"]),
+                                  ("final", final["top"])):
+        if rc != 0 or not all(re.search(r"^%s\s" % n, out, re.M)
+                              for n in ("train0", "serve0")):
+            bad.append("run.top --fleet --once (%s) exited %d:\n%s%s" % (
+                label, rc, out, err))
+    m = final["metrics"]
+    counts = {k: m.get("hvdtpu_fleet_%s_total" % k) for k in (
+        "preemptions", "restores", "job_completions")}
+    if counts != {"preemptions": 1, "restores": 1, "job_completions": 2} or \
+            not m.get("hvdtpu_fleet_drain_seconds_count") or \
+            not m.get("hvdtpu_fleet_restore_seconds_count"):
+        bad.append("/metrics: %s" % {k: v for k, v in m.items()
+                                     if "total" in k or "count" in k})
+    if bad:
+        fail("fleet: %s\n%s" % ("\n".join(bad), text[-8000:]))
+
+    def latency(name):
+        return m["hvdtpu_fleet_%s_sum" % name] / \
+            m["hvdtpu_fleet_%s_count" % name]
+    result = dict(
+        card=card, steps=FLEET_STEPS, drained_step=step,
+        held_s=drained[0]["held_s"],
+        drain_s=latency("drain_seconds"), restore_s=latency("restore_seconds"),
+        serve_answered=window["ok"], serve_p50_ms=window["p50_ms"],
+        serve_p99_ms=window["p99_ms"], serve_achieved_rps=window["achieved_rps"],
+        serve_device=[d.get("device") for d in live["health"].values()],
+        serve0_admitted_s=live["serve0_admitted_s"],
+        warm_step_ms=[drained[0]["median_step_ms"], rest[0]["median_step_ms"]],
+        step_ms=[r["step_ms"] for r in reports],
+        crc_ms=[r["crc_ms"] for r in reports],
+        restores=rest[0]["restores"],
+        durable_step_at_drain=live["durable_step"],
+        gpu_pids_while_serving=live["gpu_pids"],
+        used_gib_while_serving=live["used_above_start"] / 2 ** 30,
+        train0_peak_gib=peak / 2 ** 30,
+        timeline_s={k: timeline.first(k) for k in (
+            "job train0 admitted", "holding after", "preempting job train0",
+            "job train0 preempted", "job serve0 admitted",
+            "job serve0 completed", "job train0 restored",
+            "job train0 completed")},
+        bitwise=bitwise,
+        reference=reference_from, counters=counts,
+        controller_s=final["seconds"],
+        seconds=time.perf_counter() - t_phase)
+    log("fleet: %s" % json.dumps(result))
+    print(json.dumps({"fleet": result}), flush=True)
+    launches = {}
+    for r in reports:
+        for name, n in r["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("api", "kernels", "train",
@@ -5043,7 +5453,7 @@ def main():
                                        "wire_kernels", "zero1", "moe",
                                        "ulysses", "inception", "resnet_nf",
                                        "vgg16", "word2vec", "launch",
-                                       "serve"),
+                                       "serve", "fleet"),
                     help="run the device and build phases and this one")
     ap.add_argument("--profile", metavar="DIR",
                     help="after the train, resnet, resnet_lean (and its "
@@ -5113,6 +5523,8 @@ def main():
         add(phase_launch(card))
     if run("serve"):
         phase_serve(card)
+    if run("fleet"):
+        add(phase_fleet(card))
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         row = rows.get(name, {})

@@ -43,6 +43,7 @@ PORT_FILES = PACKAGE_FILES + [
     ROOT / "tests" / "torch_port_elastic_worker.py",
     ROOT / "tests" / "torch_port_durable_worker.py",
     ROOT / "tests" / "torch_port_spark_worker.py",
+    ROOT / "tests" / "torch_port_fleet_worker.py",
 ]
 
 
@@ -112,32 +113,40 @@ def test_package_imports_without_nvcc_triton_or_gpu(tmp_path):
 def test_serve_supervisor_client_and_loadgen_start_without_torch():
     """``python -m horovod_tpu_torch.serve --help`` and the supervisor, the
     client and the load generator load no torch: only the replicas
-    compute."""
+    compute. Nor do the fleet controller, its command line (``python -m
+    horovod_tpu_torch.fleet`` and ``.fleet.cli``) and hvd-top (``python
+    -m horovod_tpu_torch.run.top``): the jobs' workers compute."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     code = (
         "import sys\n"
         "import horovod_tpu_torch.serve.supervisor\n"
         "import horovod_tpu_torch.serve.client\n"
         "import horovod_tpu_torch.serve.loadgen\n"
+        "import horovod_tpu_torch.fleet\n"
+        "import horovod_tpu_torch.fleet.cli\n"
+        "import horovod_tpu_torch.run.top\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'horovod_tpu')]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    code = (
-        "import runpy, sys\n"
-        "sys.argv = ['serve', '--help']\n"
-        "try:\n"
-        "    runpy.run_module('horovod_tpu_torch.serve', "
-        "run_name='__main__')\n"
-        "except SystemExit as e:\n"
-        "    assert e.code == 0, e.code\n"
-        "assert 'torch' not in sys.modules\n")
-    proc = subprocess.run([sys.executable, "-c", code], env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert "--ckpt-dir" in proc.stdout
+    for module, option in (("horovod_tpu_torch.serve", "--ckpt-dir"),
+                           ("horovod_tpu_torch.fleet", "--drain-grace"),
+                           ("horovod_tpu_torch.fleet.cli", "--drain-grace"),
+                           ("horovod_tpu_torch.run.top", "--fleet")):
+        code = (
+            "import runpy, sys\n"
+            "sys.argv = ['tool', '--help']\n"
+            "try:\n"
+            "    runpy.run_module(%r, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "assert 'torch' not in sys.modules\n" % module)
+        proc = subprocess.run([sys.executable, "-c", code], env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, (module, proc.stderr)
+        assert option in proc.stdout, module
 
 
 def test_missing_nvcc_is_a_named_error(monkeypatch, tmp_path):
@@ -317,6 +326,19 @@ def test_entry_points_without_a_gpu_raise_the_named_error():
     finally:
         if saved_device is not None:
             os.environ["HVD_TPU_SERVE_DEVICE"] = saved_device
+    # the fleet's train worker (ROADMAP A8f): the GPU unless it is given
+    # --device cpu (or FLEET_TEST_DEVICE=cpu)
+    fleet_worker = runpy.run_path(str(ROOT / "tests" /
+                                      "torch_port_fleet_worker.py"))
+    saved_device = os.environ.pop("FLEET_TEST_DEVICE", None)
+    try:
+        for argv in ([], ["--device", "cuda"]):
+            with pytest.raises(hvd.CudaUnavailableError):
+                fleet_worker["main"](argv)
+    finally:
+        if saved_device is not None:
+            os.environ["FLEET_TEST_DEVICE"] = saved_device
+    assert not hvd.is_initialized()
     cpu = serve_model.make_forward("affine", leaves, device="cpu")
     assert cpu.device == torch.device("cpu")
     assert cpu(np.ones((2, 4), np.float32)).shape == (2, 4)

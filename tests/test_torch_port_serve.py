@@ -23,9 +23,10 @@ port's elastic driver; their kill hits the replica process, not the
 driver's middleman above it, so that no orphaned replica outlives the
 test.
 
-Not mirrored here: the ``hvd-top --serve`` renderer (``run/top.py``,
-ROADMAP A8d; its tolerance of the port's ``device`` field is checked
-below) and the serve parts of ``test_fleet.py`` (ROADMAP A8f).
+The ``hvd-top --serve`` renderer and the serve parts of ``test_fleet.py``
+are mirrored in ``tests/test_torch_port_fleet.py`` (the port's
+``run.top`` and fleet); below, the reference's ``top`` renders a port
+replica's view, whose ``device`` field it ignores.
 """
 
 import json

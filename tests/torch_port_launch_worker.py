@@ -20,6 +20,17 @@ writer has published step N's manifest, and kills itself with SIGKILL; the
 elastic driver restarts the job, and the new process resumes at step N
 from the checkpoint's CRC-checked shards.
 
+Under the fleet controller (chip_smoke.py's ``fleet`` phase) it runs as a
+job: ``--job NAME`` prints ``job NAME worker W start step S crc C size N
+pid P`` when it enters training, ``job NAME worker W commit step S crc C``
+before every commit and ``job NAME worker W done step S crc C`` at the end,
+the lines of ``tests/torch_port_fleet_worker.py``, C the CRC32C of the
+state (``state_crc``); with ``--hold-after N`` a process that started at
+step 0 waits, after step N's commit, until a drain request covering it is
+published (the preemption then lands at one of the next commits, strictly
+inside the run), and fails after ``HOLD_TIMEOUT_S``. A drained process
+prints its report (``drained``: true) before it exits ``EXIT_DRAINED``.
+
 With ``--profile-step N`` step N runs under torch.profiler (its kernels'
 device time beside its wall time). Each process prints one line
 ``LAUNCH_REPORT {json}`` (before it kills itself, or at its end: the step,
@@ -37,14 +48,17 @@ import json
 import os
 import signal
 import statistics
+import struct
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch import elastic
 from horovod_tpu_torch.elastic import durable
+from horovod_tpu_torch.elastic.state import EXIT_DRAINED
 from horovod_tpu_torch.models import Transformer, TransformerConfig
 from horovod_tpu_torch.ops.flash_attention import (launch_counts,
                                                    reset_launch_counts)
@@ -55,10 +69,54 @@ MODEL = dict(vocab_size=32000, num_layers=12, num_heads=12, embed_dim=768,
              mlp_dim=3072)
 BATCH = (8, 2048)
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+HOLD_TIMEOUT_S = 300  # --hold-after's wait for a drain request
+
+WID = os.environ.get("HVD_TPU_WORKER_ID", "?")
 
 
 def report(**fields):
     print("LAUNCH_REPORT " + json.dumps(fields), flush=True)
+
+
+def median(values):
+    values = list(values)
+    return statistics.median(values) if values else None
+
+
+_HOST = {}  # the pinned host buffer state_crc copies into, by size
+
+
+def state_crc(model, opt, step):
+    """CRC32C of the state a commit saves: the CRC32C of each parameter
+    and of each of its Adam moments (copied into one reused pinned host
+    buffer, the CRCs in a pool of threads), then the CRC32C of those CRCs
+    in order, chained with ``step=S adam=...`` (Adam's step counts)."""
+    inner = opt.optimizer
+    tensors, adam = [], []
+    for _, p in model.named_parameters():
+        tensors.append(p)
+        st = inner.state.get(p, {})
+        tensors += [st[k] for k in ("exp_avg", "exp_avg_sq") if k in st]
+        if "step" in st:
+            adam.append(float(st["step"]))
+    flat = [t.detach().contiguous().view(-1).view(torch.uint8)
+            for t in tensors]
+    total = sum(f.numel() for f in flat)
+    if total not in _HOST:
+        _HOST.clear()
+        _HOST[total] = torch.empty(total, dtype=torch.uint8,
+                                   pin_memory=torch.cuda.is_available())
+    buf, host, off = _HOST[total], [], 0
+    for f in flat:
+        host.append(buf[off:off + f.numel()])
+        host[-1].copy_(f, non_blocking=True)
+        off += f.numel()
+    torch.cuda.synchronize()
+    with ThreadPoolExecutor(8) as pool:
+        crcs = list(pool.map(durable.crc32c, host))
+    crc = durable.crc32c(struct.pack("<%dI" % len(crcs), *crcs))
+    return durable.crc32c(("step=%d adam=%s" % (step, sorted(set(adam)))
+                           ).encode(), crc)
 
 
 def profiled_step(step, tokens):
@@ -96,6 +154,10 @@ def main():
     ap.add_argument("--kill-after", type=int, default=-1)
     ap.add_argument("--profile-step", type=int, default=-1,
                     help="run this step under torch.profiler")
+    ap.add_argument("--job", help="print the fleet's lineage lines under "
+                    "this job name")
+    ap.add_argument("--hold-after", type=int, default=-1,
+                    help="after this step's commit wait for a drain request")
     args = ap.parse_args()
     assert "HVD_TPU_RANK" in os.environ or (
         os.environ.get("HVD_TPU_ELASTIC") == "1" and
@@ -123,12 +185,22 @@ def main():
     if os.environ.get("HVD_TPU_CKPT_DIR"):
         state.enable_durable(every_n_commits=1)
     log = dict(start_step=None, steps=[], losses=[], step_ms=[],
-               commit_ms=[], enqueue_ms=[], launches={n: 0 for n in FLASH},
-               bad_launches=[], profile=None)
+               commit_ms=[], enqueue_ms=[], crc_ms=[],
+               launches={n: 0 for n in FLASH}, bad_launches=[], profile=None,
+               held_s=None)
+
+    def lineage(what, step, extra=""):
+        """One of the fleet's lineage lines (with ``--job``)."""
+        print("job %s worker %s %s step %d crc %08x%s" % (
+            args.job, WID, what, step, state_crc(model, opt, step), extra),
+            flush=True)
 
     @elastic.run
     def train(state):
         log["start_step"] = state.step
+        if args.job:
+            lineage("start", state.step, " size %d pid %d" % (
+                hvd.size(), os.getpid()))
         while state.step < args.steps:
             reset_launch_counts()
             torch.cuda.synchronize()
@@ -148,14 +220,32 @@ def main():
                     log["bad_launches"].append((state.step, name,
                                                 counts[name]))
             state.step += 1
-            state.commit()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
             log["steps"].append(state.step - 1)
             log["losses"].append(loss)
             log["step_ms"].append((t1 - t0) * 1e3)
-            log["commit_ms"].append((t2 - t1) * 1e3)
             log["enqueue_ms"].append((t_enqueued - t0) * 1e3)
+            if args.job:
+                # before commit(): the drain that a commit may raise lands
+                # on exactly this state
+                lineage("commit", state.step)
+                t_crc, t1 = t1, time.perf_counter()
+                log["crc_ms"].append((t1 - t_crc) * 1e3)
+            state.commit()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            log["commit_ms"].append((t2 - t1) * 1e3)
+            if state.step == args.hold_after and log["start_step"] == 0:
+                from horovod_tpu_torch.elastic.run import drain_requested
+                print("worker %s holding after step %d until a drain "
+                      "request" % (WID, state.step), flush=True)
+                t_hold = time.perf_counter()
+                while not drain_requested():
+                    if time.perf_counter() - t_hold > HOLD_TIMEOUT_S:
+                        raise RuntimeError(
+                            "no drain request within %d s of step %d" %
+                            (HOLD_TIMEOUT_S, state.step))
+                    time.sleep(0.05)
+                log["held_s"] = time.perf_counter() - t_hold
             if state.step == args.kill_after and log["start_step"] == 0:
                 assert state.durable.flush(timeout=600)
                 manifest, _ = durable.latest_valid_manifest(
@@ -164,22 +254,23 @@ def main():
                 finish(state, killed=True)
                 os.kill(os.getpid(), signal.SIGKILL)
 
-    def finish(state, killed=False):
+    def finish(state, killed=False, drained=False):
         m = durable.METRICS
         # warm steps: not the process's first, nor the profiled one
         warm = [i for i, n in enumerate(log["steps"])
                 if i > 0 and n != args.profile_step]
-        report(killed=killed, start_step=log["start_step"], step=state.step,
+        report(killed=killed, drained=drained, start_step=log["start_step"],
+               step=state.step, held_s=log["held_s"], crc_ms=log["crc_ms"],
+               pid=os.getpid(),
                device=str(dev), gpu=torch.cuda.get_device_name(dev),
                launches=log["launches"], bad_launches=log["bad_launches"],
                losses=log["losses"], step_ms=log["step_ms"],
                commit_ms=log["commit_ms"], enqueue_ms=log["enqueue_ms"],
                profile=log["profile"],
                steps=log["steps"],
-               median_step_ms=statistics.median(
-                   log["step_ms"][i] for i in warm),
-               median_commit_ms=statistics.median(
-                   log["commit_ms"][i] for i in warm),
+               median_step_ms=median(log["step_ms"][i] for i in warm),
+               median_commit_ms=median(log["commit_ms"][i] for i in warm
+                                       if i < len(log["commit_ms"])),
                restores=m["restores"], durable_writes=m["writes"],
                durable_bytes=m["bytes"],
                write_s=m["write_seconds"], crc_s=m["crc_seconds"],
@@ -187,8 +278,15 @@ def main():
                peak_device_bytes=torch.cuda.max_memory_allocated(dev),
                params=sum(p.numel() for p in model.parameters()))
 
-    train(state)
+    try:
+        train(state)
+    except SystemExit as e:  # @elastic.run's exit after a drain
+        if e.code == EXIT_DRAINED:
+            finish(state, drained=True)
+        raise
     finish(state)
+    if args.job:
+        lineage("done", state.step)
     inner = opt.optimizer
     params = dict(model.named_parameters())
     torch.save({
