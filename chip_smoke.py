@@ -8,7 +8,7 @@
                                            # wire_kernels, zero1, moe,
                                            # ulysses, inception,
                                            # resnet_nf, vgg16, word2vec,
-                                           # launch, serve, fleet
+                                           # core, launch, serve, fleet
 
 Phases, in order; any failure exits non-zero:
 
@@ -269,6 +269,19 @@ Phases, in order; any failure exits non-zero:
    the tables under one [V, D] table; ms a step of each. Then
    ``MnistCNN`` (5 SGD steps at batch 64) and a ``checkpoint`` save and
    restore of ResNet50NF's state and its optimizer's, equal bit for bit.
+18b. core: the port's negotiation core (``horovod_tpu_torch/native/``,
+   ROADMAP A8c1) built with g++ on this machine's host (the seconds
+   printed; the library must answer as the build its name hashes, and
+   its CRC32C the check vector), then ``python -m horovod_tpu_torch.run
+   -np 2`` of ``tests/torch_port_core_worker.py smoke`` on CPU ranks (one
+   H100 holds one NCCL rank): each rank's asynchronous allreduce (float32
+   within 1e-5 of numpy's sum, int64 and bfloat16 equal), allgather of
+   uneven rows, broadcast and reduce-scatter against numpy, 24
+   collectives enqueued and synchronized in rank-shuffled orders, and 16
+   allreduces enqueued together fused into fewer responses than tensors.
+   Then, in this process on a one-rank NCCL group, ``allreduce_async`` of
+   a CUDA tensor must raise ``CudaTensorError`` naming A8c2 and leave the
+   core unstarted. Deterministic checks only; prints ``{"core": ...}``.
 19. launch: the train phase's LM (MODEL, BATCH, seeds 0 and 1, Adam 1e-4
    in the overlapped DistributedOptimizer) started by the port's launcher
    and trained in ``@elastic.run`` with a ``TorchState`` committed every
@@ -330,7 +343,13 @@ Phases, in order; any failure exits non-zero:
    20's weights alone, each replica some, the limits of (b). Then the
    pool drains to ``EXIT_DRAINED``. Prints each window's offered, sent
    and achieved rps, p50 and p99, the forward's times, each replica's
-   device and the peak memory of (a). The serve path runs no
+   device and the peak memory of (a). For each replica's swap, the
+   seconds of its stages (scan, stagger, read and CRC of the shards with
+   the unpickling, extract, fingerprint, upload, warm-up, flip; the
+   ``swap_profile`` of its ``/serve``) and the batch loop's longest gap
+   between two batches from the swap's start to a second after its flip,
+   printed before the window is checked, not limited. The serve path
+   runs no
    hand-written kernel (the products are cuBLAS's through
    ``torch.matmul``).
 21. fleet: the fleet controller (``python -m horovod_tpu_torch.fleet.cli
@@ -4452,6 +4471,100 @@ def phase_launch(card):
     return counts
 
 
+# The core phase (ROADMAP A8c1): the port's build of the negotiation core
+# on this machine's host, two CPU ranks of the asynchronous API under the
+# launcher (one H100 holds one NCCL rank), and a CUDA tensor's named error
+CORE_WORKER = "tests/torch_port_core_worker.py"
+CORE_NP = 2
+CORE_F32_TOL = 1e-5         # a float32 sum of CORE_NP ranks against numpy's
+CORE_TIMEOUT_S = 180
+
+
+def phase_core(card):
+    """The negotiation core: built with g++ here, the asynchronous API of
+    ``python -m horovod_tpu_torch.run -np 2`` CPU ranks held against
+    numpy (sums, gathers, broadcasts, a reduce-scatter, bfloat16, an
+    out-of-order enqueue, the fusion counters), and a CUDA tensor in a
+    one-rank GPU process raising ``CudaTensorError``. Deterministic
+    checks only: nothing is timed against a limit."""
+    import os
+    import subprocess
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import async_ops, core
+    t0 = time.perf_counter()
+    build_s = core.build()
+    lib = core.get_core()
+    if lib.build_id != core.digest() or lib.crc32c(b"123456789") != \
+            0xE3069283:
+        fail("core: the library %s answers as build %s (want %s)"
+             % (lib.path, lib.build_id, core.digest()))
+    env = dict(os.environ)
+    for key in list(env):
+        if key.startswith("HVD_TPU_") or key in (
+                "MASTER_ADDR", "MASTER_PORT", "PYTHONUNBUFFERED"):
+            env.pop(key)
+    env.update(PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    t1 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.run", "-np",
+             str(CORE_NP), sys.executable, str(ROOT / CORE_WORKER),
+             "smoke"], env=env, cwd=str(ROOT), capture_output=True,
+            text=True, timeout=CORE_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        fail("core: the %d-rank worker ran past %d s:\n%s" % (
+            CORE_NP, CORE_TIMEOUT_S, (e.stderr or "")[-2000:]))
+    job_s = time.perf_counter() - t1
+    docs = [json.loads(line.split(" ", 1)[1])
+            for line in proc.stdout.splitlines()
+            if line.startswith("CORE_SMOKE ")]
+    if proc.returncode != 0 or sorted(d["rank"] for d in docs) != \
+            list(range(CORE_NP)):
+        fail("core: the %d-rank worker exited %d with %d reports:\n%s\n%s"
+             % (CORE_NP, proc.returncode, len(docs), proc.stdout[-2000:],
+                proc.stderr[-3000:]))
+    for d in docs:
+        bad = [k for k in ("allreduce_int64_equal", "allreduce_bf16_equal",
+                           "allgather_equal", "broadcast_equal",
+                           "fusion_equal") if d[k] is not True]
+        if d["allreduce_f32_max_err"] > CORE_F32_TOL:
+            bad.append("allreduce_f32_max_err")
+        if d["reduce_scatter_max_err"] > CORE_F32_TOL:
+            bad.append("reduce_scatter_max_err")
+        if d["out_of_order_jobs"] != 24 or d["size"] != CORE_NP:
+            bad.append("out_of_order_jobs")
+        if not d["fusion_tensors"] == 16 > d["fusion_responses"] >= 1:
+            bad.append("fusion counters")
+        if bad:
+            fail("core: rank %d: %s: %s" % (d["rank"], bad, json.dumps(d)))
+    # a CUDA tensor in a one-rank GPU process: the named error, before the
+    # core is asked for anything
+    own = not hvd.is_initialized()
+    if own:
+        hvd.init()
+    try:
+        x = torch.ones(8, device=hvd.device())
+        try:
+            async_ops.allreduce_async(x, "core.cuda")
+        except hvd.CudaTensorError as e:
+            if "A8c2" not in str(e):
+                fail("core: CudaTensorError does not name A8c2: %s" % e)
+            cuda_error = str(e)
+        else:
+            fail("core: allreduce_async took a CUDA tensor")
+    finally:
+        if own:
+            hvd.shutdown()
+    if async_ops._handle_map or core.is_initialized():
+        fail("core: the CUDA tensor reached the core")
+    seconds = time.perf_counter() - t0
+    out = dict(card=card, build_s=build_s, job_s=job_s, seconds=seconds,
+               library=lib.path.name, ranks=docs, cuda_error=cuda_error)
+    log("core: %s" % json.dumps(out))
+    print(json.dumps({"core": out}), flush=True)
+
+
 # The serve phase: bench.py --serve's curve (bench.py:676-699: the affine
 # model at dim 16 on 2 replicas, 3 s at each rate, load seed 12) and its
 # traffic step (:721-722: the mlp at dim 2048, 280 rps, load seed 13) in
@@ -4759,7 +4872,7 @@ def _check_window(w, model, leaves_by_crc, label, bar="answers"):
                achieved_rps=achieved, sent_rps=sent, p50_ms=q(0.50),
                p99_ms=q(0.99),
                max_send_lag_ms=max((r[1] for r in rows), default=0) * 1e3,
-               wall_s=span, by_crc=by_crc)
+               wall_s=span, by_crc=by_crc, host=w.get("host"))
     if w["errors"] or mismatches or rids != expected:
         fail("serve %s at %s rps: %d of %d answered (%d distinct), errors "
              "%s, mismatches %s" % (label, rate, len(rows), w["n"],
@@ -4884,6 +4997,42 @@ def _serve_curve(tmp, load):
                 responses=pool["responses_total"])
 
 
+def _host_cpu():
+    """The machine's busy and total CPU jiffies and each process's CPU
+    jiffies and command line, from /proc."""
+    import os
+    with open("/proc/stat") as f:
+        vals = [int(v) for v in f.readline().split()[1:]]
+    procs = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open("/proc/%s/stat" % d) as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open("/proc/%s/cmdline" % d, "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(
+                    "utf-8", "replace").strip()
+            procs[int(d)] = (int(fields[11]) + int(fields[12]), cmd[-90:])
+        except (OSError, IndexError, ValueError):
+            continue
+    idle = vals[3] + vals[4]
+    return sum(vals) - idle, sum(vals), procs
+
+
+def _host_share(before, after, seconds):
+    """Over a window: the machine's busy share of its CPUs, and the six
+    processes that used the most, in cores."""
+    import os
+    tick = os.sysconf("SC_CLK_TCK")
+    used = sorted(((cpu - before[2].get(pid, (0, ""))[0]) / tick / seconds,
+                   cmd) for pid, (cpu, cmd) in after[2].items())
+    return dict(busy=(after[0] - before[0]) / max(1, after[1] - before[1]),
+                cpus=os.cpu_count(),
+                top=[[round(c, 2), cmd] for c, cmd in reversed(used[-6:])
+                     if c > 0.005])
+
+
 def _replica_pid(middleman_pid):
     """The replica process under the driver's middleman (killing it, not
     the middleman, leaves no orphan replica on its port)."""
@@ -4961,8 +5110,20 @@ def _serve_step(tmp, load):
 
     def window(seconds, rid_base):
         load.set_endpoints(sup.endpoints())
-        return load.start(s["rate"], seconds, s["dim"], s["seed"],
-                          rid_base=rid_base, deadline=30.0)
+        w = load.start(s["rate"], seconds, s["dim"], s["seed"],
+                       rid_base=rid_base, deadline=30.0)
+        w["host0"] = (time.monotonic(), _host_cpu())
+        return w
+
+    def finish(w, label):
+        """The window's answers, and the host's CPU over it, logged
+        before the window is checked."""
+        done = load.finish(w)
+        t0, before = done.pop("host0")
+        done["host"] = _host_share(before, _host_cpu(),
+                                   time.monotonic() - t0)
+        log("serve %s window host: %s" % (label, json.dumps(done["host"])))
+        return done
     try:
         health = _wait_replicas(sup.endpoints, 2, "step")
         boot_s = time.monotonic() - t0
@@ -4976,11 +5137,26 @@ def _serve_step(tmp, load):
                 fail("serve step: the replicas did not swap to step 20")
             time.sleep(0.05)
         swapped_s = time.monotonic() - t_pub
+        done = finish(w, "swap")
+        # each replica's swap: the seconds of its stages and the batch
+        # loop's longest gap around it, printed before the window's checks
+        swap_profiles = {}
+        for ep in sup.endpoints():
+            try:
+                view = _get_json("http://%s/serve" % ep)
+                swap_profiles[str(view["replica"])] = dict(
+                    view.get("swap_profile") or {},
+                    replica_p50_ms=view.get("p50_ms"),
+                    replica_p99_ms=view.get("p99_ms"))
+            except (OSError, ValueError, KeyError):
+                swap_profiles[ep] = None
+        log("serve swap profiles: %s" % json.dumps(swap_profiles))
         if swapped_s > s["swap_s"] - 1.5:
             fail("serve step: the swap took %.2f s of the %.0f s window" %
                  (swapped_s, s["swap_s"]))
-        swap = _check_window(load.finish(w), s["model"],
+        swap = _check_window(done, s["model"],
                              {crc_old: old, crc_new: new}, "swap")
+        swap["replicas"] = swap_profiles
         if not swap["by_crc"].get(crc_old) or \
                 not swap["by_crc"].get(crc_new):
             fail("serve step: answers by weights %s do not cross the swap"
@@ -5002,7 +5178,7 @@ def _serve_step(tmp, load):
                     "the load hung" if not w["job"].ready() else
                     "no replica replaced the killed one"))
             time.sleep(0.05)
-        kill = _check_window(load.finish(w), s["model"], {crc_new: new},
+        kill = _check_window(finish(w, "kill"), s["model"], {crc_new: new},
                              "kill", bar="sends")
         after = _wait_replicas(
             lambda: [ep for wid, ep in sup._replica_addrs()
@@ -5014,7 +5190,7 @@ def _serve_step(tmp, load):
                   for ep in after}
         # the pool whole again
         w = window(s["after_s"], 920000)
-        respawned = _check_window(load.finish(w), s["model"],
+        respawned = _check_window(finish(w, "respawned"), s["model"],
                                   {crc_new: new}, "respawned")
         views = {ep: _get_json("http://%s/serve" % ep) for ep in after}
         served = {ep: views[ep]["responses_total"] - before[ep]
@@ -5452,8 +5628,8 @@ def main():
                                        "ring_kernels", "sp", "lc", "lc_sp",
                                        "wire_kernels", "zero1", "moe",
                                        "ulysses", "inception", "resnet_nf",
-                                       "vgg16", "word2vec", "launch",
-                                       "serve", "fleet"),
+                                       "vgg16", "word2vec", "core",
+                                       "launch", "serve", "fleet"),
                     help="run the device and build phases and this one")
     ap.add_argument("--profile", metavar="DIR",
                     help="after the train, resnet, resnet_lean (and its "
@@ -5519,6 +5695,8 @@ def main():
         phase_vgg16()
     if run("word2vec"):
         phase_word2vec()
+    if run("core"):
+        phase_core(card)
     if run("launch"):
         add(phase_launch(card))
     if run("serve"):

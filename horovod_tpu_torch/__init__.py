@@ -15,6 +15,12 @@ root-saves, every-rank-restores checkpoint, ``ops.agc`` adaptive gradient
 clipping (``DistributedOptimizer(agc=)``), and ``models`` the model zoo. It
 imports ``torch`` and numpy, never JAX or the ``horovod_tpu`` package.
 
+The asynchronous collectives (``allreduce_async``, ``reduce_scatter_async``,
+``allgather_async``, ``broadcast_async``, ``poll``, ``synchronize``) take
+CPU tensors and run on the port's own build of the negotiation core
+(``common/core.py``, ``native/``): named collectives that the ranks may
+enqueue in any order, fused and negotiated by the core's coordinator.
+
 ``run`` is the launcher (``python -m horovod_tpu_torch.run -np N cmd``),
 ``elastic`` the elastic state, the ``@elastic.run`` decorator, its driver
 and durable checkpoints, and ``spark`` the Spark barrier-task runner.
@@ -37,6 +43,9 @@ _EXPORTS = {
         "is_initialized", "local_rank", "local_size", "mesh_groups",
         "model_group", "model_parallel_size", "process_group",
         "rank", "register_init_callback", "shutdown", "size"),
+    "horovod_tpu_torch.common.async_ops": (
+        "CudaTensorError", "allgather_async", "allreduce_async",
+        "broadcast_async", "poll", "reduce_scatter_async", "synchronize"),
     "horovod_tpu_torch.common.ops": (
         "HorovodInternalError", "allgather", "allreduce", "broadcast",
         "reduce_scatter", "shard_partition", "sync_batch_norm_stats"),

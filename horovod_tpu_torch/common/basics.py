@@ -28,7 +28,10 @@ through an in-process ``HashStore``. The ``store`` argument (with
 larger world falls back to ``MASTER_ADDR``/``MASTER_PORT`` (``env://``).
 The local rank, which picks the GPU, comes from the table (or from the
 launcher's ``HVD_TPU_LOCAL_RANK``); without one, from the hostnames the
-ranks publish in the store, never from the rank.
+ranks publish in the store, never from the rank. An elastic worker's
+local rank is the slot the driver gave it on its host
+(``HVD_TPU_SLOTS``, every rank's slot in its generation): it keeps it,
+and with it its GPU, across generations.
 
 ``init(ranks=[...])`` is the rank-subset init (the reference's
 ``_remap_subset_env``): the listed world ranks form a process group with
@@ -47,6 +50,8 @@ import socket
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.run.util import slots_from_env, topology_of
+
 
 class CudaUnavailableError(RuntimeError):
     """An entry point was asked for the GPU (the default) on a machine
@@ -56,7 +61,7 @@ class CudaUnavailableError(RuntimeError):
 _state = {"device": None, "rank": 0, "size": 1, "local_rank": 0,
           "local_size": 1, "cross_rank": 0, "cross_size": 1,
           "homogeneous": True, "group": None, "mesh": None,
-          "init_args": None}
+          "store": None, "init_args": None}
 
 _TOPOLOGY_KEYS = ("HVD_TPU_RANK", "HVD_TPU_SIZE", "HVD_TPU_LOCAL_RANK",
                   "HVD_TPU_LOCAL_SIZE", "HVD_TPU_CROSS_RANK",
@@ -131,7 +136,8 @@ def _maybe_rendezvous():
     from horovod_tpu_torch.run import rendezvous
     os.environ.update(rendezvous.resolve_topology(
         _env_int("HVD_TPU_RANK", 0), size, rdv_addr, _start_timeout(),
-        generation=_env_int("HVD_TPU_GENERATION", 0)))
+        generation=_env_int("HVD_TPU_GENERATION", 0),
+        slots=slots_from_env(size)))
 
 
 def _restore_world_env():
@@ -185,23 +191,6 @@ def _check_subset(ranks, world_size):
         if not 0 <= r < world_size:
             raise ValueError("rank %d out of range for world size %d" %
                              (r, world_size))
-
-
-def _topology_of(hosts, rank):
-    """(local_rank, local_size, cross_rank, cross_size, homogeneous) of
-    ``rank`` from every rank's host (index == rank): local = same host,
-    cross = the hosts with a rank at this local rank, in order of first
-    appearance (``run/util.py``'s ``topology_env``); homogeneous when
-    every host holds the same number of ranks."""
-    by_host = {}
-    for r, h in enumerate(hosts):
-        by_host.setdefault(h, []).append(r)
-    local = by_host[hosts[rank]]
-    local_rank = local.index(rank)
-    cross = [h for h in by_host if len(by_host[h]) > local_rank]
-    sizes = {len(v) for v in by_host.values()}
-    return (local_rank, len(local), cross.index(hosts[rank]), len(cross),
-            len(sizes) == 1)
 
 
 def _table_store(addrs, rank, size, timeout):
@@ -281,8 +270,10 @@ def init(device=None, store=None, rank=None, size=None, model_parallel=None,
         raise RuntimeError("HVD_TPU_ADDRS holds %d addresses for a world "
                            "of %d" % (len(table), world_size))
     if table is not None:
-        topo = _topology_of([a.rsplit(":", 1)[0] for a in table],
-                            world_rank)
+        # an elastic worker's local rank is its slot, kept across
+        # generations, so that it keeps its GPU
+        topo = topology_of([a.rsplit(":", 1)[0] for a in table],
+                           world_rank, slots_from_env(world_size))
     elif not explicit and "HVD_TPU_LOCAL_RANK" in os.environ:
         topo = (_env_int("HVD_TPU_LOCAL_RANK", 0),
                 _env_int("HVD_TPU_LOCAL_SIZE", 1),
@@ -299,8 +290,8 @@ def init(device=None, store=None, rank=None, size=None, model_parallel=None,
         size_ = _env_int("HVD_TPU_SIZE", 1)
         if size_ > 1:  # a member: the subset's slice of the table
             table = os.environ["HVD_TPU_ADDRS"].split(",")
-            topo = _topology_of([a.rsplit(":", 1)[0] for a in table],
-                                rank_)
+            topo = topology_of([a.rsplit(":", 1)[0] for a in table],
+                               rank_)
         else:
             table, topo = None, (0, 1, 0, 1, True)
     else:
@@ -337,15 +328,20 @@ def init(device=None, store=None, rank=None, size=None, model_parallel=None,
         pg_store = dist.HashStore()
     elif table is not None:
         # a fresh store for every generation (new ports from its own
-        # rendezvous), under its generation's prefix besides
-        pg_store = dist.PrefixStore("g%d" % generation, _table_store(
+        # rendezvous), under its generation's prefix besides; where the
+        # negotiation core already listens on the table's ports, on a
+        # port that rank 0 broadcasts through the core
+        from horovod_tpu_torch.common import core
+        make = core.process_group_store if core.is_initialized() and \
+            not ranks else _table_store
+        pg_store = dist.PrefixStore("g%d" % generation, make(
             table, rank_, size_, timeout))
     else:
         pg_store, _, _ = next(dist.rendezvous(
             "env://", rank_, size_,
             timeout=datetime.timedelta(seconds=timeout)))
     if topo is None:
-        topo = (_topology_of(_hosts_from_store(pg_store, rank_, size_,
+        topo = (topology_of(_hosts_from_store(pg_store, rank_, size_,
                                                timeout), rank_)
                 if size_ > 1 else (0, 1, 0, 1, True))
         if device is None:
@@ -357,6 +353,7 @@ def init(device=None, store=None, rank=None, size=None, model_parallel=None,
     rendezvous.release_held_ports()
     local_rank, local_size, cross_rank, cross_size, homogeneous = topo
     _state.update(device=dev, group=dist.group.WORLD, mesh=None,
+                  store=pg_store,
                   rank=rank_, size=size_, local_rank=local_rank,
                   local_size=local_size, cross_rank=cross_rank,
                   cross_size=cross_size, homogeneous=homogeneous,
@@ -445,7 +442,7 @@ def shutdown():
     """Destroys the process group (also one whose peer was lost)."""
     if dist.is_initialized():
         dist.destroy_process_group()
-    _state.update(device=None, group=None, mesh=None)
+    _state.update(device=None, group=None, mesh=None, store=None)
 
 
 def last_init_args():
@@ -508,6 +505,12 @@ def device():
     """The device this rank's collectives and model live on."""
     _require()
     return _state["device"]
+
+
+def process_group_store():
+    """The store the process group was formed on."""
+    _require()
+    return _state["store"]
 
 
 def process_group():

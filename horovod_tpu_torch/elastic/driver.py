@@ -22,9 +22,19 @@ Membership is published to the driver-owned rendezvous server at scope
 Worker ids are stable per spawned process; ranks are reassigned every
 generation in worker-id order, so the longest-lived worker is always the
 new rank 0 (the state-sync root).
+
+Each worker also holds a local slot on its host for its whole life
+(``"slots": {"<worker_id>": slot}`` in the state above, and
+``HVD_TPU_LOCAL_SLOT`` in its env): the lowest slot no live worker on
+the host holds when it is spawned. A worker's local rank, and so its
+GPU, is its slot in every generation (``run/util.py``'s
+``topology_of``), so a replacement takes a freed slot and never a
+survivor's, and two ranks on one host never share a GPU. The reference
+reassigns local ranks by worker id each generation.
 """
 
 import collections
+import itertools
 import json
 import os
 import signal
@@ -41,10 +51,11 @@ _Slot = collections.namedtuple("_Slot", ["hostname", "rank"])
 
 
 class _Worker:
-    def __init__(self, worker_id, hostname, proc):
+    def __init__(self, worker_id, hostname, proc, slot):
         self.worker_id = worker_id
         self.hostname = hostname
         self.proc = proc
+        self.slot = slot  # local slot on its host, kept for its life
         self.started = time.monotonic()
         self.healthy = False  # outlived the health window at least once
 
@@ -121,17 +132,25 @@ class ElasticDriver:
         self._addr = None
 
     # -- worker spawn ------------------------------------------------------
-    def _worker_env(self, worker_id):
+    def _free_slot(self, hostname):
+        """The lowest local slot on ``hostname`` that no live worker
+        holds."""
+        taken = {w.slot for w in self._workers.values()
+                 if w.hostname == hostname}
+        return next(s for s in itertools.count() if s not in taken)
+
+    def _worker_env(self, worker_id, slot):
         from horovod_tpu_torch.run.run import worker_base_env
         env = worker_base_env(self._base_env)
         for key in ("HVD_TPU_ADDRS", "HVD_TPU_RANK", "HVD_TPU_SIZE",
                     "HVD_TPU_LOCAL_RANK", "HVD_TPU_LOCAL_SIZE",
                     "HVD_TPU_CROSS_RANK", "HVD_TPU_CROSS_SIZE",
-                    "HVD_TPU_GENERATION"):
+                    "HVD_TPU_GENERATION", "HVD_TPU_SLOTS"):
             env.pop(key, None)
         env.update({
             "HVD_TPU_ELASTIC": "1",
             "HVD_TPU_WORKER_ID": str(worker_id),
+            "HVD_TPU_LOCAL_SLOT": str(slot),
             "HVD_TPU_RENDEZVOUS_ADDR": self._addr,
             rendezvous.KEY_ENV: self._secret,
         })
@@ -149,31 +168,42 @@ class ElasticDriver:
 
         wid = self._next_worker_id
         self._next_worker_id += 1
-        slot = _Slot(hostname=hostname, rank=wid)
-        proc = launch([slot], [self._worker_env(wid)], self._command,
+        local_slot = self._free_slot(hostname)
+        proc = launch([_Slot(hostname=hostname, rank=wid)],
+                      [self._worker_env(wid, local_slot)], self._command,
                       ssh_port=self._ssh_port, verbose=self._verbose)[0]
-        self._workers[wid] = _Worker(wid, hostname, proc)
+        self._workers[wid] = _Worker(wid, hostname, proc, local_slot)
         if self._verbose:
-            sys.stderr.write("[elastic] spawned worker %d on %s\n"
-                             % (wid, hostname))
+            sys.stderr.write("[elastic] spawned worker %d on %s slot %d\n"
+                             % (wid, hostname, local_slot))
         return wid
 
     # -- membership publication --------------------------------------------
-    def _publish(self, status="running"):
-        self._generation += 1
+    def _put_state(self, status):
+        """Publishes the current generation's membership; returns its
+        size."""
         assignment = {str(wid): rank for rank, wid in
                       enumerate(sorted(self._workers))}
         self._server.put_local(SCOPE_ELASTIC, KEY_STATE, json.dumps({
             "generation": self._generation,
             "size": len(assignment),
             "assignment": assignment,
+            "slots": {str(wid): w.slot for wid, w in self._workers.items()},
             "status": status,
         }))
+        return len(assignment)
+
+    def _publish(self, status="running"):
+        self._generation += 1
+        size = self._put_state(status)
         self._published_at = time.monotonic()
-        self._published_size = len(assignment)
+        self._published_size = size
         if self._verbose:
             sys.stderr.write("[elastic] generation %d: %s\n"
-                             % (self._generation, assignment))
+                             % (self._generation, {
+                                 wid: (rank, self._workers[wid].slot)
+                                 for rank, wid in
+                                 enumerate(sorted(self._workers))}))
 
     def _publish_done(self):
         """Re-publishes the current generation with status \"done\": a
@@ -181,14 +211,7 @@ class ElasticDriver:
         finishes has no generation left to join — it must exit cleanly
         instead of timing out with a failure rc. Generation is NOT
         bumped, so workers mid-training are not interrupted."""
-        assignment = {str(wid): rank for rank, wid in
-                      enumerate(sorted(self._workers))}
-        self._server.put_local(SCOPE_ELASTIC, KEY_STATE, json.dumps({
-            "generation": self._generation,
-            "size": len(assignment),
-            "assignment": assignment,
-            "status": "done",
-        }))
+        self._put_state("done")
 
     def _generation_resolved(self):
         """True when the current generation needs no rendezvous

@@ -111,7 +111,9 @@ def _log(msg):
 
 NATIVE_DIR = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+# -Bsymbolic: the library's own calls stay its own in a process that also
+# loaded the reference's core (RTLD_GLOBAL), whose symbols share the names
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-Wl,-Bsymbolic")
 
 _PY_TABLE = None
 
@@ -437,15 +439,11 @@ def list_checkpoints(directory):
     return out
 
 
-def validate_manifest(ckpt_dir, deep=True):
-    """Loads and validates one checkpoint directory: manifest parses,
-    every shard exists with the manifested byte size — and, when `deep`
-    (the restore path), the manifested CRC32C over the actual bytes.
-    `deep=False` (a stat per shard, no data read) is for bookkeeping
-    like retention, where re-reading every byte of every kept
-    checkpoint on each publish would tax the very storage the writer is
-    protecting against. Returns the manifest dict or None (never
-    raises)."""
+def read_manifest(ckpt_dir):
+    """The manifest of one checkpoint directory when it parses and names
+    its shards, else None (never raises). The shards are not looked at:
+    ``validate_manifest`` checks them, or ``load_leaves(verify=True)`` on
+    its one read."""
     path = os.path.join(ckpt_dir, MANIFEST_NAME)
     try:
         with open(path, "rb") as f:
@@ -459,7 +457,22 @@ def validate_manifest(ckpt_dir, deep=True):
     shards = manifest.get("shards")
     if not isinstance(shards, list) or not shards:
         return None
-    for shard in shards:
+    return manifest
+
+
+def validate_manifest(ckpt_dir, deep=True):
+    """Loads and validates one checkpoint directory: manifest parses,
+    every shard exists with the manifested byte size — and, when `deep`
+    (the restore path), the manifested CRC32C over the actual bytes.
+    `deep=False` (a stat per shard, no data read) is for bookkeeping
+    like retention, where re-reading every byte of every kept
+    checkpoint on each publish would tax the very storage the writer is
+    protecting against. Returns the manifest dict or None (never
+    raises)."""
+    manifest = read_manifest(ckpt_dir)
+    if manifest is None:
+        return None
+    for shard in manifest["shards"]:
         try:
             spath = os.path.join(ckpt_dir, shard["file"])
             if not deep:

@@ -2,9 +2,45 @@
 
 #include <mutex>
 
+#if defined(__x86_64__)
+#include <nmmintrin.h>
+#endif
+
 namespace hvdtpu {
 
 namespace {
+
+#if defined(__x86_64__)
+// SSE4.2's crc32 instruction computes this CRC (the reflected Castagnoli
+// polynomial), 8 bytes an instruction: several GB/s against the tables'
+// 1-2. Used when the CPU has it (every x86-64 CPU since 2008 does); the
+// same values as the tables', which the tests hold it to.
+__attribute__((target("sse4.2"))) uint32_t Crc32cSse42(
+    const unsigned char* p, std::size_t len, uint32_t crc) {
+  uint64_t c = static_cast<uint32_t>(~crc);
+  while (len > 0 && (reinterpret_cast<uintptr_t>(p) & 7) != 0) {
+    c = _mm_crc32_u8(static_cast<uint32_t>(c), *p++);
+    --len;
+  }
+  while (len >= 8) {
+    uint64_t word;
+    __builtin_memcpy(&word, p, 8);
+    c = _mm_crc32_u64(c, word);
+    p += 8;
+    len -= 8;
+  }
+  while (len > 0) {
+    c = _mm_crc32_u8(static_cast<uint32_t>(c), *p++);
+    --len;
+  }
+  return ~static_cast<uint32_t>(c);
+}
+
+bool HaveSse42() {
+  static const bool have = __builtin_cpu_supports("sse4.2");
+  return have;
+}
+#endif
 
 // 8 slicing tables, generated once at first use (8 KiB total).
 uint32_t g_tables[8][256];
@@ -31,8 +67,11 @@ void BuildTables() {
 }  // namespace
 
 uint32_t Crc32c(const void* data, std::size_t len, uint32_t crc) {
-  std::call_once(g_tables_once, BuildTables);
   const unsigned char* p = static_cast<const unsigned char*>(data);
+#if defined(__x86_64__)
+  if (HaveSse42()) return Crc32cSse42(p, len, crc);
+#endif
+  std::call_once(g_tables_once, BuildTables);
   crc = ~crc;
   // Byte-at-a-time until 8-byte alignment, then slicing-by-8.
   while (len > 0 && (reinterpret_cast<uintptr_t>(p) & 7) != 0) {

@@ -43,7 +43,7 @@ from .state import (EXIT_DRAINED, KEY_DRAIN, KEY_STATE, SCOPE_ELASTIC,
 _GENERATION_ENV_KEYS = (
     "HVD_TPU_RANK", "HVD_TPU_SIZE", "HVD_TPU_LOCAL_RANK",
     "HVD_TPU_LOCAL_SIZE", "HVD_TPU_CROSS_RANK", "HVD_TPU_CROSS_SIZE",
-    "HVD_TPU_ADDRS",
+    "HVD_TPU_ADDRS", "HVD_TPU_SLOTS",
 )
 
 
@@ -232,8 +232,10 @@ def fetch_assignment(addr, timeout, min_generation=0, worker_id=None):
 
 def bootstrap_topology(min_generation=0, timeout=None):
     """Sets HVD_TPU_RANK/SIZE/GENERATION from the driver-published
-    assignment (this worker identified by HVD_TPU_WORKER_ID). The
-    subsequent dynamic rendezvous then runs in the generation's scope."""
+    assignment (this worker identified by HVD_TPU_WORKER_ID), and
+    HVD_TPU_SLOTS (every rank's local slot) where the driver publishes
+    slots. The subsequent dynamic rendezvous then runs in the
+    generation's scope."""
     addr = os.environ.get("HVD_TPU_RENDEZVOUS_ADDR")
     wid = os.environ.get("HVD_TPU_WORKER_ID")
     if not addr or wid is None:
@@ -249,6 +251,11 @@ def bootstrap_topology(min_generation=0, timeout=None):
     os.environ["HVD_TPU_RANK"] = str(info["assignment"][str(wid)])
     os.environ["HVD_TPU_SIZE"] = str(info["size"])
     os.environ["HVD_TPU_GENERATION"] = str(info["generation"])
+    slots = info.get("slots")
+    if slots:  # every rank's local slot, by rank: the local ranks
+        by_rank = sorted(info["assignment"], key=info["assignment"].get)
+        os.environ["HVD_TPU_SLOTS"] = ",".join(str(slots[w])
+                                               for w in by_rank)
     return info
 
 

@@ -472,12 +472,14 @@ def _resolve_table(table, size, my_rank):
         return list(pool.map(pick, range(size)))
 
 
-def resolve_topology(rank, size, rendezvous_addr, timeout=60, generation=0):
+def resolve_topology(rank, size, rendezvous_addr, timeout=60, generation=0,
+                     slots=None):
     """Worker-side rendezvous: publish my candidate addresses + chosen
     port, let rank 0 probe reachability and publish ONE resolved table
     (globally consistent — per-rank interface choices could split the
     derived local/cross topology), derive the HVD_TPU_* env from it.
-    `generation` scopes the exchange to one elastic membership epoch."""
+    `generation` scopes the exchange to one elastic membership epoch;
+    `slots` (every rank's local slot) sets the local ranks."""
     from .util import topology_env
 
     scope_addrs = gen_scope(SCOPE_ADDRS, generation)
@@ -519,4 +521,4 @@ def resolve_topology(rank, size, rendezvous_addr, timeout=60, generation=0):
             raise RuntimeError(
                 "resolved rendezvous table has %d entries for world "
                 "size %d" % (len(addrs), size))
-    return topology_env(rank, addrs)
+    return topology_env(rank, addrs, slots)

@@ -4,11 +4,13 @@ Copy of ``horovod_tpu/run/util.py`` for the port (which imports nothing of
 ``horovod_tpu``): ``parse_hosts``, ``parse_hostfile`` and
 ``allocate_slots`` (the reference launcher's host parsing and slot
 allocation, ``horovod/run/gloo_run.py:51-109``), ``topology_env`` (the
-``HVD_TPU_*`` topology of one rank from every rank's ``host:port``) and
+``HVD_TPU_*`` topology of one rank from every rank's ``host:port``,
+``topology_of`` under it, with the elastic driver's stable slots) and
 ``cpu_worker_env`` (the env of CPU-only worker processes).
 """
 
 import collections
+import os
 import socket
 
 HostInfo = collections.namedtuple("HostInfo", ["hostname", "slots"])
@@ -93,30 +95,54 @@ def allocate_slots(hosts, np):
     return slots
 
 
-def topology_env(rank, host_ports):
-    """Computes the HVD_TPU_* env for `rank` given every rank's "host:port"
-    (index == rank). Topology semantics shared by the launcher, the Spark
-    barrier tasks and rank-subset init: local = same host, cross = same
-    local_rank across hosts."""
-    size = len(host_ports)
-    hosts = [hp.rsplit(":", 1)[0] for hp in host_ports]
+def topology_of(hosts, rank, slots=None):
+    """(local_rank, local_size, cross_rank, cross_size, homogeneous) of
+    ``rank`` from every rank's host (index == rank). Local = same host.
+    The local rank is the rank's place among its host's ranks, or, given
+    ``slots`` (every rank's local slot, index == rank: the elastic
+    driver's, which a worker keeps across generations), its slot. Cross =
+    the hosts with a rank at this local rank, in order of first
+    appearance; homogeneous when every host holds the same number of
+    ranks."""
     by_host = collections.defaultdict(list)
     for r, h in enumerate(hosts):
         by_host[h].append(r)
-    my_host = hosts[rank]
-    local_ranks = by_host[my_host]
-    local_rank = local_ranks.index(rank)
-    # cross: hosts that have a rank at this local_rank, ordered by first
-    # appearance.
-    host_order = list(dict.fromkeys(hosts))
-    cross_hosts = [h for h in host_order if len(by_host[h]) > local_rank]
+    if slots is None:
+        slots = [by_host[h].index(r) for r, h in enumerate(hosts)]
+    local_rank = slots[rank]
+    cross = [h for h in dict.fromkeys(hosts)
+             if any(slots[r] == local_rank for r in by_host[h])]
+    return (local_rank, len(by_host[hosts[rank]]),
+            cross.index(hosts[rank]), len(cross),
+            len({len(v) for v in by_host.values()}) == 1)
+
+
+def slots_from_env(size=None):
+    """Every rank's local slot (index == rank) from ``HVD_TPU_SLOTS``,
+    which an elastic worker sets from its generation's membership; None
+    without it (or when it does not cover ``size`` ranks)."""
+    raw = os.environ.get("HVD_TPU_SLOTS")
+    if not raw:
+        return None
+    slots = [int(v) for v in raw.split(",")]
+    return slots if size is None or len(slots) == size else None
+
+
+def topology_env(rank, host_ports, slots=None):
+    """Computes the HVD_TPU_* env for `rank` given every rank's "host:port"
+    (index == rank). Topology semantics shared by the launcher, the Spark
+    barrier tasks and rank-subset init: local = same host, cross = same
+    local_rank across hosts (``topology_of``; ``slots`` as there)."""
+    hosts = [hp.rsplit(":", 1)[0] for hp in host_ports]
+    local_rank, local_size, cross_rank, cross_size, _ = topology_of(
+        hosts, rank, slots)
     return {
         "HVD_TPU_RANK": str(rank),
-        "HVD_TPU_SIZE": str(size),
+        "HVD_TPU_SIZE": str(len(host_ports)),
         "HVD_TPU_LOCAL_RANK": str(local_rank),
-        "HVD_TPU_LOCAL_SIZE": str(len(local_ranks)),
-        "HVD_TPU_CROSS_RANK": str(cross_hosts.index(my_host)),
-        "HVD_TPU_CROSS_SIZE": str(len(cross_hosts)),
+        "HVD_TPU_LOCAL_SIZE": str(local_size),
+        "HVD_TPU_CROSS_RANK": str(cross_rank),
+        "HVD_TPU_CROSS_SIZE": str(cross_size),
         "HVD_TPU_ADDRS": ",".join(host_ports),
     }
 
@@ -141,10 +167,9 @@ def cpu_worker_env(base_env=None, extra_env=None, repo_root=None):
       Buffered stdout flushes a whole line at once; workers that need
       promptness use ``print(..., flush=True)``.
     """
-    import os as _os
-    env = dict(base_env if base_env is not None else _os.environ)
+    env = dict(base_env if base_env is not None else os.environ)
     if repo_root:
-        env["PYTHONPATH"] = repo_root + _os.pathsep + \
+        env["PYTHONPATH"] = repo_root + os.pathsep + \
             env.get("PYTHONPATH", "")
     env.pop("PYTHONUNBUFFERED", None)
     env["CUDA_VISIBLE_DEVICES"] = ""

@@ -113,8 +113,8 @@ def fingerprint(leaves):
     crc = 0
     for key in sorted(leaves):
         crc = durable.crc32c(key.encode("utf-8"), crc)
-        crc = durable.crc32c(
-            np.ascontiguousarray(leaves[key]).tobytes(), crc)
+        # the array's own buffer (C order), not a copy of it
+        crc = durable.crc32c(np.ascontiguousarray(leaves[key]), crc)
     return "%08x" % crc
 
 
@@ -133,7 +133,8 @@ def extract_leaves(raw, template):
     basename match, so a TRAINING job's durable lineage serves directly,
     optimizer slots and step counters ignored. Returns the {name: float32
     array} dict or None when any model leaf is missing or
-    shape-mismatched (the replica then keeps its current weights)."""
+    shape-mismatched (the replica then keeps its current weights). A
+    float32 leaf is taken as it is, not copied."""
     out = {}
     for want, ref in template.items():
         cands = sorted(
@@ -143,7 +144,7 @@ def extract_leaves(raw, template):
         for k in cands:
             arr = _host_array(raw[k])
             if arr.shape == ref.shape:
-                picked = arr.astype(np.float32)
+                picked = np.asarray(arr, dtype=np.float32)
                 break
         if picked is None:
             return None
@@ -151,11 +152,12 @@ def extract_leaves(raw, template):
     return out
 
 
-def resolve_device(device=None, worker_id=0):
+def resolve_device(device=None, slot=0):
     """The ``torch.device`` a forward runs on: ``device`` as given
     (``"cpu"``, ``"cuda:1"``, a ``torch.device``), else the GPU
-    ``cuda:(worker_id mod torch.cuda.device_count())``. A CUDA device on
-    a machine without one raises ``CudaUnavailableError``."""
+    ``cuda:(slot mod torch.cuda.device_count())``, ``slot`` the replica's
+    local slot on its host. A CUDA device on a machine without one raises
+    ``CudaUnavailableError``."""
     import torch
     from horovod_tpu_torch.common.basics import CudaUnavailableError
     dev = torch.device("cuda" if device is None else device)
@@ -166,24 +168,29 @@ def resolve_device(device=None, worker_id=0):
             "HVD_TPU_SERVE_DEVICE=cpu), and torch.cuda.is_available() is "
             "false")
     if device is None:
-        dev = torch.device("cuda", int(worker_id) %
-                           torch.cuda.device_count())
+        dev = torch.device("cuda", int(slot) % torch.cuda.device_count())
     return dev
 
 
 def make_forward(name, leaves, device=None):
     """Callable batch -> outputs over a FIXED leaves dict, on ``device``
     (see :func:`resolve_device`; None: ``cuda:0``). The leaves are
-    uploaded once, as float32 tensors, and the upload has finished when
-    this returns, so a weight swap builds the new callable off the
-    request path and flips one reference: in-flight batches finish on the
-    tensors the old one holds. Each call takes a float32 numpy frame
-    ([B, D]) and returns numpy."""
+    uploaded once, as float32 tensors, straight from their host arrays
+    (a float32 one is not copied on the host), and the upload has
+    finished when this returns, so a weight swap builds the new callable
+    off the request path and flips one reference: in-flight batches
+    finish on the tensors the old one holds. Each call takes a float32
+    numpy frame ([B, D]) and returns numpy."""
     fwd = _entry(name)[1]
     import torch
     dev = resolve_device(device)
-    on_device = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
-                 for k, v in leaves.items()}
+    on_device = {}
+    for k, v in leaves.items():
+        host = np.ascontiguousarray(v, dtype=np.float32)
+        if not host.flags.writeable:  # torch.from_numpy needs one
+            host = host.copy()
+        # copy=True: on the CPU too, the forward holds its own leaves
+        on_device[k] = torch.from_numpy(host).to(dev, copy=True)
     if dev.type == "cuda":
         # the swap watcher's thread uploads while the batch loop computes
         # on the same stream: the new set is complete before it is

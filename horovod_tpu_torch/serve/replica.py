@@ -8,11 +8,12 @@ exactly like a training worker: ``HVD_TPU_WORKER_ID`` names it,
 ``port_base + worker_id`` — deterministic, so the supervisor and clients
 compute endpoints instead of needing a registry.
 
-Its forward runs on the GPU. A replica never calls ``init()`` and the
-driver gives it no local rank, only its worker id, so its device is
-``cuda:(worker_id mod torch.cuda.device_count())``; a respawned replica
-(a new worker id) can so share a GPU with a survivor on a multi-GPU
-host. ``--device`` (or ``HVD_TPU_SERVE_DEVICE``) names another device,
+Its forward runs on the GPU. A replica never calls ``init()``; its
+device is ``cuda:(slot mod torch.cuda.device_count())``, the slot being
+the local slot the driver gave it on its host (``HVD_TPU_LOCAL_SLOT``,
+else its worker id). A respawned replica takes the lowest free slot, the
+killed one's, and so its GPU, never a survivor's.
+``--device`` (or ``HVD_TPU_SERVE_DEVICE``) names another device,
 ``cpu`` for the CPU tests. Without a GPU and without ``--device cpu``
 the replica raises ``CudaUnavailableError`` and exits non-zero. Its
 products run in float32: the replica turns TF32 off in its process.
@@ -36,6 +37,7 @@ silently dropped.
 """
 
 import argparse
+import collections
 import os
 import signal
 import sys
@@ -73,7 +75,7 @@ def make_parser():
     ap.add_argument("--device", default=os.environ.get(
         "HVD_TPU_SERVE_DEVICE"),
         help="where the forward runs (default: the GPU "
-             "cuda:(worker id mod GPU count); cpu for tests)")
+             "cuda:(local slot mod GPU count); cpu for tests)")
     ap.add_argument("--max-batch", type=int, default=int(os.environ.get(
         "HVD_TPU_SERVE_MAX_BATCH", "16")))
     ap.add_argument("--max-delay-ms", type=float,
@@ -103,7 +105,8 @@ class Replica:
     def __init__(self, args):
         self.args = args
         self.wid = int(os.environ.get("HVD_TPU_WORKER_ID", "0"))
-        self.device = _model.resolve_device(args.device, self.wid)
+        self.slot = int(os.environ.get("HVD_TPU_LOCAL_SLOT", self.wid))
+        self.device = _model.resolve_device(args.device, self.slot)
         self.metrics = ServeMetrics()
         self.chaos = ServeChaos.from_env()
         self.batcher = MicroBatcher(
@@ -126,6 +129,11 @@ class Replica:
         self.httpd = None
         self.port = None
         self.watcher = None
+        # monotonic start times of the recent batches: the longest gap
+        # between two of them around a swap is what the swap stalled
+        # the batch loop
+        self._batch_starts = collections.deque(maxlen=4096)
+        self.ctx.swap_profile_fn = self.swap_profile
         self._trace = trace_emit.shard_for("serve_r%d" % self.wid,
                                            rank=self.wid)
 
@@ -140,17 +148,40 @@ class Replica:
         device; in-flight batches finish on the forward they
         snapshotted. The new forward runs once on zeros in every bucket
         first, so that the requests after a boot, a respawn or a swap do
-        not pay for loading the device's libraries and kernels."""
+        not pay for loading the device's libraries and kernels. Returns
+        the seconds of each stage (upload, warm-up, flip)."""
+        t0 = time.monotonic()
         fwd = _model.make_forward(self.args.model, leaves,
                                   device=self.device)
+        t1 = time.monotonic()
         mb = self.args.max_batch
         for bucket in sorted({bucket_for(n, mb) for n in range(1, mb + 1)}):
             fwd(np.zeros((bucket, self.args.dim), np.float32))
+        t2 = time.monotonic()
         with self._flip_lock:
             self.step, self.leaves, self.crc = step, leaves, crc
             self.forward = fwd
         self.ctx.set_weights(step, crc)
         self.metrics.set_gauge("serve_model_step", step)
+        return {"upload_s": t1 - t0, "warmup_s": t2 - t1,
+                "flip_s": time.monotonic() - t2}
+
+    def swap_profile(self, tail=1.0):
+        """The last swap's stages in seconds and ``max_gap_ms``: the
+        longest gap between two batch starts from the swap's start to
+        ``tail`` seconds after its flip (to now, if that is sooner).
+        None before the first swap."""
+        prof = self.watcher.last_profile if self.watcher else None
+        if prof is None:
+            return None
+        lo, hi = prof["t0"], min(prof["t1"] + tail, time.monotonic())
+        starts = list(self._batch_starts)
+        before = [t for t in starts if t < lo]
+        marks = before[-1:] + [t for t in starts if lo <= t <= hi] + [hi]
+        gap = max((b - a for a, b in zip(marks, marks[1:])), default=0.0)
+        out = {k: v for k, v in prof.items() if k not in ("t0", "t1")}
+        out["max_gap_ms"] = gap * 1e3
+        return out
 
     def _snapshot_forward(self):
         with self._flip_lock:
@@ -218,7 +249,7 @@ class Replica:
                 flip_fn=self._flip, metrics=self.metrics,
                 draining_fn=lambda: self._drain_seen,
                 interval=self.args.swap_interval,
-                stagger=self.args.swap_stagger * self.wid,
+                stagger=self.args.swap_stagger * self.slot,
                 verbose=self.args.verbose)
             self.watcher.start()
 
@@ -230,6 +261,7 @@ class Replica:
             self._poll_drain()
             tickets = self.batcher.next_batch(timeout=0.05)
             if tickets:
+                self._batch_starts.append(time.monotonic())
                 fwd, stamp = self._snapshot_forward()
                 # Per-request span (docs/TRACING.md): one "serve.batch"
                 # span per forward into this replica's own trace shard,

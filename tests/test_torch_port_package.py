@@ -44,6 +44,7 @@ PORT_FILES = PACKAGE_FILES + [
     ROOT / "tests" / "torch_port_durable_worker.py",
     ROOT / "tests" / "torch_port_spark_worker.py",
     ROOT / "tests" / "torch_port_fleet_worker.py",
+    ROOT / "tests" / "torch_port_core_worker.py",
 ]
 
 
@@ -102,7 +103,9 @@ def test_package_imports_without_nvcc_triton_or_gpu(tmp_path):
         "('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu', 'triton')]\n"
         "assert not bad, bad\n"
         "from horovod_tpu_torch.ops import _build\n"
-        "assert not _build._libs\n" % mods)
+        "assert not _build._libs\n"
+        "from horovod_tpu_torch.common import core\n"
+        "assert core._core is None\n" % mods)
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),
                PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -342,6 +345,16 @@ def test_entry_points_without_a_gpu_raise_the_named_error():
     cpu = serve_model.make_forward("affine", leaves, device="cpu")
     assert cpu.device == torch.device("cpu")
     assert cpu(np.ones((2, 4), np.float32)).shape == (2, 4)
+    # the asynchronous API (ROADMAP A8c1) takes the caller's host tensors:
+    # one on another device raises its named error before the core starts
+    from horovod_tpu_torch.common import core
+    for call in (lambda t: hvd.allreduce_async(t, "x"),
+                 lambda t: hvd.broadcast_async(t, 0, "x"),
+                 lambda t: hvd.allgather_async(t, "x"),
+                 lambda t: hvd.reduce_scatter_async(t, "x")):
+        with pytest.raises(hvd.CudaTensorError, match="A8c2"):
+            call(torch.zeros(2, device="meta"))
+    assert not core.is_initialized()
     # the codec wrappers: on CPU tensors their plain versions, no kernel
     from horovod_tpu_torch.ops import wire_codec
     before = wire_codec.launch_counts()

@@ -333,6 +333,10 @@ def test_default_device_is_the_gpu():
     from horovod_tpu_torch.parallel import MoeMlp
     with pytest.raises(CudaUnavailableError):
         MoeMlp(768, 8, 3072)
+    # a serve replica's forward: the GPU of its local slot by default
+    from horovod_tpu_torch.serve import model as serve_model
+    with pytest.raises(CudaUnavailableError):
+        serve_model.resolve_device(None, slot=3)
     for kw in (dict(moe_experts=8), dict(attention="ulysses", sp_axis="sp"),
                dict(tp_axis="tp")):
         with pytest.raises(CudaUnavailableError):

@@ -13,7 +13,8 @@ re-shards to any world size at generation entry (the optimizer's
 reduce-scatter's sum and the averaging are exact and the trajectory does
 not depend on the world size: ``run_steps`` computes it in one process.
 
-Prints ``worker W start step S crc C size N`` when it enters training,
+Prints ``worker W start step S crc C size N gen G local L`` when it
+enters a generation (L its local rank, the GPU it would take),
 ``worker W commit step S crc C`` after every commit and ``worker W done
 step S crc C`` at the end, C the CRC32C of the parameters, the full
 optimizer state and the step.
@@ -27,6 +28,8 @@ Knobs (env):
   DURABLE_TEST_PID_DIR      write pid.<wid> files here
   DURABLE_TEST_HOLD_STEP    after committing this step, wait until the
                             job is killed (-1 = never)
+  DURABLE_TEST_STEP_SLEEP   seconds each step sleeps, so that a
+                            respawned worker joins mid-run (default 0)
 
 Imports torch and the port only.
 """
@@ -48,6 +51,7 @@ CRASH_WIDS = set(
     w for w in os.environ.get("DURABLE_TEST_CRASH_WIDS", "").split(",")
     if w)
 HOLD_STEP = int(os.environ.get("DURABLE_TEST_HOLD_STEP", "-1"))
+STEP_SLEEP = float(os.environ.get("DURABLE_TEST_STEP_SLEEP", "0"))
 LR = 0.05
 TARGET = 3.0
 SHAPES = {"w": (19,), "b": (6,)}  # 25 elements: uneven at 2 and 4 ranks
@@ -119,11 +123,13 @@ def train(state):
     params = {k: torch.nn.Parameter(v.detach().clone())
               for k, v in state.params.items()}
     opt = make_optimizer(params, state.opt_full)
-    print("worker %s start step %d crc %08x size %d"
+    gen = int(os.environ.get("HVD_TPU_GENERATION", "0") or 0)
+    print("worker %s start step %d crc %08x size %d gen %d local %d"
           % (WID, state.step, state_crc(params, state.opt_full, state.step),
-             hvd.size()), flush=True)
+             hvd.size(), gen, hvd.local_rank()), flush=True)
     while state.step < TOTAL_STEPS:
-        gen = int(os.environ.get("HVD_TPU_GENERATION", "0") or 0)
+        if STEP_SLEEP:
+            time.sleep(STEP_SLEEP)
         one_step(params, opt)
         state.step += 1
         if WID in CRASH_WIDS and gen == 0 and state.step == CRASH_STEP:
