@@ -15,7 +15,8 @@ Phases, in order; any failure exits non-zero:
 1. device: requires CUDA and prints the card's name and power limit
    (``nvidia-smi --query-gpu=name,power.limit``).
 2. build: compiles ``horovod_tpu_torch/ops/csrc/*.cu`` with nvcc for
-   sm_90a, one process per source, and prints the seconds.
+   sm_90a, one process per source, and beside it the negotiation core
+   (``horovod_tpu_torch/native``) with g++, and prints the seconds.
 2b. api: the data-parallel API on a one-rank NCCL group
    (``init(model_parallel=1)``): ``new_group([0])``; ``allreduce`` and
    ``reduce_scatter`` (an odd count, 1,000,003) without a group, with
@@ -68,7 +69,13 @@ Phases, in order; any failure exits non-zero:
    steps, the same weights through plain (dense) attention: the first
    loss at 8 x 2048, and every parameter's gradient at 2 x 2048 (worst
    ||g_flash - g_plain||_2 / ||g_plain||_2 <= 5e-2). Checks finite and
-   falling losses and 12 launches of each kernel per step.
+   falling losses and 12 launches of each kernel per step. Then the same
+   LM from the same seed with ``DistributedOptimizer(negotiated=True)``
+   (ROADMAP A8c2: every bucket an ``allreduce_async`` negotiated by the
+   core and run on NCCL by its device op; ``train_negotiated``): the
+   same overlap check against both routes' ``allreduce_gradients`` bit
+   for bit, 7 steps with finite, falling losses and 12 launches of each
+   of K1-K3 a step; its step ms printed beside the direct route's.
 5. bn_kernels: runs the BN statistics kernels K7 (sum x, sum x^2) and K8
    (sum dy, sum dy * x_hat) at ResNet-50 shapes (the stem, M = 256 * 112 *
    112, C = 64; a stage-3 layer, 50176 x 1024; the last stage, 12544 x
@@ -279,9 +286,18 @@ Phases, in order; any failure exits non-zero:
    uneven rows, broadcast and reduce-scatter against numpy, 24
    collectives enqueued and synchronized in rank-shuffled orders, and 16
    allreduces enqueued together fused into fewer responses than tensors.
-   Then, in this process on a one-rank NCCL group, ``allreduce_async`` of
-   a CUDA tensor must raise ``CudaTensorError`` naming A8c2 and leave the
-   core unstarted. Deterministic checks only; prints ``{"core": ...}``.
+   Then CUDA tensors through the core's device op (ROADMAP A8c2), in this
+   process on a one-rank NCCL group (``core_cuda_checks``): every
+   ``*_async`` in float32, bfloat16 and int64 with pre- and postscale and
+   ``out=`` aliasing the input, each equal (``torch.equal``) to what one
+   rank implies; an allgather of a [5, 3] tensor; a ``group=`` of the one
+   rank (its core id its id); 16 small allreduces enqueued together, in
+   fewer responses than tensors; an input a long kernel writes on a side
+   stream, ``poll`` False before ``synchronize`` and the result read on a
+   third stream; a host name reused on the GPU (the response cache keys
+   on the device). Over all of them the core's CPU ops and its TCP data
+   plane move nothing (its ring byte and host-op counters). Deterministic
+   checks only; prints ``{"core": ...}`` with the CUDA checks' seconds.
 19. launch: the train phase's LM (MODEL, BATCH, seeds 0 and 1, Adam 1e-4
    in the overlapped DistributedOptimizer) started by the port's launcher
    and trained in ``@elastic.run`` with a ``TorchState`` committed every
@@ -748,11 +764,30 @@ def phase_device():
     return card
 
 
+# seconds of the negotiation core's g++ build in phase_build
+CORE_BUILD = {}
+
+
 def phase_build():
+    """nvcc for the kernels and, beside it, g++ for the negotiation core
+    (the core and train phases load it). The core is built here, before
+    the first profiler session: built in the train phase, after the
+    kernels phase's traces, its g++ processes were followed by
+    bn_kernels' traces losing device records (twice in the first smoke on
+    a fresh machine; never in a process that had not traced yet)."""
+    import threading
+    from horovod_tpu_torch.common import core
     from horovod_tpu_torch.ops import _build
+    core_thread = threading.Thread(
+        target=lambda: CORE_BUILD.update(seconds=core.build()))
+    core_thread.start()
     seconds = _build.build()
-    print("build: %.1f s (%s)" % (seconds, ", ".join(
-        "%s.cu" % s for s in _build.SOURCES)), flush=True)
+    core_thread.join()
+    if "seconds" not in CORE_BUILD:
+        fail("the negotiation core did not build (see the traceback above)")
+    print("build: %.1f s (%s); the core %.1f s" % (seconds, ", ".join(
+        "%s.cu" % s for s in _build.SOURCES), CORE_BUILD["seconds"]),
+        flush=True)
     for src in _build.SOURCES:
         log_file = _build.library_path(src).with_suffix(".log")
         if not log_file.exists():
@@ -1712,14 +1747,15 @@ def phase_api():
     print("api: " + json.dumps(result), flush=True)
 
 
-def check_overlap(hvd, opt, params, backward):
+def check_overlap(hvd, opt, params, backward, negotiated=False):
     """The overlapped reduction of ``opt`` (a DistributedOptimizer over
     ``params``) on one ``backward()``: every bucket must go out while the
     backward runs, in bucket order, and the reduced gradients must equal
     ``allreduce_gradients`` on a copy of the same local gradients bit for
-    bit; after a backward that sent nothing (as an accumulating
-    microbatch's), ``synchronize()`` must send every bucket in order.
-    Leaves the gradients cleared."""
+    bit (``negotiated``: both routes' ``allreduce_gradients``); after a
+    backward that sent nothing (as an accumulating microbatch's),
+    ``synchronize()`` must send every bucket in order. Leaves the
+    gradients cleared."""
     import torch
     opt.zero_grad()
     backward()
@@ -1727,11 +1763,14 @@ def check_overlap(hvd, opt, params, backward):
     local = [None if p.grad is None else p.grad.clone() for p in params]
     opt.synchronize()
     got = [p.grad for p in params]
-    for p, g in zip(params, local):
-        p.grad = g
-    hvd.allreduce_gradients(params)
-    equal = all((a is None and p.grad is None) or torch.equal(a, p.grad)
-                for a, p in zip(got, params))
+    equal = True
+    for route in ((False, True) if negotiated else (False,)):
+        for p, g in zip(params, local):
+            p.grad = None if g is None else g.clone()
+        hvd.allreduce_gradients(params, negotiated=route)
+        equal = equal and all(
+            (a is None and p.grad is None) or torch.equal(a, p.grad)
+            for a, p in zip(got, params))
     opt.zero_grad()
     with opt._no_sync():
         backward()
@@ -1842,8 +1881,87 @@ def phase_train(profile_dir=None):
     print("train: " + json.dumps(result), flush=True)
     if profile_dir:
         profile_steps(step, tokens, profile_dir, "lm")
+    del step, opt, model
+    torch.cuda.empty_cache()
+    negotiated = train_negotiated(hvd, cfg, tokens, result["step_ms"],
+                                  profile_dir)
     hvd.shutdown()
-    return {name: counts[name] for name in FLASH}
+    return {name: counts[name] + negotiated[name] for name in FLASH}
+
+
+def train_negotiated(hvd, cfg, tokens, direct_step_ms, profile_dir=None):
+    """The train phase's LM again, from the same seed, with its gradients
+    negotiated through the core (ROADMAP A8c2):
+    ``DistributedOptimizer(negotiated=True)``, each bucket an
+    ``allreduce_async`` of CUDA tensors that the core's device op runs on
+    NCCL. One backward through its hooks (``check_overlap``: the buckets
+    in order, the gradients equal to both routes' ``allreduce_gradients``
+    bit for bit), then 2 warm-up and 5 timed steps: finite, falling
+    losses, 12 launches of each of K1-K3 a step, every bucket through the
+    device op. Prints the step ms beside the direct route's; no limit.
+    With ``profile_dir``, 3 more steps profiled (``lm_negotiated``).
+    Returns the kernels' launches."""
+    import torch
+    from horovod_tpu_torch.common import core, device_plane
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.ops.flash_attention import (launch_counts,
+                                                       reset_launch_counts)
+    from horovod_tpu_torch.parallel import lm_loss, make_train_step
+    dev = hvd.device()
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    core.init()
+    plane = device_plane.current()
+    opt = hvd.DistributedOptimizer(torch.optim.Adam(model.parameters(),
+                                                    lr=1e-4),
+                                   model.named_parameters(), negotiated=True)
+    overlap = check_overlap(hvd, opt, list(model.parameters()),
+                            lambda: lm_loss(model, tokens).backward(),
+                            negotiated=True)
+    step = make_train_step(model, lm_loss, opt)
+    warmup, timed = 2, 5
+    torch.cuda.synchronize()
+    responses0 = plane.responses
+    tensors0 = core.get_core().perf_counters()[1]
+    reset_launch_counts()
+    losses, times = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        loss = step(tokens).item()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log("negotiated step %d: loss %.5f, %.1f ms"
+            % (i, loss, times[-1] * 1e3))
+    counts = launch_counts()
+    steps = warmup + timed
+    responses = plane.responses - responses0
+    tensors = core.get_core().perf_counters()[1] - tensors0
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        fail("negotiated: non-finite loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        fail("negotiated: loss did not fall: %s" % losses)
+    for name, n in counts.items():
+        per_step = cfg.num_layers if name in FLASH else 0
+        if n != per_step * steps:
+            fail("negotiated: %s launched %d times in %d steps, expected %d "
+                 "per step" % (name, n, steps, per_step))
+    if tensors != steps * len(opt.buckets) or responses < 1:
+        fail("negotiated: %d tensors and %d device responses in %d steps "
+             "of %d buckets" % (tensors, responses, steps, len(opt.buckets)))
+    step_ms = statistics.median(times[warmup:]) * 1e3
+    result = dict(step_ms=step_ms, direct_step_ms=direct_step_ms,
+                  device_responses=responses, tensors=tensors,
+                  loss_first=losses[0], loss_last=losses[-1],
+                  launches=counts, steps=steps, **overlap)
+    log("negotiated LM step %.1f ms beside the direct route's %.1f ms"
+        % (step_ms, direct_step_ms))
+    print("train negotiated: " + json.dumps(result), flush=True)
+    if profile_dir:
+        profile_steps(step, tokens, profile_dir, "lm_negotiated")
+    del step, opt, model
+    core.shutdown()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _ghost_gradient_gaps(model, stock, batch, vbs):
@@ -4471,29 +4589,162 @@ def phase_launch(card):
     return counts
 
 
-# The core phase (ROADMAP A8c1): the port's build of the negotiation core
-# on this machine's host, two CPU ranks of the asynchronous API under the
-# launcher (one H100 holds one NCCL rank), and a CUDA tensor's named error
+# The core phase (ROADMAP A8c1, A8c2): the port's build of the negotiation
+# core on this machine's host, two CPU ranks of the asynchronous API under
+# the launcher (one H100 holds one NCCL rank), and CUDA tensors through the
+# core's device op on a one-rank NCCL group in this process
 CORE_WORKER = "tests/torch_port_core_worker.py"
 CORE_NP = 2
 CORE_F32_TOL = 1e-5         # a float32 sum of CORE_NP ranks against numpy's
 CORE_TIMEOUT_S = 180
+CORE_SCALES = (2.0, 0.25)   # the pre- and postscale of the CUDA checks
+CORE_LONG_SLEEP = 1 << 31   # cycles of the side stream's long kernel (~1 s)
+# the core's counters of its CPU ops: none may move on CUDA tensors
+CORE_HOST_COUNTERS = ("net_ring_bytes_sent_total", "net_ring_bytes_recv_total",
+                      "allreduce_uncompressed_total", "allreduce_bf16_total",
+                      "allreduce_int8_total", "reduce_scatter_total")
+
+
+def _core_scaled(x, factor):
+    """``x`` scaled as the core scales a buffer: the product in double,
+    cast back (an integer truncates)."""
+    import torch
+    if factor == 1.0:
+        return x.clone()
+    if x.dtype == torch.float64:
+        return x * factor
+    return (x.to(torch.float64) * factor).to(x.dtype)
+
+
+def _core_counters(core):
+    c = json.loads(core.get_core().metrics_json())["counters"]
+    return {k: c.get(k, 0) for k in CORE_HOST_COUNTERS}
+
+
+def core_cuda_checks():
+    """CUDA tensors through the core's device op on a one-rank NCCL group
+    (ROADMAP A8c2), each result held with ``torch.equal`` to what one rank
+    implies, computed in the same order; returns (checks, the names that
+    failed)."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import async_ops, core, device_plane
+    sync = async_ops.synchronize
+    t0 = time.perf_counter()
+    c = core.init()
+    plane = device_plane.current()
+    dev = hvd.device()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    checks, bad = {}, []
+
+    def check(name, ok):
+        checks[name] = bool(ok)
+        if not ok:
+            bad.append(name)
+
+    # a host name first, then the same name on the GPU (the cache key)
+    host = np.arange(12, dtype=np.float32)
+    check("host_name_on_host", np.array_equal(
+        sync(async_ops.allreduce_async(host, "core.reuse")), host))
+    before, responses0 = _core_counters(core), plane.responses
+    x_reuse = torch.arange(12, dtype=torch.float32, device=dev)
+    for i in range(2):  # a fresh negotiation, then a cache hit
+        check("host_name_on_gpu_%d" % i, torch.equal(sync(
+            async_ops.allreduce_async(x_reuse, "core.reuse")), x_reuse))
+    pre, post = CORE_SCALES
+    for dtype in (torch.float32, torch.bfloat16, torch.int64):
+        if dtype == torch.int64:
+            x = torch.randint(-1000, 1000, (1000, 33), device=dev,
+                              generator=gen)
+        else:
+            x = torch.randn(1000, 33, device=dev, generator=gen).to(dtype)
+        tag = str(dtype).replace("torch.", "")
+        want = _core_scaled(_core_scaled(x, pre), post)
+        got = sync(async_ops.allreduce_async(
+            x, "core.ar." + tag, prescale_factor=pre, postscale_factor=post))
+        check("allreduce_" + tag, got.is_cuda and torch.equal(got, want))
+        y = x.clone()
+        out = sync(async_ops.allreduce_async(
+            y, "core.ar_out." + tag, prescale_factor=pre,
+            postscale_factor=post, out=y))
+        check("allreduce_out_aliasing_" + tag, out is y and
+              torch.equal(y, want))
+        got = sync(async_ops.reduce_scatter_async(
+            x, "core.rs." + tag, prescale_factor=pre, postscale_factor=post))
+        check("reduce_scatter_" + tag, torch.equal(
+            got, _core_scaled(_core_scaled(x.reshape(-1), pre), post)))
+        got = sync(async_ops.allgather_async(x, "core.ag." + tag))
+        check("allgather_" + tag, got.is_cuda and torch.equal(got, x))
+        y = x.clone()
+        out = sync(async_ops.broadcast_async(y, 0, "core.bc." + tag, out=y))
+        check("broadcast_out_aliasing_" + tag, out is y and
+              torch.equal(y, x))
+    x53 = torch.randn(5, 3, device=dev, generator=gen)
+    got = sync(async_ops.allgather_async(x53, "core.ag53"))
+    check("allgather_5x3", got.shape == (5, 3) and torch.equal(got, x53))
+    group = hvd.new_group([0])
+    check("group_core_id", group.core_id == group.id)
+    got = sync(async_ops.allreduce_async(x53, "core.grp", group=group))
+    check("allreduce_group", torch.equal(got, x53))
+    # 16 small allreduces enqueued together: fused into fewer responses
+    r0, t0_ = c.perf_counters()
+    small = [torch.full((256,), float(i), device=dev) for i in range(16)]
+    handles = [async_ops.allreduce_async(t, "core.fuse.%d" % i)
+               for i, t in enumerate(small)]
+    check("fusion_equal", all(torch.equal(sync(h), t)
+                              for h, t in zip(handles, small)))
+    r1, t1_ = c.perf_counters()
+    checks["fusion_tensors"], checks["fusion_responses"] = t1_ - t0_, r1 - r0
+    if not (t1_ - t0_ == 16 > r1 - r0 >= 1):
+        bad.append("fusion counters")
+    # an input a long kernel on a side stream writes; the result read on a
+    # third stream after synchronize
+    side, third = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    z = torch.zeros(1 << 20, device=dev)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(CORE_LONG_SLEEP)
+        z.fill_(3.0)
+        h = async_ops.allreduce_async(z, "core.long", postscale_factor=0.5)
+    polled = [async_ops.poll(h)]
+    time.sleep(0.05)
+    polled.append(async_ops.poll(h))
+    with torch.cuda.stream(third):
+        got = sync(h)
+        read = (got * 2.0).sum()
+    third.synchronize()
+    check("long_kernel_poll_false_before", polled == [False, False])
+    check("long_kernel_result", float(read) == 3.0 * z.numel())
+    torch.cuda.synchronize()
+    after = _core_counters(core)
+    moved = {k: after[k] - before[k] for k in CORE_HOST_COUNTERS}
+    checks["host_plane_deltas"] = moved
+    if any(moved.values()):
+        bad.append("host plane moved %s" % moved)
+    checks["device_responses"] = plane.responses - responses0
+    checks["ring_bytes"] = moved["net_ring_bytes_sent_total"] + \
+        moved["net_ring_bytes_recv_total"]
+    checks["cuda_seconds"] = time.perf_counter() - t0
+    core.shutdown()
+    return checks, bad
 
 
 def phase_core(card):
-    """The negotiation core: built with g++ here, the asynchronous API of
-    ``python -m horovod_tpu_torch.run -np 2`` CPU ranks held against
-    numpy (sums, gathers, broadcasts, a reduce-scatter, bfloat16, an
-    out-of-order enqueue, the fusion counters), and a CUDA tensor in a
-    one-rank GPU process raising ``CudaTensorError``. Deterministic
-    checks only: nothing is timed against a limit."""
+    """The negotiation core: built with g++ in the build phase, the
+    asynchronous API of ``python -m horovod_tpu_torch.run -np 2`` CPU
+    ranks held against numpy (sums, gathers, broadcasts, a reduce-scatter,
+    bfloat16, an out-of-order enqueue, the fusion counters), and CUDA
+    tensors in this process on a one-rank NCCL group through the core's
+    device op (``core_cuda_checks``). Deterministic checks only: nothing
+    is timed against a limit."""
     import os
     import subprocess
     import torch
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.common import async_ops, core
     t0 = time.perf_counter()
-    build_s = core.build()
+    build_s = CORE_BUILD.get("seconds", 0.0) + core.build()
     lib = core.get_core()
     if lib.build_id != core.digest() or lib.crc32c(b"123456789") != \
             0xE3069283:
@@ -4538,29 +4789,26 @@ def phase_core(card):
             bad.append("fusion counters")
         if bad:
             fail("core: rank %d: %s: %s" % (d["rank"], bad, json.dumps(d)))
-    # a CUDA tensor in a one-rank GPU process: the named error, before the
-    # core is asked for anything
+    # CUDA tensors through the device op, on a one-rank NCCL group
     own = not hvd.is_initialized()
     if own:
         hvd.init()
     try:
-        x = torch.ones(8, device=hvd.device())
-        try:
-            async_ops.allreduce_async(x, "core.cuda")
-        except hvd.CudaTensorError as e:
-            if "A8c2" not in str(e):
-                fail("core: CudaTensorError does not name A8c2: %s" % e)
-            cuda_error = str(e)
-        else:
-            fail("core: allreduce_async took a CUDA tensor")
+        if torch.distributed.get_backend(hvd.process_group()) != "nccl":
+            fail("core: the process group is not NCCL")
+        cuda, bad = core_cuda_checks()
     finally:
         if own:
             hvd.shutdown()
+    log("core cuda: %s" % json.dumps(cuda))
+    if bad:
+        fail("core: CUDA tensors through the device op: %s" % bad)
     if async_ops._handle_map or core.is_initialized():
-        fail("core: the CUDA tensor reached the core")
+        fail("core: handles left behind, or the core still running")
     seconds = time.perf_counter() - t0
     out = dict(card=card, build_s=build_s, job_s=job_s, seconds=seconds,
-               library=lib.path.name, ranks=docs, cuda_error=cuda_error)
+               library=lib.path.name, ranks=docs, cuda=cuda,
+               nccl_built=hvd.nccl_built())
     log("core: %s" % json.dumps(out))
     print(json.dumps({"core": out}), flush=True)
 
@@ -5221,11 +5469,35 @@ def _serve_step(tmp, load):
                 responses_after_respawn=served)
 
 
+def check_negotiated_gone(phase):
+    """Before a phase that is timed against a limit (serve, fleet): what
+    this process still runs of the negotiated runs (the core and its
+    thread, the device plane, its executor and finalizer threads, a
+    ``torch.distributed`` group and with it the executor's communicators)
+    must be nothing; prints the live threads beside it."""
+    import threading
+    import torch.distributed as dist
+    from horovod_tpu_torch.common import core, device_plane
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith("hvd-device-")]
+    if core.is_initialized():
+        left.append("the negotiation core")
+    if device_plane.current() is not None:
+        left.append("the device plane")
+    if dist.is_initialized():
+        left.append("a torch.distributed group")
+    log("%s start: threads %s, left of the negotiated runs %s" % (
+        phase, sorted(t.name for t in threading.enumerate()), left))
+    if left:
+        fail("%s: the negotiated runs left %s running" % (phase, left))
+
+
 def phase_serve(card):
     """The serve plane on the card: the forward in process, the curve
     through the CLI, the traffic step with a swap and a kill."""
     import shutil
     import tempfile
+    check_negotiated_gone("serve")
     t0 = time.perf_counter()
     forward = _serve_forward()
     for name in ("affine", "mlp"):
@@ -5377,6 +5649,7 @@ def phase_fleet(card):
     from horovod_tpu_torch.elastic.state import EXIT_DRAINED
     from horovod_tpu_torch.serve import model as smodel
     from horovod_tpu_torch.serve.swap import publish_leaves
+    check_negotiated_gone("fleet")
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()  # the jobs need the card's memory
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
@@ -5636,6 +5909,7 @@ def main():
                     "bn_remat steps), sp, lc_sp, moe, ulysses and inception "
                     "phases, profile 3 more steps each (lc always profiles) "
                     "and write the kernel tables to DIR/chip_smoke_{lm,"
+                    "lm_negotiated,"
                     "resnet,resnet_lean,resnet_lean_remat,sp,lc,lc_unfused,"
                     "lc_sp,moe,ulysses,inception}_profile.txt")
     args = ap.parse_args()

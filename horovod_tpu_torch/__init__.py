@@ -16,10 +16,18 @@ clipping (``DistributedOptimizer(agc=)``), and ``models`` the model zoo. It
 imports ``torch`` and numpy, never JAX or the ``horovod_tpu`` package.
 
 The asynchronous collectives (``allreduce_async``, ``reduce_scatter_async``,
-``allgather_async``, ``broadcast_async``, ``poll``, ``synchronize``) take
-CPU tensors and run on the port's own build of the negotiation core
-(``common/core.py``, ``native/``): named collectives that the ranks may
-enqueue in any order, fused and negotiated by the core's coordinator.
+``allgather_async``, ``broadcast_async``, ``poll``, ``synchronize``) run on
+the port's own build of the negotiation core (``common/core.py``,
+``native/``): named collectives that the ranks may enqueue in any order,
+fused and negotiated by the core's coordinator, over ``group=`` (a
+``new_group`` group, registered in the core's table too). They take CPU
+tensors and numpy arrays, moved by the core's TCP data plane, and CUDA
+tensors on this rank's GPU, which the core's device op hands to the
+executor of ``common/device_plane.py``: NCCL on the card, no copy through
+the host. ``DistributedOptimizer(negotiated=True)`` and
+``allreduce_gradients(negotiated=True)`` send the gradients through them;
+the default stays ``torch.distributed``. ``nccl_built()``, ``gloo_built()``
+and the reference's other build queries answer for the port.
 
 ``run`` is the launcher (``python -m horovod_tpu_torch.run -np N cmd``),
 ``elastic`` the elastic state, the ``@elastic.run`` decorator, its driver
@@ -38,13 +46,16 @@ import importlib
 # name -> the module that defines it
 _EXPORTS = {
     "horovod_tpu_torch.common.basics": (
-        "CudaUnavailableError", "batch_group", "cross_rank", "cross_size",
-        "device", "init", "init_distributed", "is_homogeneous",
+        "CudaUnavailableError", "batch_group", "cpu_ops_built",
+        "cross_rank", "cross_size", "ddl_built", "device", "gloo_built",
+        "gloo_enabled", "init", "init_distributed", "is_homogeneous",
         "is_initialized", "local_rank", "local_size", "mesh_groups",
-        "model_group", "model_parallel_size", "process_group",
-        "rank", "register_init_callback", "shutdown", "size"),
+        "mlsl_built", "model_group", "model_parallel_size", "mpi_built",
+        "mpi_enabled", "mpi_threads_supported", "nccl_built",
+        "process_group", "rank", "register_init_callback", "shutdown",
+        "size", "tcp_built"),
     "horovod_tpu_torch.common.async_ops": (
-        "CudaTensorError", "allgather_async", "allreduce_async",
+        "DeviceTensorError", "allgather_async", "allreduce_async",
         "broadcast_async", "poll", "reduce_scatter_async", "synchronize"),
     "horovod_tpu_torch.common.ops": (
         "HorovodInternalError", "allgather", "allreduce", "broadcast",
@@ -56,7 +67,8 @@ _EXPORTS = {
     "horovod_tpu_torch.groups": (
         "WORLD", "ProcessGroup", "group_rank", "group_size", "new_group"),
     "horovod_tpu_torch.optimizer": (
-        "DistributedOptimizer", "ReplicatedDistributedOptimizer",
+        "DistributedOptimizer", "NegotiatedElasticError",
+        "ReplicatedDistributedOptimizer",
         "ShardedDistributedOptimizer", "allreduce_gradients",
         "broadcast_optimizer_state", "broadcast_parameters",
         "sharded_state_full", "sharded_state_shard"),

@@ -362,6 +362,12 @@ def init(device=None, store=None, rank=None, size=None, model_parallel=None,
     from horovod_tpu_torch import divergence, groups
     groups.reset()
     divergence.reset()
+    from horovod_tpu_torch.common import core
+    if core.is_initialized():
+        # the core runs already: its executor of CUDA tensors joins the
+        # new group
+        from horovod_tpu_torch.common import device_plane
+        device_plane.attach()
     for cb in _init_callbacks:
         cb()
     # The env is persisted only after the mesh formed against the live
@@ -439,7 +445,16 @@ def init_distributed(local_device_ids=None):
 
 
 def shutdown():
-    """Destroys the process group (also one whose peer was lost)."""
+    """Destroys the process group (also one whose peer was lost), and
+    with it the negotiation core's executor of CUDA tensors. Where that
+    executor runs, the core stops first, as at exit: its shutdown runs
+    what every rank negotiated while the executor is there to run it, and
+    fails every other handle, so no handle waits on a response that
+    nothing would take."""
+    from horovod_tpu_torch.common import core, device_plane
+    if device_plane.current() is not None:
+        core.shutdown()
+    device_plane.detach()
     if dist.is_initialized():
         dist.destroy_process_group()
     _state.update(device=None, group=None, mesh=None, store=None)
@@ -517,3 +532,58 @@ def process_group():
     """The world process group."""
     _require()
     return _state["group"]
+
+
+# The reference's build queries (horovod_tpu/__init__.py:350-394), as the
+# port answers them: the TCP and CPU data plane and the gloo role come
+# from the port's build of the negotiation core (built at first use),
+# NCCL is the core's device op with torch.distributed's NCCL, and the
+# MPI, DDL and MLSL backends do not exist.
+
+def _core_query(fn):
+    from horovod_tpu_torch.common import core
+    return bool(getattr(core.get_core().lib, fn)())
+
+
+def tcp_built():
+    return _core_query("horovod_tpu_tcp_built")
+
+
+def cpu_ops_built():
+    return _core_query("horovod_tpu_cpu_ops_built")
+
+
+def gloo_built():
+    """True: the core's TCP data plane fills the gloo role."""
+    return tcp_built()
+
+
+def gloo_enabled():
+    return tcp_built()
+
+
+def nccl_built():
+    """True when the core's device op is built and torch.distributed has
+    NCCL: CUDA tensors of the asynchronous API then run on NCCL."""
+    return _core_query("horovod_tpu_device_op_built") and \
+        dist.is_nccl_available()
+
+
+def mpi_threads_supported():
+    return False
+
+
+def mpi_enabled():
+    return False
+
+
+def mpi_built():
+    return False
+
+
+def ddl_built():
+    return False
+
+
+def mlsl_built():
+    return False

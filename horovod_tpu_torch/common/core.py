@@ -5,6 +5,11 @@ with ctypes (ROADMAP A8c1).
 reference's core (``horovod_tpu/native/``, the Makefile's ``SRCS``: the
 coordinator, tensor fusion, the response cache, the cycle, the TCP data
 plane and the rest) and one source of the port's own, ``port_build.cc``.
+The copies are the port's own to extend: the enqueue takes the tensor's
+device, the coordinator rejects a name enqueued on the host by one rank
+and on a GPU by another, the response cache keys on the device, and a
+device op ahead of the CPU ops hands a response on GPU tensors to the
+executor of ``common/device_plane.py`` (ROADMAP A8c2).
 :func:`build` compiles them with g++ at first use, one g++ a source, all
 at once (``common/cxx.py``), and links
 ``native/_build/libhvd_torch_core.<hash>.so`` (git-ignored); the hash
@@ -25,7 +30,8 @@ the core: on the launcher's table (``HVD_TPU_ADDRS``, after the dynamic
 rendezvous where the launcher asked for one), or, in a process whose
 ``torch.distributed`` group is up, on ports that the ranks exchange
 through that group's store (the group's store holds rank 0's port of the
-table). Importing this module imports no torch.
+table). Beside a running group the core's start also starts the device
+plane's executor. Importing this module imports no torch.
 """
 
 import atexit
@@ -60,6 +66,9 @@ BUILD_SYMBOL = "horovod_tpu_torch_core_build"
 # DataType values of native/message.h
 HVD_UINT8, HVD_INT8, HVD_UINT16, HVD_INT16, HVD_INT32, HVD_INT64 = range(6)
 HVD_FLOAT16, HVD_FLOAT32, HVD_FLOAT64, HVD_BOOL, HVD_BFLOAT16 = range(6, 11)
+# native/common.h: the device id of host memory (any other is a CUDA
+# ordinal)
+HOST_DEVICE_ID = -1
 
 
 def digest():
@@ -113,18 +122,42 @@ class Core:
                    "horovod_tpu_local_size", "horovod_tpu_cross_size",
                    "horovod_tpu_initialized", "horovod_tpu_is_homogeneous",
                    "horovod_tpu_connection_lost",
-                   "horovod_tpu_tcp_built", "horovod_tpu_cpu_ops_built"):
+                   "horovod_tpu_tcp_built", "horovod_tpu_cpu_ops_built",
+                   "horovod_tpu_device_op_built"):
             getattr(lib, fn).restype = ctypes.c_int
-        enqueue_reduce = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_int, _i64p(), ctypes.c_int,
-                          ctypes.c_double, ctypes.c_double, ctypes.c_int]
-        for fn in ("horovod_tpu_enqueue_allreduce",
-                   "horovod_tpu_enqueue_reduce_scatter"):
+        # the enqueues of the asynchronous API: a process group (0: the
+        # world) and the tensor's device id (-1 for host memory, else its
+        # CUDA ordinal) last
+        for fn in ("horovod_tpu_enqueue_allreduce_grp",
+                   "horovod_tpu_enqueue_reduce_scatter_grp"):
             getattr(lib, fn).restype = ctypes.c_int
-            getattr(lib, fn).argtypes = enqueue_reduce
-            getattr(lib, fn + "_grp").restype = ctypes.c_int
-            getattr(lib, fn + "_grp").argtypes = enqueue_reduce + [
-                ctypes.c_int]
+            getattr(lib, fn).argtypes = [
+                ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, _i64p(), ctypes.c_int, ctypes.c_double,
+                ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.horovod_tpu_enqueue_allgather_grp.restype = ctypes.c_int
+        lib.horovod_tpu_enqueue_allgather_grp.argtypes = [
+            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, _i64p(),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.horovod_tpu_enqueue_broadcast_grp.restype = ctypes.c_int
+        lib.horovod_tpu_enqueue_broadcast_grp.argtypes = [
+            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            _i64p(), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        # the executor's side of the device op (common/device_plane.py)
+        lib.horovod_tpu_device_next.restype = ctypes.c_int64
+        lib.horovod_tpu_device_next.argtypes = [ctypes.c_int]
+        lib.horovod_tpu_device_work_info.restype = ctypes.c_int
+        lib.horovod_tpu_device_work_info.argtypes = [ctypes.c_int64, _i64p()]
+        lib.horovod_tpu_device_work_entry.restype = ctypes.c_int
+        lib.horovod_tpu_device_work_entry.argtypes = [
+            ctypes.c_int64, ctypes.c_int, _i64p(),
+            ctypes.POINTER(ctypes.c_double)]
+        lib.horovod_tpu_device_work_sizes.restype = ctypes.c_int
+        lib.horovod_tpu_device_work_sizes.argtypes = [ctypes.c_int64,
+                                                      _i64p()]
+        lib.horovod_tpu_device_done.restype = ctypes.c_int
+        lib.horovod_tpu_device_done.argtypes = [ctypes.c_int64, ctypes.c_int,
+                                                ctypes.c_char_p]
         lib.horovod_tpu_new_group.restype = ctypes.c_int
         lib.horovod_tpu_new_group.argtypes = [
             ctypes.POINTER(ctypes.c_int32), ctypes.c_int]
@@ -134,22 +167,6 @@ class Core:
         lib.horovod_tpu_group_rank.argtypes = [ctypes.c_int]
         lib.horovod_tpu_group_count.restype = ctypes.c_int
         lib.horovod_tpu_group_count.argtypes = []
-        lib.horovod_tpu_enqueue_allgather.restype = ctypes.c_int
-        lib.horovod_tpu_enqueue_allgather.argtypes = [
-            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, _i64p(),
-            ctypes.c_int]
-        lib.horovod_tpu_enqueue_allgather_grp.restype = ctypes.c_int
-        lib.horovod_tpu_enqueue_allgather_grp.argtypes = [
-            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, _i64p(),
-            ctypes.c_int, ctypes.c_int]
-        lib.horovod_tpu_enqueue_broadcast.restype = ctypes.c_int
-        lib.horovod_tpu_enqueue_broadcast.argtypes = [
-            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            _i64p(), ctypes.c_int, ctypes.c_int]
-        lib.horovod_tpu_enqueue_broadcast_grp.restype = ctypes.c_int
-        lib.horovod_tpu_enqueue_broadcast_grp.argtypes = [
-            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            _i64p(), ctypes.c_int, ctypes.c_int, ctypes.c_int]
         lib.horovod_tpu_sharded_update_default.restype = ctypes.c_int
         lib.horovod_tpu_sharded_update_default.argtypes = []
         lib.horovod_tpu_opt_state_metrics.restype = None
@@ -278,6 +295,14 @@ class Core:
 
 _core = None
 _core_lock = threading.Lock()
+# successful starts of the core in this process: a group registered at an
+# earlier start is registered again (the core clears its table at start)
+_starts = [0]
+
+
+def starts():
+    """How many times the core has started in this process."""
+    return _starts[0]
 
 
 def get_core():
@@ -316,7 +341,8 @@ def _table_through_store():
     host = table[rank].rsplit(":", 1)[0] if len(table) == size else \
         "127.0.0.1"
     gen = os.environ.get("HVD_TPU_GENERATION", "0")
-    key = "hvd_torch/core/g%s/%%d" % gen
+    # a key a start of the core: every rank restarts it as often
+    key = "hvd_torch/core/g%s/s%d/%%d" % (gen, _starts[0])
     store.set(key % rank, "%s:%d" % (host, _reserve_port()))
     import datetime
     keys = [key % r for r in range(size)]
@@ -376,6 +402,11 @@ def init():
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    _starts[0] += 1
+    if _torch_group_up():
+        # the executor of CUDA tensors, beside init()'s group
+        from horovod_tpu_torch.common import device_plane
+        device_plane.attach()
     return core
 
 

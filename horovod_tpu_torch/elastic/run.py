@@ -354,6 +354,17 @@ def _flush_durable(state, timeout=None):
              "newest snapshot may not be durable" % timeout)
 
 
+# functions of @run running in this process (the negotiated gradient route
+# refuses to run inside one: the core does not re-form across elastic
+# generations yet, ROADMAP A8c4)
+_running = [0]
+
+
+def running():
+    """True inside a function decorated with :func:`run`."""
+    return _running[0] > 0
+
+
 def run(func):
     """Decorator making ``func(state, *args, **kwargs)`` elastic:
 
@@ -399,7 +410,11 @@ def run(func):
                     # copy.
                     _maybe_auto_resume(state)
                 state.sync()
-                result = func(state, *args, **kwargs)
+                _running[0] += 1
+                try:
+                    result = func(state, *args, **kwargs)
+                finally:
+                    _running[0] -= 1
                 _flush_durable(state)
                 return result
             except HorovodInternalError as e:

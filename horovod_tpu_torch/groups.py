@@ -4,7 +4,13 @@ Counterpart of ``horovod_tpu/groups.py``. There a group is registered in
 the native core's group table; here it is a ``torch.distributed`` process
 group (an NCCL communicator over the members on the GPU, gloo on the
 CPU), wrapped in a ``ProcessGroup`` handle that every ``group=`` of the
-port accepts.
+port accepts, and it is registered in the port's negotiation core's
+table too, for the asynchronous collectives: at ``new_group`` while the
+core runs, else when it starts (every group of this ``init()``, in
+creation order), so that the core's id (``ProcessGroup.core_id``) is the
+group's ``id``. The core's device plane forms a group of its own over the
+members for the CUDA tensors of the asynchronous calls
+(``common/device_plane.py``).
 
 The rule is torch.distributed's and the reference's: EVERY rank, members
 and non-members alike, calls ``new_group`` with the same rank list, in the
@@ -12,6 +18,8 @@ same order relative to its other ``new_group`` calls. Ids come from a
 per-process counter that ``init()`` resets, so the same call sequence
 gives the same ids on every rank.
 """
+
+import ctypes
 
 import torch.distributed as dist
 
@@ -26,6 +34,10 @@ class ProcessGroup:
         self.id = int(group_id)
         self.ranks = tuple(ranks) if ranks is not None else None
         self._torch_group = torch_group
+        # the group's id in the negotiation core's table (0 for the
+        # world), set when it is registered there
+        self.core_id = 0 if self.id == 0 else None
+        self._core_start = None
 
     def size(self):
         """Member count (the world size for the world group)."""
@@ -68,12 +80,60 @@ class ProcessGroup:
 WORLD = ProcessGroup(0)
 
 _next_id = [0]
+# the groups of this init(), in creation order
+_created = []
 
 
 def reset():
     """Restarts the id counter (``init()`` and ``shutdown()`` call it: the
     groups of one process group's life are numbered from 1)."""
     _next_id[0] = 0
+    del _created[:]
+
+
+def created():
+    """The groups ``new_group`` formed since ``init()``, in order."""
+    return list(_created)
+
+
+def register_with_core(pg):
+    """Registers ``pg`` in the running negotiation core's group table
+    (once a start of the core; every rank in the same order, so the ids
+    agree). Returns its core id."""
+    from horovod_tpu_torch.common import core
+    c = core.get_core()
+    start = core.starts()
+    if pg._core_start != start:
+        members = (ctypes.c_int32 * len(pg.ranks))(*pg.ranks)
+        gid = c.lib.horovod_tpu_new_group(members, len(pg.ranks))
+        if gid <= 0:
+            raise RuntimeError("the negotiation core refused process group "
+                               "%r (code %d)" % (pg, gid))
+        pg.core_id, pg._core_start = gid, start
+    return pg.core_id
+
+
+def core_group_id(group):
+    """The negotiation core's group id behind a ``group=`` of the
+    asynchronous calls: 0 for None or ``WORLD``, the registered id of a
+    ``ProcessGroup``, an int as it is (an id of the core's table). A
+    ``ProcessGroup`` this rank is not a member of raises ``ValueError``
+    before anything is enqueued."""
+    if group is None:
+        return 0
+    if isinstance(group, ProcessGroup):
+        if group.id == 0:
+            return 0
+        if group.rank() < 0:
+            raise ValueError("this rank is not a member of %r: a non-member "
+                             "must not submit the group's collectives"
+                             % (group,))
+        return register_with_core(group)
+    if isinstance(group, int) and not isinstance(group, bool):
+        return group
+    raise TypeError("group= of the asynchronous collectives takes None, "
+                    "WORLD, a ProcessGroup of new_group or a core group "
+                    "id, not %r" % (group,))
 
 
 def new_group(ranks):
@@ -94,7 +154,15 @@ def new_group(ranks):
                          "world ranks in [0, %d)" % (ranks, world))
     torch_group = dist.new_group(ranks=members)
     _next_id[0] += 1
-    return ProcessGroup(_next_id[0], members, torch_group)
+    pg = ProcessGroup(_next_id[0], members, torch_group)
+    _created.append(pg)
+    from horovod_tpu_torch.common import core, device_plane
+    if core.is_initialized():
+        register_with_core(pg)
+        plane = device_plane.current()
+        if plane is not None:
+            plane.add_group(pg)
+    return pg
 
 
 def resolve_group(group):

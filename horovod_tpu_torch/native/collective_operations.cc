@@ -1,5 +1,6 @@
 #include "collective_operations.h"
 
+#include <chrono>
 #include <cstring>
 
 #include "global_state.h"
@@ -47,6 +48,87 @@ void HorovodOp::MemcpyOutFusionBuffer(const void* buffer_data,
     std::memcpy(e.output, buf + offset, e.SizeBytes());
     offset += e.SizeBytes();
   }
+}
+
+void DeviceQueue::Open() {
+  std::lock_guard<std::mutex> lk(mutex_);
+  closed_ = false;
+  closing_ = false;
+  finishing_ = 0;
+  pending_.clear();
+  taken_.clear();
+}
+
+void DeviceQueue::Close(std::chrono::milliseconds drain) {
+  std::unique_lock<std::mutex> lk(mutex_);
+  closing_ = true;
+  cv_.wait_for(lk, drain, [&] {
+    return pending_.empty() && taken_.empty() && finishing_ == 0;
+  });
+  closed_ = true;
+  pending_.clear();
+  lk.unlock();
+  cv_.notify_all();
+}
+
+int64_t DeviceQueue::Push(std::vector<TensorTableEntry> entries,
+                          const Response& response) {
+  auto work = std::make_shared<DeviceWork>();
+  work->response = response;
+  work->entries = std::move(entries);
+  int64_t id;
+  {
+    std::lock_guard<std::mutex> lk(mutex_);
+    id = work->id = next_id_++;
+    pending_.push_back(std::move(work));
+  }
+  cv_.notify_all();
+  return id;
+}
+
+int64_t DeviceQueue::Next(int timeout_ms) {
+  std::unique_lock<std::mutex> lk(mutex_);
+  cv_.wait_for(lk, std::chrono::milliseconds(timeout_ms < 0 ? 0 : timeout_ms),
+               [&] { return closed_ || !pending_.empty(); });
+  if (pending_.empty()) return closed_ ? -1 : 0;
+  auto work = std::move(pending_.front());
+  pending_.pop_front();
+  taken_[work->id] = work;
+  if (closing_) cv_.notify_all();
+  return work->id;
+}
+
+std::shared_ptr<DeviceWork> DeviceQueue::Get(int64_t id) {
+  std::lock_guard<std::mutex> lk(mutex_);
+  auto it = taken_.find(id);
+  return it == taken_.end() ? nullptr : it->second;
+}
+
+std::shared_ptr<DeviceWork> DeviceQueue::Take(int64_t id) {
+  std::lock_guard<std::mutex> lk(mutex_);
+  auto it = taken_.find(id);
+  if (it == taken_.end()) return nullptr;
+  auto work = std::move(it->second);
+  taken_.erase(it);
+  ++finishing_;
+  return work;
+}
+
+void DeviceQueue::Finished() {
+  std::lock_guard<std::mutex> lk(mutex_);
+  --finishing_;
+  if (closing_) cv_.notify_all();
+}
+
+bool OnDevice(const std::vector<TensorTableEntry>& entries) {
+  return !entries.empty() && entries[0].device != HOST_DEVICE_ID;
+}
+
+Status HandOffToDevice(HorovodGlobalState* state,
+                       std::vector<TensorTableEntry>& entries,
+                       const Response& response) {
+  state->device_queue.Push(entries, response);
+  return Status::InProgress();
 }
 
 template <typename Op>

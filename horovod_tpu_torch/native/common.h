@@ -85,8 +85,10 @@ enum class StatusType : int32_t {
   IN_PROGRESS = 5,
 };
 
-// Device id for host-memory tensors (the only device the core data path
-// touches; TPU tensors ride the in-XLA path and never enter the core).
+// Device id for host-memory tensors. Any other id is a CUDA ordinal: the
+// device op (collective_operations.h) hands such a response to the
+// binding's executor, which runs it on the card; the CPU ops never touch
+// device memory.
 constexpr int32_t HOST_DEVICE_ID = -1;
 
 extern const std::string SHUT_DOWN_ERROR;
@@ -181,6 +183,9 @@ struct TensorTableEntry {
   // world). Responses only claim entries of their own group, so the
   // same tensor name active in two groups at once never cross-executes.
   uint32_t group_id = 0;
+  // The C API's handle of this entry: the device op's executor finds the
+  // caller's tensors by it.
+  int32_t handle = -1;
   // Allgather result storage (core-owned) — set after execution.
   std::shared_ptr<std::vector<char>> gathered;
   std::shared_ptr<std::vector<int64_t>> gathered_sizes;

@@ -203,6 +203,27 @@ Response Controller::ConstructResponse(const std::string& key) {
       error_found = true;
       break;
     }
+    if ((req.device() == HOST_DEVICE_ID) !=
+        (first.device() == HOST_DEVICE_ID)) {
+      // One rank's tensor in host memory and another's on its GPU: the
+      // host op cannot read device pointers and the device op cannot
+      // read host ones, so reject by name, naming both ranks and both
+      // devices (GPU ordinals may differ across ranks: one GPU each).
+      auto where = [](int32_t device) {
+        return device == HOST_DEVICE_ID
+                   ? std::string("the host")
+                   : "GPU " + std::to_string(device);
+      };
+      error << "Mismatched devices: rank " << first.request_rank()
+            << " enqueued tensor '" << first.tensor_name() << "' on "
+            << where(first.device()) << " while rank "
+            << req.request_rank() << " enqueued it on "
+            << where(req.device())
+            << "; every rank must pass a tensor on the same kind of "
+            << "device (all host tensors or all CUDA tensors).";
+      error_found = true;
+      break;
+    }
     if (req.tensor_type() != first.tensor_type()) {
       error << "Mismatched data types: one rank had "
             << DataTypeName(first.tensor_type()) << " while another had "

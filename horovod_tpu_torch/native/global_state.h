@@ -9,6 +9,7 @@
 #include <memory>
 #include <thread>
 
+#include "collective_operations.h"
 #include "divergence.h"
 #include "fusion_buffer_manager.h"
 #include "group_table.h"
@@ -23,7 +24,6 @@
 namespace hvdtpu {
 
 class Controller;
-class OperationManager;
 
 struct HorovodGlobalState {
   // Background coordination thread (the only thread that talks cross-rank).
@@ -66,6 +66,9 @@ struct HorovodGlobalState {
   Trace& trace = GlobalTrace();
   std::unique_ptr<Controller> controller;
   std::unique_ptr<OperationManager> op_manager;
+  // Responses on GPU tensors handed to the binding's executor (the
+  // device op, collective_operations.h).
+  DeviceQueue device_queue;
 
   ~HorovodGlobalState();
 };

@@ -256,14 +256,17 @@ std::pair<int64_t, int64_t> PerformOperation(HorovodGlobalState& state,
   } catch (const std::exception& ex) {
     status = Status::UnknownError(ex.what());
   }
+  // The device op handed the response to the binding's executor: its
+  // entries complete through horovod_tpu_device_done, not here.
+  const bool handed_off = status.in_progress();
   // One exec span per response: a fused response executes as one wire
   // operation, named by its first tensor.
   const int64_t t_exec_end = trace.NowNs();
   trace.Record(entries[0].tensor_name.c_str(), TRACE_EXEC, t_exec_start,
                t_exec_end, bytes, response.group_id());
   for (auto& e : entries) {
-    state.timeline.End(e.tensor_name, status.ok());
-    if (e.callback) e.callback(status, e);
+    state.timeline.End(e.tensor_name, status.ok() || handed_off);
+    if (e.callback && !handed_off) e.callback(status, e);
   }
   trace.Record(entries[0].tensor_name.c_str(), TRACE_CALLBACK, t_exec_end,
                trace.NowNs(), 0, response.group_id());
@@ -375,8 +378,10 @@ void BackgroundThreadLoop(HorovodGlobalState& state) {
   // Call-sequence tracking restarts with the generation: survivors of an
   // elastic shrink/regrow and fresh workers must agree on seq 0.
   state.call_tracker.Reset();
+  state.device_queue.Open();
 
   if (!state.tcp_context.Initialize()) {
+    state.device_queue.Close(std::chrono::milliseconds(0));
     state.tcp_context.Finalize();  // release sockets for a re-init retry
     state.initialization_failed.store(true);
     state.initialization_done.store(true);
@@ -506,18 +511,22 @@ void BackgroundThreadLoop(HorovodGlobalState& state) {
 
   // Data-plane op registry: first Enabled() op per type executes. Ordered
   // most-specific first, CPU ring last, mirroring the reference's registry
-  // construction (operations.cc:137-207). The XLA/ICI path for TPU-resident
-  // tensors lives inside jit (horovod_tpu/jax) and is deliberately not a
-  // registry entry here — it never crosses the host boundary.
+  // construction (operations.cc:137-207). The device op comes first: a
+  // response on GPU tensors goes to the binding's executor (NCCL on the
+  // card) and never to the host ring.
   std::vector<std::shared_ptr<AllreduceOp>> allreduce_ops = {
+      std::make_shared<DeviceAllreduce>(&state),
       std::make_shared<CpuHierarchicalAllreduce>(state.tcp_context, &state),
       std::make_shared<CpuRingAllreduce>(state.tcp_context, &state)};
   std::vector<std::shared_ptr<AllgatherOp>> allgather_ops = {
+      std::make_shared<DeviceAllgather>(&state),
       std::make_shared<CpuHierarchicalAllgather>(state.tcp_context, &state),
       std::make_shared<CpuRingAllgather>(state.tcp_context, &state)};
   std::vector<std::shared_ptr<BroadcastOp>> broadcast_ops = {
+      std::make_shared<DeviceBroadcast>(&state),
       std::make_shared<CpuBroadcast>(state.tcp_context, &state)};
   std::vector<std::shared_ptr<ReduceScatterOp>> reducescatter_ops = {
+      std::make_shared<DeviceReduceScatter>(&state),
       std::make_shared<CpuHierarchicalReduceScatter>(state.tcp_context,
                                                      &state),
       std::make_shared<CpuRingReduceScatter>(state.tcp_context, &state)};
@@ -555,6 +564,10 @@ void BackgroundThreadLoop(HorovodGlobalState& state) {
       state.connection_lost.load()
           ? Status::UnknownError(CONNECTION_LOST_ERROR)
           : Status::Aborted(SHUT_DOWN_ERROR);
+  // Responses on GPU tensors that every rank negotiated run to their end
+  // first: the peers' executors run them too, and would wait on this rank
+  // in the collective.
+  state.device_queue.Close(std::chrono::seconds(30));
   state.tensor_queue.FinalizeTensorQueue(fail_status);
   g_handles.FailAll(fail_status);
   state.timeline.Shutdown();
@@ -599,7 +612,7 @@ Status EnqueueTensor(Request::RequestType type, const char* name,
                      const void* data, void* output, int ndim,
                      const int64_t* shape, int dtype, int root_rank,
                      double prescale, double postscale, int compression,
-                     int group, int handle) {
+                     int group, int device, int handle) {
   if (!g_state.initialization_done.load() ||
       g_state.initialization_failed.load()) {
     return Status::PreconditionError("Horovod-TPU has not been initialized.");
@@ -665,7 +678,7 @@ Status EnqueueTensor(Request::RequestType type, const char* name,
   message.set_tensor_type(static_cast<DataType>(dtype));
   message.set_tensor_shape(tensor_shape.dims());
   message.set_root_rank(root_rank);
-  message.set_device(HOST_DEVICE_ID);
+  message.set_device(device < 0 ? HOST_DEVICE_ID : device);
   message.set_prescale_factor(prescale);
   message.set_postscale_factor(postscale);
   message.set_compression(effective);
@@ -683,6 +696,8 @@ Status EnqueueTensor(Request::RequestType type, const char* name,
   entry.postscale_factor = postscale;
   entry.compression = effective;
   entry.group_id = static_cast<uint32_t>(group);
+  entry.device = device < 0 ? HOST_DEVICE_ID : device;
+  entry.handle = handle;
   entry.callback = [handle](const Status& status,
                             const TensorTableEntry& done_entry) {
     LOG(TRACE) << "done " << done_entry.tensor_name << " handle " << handle
@@ -786,6 +801,8 @@ int horovod_tpu_is_homogeneous() {
 // Build/capability probes (reference: horovod_mpi_built etc.).
 int horovod_tpu_tcp_built() { return 1; }
 int horovod_tpu_cpu_ops_built() { return 1; }
+// The device op: responses on GPU tensors go to the binding's executor.
+int horovod_tpu_device_op_built() { return 1; }
 
 // Fusion diagnostics: executed responses vs tensors (tensors >
 // responses means fusion grouped tensors into shared cycles), and the
@@ -956,7 +973,7 @@ int horovod_tpu_enqueue_allreduce(const char* name, const void* data,
   int handle = g_handles.AllocateHandle();
   Status s = EnqueueTensor(Request::ALLREDUCE, name, data, output, ndim, shape,
                            dtype, 0, prescale, postscale, compression,
-                           /*group=*/0, handle);
+                           /*group=*/0, HOST_DEVICE_ID, handle);
   if (!s.ok()) {
     g_handles.MarkDone(handle, s);
   }
@@ -1011,15 +1028,20 @@ int horovod_tpu_group_count() {
   return static_cast<int>(g_state.group_table.Count());
 }
 
+// Enqueue in a process group (0: the world) on a device: `device` is
+// HOST_DEVICE_ID (-1) for host memory or the tensor's CUDA ordinal. The
+// device enters the request (validated across ranks, part of the cache
+// key) and the entry (the device op takes it).
 int horovod_tpu_enqueue_allreduce_grp(const char* name, const void* data,
                                       void* output, int ndim,
                                       const int64_t* shape, int dtype,
                                       double prescale, double postscale,
-                                      int compression, int group) {
+                                      int compression, int group,
+                                      int device) {
   int handle = g_handles.AllocateHandle();
   Status s = EnqueueTensor(Request::ALLREDUCE, name, data, output, ndim,
                            shape, dtype, 0, prescale, postscale, compression,
-                           group, handle);
+                           group, device, handle);
   if (!s.ok()) {
     g_handles.MarkDone(handle, s);
   }
@@ -1031,11 +1053,11 @@ int horovod_tpu_enqueue_reduce_scatter_grp(const char* name,
                                            int ndim, const int64_t* shape,
                                            int dtype, double prescale,
                                            double postscale, int compression,
-                                           int group) {
+                                           int group, int device) {
   int handle = g_handles.AllocateHandle();
   Status s = EnqueueTensor(Request::REDUCESCATTER, name, data, output, ndim,
                            shape, dtype, 0, prescale, postscale, compression,
-                           group, handle);
+                           group, device, handle);
   if (!s.ok()) {
     g_handles.MarkDone(handle, s);
   }
@@ -1044,10 +1066,11 @@ int horovod_tpu_enqueue_reduce_scatter_grp(const char* name,
 
 int horovod_tpu_enqueue_allgather_grp(const char* name, const void* data,
                                       int ndim, const int64_t* shape,
-                                      int dtype, int group) {
+                                      int dtype, int group, int device) {
   int handle = g_handles.AllocateHandle();
   Status s = EnqueueTensor(Request::ALLGATHER, name, data, nullptr, ndim,
-                           shape, dtype, 0, 1.0, 1.0, 0, group, handle);
+                           shape, dtype, 0, 1.0, 1.0, 0, group, device,
+                           handle);
   if (!s.ok()) {
     g_handles.MarkDone(handle, s);
   }
@@ -1057,11 +1080,12 @@ int horovod_tpu_enqueue_allgather_grp(const char* name, const void* data,
 int horovod_tpu_enqueue_broadcast_grp(const char* name, const void* data,
                                       void* output, int ndim,
                                       const int64_t* shape, int dtype,
-                                      int root_rank, int group) {
+                                      int root_rank, int group,
+                                      int device) {
   int handle = g_handles.AllocateHandle();
   Status s = EnqueueTensor(Request::BROADCAST, name, data, output, ndim,
                            shape, dtype, root_rank, 1.0, 1.0, 0, group,
-                           handle);
+                           device, handle);
   if (!s.ok()) {
     g_handles.MarkDone(handle, s);
   }
@@ -1105,7 +1129,7 @@ int horovod_tpu_enqueue_reduce_scatter(const char* name, const void* data,
   int handle = g_handles.AllocateHandle();
   Status s = EnqueueTensor(Request::REDUCESCATTER, name, data, output, ndim,
                            shape, dtype, 0, prescale, postscale, compression,
-                           /*group=*/0, handle);
+                           /*group=*/0, HOST_DEVICE_ID, handle);
   if (!s.ok()) {
     g_handles.MarkDone(handle, s);
   }
@@ -1136,7 +1160,7 @@ int horovod_tpu_enqueue_allgather(const char* name, const void* data, int ndim,
   // callback surfaces them through the handle for copy-out.
   Status s = EnqueueTensor(Request::ALLGATHER, name, data, nullptr, ndim,
                            shape, dtype, 0, 1.0, 1.0, 0, /*group=*/0,
-                           handle);
+                           HOST_DEVICE_ID, handle);
   if (!s.ok()) {
     g_handles.MarkDone(handle, s);
   }
@@ -1149,11 +1173,84 @@ int horovod_tpu_enqueue_broadcast(const char* name, const void* data,
   int handle = g_handles.AllocateHandle();
   Status s = EnqueueTensor(Request::BROADCAST, name, data, output, ndim, shape,
                            dtype, root_rank, 1.0, 1.0, 0, /*group=*/0,
-                           handle);
+                           HOST_DEVICE_ID, handle);
   if (!s.ok()) {
     g_handles.MarkDone(handle, s);
   }
   return handle;
+}
+
+// ---------------- CUDA tensors (the device op) ----------------
+
+// The executor's side of the device op. It blocks here, outside the GIL,
+// for the next handed-off response: its id, 0 after timeout_ms with none,
+// -1 once the core has stopped (and nothing is left).
+int64_t horovod_tpu_device_next(int timeout_ms) {
+  return g_state.device_queue.Next(timeout_ms);
+}
+
+// A taken response: out[0] response type (message.h), [1] dtype, [2]
+// entries, [3] broadcast root (a world rank), [4] compression mode, [5]
+// group id, [6] allgather sizes (one a member), [7] the first entry's
+// device. 0 for an unknown id.
+int horovod_tpu_device_work_info(int64_t id, int64_t* out) {
+  auto work = g_state.device_queue.Get(id);
+  if (work == nullptr || work->entries.empty()) return 0;
+  const TensorTableEntry& first = work->entries[0];
+  out[0] = static_cast<int64_t>(work->response.response_type());
+  out[1] = static_cast<int64_t>(first.dtype);
+  out[2] = static_cast<int64_t>(work->entries.size());
+  out[3] = first.root_rank;
+  out[4] = work->response.compression();
+  out[5] = work->response.group_id();
+  out[6] = static_cast<int64_t>(work->response.tensor_sizes().size());
+  out[7] = first.device;
+  return 1;
+}
+
+// Entry i of a taken response, in the coordinator's order: ids[0] its
+// handle, ids[1] its element count; scales[0] prescale, [1] postscale.
+int horovod_tpu_device_work_entry(int64_t id, int i, int64_t* ids,
+                                  double* scales) {
+  auto work = g_state.device_queue.Get(id);
+  if (work == nullptr || i < 0 ||
+      i >= static_cast<int>(work->entries.size())) {
+    return 0;
+  }
+  const TensorTableEntry& e = work->entries[i];
+  ids[0] = e.handle;
+  ids[1] = e.NumElements();
+  scales[0] = e.prescale_factor;
+  scales[1] = e.postscale_factor;
+  return 1;
+}
+
+// An allgather's first dimensions, one a member in group order.
+int horovod_tpu_device_work_sizes(int64_t id, int64_t* out) {
+  auto work = g_state.device_queue.Get(id);
+  if (work == nullptr) return 0;
+  const auto& sizes = work->response.tensor_sizes();
+  std::copy(sizes.begin(), sizes.end(), out);
+  return 1;
+}
+
+// Completes every entry of a taken response: status 0 once the device
+// has finished writing the results, else an error carrying `message` on
+// every handle. 0 for an unknown id.
+int horovod_tpu_device_done(int64_t id, int status, const char* message) {
+  auto work = g_state.device_queue.Take(id);
+  if (work == nullptr) return 0;
+  Status s = status == 0
+                 ? Status::OK()
+                 : Status::UnknownError(
+                       message != nullptr && message[0] != '\0'
+                           ? message
+                           : "the device collective failed");
+  for (auto& e : work->entries) {
+    if (e.callback) e.callback(s, e);
+  }
+  g_state.device_queue.Finished();
+  return 1;
 }
 
 int horovod_tpu_poll(int handle) { return g_handles.Poll(handle) ? 1 : 0; }

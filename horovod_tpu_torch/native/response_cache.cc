@@ -61,6 +61,7 @@ ResponseCache::CacheState ResponseCache::cached(const Request& request) const {
               e.prescale_factor == request.prescale_factor() &&
               e.postscale_factor == request.postscale_factor() &&
               e.compression == request.compression() &&
+              e.device == request.device() &&
               e.group_digest == request.group_digest();
   // Response type must match the request type too. The two enums agree
   // numerically for allreduce/allgather/broadcast but diverge at
@@ -151,6 +152,7 @@ void ResponseCache::put(const Response& response, TensorQueue& tensor_queue,
       entry.prescale_factor = te.prescale_factor;
       entry.postscale_factor = te.postscale_factor;
       entry.compression = te.compression;
+      entry.device = te.device;
       if (response.response_type() == Response::ALLGATHER) {
         single.set_tensor_sizes(response.tensor_sizes());
       } else {

@@ -97,6 +97,10 @@ class ResponseCache {
     // different mode is INVALID (renegotiate), never a silent reuse of
     // a response negotiated under another codec.
     uint8_t compression = 0;
+    // The tensor's device (HOST_DEVICE_ID or a CUDA ordinal) is part of
+    // the key too: a name reduced on the host and then on a GPU must
+    // renegotiate, or the host op would replay on device pointers.
+    int32_t device = -1;
     // Process-group scope. group_digest guards against a same-id
     // membership change; is_member gates the vacuous-hit sweep;
     // foreign entries (mirrored on non-members) carry no validation

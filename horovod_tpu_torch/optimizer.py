@@ -23,6 +23,23 @@ ZeRO-1 sharded weight update of the reference's
 whose optimizer state is 1/N of the replicated one's.
 ``sharded_state_full`` and ``sharded_state_shard`` move its state between
 world sizes and shard layouts.
+
+``negotiated=True`` (on ``allreduce_gradients`` and both optimizers) sends
+the gradients through the port's negotiation core instead, as the
+reference's eager plane does (``horovod_tpu/jax/__init__.py:380-412``):
+each bucket (or, in ``allreduce_gradients``, each gradient, all enqueued
+before any is waited on) is an ``allreduce_async`` named
+``<prefix>.<i>``, and the sharded update's reduce-scatter and allgather are
+``reduce_scatter_async`` and ``allgather_async``, in the core's partition
+layout under every wire mode. Rank 0's coordinator then validates every
+gradient across the ranks, so a sharded rank meeting a replicated one, or
+a mismatched compression mode, fails at negotiation on every rank with
+both ranks named. CUDA gradients run on the core's device plane (NCCL on
+the card). The default, ``False``, issues the ``torch.distributed`` calls
+above; which route should be the default is open (ROADMAP). The
+negotiated route raises :class:`NegotiatedElasticError` under
+``@elastic.run``: the core does not re-form across elastic generations
+yet (ROADMAP A8c4).
 """
 
 import contextlib
@@ -45,6 +62,39 @@ from horovod_tpu_torch.ops.agc import adaptive_grad_clip
 
 # HVD_TPU_FUSION_THRESHOLD's default in native/operations.cc
 FUSION_THRESHOLD = 64 * 1024 * 1024
+
+
+class NegotiatedElasticError(NotImplementedError):
+    """``negotiated=True`` inside ``@elastic.run``: the negotiation core
+    does not re-form across elastic generations yet (ROADMAP A8c4)."""
+
+
+def _check_negotiated():
+    from horovod_tpu_torch.elastic.run import running
+    if running():
+        raise NegotiatedElasticError(
+            "negotiated=True does not run under @elastic.run: the "
+            "negotiation core does not re-form across elastic generations "
+            "yet (ROADMAP A8c4); use the default negotiated=False there")
+
+
+def _negotiated_flat(flat, comp, mode, average, group, name):
+    """Starts the sum of a flat buffer through the negotiation core (an
+    ``allreduce_async`` named ``name``, averaged by the postscale as the
+    reference's host plane does); returns ``finish() -> the reduced
+    buffer in flat's dtype``."""
+    from horovod_tpu_torch.common import async_ops
+    _check_negotiated()
+    wire, ctx = comp.compress(flat)
+    divergence.record("allreduce", wire, name)
+    handle = async_ops.allreduce_async(
+        wire, name, postscale_factor=1.0 / group_size(group) if average
+        else 1.0, compression=mode, group=group)
+
+    def finish():
+        return comp.decompress(async_ops.synchronize(handle), ctx)
+
+    return finish
 
 
 def _reduce_flat(flat, comp, mode, average, group, name):
@@ -81,12 +131,27 @@ def _scatter(flat, grads):
 
 
 def allreduce_gradients(parameters, average=True, name_prefix="grad",
-                        compression=None, group=None):
+                        compression=None, group=None, negotiated=False):
     """Averages (or sums) the ``.grad`` of every parameter over the ranks
     of ``group`` (the world for None), in place, one flat buffer per dtype
     named ``name_prefix.i``. Parameters without a gradient are skipped:
-    every rank must produce gradients for the same parameters."""
+    every rank must produce gradients for the same parameters.
+
+    ``negotiated=True``: through the negotiation core, as the reference's
+    host plane (``horovod_tpu/jax/__init__.py:398-412``): every gradient
+    enqueued as ``name_prefix.i`` (i counting the gradients) before any is
+    waited on, so the core fuses them, then each synchronized in
+    order."""
     comp, mode = codec(compression), wire_mode(compression)
+    if negotiated:
+        with torch.no_grad():
+            grads = [p.grad for p in parameters if p.grad is not None]
+            pending = [_negotiated_flat(g.reshape(-1), comp, mode, average,
+                                        group, "%s.%d" % (name_prefix, i))
+                       for i, g in enumerate(grads)]
+            for g, finish in zip(grads, pending):
+                g.copy_(finish().view_as(g))
+        return
     by_dtype = {}
     for p in parameters:
         if p.grad is not None:
@@ -168,23 +233,26 @@ def plan_buckets(params, threshold):
 
 def DistributedOptimizer(optimizer, named_parameters=None, compression=None,
                          average=True, name_prefix="grad", group=None,
-                         sharded_update=None, agc=None):
+                         sharded_update=None, agc=None, negotiated=False):
     """Wraps a torch optimizer so that ``step()`` applies the gradients
     averaged (or, with ``average=False``, summed) over the ranks: a
     ``ReplicatedDistributedOptimizer``, or, with ``sharded_update=True``
     (None: ``HVD_TPU_SHARDED_UPDATE``), a ``ShardedDistributedOptimizer``
     (the reference's ``DistributedOptimizer`` is a function that picks the
-    same way). ``compression`` takes a tensor codec or a wire mode (module
-    docstring)."""
+    same way). ``compression`` takes a tensor codec or a wire mode, and
+    ``negotiated=True`` sends the gradients through the negotiation core
+    (module docstring)."""
     if sharded_update is None:
         sharded_update = _sharded_update_default()
     if sharded_update:
         return ShardedDistributedOptimizer(
             optimizer, compression=compression, average=average,
-            name_prefix=name_prefix, group=group, agc=agc)
+            name_prefix=name_prefix, group=group, agc=agc,
+            negotiated=negotiated)
     return ReplicatedDistributedOptimizer(
         optimizer, named_parameters, compression=compression,
-        average=average, name_prefix=name_prefix, group=group, agc=agc)
+        average=average, name_prefix=name_prefix, group=group, agc=agc,
+        negotiated=negotiated)
 
 
 class ReplicatedDistributedOptimizer:
@@ -212,11 +280,19 @@ class ReplicatedDistributedOptimizer:
     (``ops/agc.py``): ``step()`` clips each reduced gradient unit-wise
     against its parameter after ``synchronize()`` and before the inner
     step, as the reference clips the averaged gradient
-    (``horovod_tpu/jax/__init__.py:512-521``)."""
+    (``horovod_tpu/jax/__init__.py:512-521``).
+
+    ``negotiated=True``: each bucket goes out from the hooks, in the same
+    order, as an ``allreduce_async`` of the negotiation core named
+    ``name_prefix.<bucket>``."""
 
     def __init__(self, optimizer, named_parameters=None, compression=None,
-                 average=True, name_prefix="grad", group=None, agc=None):
+                 average=True, name_prefix="grad", group=None, agc=None,
+                 negotiated=False):
+        if negotiated:
+            _check_negotiated()
         self.optimizer = optimizer
+        self._reduce = _negotiated_flat if negotiated else _reduce_flat
         self.agc = agc
         self._clip = None if agc is None else adaptive_grad_clip(agc)
         self._codec = codec(compression)
@@ -284,7 +360,7 @@ class ReplicatedDistributedOptimizer:
             group = self._group if self._group is not None else \
                 basics.batch_group()
             flat = torch.cat([g.reshape(-1) for g in grads])
-            self._pending.append((grads, _reduce_flat(
+            self._pending.append((grads, self._reduce(
                 flat, self._codec, self._mode, self._average, group,
                 "%s.%d" % (self._prefix, i))))
         self._order.append(i)
@@ -408,10 +484,15 @@ class ShardedDistributedOptimizer:
     mixes the elements of a tensor sees flat shards instead. The wrapped
     optimizer's own ``state`` stays empty. World scope only
     (``assert_sharded_update_world_scope``, at construction and every
-    step)."""
+    step).
+
+    ``negotiated=True``: the reduce-scatter and the allgather go through
+    the negotiation core (``reduce_scatter_async``, ``allgather_async``,
+    the same names), in layout "partition" under every wire mode, as the
+    reference's host plane."""
 
     def __init__(self, optimizer, compression=None, average=True,
-                 name_prefix="grad", group=None, agc=None):
+                 name_prefix="grad", group=None, agc=None, negotiated=False):
         if agc is not None:
             raise ValueError(
                 "agc= does not compose with sharded_update: the sharded "
@@ -422,9 +503,13 @@ class ShardedDistributedOptimizer:
                 "optax.adaptive_grad_clip equivalents before a "
                 "replicated optimizer")
         assert_sharded_update_world_scope(group)
+        if negotiated:
+            _check_negotiated()
         self.optimizer = optimizer
+        self._negotiated = negotiated
         self._mode = resolve_wire_arg(compression)
-        self.layout = "partition" if self._mode.mode == NONE else "ring"
+        self.layout = "partition" if self._mode.mode == NONE or negotiated \
+            else "ring"
         self._average = average
         self._prefix = name_prefix
         self._params = [[p for p in g["params"] if p.requires_grad]
@@ -483,10 +568,8 @@ class ShardedDistributedOptimizer:
                 continue
             flat_g = _flat_f32([p.grad if p.grad is not None
                                 else torch.zeros_like(p) for p in ps])
-            sp.grad = reduce_scatter(
-                flat_g, average=self._average,
-                name="%s.%d" % (self._prefix, i),
-                compression=self._mode).to(sp.dtype)
+            sp.grad = self._reduce_scatter(
+                flat_g, "%s.%d" % (self._prefix, i)).to(sp.dtype)
         self.inner.step()
         with torch.no_grad():
             for i, (ps, sp, total) in enumerate(zip(self._params,
@@ -494,12 +577,30 @@ class ShardedDistributedOptimizer:
                                                     self.totals)):
                 if not ps:
                     continue
-                full = allgather(sp.detach(), name="%s.param_ag%s" % (
+                full = self._allgather(sp.detach(), "%s.param_ag%s" % (
                     self._prefix, "" if i == 0 else ".%d" % i))[:total]
                 for p, part in zip(ps, full.split([p.numel() for p in ps])):
                     p.copy_(part.view_as(p))
         self.opt_state_bytes = _state_bytes(self.inner)
         return loss
+
+    def _reduce_scatter(self, flat_g, name):
+        if not self._negotiated:
+            return reduce_scatter(flat_g, average=self._average, name=name,
+                                  compression=self._mode)
+        from horovod_tpu_torch.common import async_ops
+        _check_negotiated()
+        divergence.record("reduce_scatter", flat_g, name)
+        return async_ops.synchronize(async_ops.reduce_scatter_async(
+            flat_g, name, postscale_factor=1.0 / basics.size()
+            if self._average else 1.0, compression=self._mode))
+
+    def _allgather(self, shard, name):
+        if not self._negotiated:
+            return allgather(shard, name=name)
+        from horovod_tpu_torch.common import async_ops
+        divergence.record("allgather", shard, name)
+        return async_ops.synchronize(async_ops.allgather_async(shard, name))
 
     def zero_grad(self, set_to_none=True):
         self.optimizer.zero_grad(set_to_none=set_to_none)

@@ -1,9 +1,10 @@
-"""The port's build of the negotiation core (ROADMAP A8c1), in process:
-its build and what it exports, the mirrors of the reference's
-``tests/test_transport.py`` (CRC32C known answers and the transport's
-in-process selftests) on it, the reference's core and the port's loaded
-in one process, the named error of a tensor off the CPU, and the
-one-process short circuit of ``tests/test_distributed.py``."""
+"""The port's build of the negotiation core (ROADMAP A8c1, A8c2), in
+process: its build and what it exports (the device op's C API among it),
+the mirrors of the reference's ``tests/test_transport.py`` (CRC32C known
+answers and the transport's in-process selftests) on it, the reference's
+core and the port's loaded in one process, the named error of a tensor
+the asynchronous API cannot take, the build queries, and the one-process
+short circuit of ``tests/test_distributed.py``."""
 
 import json
 import shutil
@@ -72,6 +73,42 @@ def test_only_the_c_api_is_exported(lib):
         [n for n in names if not n.startswith("horovod_tpu_")][:10]
     assert "horovod_tpu_enqueue_allreduce" in names
     assert core.BUILD_SYMBOL in names
+    assert set(DEVICE_API) <= set(names)
+
+
+# the device op's C API (ROADMAP A8c2): the enqueue in a group with a
+# device, and the executor's side
+DEVICE_API = (
+    "horovod_tpu_enqueue_allreduce_grp", "horovod_tpu_enqueue_allgather_grp",
+    "horovod_tpu_enqueue_broadcast_grp",
+    "horovod_tpu_enqueue_reduce_scatter_grp", "horovod_tpu_device_next",
+    "horovod_tpu_device_work_info", "horovod_tpu_device_work_entry",
+    "horovod_tpu_device_work_sizes", "horovod_tpu_device_done",
+    "horovod_tpu_device_op_built")
+
+
+def test_the_device_op_is_built_and_present(lib):
+    """The core's device op answers as built, its C API is there, and
+    with no core running the executor's call reports the core stopped."""
+    for name in DEVICE_API:
+        assert hasattr(lib.lib, name), name
+    assert lib.lib.horovod_tpu_device_op_built() == 1
+    if not core.is_initialized():
+        assert lib.lib.horovod_tpu_device_next(0) == -1
+
+
+def test_build_queries_as_the_port_answers_them():
+    """``tests/test_launcher.py::test_reference_capability_probes`` as the
+    port answers: the gloo role and the TCP and CPU ops come from the
+    core, NCCL is the device op with torch.distributed's NCCL, and MPI,
+    DDL and MLSL are not built."""
+    import horovod_tpu_torch as hvd
+    assert hvd.gloo_built() and hvd.gloo_enabled()
+    assert hvd.tcp_built() and hvd.cpu_ops_built()
+    assert not hvd.mpi_built() and not hvd.mpi_enabled()
+    assert not hvd.mpi_threads_supported()
+    assert not hvd.ddl_built() and not hvd.mlsl_built()
+    assert hvd.nccl_built() == torch.distributed.is_nccl_available()
 
 
 def test_crc32c_known_answers(lib):
@@ -173,22 +210,70 @@ def test_the_reference_and_the_port_core_in_one_process():
     assert out["port_still_works"] == 1.0
 
 
+class _OnCuda0(torch.Tensor):
+    """A CPU tensor that reports itself on cuda:0: a CUDA tensor's
+    stand-in where there is no card."""
+    device = property(lambda self: torch.device("cuda", 0))
+    is_cuda = property(lambda self: True)
+
+
+def _on_cuda0():
+    return torch.zeros(4).as_subclass(_OnCuda0)
+
+
 @pytest.mark.parametrize("call", [
-    lambda t: async_ops.allreduce_async(t, "x"),
-    lambda t: async_ops.reduce_scatter_async(t, "x"),
-    lambda t: async_ops.allgather_async(t, "x"),
-    lambda t: async_ops.broadcast_async(t, 0, "x"),
-    lambda t: async_ops.allreduce_async(torch.zeros(4), "x", out=t)])
-def test_a_tensor_off_the_cpu_raises_the_named_error(call):
-    """CUDA tensors under the core's negotiation are ROADMAP A8c2: a
-    tensor that is not on the CPU raises ``CudaTensorError`` naming it,
-    before the core starts (a "meta" tensor stands for one here; the
-    chip's core phase passes a CUDA tensor)."""
+    lambda t, cuda: async_ops.allreduce_async(t, "x"),
+    lambda t, cuda: async_ops.reduce_scatter_async(t, "x"),
+    lambda t, cuda: async_ops.allgather_async(t, "x"),
+    lambda t, cuda: async_ops.broadcast_async(t, 0, "x"),
+    lambda t, cuda: async_ops.allreduce_async(torch.zeros(4), "x", out=t),
+    lambda t, cuda: async_ops.allreduce_async(torch.zeros(4), "x",
+                                              out=cuda),
+    lambda t, cuda: async_ops.allreduce_async(_on_cuda0(), "x")])
+def test_a_tensor_off_the_cpu_raises_the_named_error(call, monkeypatch):
+    """The asynchronous API takes host tensors and CUDA tensors on this
+    rank's GPU (ROADMAP A8c2). A tensor on any other device (a "meta"
+    tensor here), as input or as ``out=``, an ``out=`` on another device
+    than its input (a CPU input with a CUDA ``out=``: with no card here,
+    a CPU tensor that ``device_id`` tags as GPU 0), and a CUDA tensor
+    where ``init()`` runs on the CPU (whose gloo executor would carry it
+    through host memory) raise ``DeviceTensorError`` naming the device,
+    before the core starts."""
     import horovod_tpu_torch as hvd
-    assert hvd.CudaTensorError is async_ops.CudaTensorError
-    with pytest.raises(hvd.CudaTensorError, match="A8c2"):
-        call(torch.zeros(4, device="meta"))
-    assert async_ops._handle_map == {}
+    from horovod_tpu_torch.common import basics
+    assert hvd.DeviceTensorError is async_ops.DeviceTensorError
+    cuda = torch.zeros(4)
+    host = async_ops.device_id
+    monkeypatch.setattr(async_ops, "device_id", lambda v, what: 0
+                        if v is cuda else host(v, what))
+    # init() on the CPU
+    monkeypatch.setattr(basics, "is_initialized", lambda: True)
+    monkeypatch.setattr(basics, "device", lambda: torch.device("cpu"))
+    starts = core.starts()
+    with pytest.raises(hvd.DeviceTensorError,
+                       match="on meta|out= is on cuda:0 but its input on "
+                       "the host|on cuda:0, but init\\(\\) runs on the CPU"):
+        call(torch.zeros(4, device="meta"), cuda)
+    assert async_ops._handle_map == {} and core.starts() == starts
+
+
+class _GlooPlane:
+    backend = "gloo"
+
+
+def test_a_cuda_tensor_never_meets_a_gloo_executor(monkeypatch):
+    """Behind ``device_id``'s rule, the executor's own: a CUDA tensor
+    that meets a device plane on gloo raises ``DevicePlaneError`` (at
+    enqueue, and in the executor before any collective), while the CPU
+    tensors that the CPU tests tag as device 0 take it."""
+    from horovod_tpu_torch.common import device_plane
+    monkeypatch.setattr(device_plane, "_plane", _GlooPlane())
+    with pytest.raises(device_plane.DevicePlaneError,
+                       match="on cuda:0 met the device plane's gloo "
+                       "executor"):
+        device_plane.require(_on_cuda0())
+    assert device_plane.require(torch.zeros(4)) is device_plane._plane
+    device_plane._refuse_host_route(_on_cuda0(), "nccl")
 
 
 def test_single_process_short_circuit():

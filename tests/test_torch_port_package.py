@@ -45,6 +45,7 @@ PORT_FILES = PACKAGE_FILES + [
     ROOT / "tests" / "torch_port_spark_worker.py",
     ROOT / "tests" / "torch_port_fleet_worker.py",
     ROOT / "tests" / "torch_port_core_worker.py",
+    ROOT / "tests" / "torch_port_core_gpus.py",
 ]
 
 
@@ -345,16 +346,27 @@ def test_entry_points_without_a_gpu_raise_the_named_error():
     cpu = serve_model.make_forward("affine", leaves, device="cpu")
     assert cpu.device == torch.device("cpu")
     assert cpu(np.ones((2, 4), np.float32)).shape == (2, 4)
-    # the asynchronous API (ROADMAP A8c1) takes the caller's host tensors:
-    # one on another device raises its named error before the core starts
+    # the asynchronous API (ROADMAP A8c1, A8c2) takes the caller's host
+    # tensors and CUDA tensors on this rank's GPU: one on another device
+    # raises its named error before the core starts
     from horovod_tpu_torch.common import core
+    starts = core.starts()
     for call in (lambda t: hvd.allreduce_async(t, "x"),
                  lambda t: hvd.broadcast_async(t, 0, "x"),
                  lambda t: hvd.allgather_async(t, "x"),
                  lambda t: hvd.reduce_scatter_async(t, "x")):
-        with pytest.raises(hvd.CudaTensorError, match="A8c2"):
+        with pytest.raises(hvd.DeviceTensorError, match="meta"):
             call(torch.zeros(2, device="meta"))
-    assert not core.is_initialized()
+    assert core.starts() == starts
+    # the core worker's device and grads modes (A8c2) run on the GPU
+    # unless given "cpu"
+    core_worker = runpy.run_path(str(ROOT / "tests" /
+                                     "torch_port_core_worker.py"))
+    for entry in (lambda: core_worker["mode_device"](),
+                  lambda: core_worker["mode_grads"]("/nonexistent")):
+        with pytest.raises(hvd.CudaUnavailableError):
+            entry()
+    assert not hvd.is_initialized() and core.starts() == starts
     # the codec wrappers: on CPU tensors their plain versions, no kernel
     from horovod_tpu_torch.ops import wire_codec
     before = wire_codec.launch_counts()
